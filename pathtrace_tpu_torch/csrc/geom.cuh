@@ -1,0 +1,99 @@
+// 3-vector helpers and the ray-primitive tests shared by the kernels.
+//
+// Every helper keeps the operation order of the plain-torch twins in
+// ops/shade.py (sums left to right, no reassociation); the library is
+// built with -fmad=false, so no multiply-add is contracted either, and a
+// kernel and its twin round alike everywhere except in cosf/sinf.
+// Max/min follow torch.clamp_min/clamp_max: a NaN operand propagates
+// (fmaxf/fminf would drop it and turn a NaN the twin screens out later into
+// a finite value).
+#pragma once
+
+#include <math.h>
+
+namespace pt {
+
+constexpr double kPi = 3.14159265358979323846;
+constexpr float kPiF = static_cast<float>(kPi);
+constexpr float kTwoPiF = static_cast<float>(2.0 * kPi);
+constexpr float kInvPiF = static_cast<float>(1.0 / kPi);
+// Inexact constants are rounded from double, as the twin's Python floats are.
+constexpr float kF_1em8 = static_cast<float>(1e-8);
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+
+__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
+  return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+__device__ __forceinline__ V3 add3(V3 a, V3 b) { return V3{a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 sub3(V3 a, V3 b) { return V3{a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 scale3(V3 a, float s) { return V3{a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 neg3(V3 a) { return V3{-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 mul3(V3 a, V3 b) { return V3{a.x * b.x, a.y * b.y, a.z * b.z}; }
+
+// Components divided by the length; zero vectors pass through unchanged.
+__device__ __forceinline__ V3 normalize3(V3 a) {
+  float ln = sqrtf(dot3(a, a));
+  bool pos = ln > 0.0f;
+  float safe = pos ? ln : 1.0f;
+  return pos ? V3{a.x / safe, a.y / safe, a.z / safe} : a;
+}
+
+__device__ __forceinline__ bool finite1(float x) { return isfinite(x); }
+__device__ __forceinline__ bool finite3(V3 a) { return finite1(a.x) && finite1(a.y) && finite1(a.z); }
+__device__ __forceinline__ float forz(float x) { return finite1(x) ? x : 0.0f; }
+__device__ __forceinline__ V3 forz3(V3 a) { return V3{forz(a.x), forz(a.y), forz(a.z)}; }
+
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
+
+// Moller-Trumbore against one triangle row (v0, e1, e2 in its first nine
+// floats). Sets *t_out and returns whether it is a hit with t in
+// [eps, t_max] (twin: ops/shade.py::_tri_hits).
+__device__ __forceinline__ bool hit_triangle(const float* row, V3 o, V3 d, float eps, float t_max,
+                                             float* t_out) {
+  float v0x = row[0], v0y = row[1], v0z = row[2];
+  float e1x = row[3], e1y = row[4], e1z = row[5];
+  float e2x = row[6], e2y = row[7], e2z = row[8];
+  float hx = d.y * e2z - d.z * e2y;
+  float hy = d.z * e2x - d.x * e2z;
+  float hz = d.x * e2y - d.y * e2x;
+  float a = e1x * hx + e1y * hy + e1z * hz;
+  float f = 1.0f / a;
+  float sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
+  float uu = f * (sx * hx + sy * hy + sz * hz);
+  float qx = sy * e1z - sz * e1y;
+  float qy = sz * e1x - sx * e1z;
+  float qz = sx * e1y - sy * e1x;
+  float vv = f * (d.x * qx + d.y * qy + d.z * qz);
+  float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  *t_out = t;
+  return fabsf(a) >= kF_1em8 && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+         t >= eps && t <= t_max;
+}
+
+// One sphere row (center and k = |c|^2 - r^2 in its first four floats), with
+// od = o.d and oo = o.o: the near root if it is >= eps, else the far one.
+// NaN on a miss and on a padding row (k = NaN), so every compare with it
+// fails (twin: ops/shade.py::_sphere_ts).
+__device__ __forceinline__ float sphere_root(const float* row, V3 o, V3 d, float od, float oo,
+                                             float eps) {
+  float cx = row[0], cy = row[1], cz = row[2], k = row[3];
+  float cd = cx * d.x + cy * d.y + cz * d.z;
+  float co = cx * o.x + cy * o.y + cz * o.z;
+  float half_b = od - cd;
+  float c = oo - 2.0f * co + k;
+  float disc = half_b * half_b - c;
+  float sq = sqrtf(disc);
+  float root1 = -half_b - sq;
+  return root1 >= eps ? root1 : -half_b + sq;
+}
+
+}  // namespace pt

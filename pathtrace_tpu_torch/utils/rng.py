@@ -1,0 +1,88 @@
+"""Counter-based RNG: bit-exact threefry2x32 in plain torch ops.
+
+Counterpart of ``pathtrace_tpu/utils/rng.py`` and of the pool's per-slot draw
+(``pathtrace_tpu/pool.py:_per_slot_uniforms``). Every random decision has the
+coordinate ``(pixel, sample, bounce, slot)``; this module reproduces JAX's
+threefry2x32 key derivation and ``uniform`` draw bit for bit (the
+``jax_threefry_partitionable`` layout), so the port and the JAX package trace
+the same paths from the same seed and every comparison between them can be
+made sample for sample.
+
+A key is a pair of 32-bit words. Torch's uint32 coverage is thin, so words
+are carried in int64 tensors masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Fixed slot layout of the per-bounce uniform vector (pathtrace_tpu/utils/rng.py).
+SLOT_LIGHT_SELECT = 0
+SLOT_LIGHT_U = 1
+SLOT_LIGHT_V = 2
+SLOT_BSDF_U = 3
+SLOT_BSDF_V = 4
+SLOT_FRESNEL = 5
+SLOT_RR = 6
+SLOT_JITTER_X = 7
+SLOT_JITTER_Y = 8
+NUM_SLOTS = 9
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _MASK) | (x >> (32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 block (20 rounds) on int64 tensors holding uint32 words.
+
+    ``k0, k1`` (the key) and ``x0, x1`` (the counter) broadcast together;
+    returns the two output words.
+    """
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def base_key(seed: int, device=None):
+    """``jax.random.key(seed)`` for ``0 <= seed < 2**32``: the words ``(0, seed)``."""
+    if not 0 <= seed <= _MASK:
+        raise ValueError(f"seed must fit in 32 bits, got {seed}")
+    k = torch.tensor([0, seed], dtype=torch.int64, device=device)
+    return k[0], k[1]
+
+
+def fold_in(key, data: torch.Tensor):
+    """``jax.random.fold_in``: threefry of the counter ``(0, data)`` under ``key``."""
+    k0, k1 = key
+    return threefry2x32(k0, k1, torch.zeros_like(data), data & _MASK)
+
+
+def pixel_sample_keys(key, pixel_ids: torch.Tensor, sample_idx: torch.Tensor):
+    """One key per ray: ``fold_in(fold_in(key, pixel), sample)``."""
+    return fold_in(fold_in(key, pixel_ids), sample_idx)
+
+
+def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's uniform mapping: the top 23 bits as a mantissa in [1, 2), minus 1."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0
+
+
+def per_slot_uniforms(keys, bounces: torch.Tensor) -> torch.Tensor:
+    """The pool's per-iteration draw: ``uniform(fold_in(key, bounce), (9,))``
+    for every lane, in kernel layout ``(NUM_SLOTS, S)`` float32."""
+    k0, k1 = fold_in(keys, bounces)
+    slots = torch.arange(NUM_SLOTS, dtype=torch.int64, device=k0.device)[:, None]
+    b0, b1 = threefry2x32(k0[None, :], k1[None, :], torch.zeros_like(slots), slots)
+    return bits_to_unit_float(b0 ^ b1)
