@@ -1,7 +1,7 @@
 """ctypes binding of the CUDA kernels (built by :mod:`.build` at first use).
 
 Each ``launch_*`` takes contiguous CUDA tensors, already checked by the
-wrappers in ``ops/shade.py``, passes their raw pointers and PyTorch's current
+wrappers in ``ops/shade.py`` and ``ops/intersect.py``, passes their raw pointers and PyTorch's current
 stream, and raises if the launch was refused. The kernels allocate nothing
 and do not synchronise.
 """
@@ -32,6 +32,14 @@ def library() -> ctypes.CDLL:
         lib.pt_fused_bounce.restype = _I
         lib.pt_shadow_any_hit.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _P]
         lib.pt_shadow_any_hit.restype = _I
+        lib.pt_sphere_closest.argtypes = [_P, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_sphere_closest.restype = _I
+        lib.pt_any_hit.argtypes = [_P, _I, _P, _I] + [_P] * 5 + [_I, _P]
+        lib.pt_any_hit.restype = _I
+        lib.pt_bvh_closest.argtypes = [_P] * 3 + [_I] + [_P] * 8 + [_I, _P]
+        lib.pt_bvh_closest.restype = _I
+        lib.pt_bvh_anyhit.argtypes = [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]
+        lib.pt_bvh_anyhit.restype = _I
         _lib = lib
     return _lib
 
@@ -79,3 +87,49 @@ def launch_shadow_any_hit(tables, o, d, t_max, occ, *, eps) -> None:
             t_max.shape[0], eps, _stream(t_max.device),
         )
     _raise_on(code, "shadow_any_hit")
+
+
+def launch_sphere_closest(sph, o, d, t_min, t_max, t, idx, n, m) -> None:
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_sphere_closest(
+            sph.data_ptr(), sph.shape[0], o.data_ptr(), d.data_ptr(),
+            t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(), idx.data_ptr(),
+            n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "sphere_closest")
+
+
+def launch_any_hit(sph, tri, o, d, t_min, t_max, occ) -> None:
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_any_hit(
+            sph.data_ptr(), sph.shape[0], tri.data_ptr(), tri.shape[0],
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            occ.data_ptr(), t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "any_hit")
+
+
+def launch_bvh_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
+    """``tables`` is an ``ops.intersect.Tables``."""
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_bvh_closest(
+            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.group.data_ptr(),
+            tables.n_groups, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), t.data_ptr(), idx.data_ptr(), n.data_ptr(), m.data_ptr(),
+            t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "bvh_closest")
+
+
+def launch_bvh_anyhit(tables, o, d, t_min, t_max, occ) -> None:
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_bvh_anyhit(
+            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.group.data_ptr(),
+            tables.n_groups, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), occ.data_ptr(), t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "bvh_anyhit")

@@ -2,9 +2,10 @@
 library with a plain C interface.
 
 The library is compiled at first use by ``nvcc`` for Hopper (``sm_90a``)
-into ``pathtrace_tpu_torch/_build/``; its file name carries a hash of the
-sources and flags, so an edit rebuilds and an unchanged tree reuses the
-library. Nothing here runs at import time.
+into ``pathtrace_tpu_torch/_build/``: one ``nvcc -c`` per source, all
+started together, then one link. Its file name carries a hash of the sources
+and flags, so an edit rebuilds and an unchanged tree reuses the library.
+Nothing here runs at import time.
 
 Flags: ``-fmad=false`` keeps each kernel's rounding next to its plain-torch
 twin (no contracted multiply-adds); fast math is never used, because the
@@ -27,12 +28,12 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("fused_bounce.cu", "shadow_any_hit.cu")
+SOURCES = ("fused_bounce.cu", "shadow_any_hit.cu", "intersect.cu", "bvh.cu")
 HEADERS = ("geom.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -64,22 +65,28 @@ def build(verbose: bool = False) -> tuple[Path, float]:
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", str(CSRC), "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, out)   # atomic: a concurrent build sees a whole file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-I", str(CSRC), "-c", "-o", obj, str(CSRC / src)]
+                  for src, obj in zip(SOURCES, objs)], verbose)
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], verbose)
+        os.replace(lib, out)   # atomic: a concurrent build sees a whole file
     return out, time.perf_counter() - t0
+
+
+def _run_all(cmds, verbose: bool) -> None:
+    """Start every command at once, wait for all, raise on the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, p, output in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{output}")
+        if verbose and output:
+            print(output)
 
 
 if __name__ == "__main__":

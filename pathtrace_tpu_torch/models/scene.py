@@ -5,7 +5,9 @@ Counterpart of ``pathtrace_tpu/models/scene.py``. The builder runs the same
 float64 numpy construction and casts to float32 at the end, so every field
 equals the JAX package's bit for bit. Conventions kept from it:
 
-* primitives are morton-ordered (triangles and spheres separately);
+* spheres are morton-ordered; triangles too up to 512 of them, and above
+  that they take the SAH split order, whose 128-row runs are the leaves of
+  the BVH kernels (``ops/intersect.py``);
 * an empty class gets one padding row (a zero-edge triangle, or a sphere at
   1e9 with radius 0) so no table is empty;
 * global primitive ids are triangles ``0..T-1`` then spheres ``T..``, where
@@ -26,9 +28,11 @@ from . import materials as mat
 CLUSTER_SIZE = 256       # triangles per cluster AABB
 SPH_CLUSTER_SIZE = 256   # spheres per cluster AABB
 
-# Triangle soups above this size take the SAH split order in the JAX package;
-# that order belongs to the mesh slice, which is not ported yet.
+# Triangle soups above this size take the SAH split order instead of morton.
 MAX_MORTON_TRIS = 512
+# Split positions land on multiples of this, so every 128-row BVH leaf is one
+# subtree of the split.
+SPLIT_LEAF = 128
 
 
 def _morton3(p: np.ndarray) -> np.ndarray:
@@ -50,6 +54,46 @@ def _morton_order(centroids: np.ndarray) -> np.ndarray:
     lo = centroids.min(axis=0)
     span = np.maximum(centroids.max(axis=0) - lo, 1e-12)
     return np.argsort(_morton3((centroids - lo) / span), kind="stable")
+
+
+def _split_order(p0: np.ndarray, p1: np.ndarray, p2: np.ndarray) -> np.ndarray:
+    """Top-down SAH split order for triangles (the JAX package's
+    ``_split_order`` with ``sah=True``): each node sorts its triangles along
+    its longest centroid axis and splits at the SPLIT_LEAF-aligned position of
+    least surface-area cost."""
+    n = len(p0)
+    if n <= 1:
+        return np.arange(n)
+    cent = (p0 + p1 + p2) / 3.0
+    tmn = np.minimum(np.minimum(p0, p1), p2)
+    tmx = np.maximum(np.maximum(p0, p1), p2)
+    out = []
+
+    def area(mn, mx):
+        d = np.maximum(mx - mn, 0.0)
+        return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
+
+    def rec(idx):
+        if len(idx) <= SPLIT_LEAF:
+            out.append(idx)
+            return
+        c = cent[idx]
+        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        sidx = idx[np.argsort(c[:, ax], kind="stable")]
+        mn, mx = tmn[sidx], tmx[sidx]
+        pre_mn = np.minimum.accumulate(mn)
+        pre_mx = np.maximum.accumulate(mx)
+        suf_mn = np.minimum.accumulate(mn[::-1])[::-1]
+        suf_mx = np.maximum.accumulate(mx[::-1])[::-1]
+        ks = np.arange(SPLIT_LEAF, len(idx), SPLIT_LEAF)
+        cost = area(pre_mn[ks - 1], pre_mx[ks - 1]) * ks + \
+            area(suf_mn[ks], suf_mx[ks]) * (len(idx) - ks)
+        k = int(ks[np.argmin(cost)])
+        rec(sidx[:k])
+        rec(sidx[k:])
+
+    rec(np.arange(n))
+    return np.concatenate(out)
 
 
 def _cluster_aabbs(pmin: np.ndarray, pmax: np.ndarray, rows: int, cluster: int):
@@ -144,20 +188,26 @@ class SceneBuilder:
         self._sphs.append((np.asarray(center, np.float64), float(radius), mid))
         return self
 
+    def add_mesh(self, vertices, faces, material: mat.Material) -> "SceneBuilder":
+        """Triangle mesh: ``vertices (V,3)`` float, ``faces (F,3)`` int."""
+        vertices = np.asarray(vertices, np.float64)
+        faces = np.asarray(faces, np.int64)
+        mid = self._mat_id(material)
+        for f in faces:
+            self._tris.append((vertices[f[0]], vertices[f[1]], vertices[f[2]], mid))
+        return self
+
     def build(self) -> Scene:
         num_tris = len(self._tris)
         num_sphs = len(self._sphs)
-        if num_tris > MAX_MORTON_TRIS:
-            raise NotImplementedError(
-                f"{num_tris} triangles: the SAH split order for more than "
-                f"{MAX_MORTON_TRIS} triangles is not ported yet "
-                "(ROADMAP Queue 1, item 3: the mesh path)"
-            )
         tris = list(self._tris)
         sphs = list(self._sphs)
         mats = list(self._mats) or [mat.Lambertian((0.0, 0.0, 0.0))]
 
-        if num_tris > 1:
+        if num_tris > MAX_MORTON_TRIS:
+            p0, p1, p2 = (np.stack([t[k] for t in tris]) for k in range(3))
+            tris = [tris[i] for i in _split_order(p0, p1, p2)]
+        elif num_tris > 1:
             cent = np.stack([(t[0] + t[1] + t[2]) / 3.0 for t in tris])
             tris = [tris[i] for i in _morton_order(cent)]
         if num_sphs > 1:

@@ -3,7 +3,8 @@
 
 ``cornell_box`` is the reference renderer's scene (the parity anchor and the
 compile-check entry point's workload); ``many_spheres`` is the benchmark's
-sphere field; ``default_spheres`` is the small bring-up scene.
+sphere field; ``default_spheres`` is the small bring-up scene; ``mesh_scene``
+is the ~70k-triangle mesh scene (BASELINE config 4).
 """
 
 from __future__ import annotations
@@ -100,3 +101,25 @@ def many_spheres(seed: int = 3, n_per_side: int = 11, device=None) -> Scene:
 def many_spheres_camera(width: int = 512, height: int = 512, device=None) -> Camera:
     return Camera.look_at((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
                           width, height, 30.0, device=device)
+
+
+def mesh_scene(n_tris: int = 70000, device=None) -> Scene:
+    """A ~``n_tris``-triangle torus knot (standing in for the Stanford bunny)
+    among spheres on a ground plane, under an emissive dome."""
+    from ..meshes import knot_mesh
+
+    b = SceneBuilder(device)
+    b.add_quad((-40, -1.0, -40), (40, -1.0, -40), (40, -1.0, 40), (-40, -1.0, 40),
+               Lambertian((0.45, 0.45, 0.45)))
+    verts, faces = knot_mesh(n_tris=n_tris, scale=1.2, center=(0.0, 0.35, 0.0))
+    b.add_mesh(verts, faces, Lambertian((0.65, 0.45, 0.25)))
+    b.add_sphere((-2.6, -0.3, 1.2), 0.7, Mirror(roughness=0.05, metallic=1.0,
+                                                color=(0.9, 0.9, 0.95)))
+    b.add_sphere((2.6, -0.3, 1.2), 0.7, Mirror(roughness=0.05, metallic=0.0, ior=1.5))
+    b.add_sphere((0.0, 40.0, 0.0), 22.0, Emissive((5.0, 5.0, 5.0)))
+    return b.build()
+
+
+def mesh_scene_camera(width: int = 1920, height: int = 1080, device=None) -> Camera:
+    return Camera.look_at((0.0, 1.6, 5.5), (0.0, 0.2, 0.0), (0.0, 1.0, 0.0),
+                          width, height, 40.0, device=device)

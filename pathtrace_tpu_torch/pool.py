@@ -1,11 +1,24 @@
-"""Persistent-pool renderer (path regeneration) on the two shading kernels.
+"""Persistent-pool renderer (path regeneration).
 
-Counterpart of ``pathtrace_tpu/pool.py`` (its fused branch). A fixed pool of
-``num_slots`` path slots stays saturated: each iteration runs one
-:func:`~pathtrace_tpu_torch.ops.shade.fused_bounce` for every busy slot and
-one :func:`~pathtrace_tpu_torch.ops.shade.shadow_any_hit` for the NEE shadow
-rays; a path that ends adds its radiance to the framebuffer and its slot takes
-the next ``(pixel, sample)`` work item.
+Counterpart of ``pathtrace_tpu/pool.py``. A fixed pool of ``num_slots`` path
+slots stays saturated; a path that ends adds its radiance to the framebuffer
+and its slot takes the next ``(pixel, sample)`` work item. Each iteration
+runs one path vertex for every busy slot by one of two branches, chosen per
+scene as the JAX package chooses them:
+
+* the **fused** branch, for scenes within the fused kernels' caps (<= 64
+  triangles, 512 spheres, 64 lights) without Oren-Nayar or PBR materials:
+  :func:`~pathtrace_tpu_torch.ops.shade.fused_bounce` for the vertex and
+  :func:`~pathtrace_tpu_torch.ops.shade.shadow_any_hit` for the NEE shadow
+  rays;
+* the **composed** branch, for scenes with at least 4096 triangles (the BVH
+  route): :func:`composed_bounce` runs the vertex as separate ops (closest
+  hit, emissive/MIS term, NEE light sample and BSDF evaluation, BSDF sample,
+  Russian roulette) over the four kernels of ``ops/intersect.py``, and
+  :func:`~pathtrace_tpu_torch.ops.intersect.occluded` tests the shadow rays.
+
+Every other scene raises ``NotImplementedError`` naming the ROADMAP item
+that ports its route; nothing falls back to another kernel or to a twin.
 
 Work assignment is the JAX package's, so the same sample indices trace the
 same paths: slot ``s`` owns the work items ``w = chunk * S + s``, whose
@@ -36,26 +49,137 @@ import torch
 
 from .models.camera import Camera
 from .models.scene import Scene
-from .ops import shade
-from .utils import rng
+from .ops import bsdf, intersect, lights, shade
+from .utils import rng, vec
 
 FLUSH_EVERY = 8
+# Scenes with at least this many triangle rows take the BVH route, as
+# ``resolve_auto`` sends them in the JAX package.
+BVH_MIN_TRIS = 4096
+INTEGRATORS = ("mis", "nee", "brdf_only")
 
 
-def _unsupported(scene: Scene, integrator: str) -> str | None:
-    if not shade.supports_scene(scene, integrator):
-        return (
-            "scene exceeds the fused kernels' caps (<=64 triangles, <=512 "
-            "spheres, <=64 lights) or the integrator is unknown; the composed "
-            "path and the traversal kernels for it are ROADMAP Queue 1 item 4 "
-            "and Queue 2"
-        )
-    if scene.has_oren_nayar or scene.has_pbr:
-        return (
-            "Oren-Nayar and PBR materials are not ported yet "
-            "(ROADMAP Queue 1, item 5: the ON/PBR lanes)"
-        )
-    return None
+def route(scene: Scene, integrator: str) -> str:
+    """``"fused"`` or ``"composed"``; raises ``NotImplementedError`` naming
+    the ROADMAP item for a scene whose route has no ported kernels yet."""
+    if integrator not in INTEGRATORS:
+        raise NotImplementedError(f"unknown integrator {integrator!r}; known: {INTEGRATORS}")
+    n_tris = scene.tri_v0.shape[0]
+    if n_tris >= BVH_MIN_TRIS:
+        return "composed"
+    if shade.supports_scene(scene, integrator):
+        if scene.has_oren_nayar or scene.has_pbr:
+            raise NotImplementedError(
+                "Oren-Nayar and PBR materials in a scene within the fused caps "
+                "need the ON/PBR lanes of fused_bounce (ROADMAP Queue 1, item 5.1)")
+        return "fused"
+    if n_tris > shade.MAX_TRIS:
+        raise NotImplementedError(
+            f"{n_tris} triangles (more than {shade.MAX_TRIS}, fewer than "
+            f"{BVH_MIN_TRIS}) take the flat triangle_closest route, not ported "
+            "yet (ROADMAP Queue 2, item 8)")
+    if scene.sph_center.shape[0] > shade.MAX_SPHERES:
+        raise NotImplementedError(
+            f"more than {shade.MAX_SPHERES} spheres with few triangles take the "
+            "clustered sphere_closest/any_hit and the flat triangle_closest, not "
+            "ported yet (ROADMAP Queue 2, items 7 and 8)")
+    raise NotImplementedError(
+        f"more than {shade.MAX_LIGHTS} lights with few triangles take "
+        "combined_closest_small, not ported yet (ROADMAP Queue 2, item 3)")
+
+
+def _rr_probability(bounce, next_tp):
+    """Russian-roulette survival: 1 below depth RR_MIN_DEPTH, then the
+    throughput luminance capped at 1, decayed by 2^-(depth - 4) from
+    RR_MAX_DEPTH on."""
+    lum = torch.clamp_max(vec.luminance(vec.finite_or_zero(next_tp)), 1.0)
+    decay = torch.exp2(-torch.clamp_min(bounce - shade.RR_MIN_DEPTH, 0).to(lum.dtype))
+    return torch.where(
+        bounce < shade.RR_MIN_DEPTH,
+        torch.ones_like(lum),
+        torch.where(bounce >= shade.RR_MAX_DEPTH, lum * decay, lum),
+    )
+
+
+def composed_bounce(
+    scene: Scene, tables: intersect.Tables, busy, bounce, ray_o, ray_d, ray_eta,
+    pdf_prev, prefix, u, *, integrator: str, max_bounces: int, eps: float = shade.EPS,
+    twin: bool = False,
+) -> shade.BounceResult:
+    """One path vertex for every lane as separate ops (the JAX pool's
+    composed branch), in the pool's kernel layout: 3-vectors ``(3, S)``,
+    uniforms ``(9, S)``.
+
+    Returns the fused kernel's :class:`~pathtrace_tpu_torch.ops.shade.BounceResult`
+    contract: ``nee_gain`` is ``prefix * direct`` pending visibility of the
+    shadow ray ``(next_o, shadow_d)`` over ``[eps, shadow_tmax]``
+    (``shadow_tmax < eps`` on lanes that do not live on: NEE counts only if
+    Russian roulette keeps the path). ``twin=True`` intersects with the
+    kernels' plain twins on any device (for checking them; never on the
+    render path).
+    """
+    use_mis = integrator == "mis"
+    use_nee = integrator in ("mis", "nee") and scene.num_lights > 0
+    o, d, pfx = ray_o.T.contiguous(), ray_d.T.contiguous(), prefix.T
+    hit = intersect.intersect(tables, o, d, eps, float("inf"), twin=twin)
+    mp = bsdf.mat_of(scene, hit.mat)
+    emis = hit.valid & bsdf.is_emissive_params(mp)
+    emission = bsdf.emitted_params(mp)
+
+    # Emissive terminal rules: raw emission at depth 0 (and at any depth
+    # without NEE); MIS-weighted, the bsdf-side pdf from the previous vertex.
+    if integrator == "brdf_only":
+        emis_gain = emission
+    else:
+        if use_mis:
+            pdf_shape = lights.light_pdf_toward(scene, hit.prim, o, hit.point)
+            w_bsdf = pdf_prev / (pdf_prev + pdf_shape)
+        else:
+            w_bsdf = torch.zeros_like(pdf_prev)
+        emis_gain = torch.where((bounce == 0)[:, None], emission, w_bsdf[:, None] * emission)
+    rad = torch.where((busy & emis)[:, None], vec.finite_or_zero(pfx * emis_gain), 0.0)
+
+    # A path may reach max_bounces only to collect a light hit.
+    shade_m = busy & hit.valid & ~emis & (bounce < max_bounces)
+    i_dir = -d
+
+    if use_nee:
+        ls = lights.sample_light_point(scene, hit.point, u[rng.SLOT_LIGHT_SELECT],
+                                       u[rng.SLOT_LIGHT_U], u[rng.SLOT_LIGHT_V])
+        cos_l = torch.abs(vec.dot(hit.normal, ls.dir))
+        bsdf_l, pdf_l = bsdf.eval_bsdf(scene, hit.mat, i_dir, ray_eta, ls.dir, hit.normal,
+                                       params=mp)
+        w_nee = ls.pdf / (ls.pdf + pdf_l) if use_mis else torch.ones_like(ls.pdf)
+        direct = vec.finite_or_zero(
+            w_nee[:, None] * bsdf_l * ls.emission * (cos_l / ls.pdf)[:, None])
+        nee_gain = vec.finite_or_zero(pfx * direct)
+        shadow_d, shadow_t = ls.dir, ls.dist - eps
+    else:
+        nee_gain = torch.zeros_like(o)
+        shadow_d, shadow_t = d, torch.full_like(pdf_prev, -1.0)
+
+    eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
+    o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
+        scene, hit.mat, i_dir, eta_s, hit.normal, u[rng.SLOT_BSDF_U], u[rng.SLOT_BSDF_V],
+        u[rng.SLOT_FRESNEL], params=mp)
+    factor = bsdf_s * (cos_s / pdf_s)[:, None]
+    next_tp = pfx * factor
+    rr = _rr_probability(bounce, next_tp)
+    live = shade_m & (u[rng.SLOT_RR] < rr)
+    l2 = live[:, None]
+    return shade.BounceResult(
+        rad_delta=rad.T,
+        next_o=torch.where(l2, hit.point, o).T,
+        next_d=torch.where(l2, o_dir, d).T,
+        next_eta=torch.where(live, eta_s, ray_eta),
+        next_pdf=torch.where(live, pdf_s, pdf_prev),
+        next_prefix=torch.where(l2, vec.finite_or_zero(pfx * factor / rr[:, None]), pfx).T,
+        live=live,
+        shade=shade_m,
+        nee_gain=nee_gain.T,
+        shadow_d=shadow_d.T,
+        shadow_tmax=torch.where(live, shadow_t, -1.0),
+    )
 
 
 def _coprime_stride(padded_pixels: int) -> int:
@@ -79,28 +203,35 @@ def render_pool(
     max_bounces: int = 64,
     num_slots: int = 32768,
     seed: int = 0,
+    sample_offset: int = 0,
 ):
     """Render the full frame with a saturated path pool on ``scene.device``.
+
+    ``sample_offset`` is the first global sample index: progressive passes
+    render ``spp`` samples from there, continuing the same RNG streams, so
+    passes at offsets 0, 1, ... sum to one render of their total spp.
 
     Returns ``(image_sum (H*W, 3) float32, counters (4,) int64, iters)``;
     divide the image by ``spp`` for mean radiance. ``counters`` is
     ``(rays_hi, rays_lo, busy_hi, busy_lo)``, each a 32-bit half, decoded by
     :func:`ray_count` / :func:`busy_count` exactly as the JAX package's.
     """
-    reason = _unsupported(scene, integrator)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    composed = route(scene, integrator) == "composed"
     device = scene.device
     if camera.origin.device != device:
         raise ValueError(f"camera on {camera.origin.device}, scene on {device}")
     use_nee = integrator in ("mis", "nee")
     eps = shade.EPS
-    tables = shade.build_tables(scene)
-    bounce_kw = dict(
-        num_tris=scene.tri_v0.shape[0], num_lights=scene.num_lights,
-        integrator=integrator, max_bounces=max_bounces, eps=eps,
-        has_tri_lights=scene.has_tri_lights, has_sph_lights=scene.has_sph_lights,
-    )
+    if composed:
+        tables = intersect.build_tables(scene)
+        bounce_kw = dict(integrator=integrator, max_bounces=max_bounces, eps=eps)
+    else:
+        tables = shade.build_tables(scene)
+        bounce_kw = dict(
+            num_tris=scene.tri_v0.shape[0], num_lights=scene.num_lights,
+            integrator=integrator, max_bounces=max_bounces, eps=eps,
+            has_tri_lights=scene.has_tri_lights, has_sph_lights=scene.has_sph_lights,
+        )
 
     num_pixels = width * height
     S = min(num_slots, num_pixels)
@@ -143,7 +274,7 @@ def render_pool(
         started = refill & pixel_ok
         pixel = torch.where(started, new_local, pixel)
         chunk = torch.where(started, q % chunks, chunk)
-        sample = torch.where(started, q // chunks, sample)
+        sample = torch.where(started, q // chunks + sample_offset, sample)
         bounce = torch.where(started, 0, bounce)
 
         # One (9, S) draw covers every decision of this bounce, including
@@ -161,14 +292,22 @@ def render_pool(
         radiance = torch.where(started, 0.0, radiance)
         busy = busy | started
 
-        # ---- One bounce for every busy slot: two kernels ----
-        res = shade.fused_bounce(
-            tables, busy, bounce, ray_o, ray_d, ray_eta, pdf_prev, prefix,
-            u.contiguous(), **bounce_kw)
+        # ---- One bounce for every busy slot, then the NEE shadow rays ----
+        if composed:
+            res = composed_bounce(scene, tables, busy, bounce, ray_o, ray_d, ray_eta,
+                                  pdf_prev, prefix, u, **bounce_kw)
+        else:
+            res = shade.fused_bounce(
+                tables, busy, bounce, ray_o, ray_d, ray_eta, pdf_prev, prefix,
+                u.contiguous(), **bounce_kw)
         radiance = radiance + res.rad_delta
         if use_nee and scene.num_lights > 0:
-            blocked = shade.shadow_any_hit(
-                tables, res.next_o, res.shadow_d, res.shadow_tmax, eps=eps)
+            if composed:
+                blocked = intersect.occluded(tables, res.next_o.T.contiguous(),
+                                             res.shadow_d.T.contiguous(), eps, res.shadow_tmax)
+            else:
+                blocked = shade.shadow_any_hit(
+                    tables, res.next_o, res.shadow_d, res.shadow_tmax, eps=eps)
             radiance = radiance + torch.where(res.live & ~blocked, res.nee_gain, 0.0)
         live = res.live
 

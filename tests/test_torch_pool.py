@@ -1,11 +1,14 @@
-"""The port's persistent-pool renderer against the JAX package's fused pool.
+"""The port's persistent-pool renderer against the JAX package's pool.
 
 Both start from identical inputs: the JAX scene and camera enter the port
-through ``scene_from_arrays``/``camera_from_arrays``. The JAX pool runs its
-fused branch in Pallas interpret mode (``set_default_method
-("pallas_interpret")``); the port runs the kernels' plain-torch twins on the
-CPU. The traced-ray count and the iteration count must be equal, and the
-image within the ``tests/imgutil.py`` knife-edge budget.
+through ``scene_from_arrays``/``camera_from_arrays``. For the small scenes
+the JAX pool runs its fused branch in Pallas interpret mode
+(``set_default_method("pallas_interpret")``); for the mesh scene it runs its
+CPU default, the composed branch (with the Pallas override ``resolve_auto``
+would send the mesh to the flat route, which is not the BVH one). The port
+runs the kernels' plain-torch twins on the CPU. The traced-ray count and the
+iteration count must be equal, and the image within the
+``tests/imgutil.py`` knife-edge budget.
 """
 
 import os
@@ -36,8 +39,8 @@ from .imgutil import assert_images_match  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _render_both(jsc, jcam, **kw):
-    set_default_method("pallas_interpret")
+def _render_both(jsc, jcam, fused=True, **kw):
+    set_default_method("pallas_interpret" if fused else None)
     try:
         img, counters, iters = jax_pool.render_pool(jsc, jcam, **kw)
         img = np.asarray(img)
@@ -77,6 +80,51 @@ def test_pool_matches_jax_many_spheres():
     assert (pool.ray_count(got[1]), got[2]) == (834, 16)
 
 
+@pytest.mark.parametrize("integrator", ["mis", "nee", "brdf_only"])
+def test_pool_matches_jax_mesh(integrator):
+    """The composed branch on the BVH route's twins (4182 triangles, >= 4096)
+    against the JAX pool's composed branch."""
+    jsc = jax_scenes.mesh_scene(4200)
+    ref, got = _render_both(
+        jsc, jax_scenes.mesh_scene_camera(8, 8), fused=False,
+        width=8, height=8, spp=2, integrator=integrator, max_bounces=4,
+        num_slots=64, seed=5)
+    assert pool.route(scene_from_arrays(*split_fields(jsc)), integrator) == "composed"
+    _assert_same_render(ref, got)
+    if integrator == "mis":   # the counts measured for the JAX pool
+        assert (pool.ray_count(got[1]), got[2]) == (348, 8)
+
+
+def test_pool_matches_jax_mesh_long_paths():
+    """Fewer slots and deeper paths: more iterations through the composed
+    branch, Russian roulette included."""
+    ref, got = _render_both(
+        jax_scenes.mesh_scene(4200), jax_scenes.mesh_scene_camera(8, 8), fused=False,
+        width=8, height=8, spp=2, integrator="mis", max_bounces=8, num_slots=8, seed=2)
+    _assert_same_render(ref, got)
+    assert got[2] >= 32
+
+
+def test_sample_offset_matches_jax():
+    ref, got = _render_both(
+        jax_scenes.cornell_box(), jax_scenes.cornell_camera(16, 16),
+        width=16, height=16, spp=1, integrator="mis", max_bounces=6,
+        num_slots=64, seed=5, sample_offset=3)
+    _assert_same_render(ref, got)
+
+
+def test_progressive_passes_sum_to_one_render():
+    """Two 1-spp passes at sample offsets 0 and 1 trace the samples of one
+    2-spp render."""
+    kw = dict(width=16, height=16, integrator="mis", max_bounces=6, num_slots=64, seed=5)
+    args = (scenes.cornell_box(), scenes.cornell_camera(16, 16))
+    a, ca, _ = pool.render_pool(*args, spp=1, sample_offset=0, **kw)
+    b, cb, _ = pool.render_pool(*args, spp=1, sample_offset=1, **kw)
+    both, cboth, _ = pool.render_pool(*args, spp=2, **kw)
+    assert pool.ray_count(ca) + pool.ray_count(cb) == pool.ray_count(cboth)
+    assert_images_match((a + b).numpy(), both.numpy())
+
+
 def test_pool_counter_encoding():
     img, counters, iters = pool.render_pool(
         scenes.cornell_box(), scenes.cornell_camera(8, 8), width=8, height=8, spp=1,
@@ -93,6 +141,11 @@ def test_unsupported_scenes_raise():
         b.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), Lambertian((0.5, 0.5, 0.5)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
+    b = SceneBuilder()        # between the fused caps and the BVH route
+    for i in range(1000):
+        b.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), Lambertian((0.5, 0.5, 0.5)))
+    with pytest.raises(NotImplementedError, match="triangle_closest.*ROADMAP Queue 2, item 8"):
+        pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
     b = SceneBuilder().add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
     with pytest.raises(NotImplementedError, match="Oren-Nayar"):
         pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
@@ -107,7 +160,7 @@ def test_port_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'pathtrace_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pathtrace_tpu'))\n"
-        "assert len(mods) >= 11, mods\n"
+        "assert len(mods) >= 19, mods\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,4 +1,5 @@
-"""The port's scenes, cameras and primary rays equal the JAX package's."""
+"""The port's scenes, meshes, cameras and primary rays equal the JAX
+package's."""
 
 import dataclasses
 
@@ -10,7 +11,11 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from pathtrace_tpu import meshes as jax_meshes  # noqa: E402
+from pathtrace_tpu.models import scene as jax_scene  # noqa: E402
 from pathtrace_tpu.models import scenes as jax_scenes  # noqa: E402
+from pathtrace_tpu.models.materials import Lambertian as JaxLambertian  # noqa: E402
+from pathtrace_tpu_torch import meshes  # noqa: E402
 from pathtrace_tpu_torch.convert import (  # noqa: E402
     camera_from_arrays,
     scene_from_arrays,
@@ -24,11 +29,13 @@ SCENES = {
     "cornell": ({}, "cornell_box"),
     "default_spheres": ({}, "default_spheres"),
     "many_spheres_3": ({"n_per_side": 3}, "many_spheres"),
+    "mesh_4200": ({"n_tris": 4200}, "mesh_scene"),    # SAH row order
 }
 CAMERAS = {
     "cornell": ("cornell_camera", (16, 16)),
     "default_spheres": ("default_spheres_camera", (32, 24)),
     "many_spheres": ("many_spheres_camera", (48, 27)),
+    "mesh": ("mesh_scene_camera", (32, 18)),
 }
 
 
@@ -101,11 +108,30 @@ def test_primary_rays(name):
 
 
 def test_builder_refuses_mesh_sized_soup():
-    b = SceneBuilder()
-    for i in range(513):
-        b.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), Lambertian((0.5, 0.5, 0.5)))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        b.build()
+    """A soup past the morton limit (513 triangles) is no longer refused: it
+    takes the SAH split order, row for row the JAX package's."""
+    b, jb = SceneBuilder(), jax_scene.SceneBuilder()
+    g = np.random.default_rng(7)
+    for _ in range(513):
+        v = g.uniform(-5, 5, (3, 3))
+        b.add_triangle(*v, Lambertian((0.5, 0.5, 0.5)))
+        jb.add_triangle(*v, JaxLambertian((0.5, 0.5, 0.5)))
+    _assert_fields_equal(b.build(), *split_fields(jb.build()))
+
+
+@pytest.mark.parametrize("kw", [{"n_tris": 4200}, {"n_tris": 9000, "p": 3, "q": 5}])
+def test_knot_mesh(kw):
+    v, f = meshes.knot_mesh(**kw)
+    jv, jf = jax_meshes.knot_mesh(**kw)
+    np.testing.assert_array_equal(v, jv)
+    np.testing.assert_array_equal(f, jf)
+
+
+def test_icosphere_and_grid():
+    for a, b in zip(meshes.icosphere(2, 0.5, (1, 2, 3)), jax_meshes.icosphere(2, 0.5, (1, 2, 3))):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(meshes.grid_mesh(5, 4, wrap_v=False),
+                                  jax_meshes.grid_mesh(5, 4, wrap_v=False))
 
 
 def test_convert_rejects_unknown_field():
