@@ -25,17 +25,38 @@ The mesh path (scenes with >= 4096 triangles, the pool's composed branch):
 5b. BASELINE config 4: the 70k-triangle mesh scene at 1920x1080, 4 spp,
     MIS, depth 8, 65536 slots, timed, with launch counts of its kernels.
 
-The next-to-last lines are the kernels' JSON record and the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX.
+The wave engine (``render.render`` -> ``integrators.trace_wave``; the small
+route for scenes of <= 64 triangles, the flat route for 64 < triangles <
+4096):
+
+3c. its two new kernels against their twins on the card, bitwise, at
+    S = 65536 lanes (camera rays and bounce rays): ``combined_closest_small``
+    on Cornell and many_spheres, ``triangle_closest`` on mesh_scene(2000)
+    (1982 triangles), and ``any_hit`` with the small and flat triangle tables
+    on the lanes' NEE shadow rays;
+5c. the reference workload: Cornell 400x400, MIS, 64 bounces, 16 spp, seed
+    0, through ``render.render``, timed, its channel means held to within 3%
+    of the 8192-spp golden image (``tests/golden/``);
+4c. wave renders on the card against the same renders on the CPU twins
+    (Cornell 64x64 2 spp; mesh_scene(2000) 32x32 1 spp) and a
+    mesh_scene(2000) composed-pool frame (32x32, 2 spp, depth 8): equal ray
+    counts, images within the imgutil budget;
+6.  the CLI: ``python -m pathtrace_tpu_torch render --engine wave --device
+    cuda`` in a subprocess writes a PNG.
+
+The next-to-last lines are the kernels' JSON record (eight kernels) and the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,6 +94,24 @@ MESH_KERNELS = {
     "any_hit": ("pathtrace_tpu_torch/csrc/intersect.cu",
                 "pathtrace_tpu/ops/pallas_intersect.py:679"),
 }
+WAVE_S = 65536
+WAVE_KERNELS = {
+    "combined_closest_small": ("pathtrace_tpu_torch/csrc/combined_closest_small.cu",
+                               "pathtrace_tpu/ops/pallas_intersect.py:957"),
+    "triangle_closest": ("pathtrace_tpu_torch/csrc/triangle_closest.cu",
+                         "pathtrace_tpu/ops/pallas_intersect.py:448"),
+}
+FLAT_TRIS = 2000            # mesh_scene(2000): 1982 triangles, the flat route
+WAVE_CORNELL = dict(width=400, height=400, spp=16, integrator="mis", max_bounces=64, seed=0)
+WAVE_BUDGET_S = 240.0       # the 16-spp render halves its spp (down to 8) past this
+GOLDEN = "tests/golden/oracle_cornell_400_mis_8192.npz"
+GOLDEN_MEAN_RTOL = 0.03
+WAVE_CHECKS = (             # (scene, width, height, spp) rendered on the card and the CPU
+    ("cornell", 64, 64, 2),
+    ("mesh_2000", 32, 32, 1),
+)
+FLAT_POOL = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=8,
+                 num_slots=1024, seed=0)
 
 
 def log(msg: str) -> None:
@@ -244,11 +283,12 @@ def check_kernels(dev):
     return worst, ms
 
 
-def mesh_lane_rays(scene, camera, tables, S, bounces=4, seed=0):
-    """Real rays of the mesh path: S camera rays spread over the image,
-    advanced by ``bounces`` composed bounces on the twins; lane i takes
-    bounce ``i % bounces``. Returns the closest-hit rays ``(o, d)`` and the
-    NEE shadow rays ``(o, d, t_max)`` of the same lanes, rays as ``(S, 3)``."""
+def lane_rays(scene, camera, tables, S, bounces=4, seed=0):
+    """Real rays of the composed path on the route of ``tables``: S camera
+    rays spread over the image, advanced by ``bounces`` composed bounces on
+    the twins; lane i takes bounce ``i % bounces``. Returns the closest-hit
+    rays ``(o, d)`` and the NEE shadow rays ``(o, d, t_max)`` of the same
+    lanes, rays as ``(S, 3)``."""
     from pathtrace_tpu_torch import pool
     from pathtrace_tpu_torch.utils import rng
 
@@ -284,7 +324,7 @@ def check_mesh_kernels(dev, scene, camera):
 
     tables = intersect.build_tables(scene)
     t0 = time.perf_counter()
-    (o, d), (so, sd, st) = mesh_lane_rays(scene, camera, tables, MESH_S)
+    (o, d), (so, sd, st) = lane_rays(scene, camera, tables, MESH_S)
     torch.cuda.synchronize()
     log(f"[mesh-kernels] {scene.num_tris} triangles, {tables.n_groups} groups; lane "
         f"states from twin bounces in {time.perf_counter() - t0:.2f} s")
@@ -515,6 +555,216 @@ def run_bench(dev, smi: str):
     return launches
 
 
+def check_wave_kernels(dev):
+    """Phase 3c: the wave engine's two new kernels, and ``any_hit`` with the
+    small and flat triangle tables, against their twins on the card. The
+    expected result is bitwise agreement: any lane that differs fails."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+
+    S = WAVE_S
+    lo = torch.full((S,), shade.EPS, device=dev)
+    hi = torch.full((S,), float("inf"), device=dev)
+    worst = {"combined_closest_small": 0.0, "triangle_closest": 0.0, "any_hit": 0.0}
+    ms = {}
+    f32, i32 = torch.float32, torch.int32
+    out = (torch.empty(S, device=dev), torch.empty(S, dtype=i32, device=dev),
+           torch.empty((S, 3), dtype=f32, device=dev), torch.empty(S, dtype=i32, device=dev))
+    occ_k = torch.empty(S, dtype=torch.bool, device=dev)
+    slow = dict(runs=3, calls=1)
+
+    def same(name, ref, got):
+        torch.cuda.synchronize()
+        t, idx, nrm, mat = got
+        rt, ridx, rnrm, rmat = ref
+        bad = ((idx != ridx) | (mat != rmat) | (t.view(i32) != rt.view(i32))
+               | (nrm.view(i32) != rnrm.view(i32)).any(1))
+        if bad.any():
+            raise AssertionError(f"{name}: {int(bad.sum())} of {S} lanes differ from the twin")
+        hit = ridx >= 0
+        err = max((t - rt)[hit].abs().max().item(), (nrm - rnrm)[hit].abs().max().item()) \
+            if hit.any() else 0.0
+        worst[name] = max(worst[name], err)
+        return int(hit.sum())
+
+    def same_occ(ref, got):
+        torch.cuda.synchronize()
+        if not torch.equal(ref, got):
+            raise AssertionError(f"any_hit: {int((ref != got).sum())} of {S} lanes differ")
+        return int(ref.sum())
+
+    cases = (
+        ("cornell", scenes.cornell_box(dev), scenes.cornell_camera(400, 400, dev)),
+        ("many_spheres", scenes.many_spheres(device=dev),
+         scenes.many_spheres_camera(1920, 1080, dev)),
+        (f"mesh_{FLAT_TRIS}", scenes.mesh_scene(FLAT_TRIS, device=dev),
+         scenes.mesh_scene_camera(1920, 1080, dev)),
+    )
+    for name, scene, camera in cases:
+        tables = intersect.build_tables(scene)
+        (o, d), (so, sd, st) = lane_rays(scene, camera, tables, S)
+        tri = tables.tri[:tables.tri_rows]
+        if tables.route == "small":
+            kname = "combined_closest_small"
+            ref = intersect.combined_closest_small_reference(tables, o, d, lo, hi)
+            hits = same(kname, ref, intersect.combined_closest_small(tables, o, d, lo, hi))
+            k_ms = cuda_ms(lambda: binding.launch_combined_closest_small(
+                tables, o, d, lo, hi, *out))
+            p_ms = cuda_ms(lambda: intersect.combined_closest_small_reference(
+                tables, o, d, lo, hi))
+        else:
+            kname = "triangle_closest"
+            hi_t = torch.minimum(hi, intersect.sphere_closest_reference(
+                tables.sph, o, d, lo, hi)[0])                # as intersect() caps it
+            ref = intersect.triangle_closest_reference(tables, o, d, lo, hi_t)
+            hits = same(kname, ref, intersect.triangle_closest(tables, o, d, lo, hi_t))
+            k_ms = cuda_ms(lambda: binding.launch_triangle_closest(
+                tables, o, d, lo, hi_t, *out))
+            p_ms = cuda_ms(lambda: intersect.triangle_closest_reference(
+                tables, o, d, lo, hi_t), **slow)
+        blocked = same_occ(intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
+                           intersect.any_hit(tables.sph, tri, so, sd, lo, st))
+        a_ms = cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ_k))
+        a_p = cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
+                      **(slow if tables.route == "flat" else {}))
+        ms[name] = {kname: (k_ms, p_ms), "any_hit": (a_ms, a_p)}
+        log(f"[wave-kernels] {name} ({tables.route} route, {tables.tri_rows} triangle rows, "
+            f"{tables.sph.shape[0]} spheres) S={S}: {kname} equals its twin bitwise on every "
+            f"lane ({hits} hits), {k_ms:.4f} ms vs twin {p_ms:.4f} ms; any_hit equals its twin "
+            f"({blocked} blocked of {int((st >= shade.EPS).sum())} queries), {a_ms:.4f} ms vs "
+            f"twin {a_p:.4f} ms")
+    log(f"[wave-kernels] worst abs error: {worst}")
+    return worst, ms
+
+
+def run_wave_cornell(dev, smi: str):
+    """Phase 5c: the reference workload through the wave engine, timed and
+    held against the golden image's channel means."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.render import RenderConfig, render
+
+    W, H = WAVE_CORNELL["width"], WAVE_CORNELL["height"]
+    scene, camera = scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev)
+    t0 = time.perf_counter()
+    render(scene, camera, RenderConfig(**dict(WAVE_CORNELL, spp=1)))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    spp = WAVE_CORNELL["spp"]
+    while spp > 8 and warm_s * spp > WAVE_BUDGET_S:
+        spp //= 2
+    cfg = RenderConfig(**dict(WAVE_CORNELL, spp=spp))
+
+    shade.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state = render(scene, camera, cfg)
+    img = state.image.cpu().numpy()                   # forces completion
+    wall = time.perf_counter() - t0
+    launches = dict(shade.LAUNCHES)
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"wave cornell image {img.shape} not finite")
+    if set(launches) != {"combined_closest_small", "any_hit"}:
+        raise AssertionError(f"wave cornell launched {launches}")
+    golden = np.load(GOLDEN)["image"]
+    mean, gmean = img.mean(axis=(0, 1)), golden.mean(axis=(0, 1))
+    rel = np.abs(mean - gmean) / gmean
+    result = {
+        "workload": f"cornell {W}x{H} {spp}spp MIS depth {cfg.max_bounces} wave engine",
+        "spp": spp, "spp_note": "" if spp == WAVE_CORNELL["spp"] else
+        f"reduced from {WAVE_CORNELL['spp']}: the 1-spp warm-up took {warm_s:.2f} s",
+        "ray_queries": state.ray_queries, "wall_s": wall,
+        "mrays_per_s": state.ray_queries / wall / 1e6,
+        "mean_rgb": mean.tolist(), "golden_mean_rgb": gmean.tolist(),
+        "mean_rel_diff": rel.tolist(),
+        "rmse_vs_golden": float(np.sqrt(((img - golden) ** 2).mean())),
+        "warmup_1spp_s": warm_s, "launches": launches, "card": smi,
+    }
+    log("[wave-cornell] " + json.dumps(result))
+    if (rel > GOLDEN_MEAN_RTOL).any():
+        raise AssertionError(f"channel means {mean} differ from the golden's {gmean} by "
+                             f"{rel} (bound {GOLDEN_MEAN_RTOL})")
+    return launches
+
+
+def run_wave_gpu_vs_cpu(dev):
+    """Phase 4c: wave renders and a flat-route pool frame on the card
+    against the same renders on the CPU twins."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+    from pathtrace_tpu_torch.render import RenderConfig, render
+
+    def build(name, W, H, device):
+        if name == "cornell":
+            return scenes.cornell_box(device), scenes.cornell_camera(W, H, device)
+        return (scenes.mesh_scene(FLAT_TRIS, device=device),
+                scenes.mesh_scene_camera(W, H, device))
+
+    flat_launches = {}
+    for name, W, H, spp in WAVE_CHECKS:
+        cfg = RenderConfig(width=W, height=H, spp=spp, integrator="mis", max_bounces=64,
+                           seed=0)
+        shade.LAUNCHES.clear()
+        gpu = render(*build(name, W, H, dev), cfg)
+        img = gpu.image.cpu().numpy()
+        launches = dict(shade.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = render(*build(name, W, H, None), cfg)
+        cpu_s = time.perf_counter() - t0
+        if gpu.ray_queries != cpu.ray_queries:
+            raise AssertionError(f"wave {name}: rays GPU {gpu.ray_queries} vs CPU "
+                                 f"{cpu.ray_queries}")
+        assert_images_match(img, cpu.image.numpy())
+        want = ({"combined_closest_small", "any_hit"} if name == "cornell"
+                else {"triangle_closest", "sphere_closest", "any_hit"})
+        if set(launches) != want:
+            raise AssertionError(f"wave {name} launched {launches}")
+        if name != "cornell":
+            flat_launches = launches
+        log(f"[wave-gpu-cpu] {name} {W}x{H} {spp}spp MIS: rays {gpu.ray_queries} on both "
+            f"(CPU {cpu_s:.1f} s); max pixel diff {np.abs(img - cpu.image.numpy()).max():.4g}; "
+            f"launches {launches}")
+
+    W, H = FLAT_POOL["width"], FLAT_POOL["height"]
+    shade.LAUNCHES.clear()
+    img, counters, iters = render_pool(*build("mesh", W, H, dev), **FLAT_POOL)
+    img = img.cpu().numpy()
+    launches = dict(shade.LAUNCHES)
+    img_cpu, counters_cpu, iters_cpu = render_pool(*build("mesh", W, H, None), **FLAT_POOL)
+    rays, rays_cpu = ray_count(counters), ray_count(counters_cpu)
+    if (rays, iters) != (rays_cpu, iters_cpu):
+        raise AssertionError(f"flat pool: GPU {rays} rays {iters} iters, CPU {rays_cpu} "
+                             f"rays {iters_cpu} iters")
+    assert_images_match(img, img_cpu.numpy())
+    if launches.get("triangle_closest", 0) != iters or set(launches) != {
+            "triangle_closest", "sphere_closest", "any_hit"}:
+        raise AssertionError(f"flat pool launches {launches} for {iters} iterations")
+    log(f"[flat-pool] mesh_scene({FLAT_TRIS}) {W}x{H} {FLAT_POOL['spp']}spp MIS depth "
+        f"{FLAT_POOL['max_bounces']}: rays {rays}, iters {iters} on both; max pixel diff "
+        f"{np.abs(img - img_cpu.numpy()).max():.4g}; launches {launches}")
+    return flat_launches
+
+
+def run_cli():
+    """Phase 6: the port's CLI renders a wave frame on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.png")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "pathtrace_tpu_torch", "render", "--scene", "cornell",
+             "--engine", "wave", "--width", "64", "--height", "64", "--spp", "2",
+             "--device", "cuda", "--out", out],
+            capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"CLI exited {r.returncode}: {r.stderr[-2000:]}")
+        with open(out, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("CLI output is not a PNG")
+    log(f"[cli] render --engine wave --device cuda 64x64 2spp: exit 0, PNG written "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -539,11 +789,16 @@ def main() -> int:
     log(f"[mesh] mesh_scene: {mesh.num_tris} triangles built in "
         f"{time.perf_counter() - t0:.2f} s")
     mesh_worst, mesh_ms = check_mesh_kernels(dev, mesh, mesh_cam)
+    wave_worst, wave_ms = check_wave_kernels(dev)
     run_cornell(dev)
     run_mesh_frame(dev)
     launches = run_bench(dev, smi)
     mesh_launches = run_config4(mesh, mesh_cam, smi)
+    wave_launches = run_wave_cornell(dev, smi)
+    flat_launches = run_wave_gpu_vs_cpu(dev)
+    run_cli()
 
+    mesh_worst["any_hit"] = max(mesh_worst["any_hit"], wave_worst["any_hit"])
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": worst[k],
@@ -554,6 +809,13 @@ def main() -> int:
          "launches": mesh_launches[k], "max_abs_err": mesh_worst[k],
          "ms": mesh_ms[k][0], "plain_ms": mesh_ms[k][1]}
         for k, (src, rep) in MESH_KERNELS.items()
+    ] + [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": run_launches[k], "max_abs_err": wave_worst[k],
+         "ms": wave_ms[case][k][0], "plain_ms": wave_ms[case][k][1]}
+        for (k, (src, rep)), run_launches, case in zip(
+            WAVE_KERNELS.items(), (wave_launches, flat_launches),
+            ("cornell", f"mesh_{FLAT_TRIS}"))
     ]}
     print(json.dumps(record))
     print(smi)

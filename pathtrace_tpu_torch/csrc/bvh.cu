@@ -45,24 +45,8 @@ constexpr int kBoxCols = 8;   // min, max, 2 zeros
 constexpr int kLeaf = 128;
 constexpr int kGroup = 16;
 
-__device__ __forceinline__ float safe_inv(float c) {
-  return 1.0f / (fabsf(c) < 1e-20f ? 1e-20f : c);
-}
-
-// Entry distance into one AABB row over [t_min, t_up]; +inf when the segment
-// misses it or the box is an inverted padding box.
-__device__ __forceinline__ float box_entry(const float* __restrict__ box, pt::V3 o, pt::V3 inv,
-                                           float t_min, float t_up) {
-  const float mnx = box[0], mny = box[1], mnz = box[2];
-  const float mxx = box[3], mxy = box[4], mxz = box[5];
-  if (!(mnx <= mxx)) return INFINITY;
-  const float ax = (mnx - o.x) * inv.x, bx = (mxx - o.x) * inv.x;
-  const float ay = (mny - o.y) * inv.y, by = (mxy - o.y) * inv.y;
-  const float az = (mnz - o.z) * inv.z, bz = (mxz - o.z) * inv.z;
-  const float tn = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fmaxf(fminf(az, bz), t_min));
-  const float tf = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fminf(fmaxf(az, bz), t_up));
-  return tn <= tf ? tn : INFINITY;
-}
+using pt::box_entry;
+using pt::safe_inv;
 
 struct Ray {
   pt::V3 o, d, inv;

@@ -96,4 +96,25 @@ __device__ __forceinline__ float sphere_root(const float* row, V3 o, V3 d, float
   return root1 >= eps ? root1 : -half_b + sq;
 }
 
+// Reciprocal of a direction component, |c| clamped up to 1e-20.
+__device__ __forceinline__ float safe_inv(float c) {
+  return 1.0f / (fabsf(c) < 1e-20f ? 1e-20f : c);
+}
+
+// Entry distance into one AABB row (min in its first three floats, max in
+// the next three) over [t_min, t_up]; +inf when the segment misses it or the
+// box is inverted (an empty padding box).
+__device__ __forceinline__ float box_entry(const float* __restrict__ box, V3 o, V3 inv,
+                                           float t_min, float t_up) {
+  const float mnx = box[0], mny = box[1], mnz = box[2];
+  const float mxx = box[3], mxy = box[4], mxz = box[5];
+  if (!(mnx <= mxx)) return INFINITY;
+  const float ax = (mnx - o.x) * inv.x, bx = (mxx - o.x) * inv.x;
+  const float ay = (mny - o.y) * inv.y, by = (mxy - o.y) * inv.y;
+  const float az = (mnz - o.z) * inv.z, bz = (mxz - o.z) * inv.z;
+  const float tn = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fmaxf(fminf(az, bz), t_min));
+  const float tf = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fminf(fmaxf(az, bz), t_up));
+  return tn <= tf ? tn : INFINITY;
+}
+
 }  // namespace pt

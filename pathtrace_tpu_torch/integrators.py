@@ -1,0 +1,188 @@
+"""Wavefront path-tracing integrators.
+
+Counterpart of ``pathtrace_tpu/integrators.py``, same estimator and op
+order. The whole wave advances together, one bounce per step of a Python
+loop (the JAX ``lax.while_loop``), with alive masks: per bounce one shadow
+trace per light sample and one peek trace, and the peek is the next
+bounce's hit. The loop ends at ``max_bounces`` or when no lane is alive
+(tested on the host every bounce; a bounce with no live lane would change
+neither the radiance nor the ray count).
+
+The reference's two quirks are kept:
+
+1. Russian-roulette termination discards the NEE direct light gathered at
+   the current vertex: ``direct`` counts only if the ray survives RR.
+2. The balance-heuristic bsdf-side pdf is not divided by the light count
+   while the NEE-side pdf is.
+
+Lights are camera-visible only at depth 0 under MIS and NEE, at every depth
+under BRDF-only; RR is 1 below depth 4, the throughput luminance capped at 1
+above, decayed by 2^-(depth - 4) from depth 50; ray t_min is 1e-3 and the
+shadow t_max is ``dist - 1e-3``; a vertex's NEE evaluates with the eta set at
+the previous vertex, its BSDF sample with its own.
+
+Every intersection goes through ``ops/intersect.py`` on the route of the
+scene's tables (the small, flat or BVH kernels; their twins on the CPU).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .models.scene import Scene
+from .ops import bsdf, intersect, lights
+from .ops.shade import EPS, RR_MAX_DEPTH, RR_MIN_DEPTH, _full_like
+from .utils import rng, vec
+
+INTEGRATORS = ("mis", "nee", "brdf_only")
+
+
+def _rr_probability(bounce: int, next_tp):
+    """Russian-roulette survival at depth ``bounce``: 1 below RR_MIN_DEPTH,
+    then the throughput luminance capped at 1, decayed by 2^-(bounce - 4)
+    from RR_MAX_DEPTH on."""
+    lum = torch.clamp_max(vec.luminance(vec.finite_or_zero(next_tp)), 1.0)
+    if bounce < RR_MIN_DEPTH:
+        return torch.ones_like(lum)
+    if bounce >= RR_MAX_DEPTH:
+        return lum * 2.0 ** -(bounce - RR_MIN_DEPTH)
+    return lum
+
+
+def trace_wave(
+    scene: Scene,
+    ray_o: torch.Tensor,
+    ray_d: torch.Tensor,
+    keys,
+    integrator: str = "mis",
+    max_bounces: int = 64,
+    return_stats: bool = False,
+    num_light_samples: int = 1,
+    tables: intersect.Tables | None = None,
+):
+    """Radiance ``(N, 3)`` for a wave of primary rays ``(N, 3)``, or
+    ``(radiance, ray_queries)`` when ``return_stats``: the number of
+    scene-traversal queries issued (primary + shadow + peek), the numerator
+    of the Mrays/s metric.
+
+    ``keys``: per-ray threefry keys ``(pixel, sample)`` (``rng.pixel_sample_keys``);
+    bounce indices are folded in here, so results do not depend on how
+    waves are batched. ``num_light_samples``: NEE light samples per vertex,
+    averaged (ignored by ``brdf_only``). ``tables``: the scene packed by
+    ``intersect.build_tables`` (built here when not given).
+    """
+    if integrator not in INTEGRATORS:
+        raise ValueError(f"unknown integrator {integrator!r}; expected {INTEGRATORS}")
+    if num_light_samples < 1:
+        raise ValueError("num_light_samples must be >= 1")
+    if tables is None:
+        tables = intersect.build_tables(scene)
+    if integrator == "brdf_only":
+        radiance, rays = _trace_brdf_only(scene, tables, ray_o, ray_d, keys, max_bounces)
+    else:
+        radiance, rays = _trace_nee_mis(scene, tables, ray_o, ray_d, keys, max_bounces,
+                                        integrator == "mis", num_light_samples)
+    return (radiance, int(rays)) if return_stats else radiance
+
+
+def _trace_nee_mis(scene, tables, ray_o, ray_d, keys, max_bounces, use_mis,
+                   num_light_samples):
+    hit = intersect.intersect(tables, ray_o, ray_d, EPS, float("inf"))
+    mp = bsdf.mat_of(scene, hit.mat)
+    emis0 = hit.valid & bsdf.is_emissive_params(mp)
+    # Lights are visible to the camera only (depth 0).
+    radiance = torch.where(emis0[:, None], bsdf.emitted_params(mp), 0.0)
+    alive = hit.valid & ~emis0
+    ray_eta = torch.ones_like(ray_d[:, 0])
+    prefix = torch.ones_like(ray_d)
+    rays = torch.tensor(ray_o.shape[0], dtype=torch.int64, device=ray_o.device)
+    light_keys = [keys] + [rng.light_sample_keys(keys, j) for j in range(1, num_light_samples)]
+
+    bounce = 0
+    while bounce < max_bounces and bool(alive.any()):
+        i = -ray_d
+
+        def nee_once(u_l):
+            ls = lights.sample_light_point(
+                scene, hit.point, u_l[:, rng.SLOT_LIGHT_SELECT], u_l[:, rng.SLOT_LIGHT_U],
+                u_l[:, rng.SLOT_LIGHT_V])
+            blocked = intersect.occluded(tables, hit.point, ls.dir, EPS, ls.dist - EPS)
+            cos_l = torch.abs(vec.dot(hit.normal, ls.dir))
+            bsdf_l, pdf_bsdf_l = bsdf.eval_bsdf(scene, hit.mat, i, ray_eta, ls.dir, hit.normal,
+                                                params=mp)
+            w_nee = ls.pdf / (ls.pdf + pdf_bsdf_l) if use_mis else torch.ones_like(ls.pdf)
+            d = w_nee[:, None] * bsdf_l * ls.emission * (cos_l / ls.pdf)[:, None]
+            return vec.finite_or_zero(torch.where(blocked[:, None], 0.0, d))
+
+        u = rng.bounce_uniforms(keys, bounce)
+        direct = nee_once(u)
+        for kj in light_keys[1:]:
+            direct = direct + nee_once(rng.bounce_uniforms(kj, bounce))
+        if num_light_samples > 1:
+            direct = direct / _full_like(direct, num_light_samples)
+
+        # BSDF sample, Russian roulette; quirk 1: direct counts only on survival.
+        eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
+        o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
+            scene, hit.mat, i, eta_s, hit.normal, u[:, rng.SLOT_BSDF_U],
+            u[:, rng.SLOT_BSDF_V], u[:, rng.SLOT_FRESNEL], params=mp)
+        factor = bsdf_s * (cos_s / pdf_s)[:, None]
+        rr = _rr_probability(bounce, prefix * factor)
+        live = alive & (u[:, rng.SLOT_RR] < rr)
+        radiance = radiance + torch.where(
+            live[:, None], vec.finite_or_zero(prefix * direct), 0.0)
+
+        # Peek: the BSDF ray's hit, which is also the next bounce's hit.
+        peek = intersect.intersect(tables, hit.point, o_dir, EPS, float("inf"))
+        peek_mp = bsdf.mat_of(scene, peek.mat)
+        peek_emis = peek.valid & bsdf.is_emissive_params(peek_mp)
+        if use_mis:
+            # Quirk 2: pdf_shape without the 1/num_lights factor.
+            pdf_shape = lights.light_pdf_toward(scene, peek.prim, hit.point, peek.point)
+            w_bsdf = pdf_s / (pdf_s + pdf_shape)
+            hit_light = (w_bsdf[:, None] * bsdf_s * bsdf.emitted_params(peek_mp)
+                         * (cos_s / (pdf_s * rr))[:, None])
+            radiance = radiance + torch.where(
+                (live & peek_emis)[:, None], vec.finite_or_zero(prefix * hit_light), 0.0)
+        # (NEE alone: a BSDF ray that lands on a light adds nothing.)
+
+        cont = live & peek.valid & ~peek_emis
+        prefix = torch.where(cont[:, None], vec.finite_or_zero(prefix * factor / rr[:, None]),
+                             prefix)
+        rays = rays + (num_light_samples + 1) * alive.sum()
+        bounce += 1
+        # The spawned ray carries the eta chosen at this vertex.
+        ray_d, ray_eta, hit, mp, alive = o_dir, eta_s, peek, peek_mp, cont
+    return radiance, rays
+
+
+def _trace_brdf_only(scene, tables, ray_o, ray_d, keys, max_bounces):
+    """Pure BSDF-sampling path tracing: lights visible at every depth, one
+    trace per bounce, the same RR schedule."""
+    prefix = torch.ones_like(ray_d)
+    radiance = torch.zeros_like(ray_d)
+    alive = torch.ones_like(ray_d[:, 0], dtype=torch.bool)
+    rays = torch.zeros((), dtype=torch.int64, device=ray_o.device)
+
+    bounce = 0
+    while bounce < max_bounces and bool(alive.any()):
+        u = rng.bounce_uniforms(keys, bounce)
+        hit = intersect.intersect(tables, ray_o, ray_d, EPS, float("inf"))
+        mp = bsdf.mat_of(scene, hit.mat)
+        emis = hit.valid & bsdf.is_emissive_params(mp)
+        radiance = radiance + torch.where(
+            (alive & emis)[:, None], vec.finite_or_zero(prefix * bsdf.emitted_params(mp)), 0.0)
+
+        eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
+        o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
+            scene, hit.mat, -ray_d, eta_s, hit.normal, u[:, rng.SLOT_BSDF_U],
+            u[:, rng.SLOT_BSDF_V], u[:, rng.SLOT_FRESNEL], params=mp)
+        factor = bsdf_s * (cos_s / pdf_s)[:, None]
+        rr = _rr_probability(bounce, prefix * factor)
+        cont = alive & hit.valid & ~emis & (u[:, rng.SLOT_RR] < rr)
+        prefix = torch.where(cont[:, None], vec.finite_or_zero(prefix * factor / rr[:, None]),
+                             prefix)
+        rays = rays + alive.sum()
+        bounce += 1
+        ray_o, ray_d, alive = hit.point, o_dir, cont
+    return radiance, rays

@@ -40,6 +40,10 @@ def library() -> ctypes.CDLL:
         lib.pt_bvh_closest.restype = _I
         lib.pt_bvh_anyhit.argtypes = [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]
         lib.pt_bvh_anyhit.restype = _I
+        lib.pt_combined_closest_small.argtypes = [_P, _I, _P, _I, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_combined_closest_small.restype = _I
+        lib.pt_triangle_closest.argtypes = [_P, _P, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_triangle_closest.restype = _I
         _lib = lib
     return _lib
 
@@ -133,3 +137,28 @@ def launch_bvh_anyhit(tables, o, d, t_min, t_max, occ) -> None:
             t_max.data_ptr(), occ.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "bvh_anyhit")
+
+
+def launch_combined_closest_small(tables, o, d, t_min, t_max, t, prim, n, m) -> None:
+    """``tables`` is an ``ops.intersect.Tables`` of the small route."""
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_combined_closest_small(
+            tables.sph.data_ptr(), tables.sph.shape[0], tables.tri.data_ptr(),
+            tables.tri.shape[0], tables.tri_rows, o.data_ptr(), d.data_ptr(),
+            t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(), prim.data_ptr(), n.data_ptr(),
+            m.data_ptr(), t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "combined_closest_small")
+
+
+def launch_triangle_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
+    """``tables`` is an ``ops.intersect.Tables`` of the flat route."""
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_triangle_closest(
+            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0],
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(),
+            idx.data_ptr(), n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "triangle_closest")

@@ -72,14 +72,21 @@ class Camera:
         llc = origin - horizontal / 2.0 - vertical / 2.0 - w * screen_distance
         return cls(origin, llc, horizontal, vertical, width, height)
 
-    def generate_rays(self, px: torch.Tensor, py: torch.Tensor, jitter: torch.Tensor):
+    def generate_rays(self, px: torch.Tensor, py: torch.Tensor, jitter: torch.Tensor,
+                      transposed: bool = True):
         """Primary rays for pixel coords ``px, py`` (already y-flipped by the
         caller) with sub-pixel ``jitter`` ``(N, 2)`` in [0, 1).
 
-        Returns ``(origins, directions)`` in kernel layout ``(3, N)`` with unit
-        directions: the JAX camera's ``transposed=True`` layout, the one the
-        pool uses (its ``(N, 3)`` layout is not ported).
+        Returns ``(origins, directions)`` with unit directions, in kernel
+        layout ``(3, N)`` (the pool's), or contiguous ``(N, 3)`` (the wave
+        engine's) when ``transposed`` is False. The JAX camera computes both
+        layouts with the same per-component arithmetic, so ``(N, 3)`` is the
+        transpose of ``(3, N)`` bit for bit. Unlike the JAX camera, the
+        default is the kernel layout.
         """
+        if not transposed:
+            o, d = self.generate_rays(px, py, jitter)
+            return o.T.contiguous(), d.T.contiguous()
         # Divide by 0-dim tensors: CUDA would turn division by a host scalar
         # into multiplication by its reciprocal, which rounds differently.
         wm1, hm1 = torch.tensor([self.width - 1, self.height - 1],

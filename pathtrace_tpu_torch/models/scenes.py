@@ -123,3 +123,16 @@ def mesh_scene(n_tris: int = 70000, device=None) -> Scene:
 def mesh_scene_camera(width: int = 1920, height: int = 1080, device=None) -> Camera:
     return Camera.look_at((0.0, 1.6, 5.5), (0.0, 0.2, 0.0), (0.0, 1.0, 0.0),
                           width, height, 40.0, device=device)
+
+
+def sweep_cameras(num_frames: int = 120, width: int = 640, height: int = 360,
+                  radius: float = 5.5, target=(0.0, 0.2, 0.0), fov: float = 40.0,
+                  device=None):
+    """BASELINE config 5: a circular camera sweep around the mesh scene."""
+    cams = []
+    for f in range(num_frames):
+        a = 2.0 * np.pi * f / num_frames
+        origin = (radius * np.sin(a), 1.6, radius * np.cos(a))
+        cams.append(Camera.look_at(origin, target, (0.0, 1.0, 0.0), width, height, fov,
+                                   device=device))
+    return cams

@@ -1,36 +1,45 @@
-"""Batched ray-scene intersection for the composed path (the BVH route).
+"""Batched ray-scene intersection of the wave engine and the pool's composed
+branch.
 
-Counterpart of ``pathtrace_tpu/ops/intersect.py`` on the route that
-``resolve_auto`` picks for scenes with at least 4096 triangles. Four
-hand-written CUDA kernels, each with a plain-torch twin here:
+Counterpart of ``pathtrace_tpu/ops/intersect.py`` on the three routes that
+``resolve_auto`` picks by default (:func:`resolve_route`):
 
-* :func:`sphere_closest` (``csrc/intersect.cu``) replaces
-  ``pallas_intersect.sphere_closest`` in its one-tile mode: closest sphere
-  hit with the winner's outward normal and material;
-* :func:`any_hit` (``csrc/intersect.cu``) replaces ``pallas_intersect.any_hit``:
-  occlusion over spheres and triangles (the mesh path passes no triangles);
-* :func:`bvh_closest` / :func:`bvh_anyhit` (``csrc/bvh.cu``) replace
-  ``bvh_intersect.triangle_closest_bvh`` / ``triangle_anyhit_bvh``: the
-  two-level hierarchy the JAX package derives from row order (128-row
-  leaves under 16-leaf groups), traversed one thread per ray.
+* **small** (<= 64 triangle rows and <= 512 sphere rows): one fused closest
+  hit, :func:`combined_closest_small` (``csrc/combined_closest_small.cu``),
+  replacing ``pallas_intersect.combined_closest_small``;
+* **flat** (64 < triangles < 4096, <= 512 spheres): :func:`sphere_closest`,
+  then :func:`triangle_closest` (``csrc/triangle_closest.cu``, replacing
+  ``pallas_intersect.triangle_closest``) over 256-row clusters, capped by
+  the sphere hits;
+* **bvh** (>= 4096 triangles): :func:`sphere_closest`, then
+  :func:`bvh_closest` (``csrc/bvh.cu``, replacing
+  ``bvh_intersect.triangle_closest_bvh``) over the two-level hierarchy the
+  JAX package derives from row order (128-row leaves under 16-leaf groups).
 
-The twins are brute force over every row (triangles in chunks of
-``TWIN_CHUNK``); a kernel must give the same answer, which is what
-``chip_smoke.py`` checks on the card. The wrappers dispatch on the device of
-their inputs: CPU tensors run the twin, CUDA tensors launch the kernel (or
-raise); there is no fallback. Each launch adds one to ``shade.LAUNCHES``.
+Shadow rays go through :func:`any_hit` (``csrc/intersect.cu``, replacing
+``pallas_intersect.any_hit``) over the spheres and every triangle row on the
+small and flat routes; on the bvh route through :func:`bvh_anyhit` plus
+:func:`any_hit` over the spheres alone.
 
-:func:`intersect` and :func:`occluded` compose them as the JAX package
-does: spheres first, then triangles with ``t_max = min(t_max, sph_t)``;
-sphere ids offset by the padded triangle row count; a sphere wins only when
-strictly nearer. Epsilons are the reference's: 1e-8 parallel reject,
-inclusive barycentric bounds, closed ``[t_min, t_max]``.
+Every kernel has a plain-torch twin here, brute force over every row in the
+kernels' op order (triangles in chunks of ``TWIN_CHUNK``); a kernel must give
+the same answer, which is what ``chip_smoke.py`` checks on the card. The
+wrappers dispatch on the device of their inputs: CPU tensors run the twin,
+CUDA tensors launch the kernel (or raise); there is no fallback. Each launch
+adds one to ``shade.LAUNCHES``.
 
-Left behind from the JAX route: the ray sort before each trace
-(``_ray_sort_key``/``_sort_rays_by_key``/``_unsort``), which changes no
-result and keeps TPU subtiles union-coherent (whether it pays on the GPU is
-still to measure), and the ``_lift_tree`` varying-axes plumbing. Rays are
-``(N, 3)`` float32; ``t_min``/``t_max`` are ``(N,)``.
+:func:`intersect` and :func:`occluded` compose them as the JAX package does:
+global prim ids are triangle rows, then spheres offset by the padded
+triangle row count; a sphere wins only when strictly nearer. Epsilons are
+the reference's: 1e-8 parallel reject, inclusive barycentric bounds, closed
+``[t_min, t_max]``.
+
+Left behind from the JAX routes: the ray sort before each trace on big
+meshes (``_ray_sort_key``/``_sort_rays_by_key``/``_unsort``), which changes
+no result and keeps TPU subtiles union-coherent (whether it pays on the GPU
+is still to measure), the ``coherent`` hint, and the ``_lift_tree``
+varying-axes plumbing. Rays are ``(N, 3)`` float32; ``t_min``/``t_max`` are
+``(N,)``.
 """
 
 from __future__ import annotations
@@ -40,18 +49,25 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.scene import Scene
+from ..models.scene import CLUSTER_SIZE, Scene
 from ..utils import vec
 from .shade import LAUNCHES, _check, _device_kind, _sphere_ts, _tri_hits
 
 _INF = float("inf")
 
+SMALL_MAX_TRIS = 64       # one-tile triangle bound of resolve_auto's routes
+SMALL_MAX_SPHERES = 512   # one-tile sphere bound; the clustered modes lie above
+BVH_MIN_TRIS = 4096       # RAY_SORT_MIN_TRIS: the BVH route from here up
 LEAF = 128         # triangles per BVH leaf
 GROUP = 16         # leaves per supergroup
 TWIN_CHUNK = 2048  # triangle rows per step of the brute-force twins
 _TRI_COLS = 16     # v0, e1, e2, normal, material, 3 zeros
 _SPH_COLS = 8      # center, |c|^2 - r^2 (NaN on padding), 1/r, material, 2 zeros
 _BOX_COLS = 8      # min, max, 2 zeros
+# Outward margin of the flat route's cluster boxes, relative to 1 + their
+# largest coordinate: slab-test rounding then never culls a cluster that
+# holds a hit the brute-force twin accepts.
+_BOX_MARGIN = 1e-4
 
 
 class Hit(NamedTuple):
@@ -70,14 +86,46 @@ class Hit(NamedTuple):
 
 
 class Tables(NamedTuple):
-    """Scene tables packed for the four kernels (built once per render)."""
+    """Scene tables packed for one route's kernels (built once per render)."""
 
-    tri: torch.Tensor    # (n_groups * GROUP * LEAF, 16); zero rows pad the last group
-    leaf: torch.Tensor   # (n_groups * GROUP, 8) leaf AABBs, inverted on padding
-    group: torch.Tensor  # (max(8, ceil8(n_groups)), 8) group AABBs, inverted on padding
+    tri: torch.Tensor    # (rows, 16): the scene's rows (small), zero-padded to
+    #                      whole 256-row clusters (flat) or 16-leaf groups (bvh)
+    leaf: torch.Tensor   # (blocks, 8) AABBs of the triangle blocks the route culls
+    #                      by: 256-row clusters (flat), 128-row leaves (bvh);
+    #                      inverted on padding; no rows on the small route
+    group: torch.Tensor  # bvh: (max(8, ceil8(n_groups)), 8) group AABBs; else no rows
     sph: torch.Tensor    # (Ps, 8)
     tri_rows: int        # the scene's triangle rows: the sphere prim-id base
-    n_groups: int
+    n_groups: int        # bvh: 16-leaf groups; else 0
+    route: str           # "small", "flat" or "bvh"
+
+
+def resolve_route(num_tris: int, num_spheres: int, method: str = "auto") -> str:
+    """The route ``resolve_auto`` and ``intersect`` take in the JAX package
+    for a scene of ``num_tris`` triangle rows and ``num_spheres`` sphere rows.
+
+    ``method``: ``"auto"`` (the default routes), ``"pallas"`` (no BVH: the
+    flat route for every scene past the small bounds) or ``"bvh"`` (the BVH
+    for every scene past them). Routes whose kernels are not ported raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    if method in ("binned", "resident"):
+        item = 9 if method == "binned" else 10
+        raise NotImplementedError(
+            f"method {method!r}: the {method} traversal kernels are not ported yet "
+            f"(ROADMAP Queue 2, item {item})")
+    if method not in ("auto", "pallas", "bvh"):
+        raise NotImplementedError(
+            f"method {method!r} has no route in the port (it has auto, pallas and bvh; "
+            "CPU tensors run the kernels' plain twins)")
+    small_tris = num_tris <= SMALL_MAX_TRIS
+    if method == "auto" and num_tris >= BVH_MIN_TRIS or method == "bvh" and not small_tris:
+        return "bvh"
+    if num_spheres > SMALL_MAX_SPHERES:
+        raise NotImplementedError(
+            f"{num_spheres} spheres (more than {SMALL_MAX_SPHERES}) with fewer than "
+            f"{BVH_MIN_TRIS} triangles take the clustered sphere_closest/any_hit modes, "
+            "not ported yet (ROADMAP Queue 2, items 4 and 7)")
+    return "small" if small_tris else "flat"
 
 
 def bvh_aabbs(v0, e1, e2):
@@ -109,13 +157,36 @@ def bvh_aabbs(v0, e1, e2):
     return leaf.contiguous(), group.contiguous()
 
 
-def build_tables(scene: Scene) -> Tables:
-    leaf, group = bvh_aabbs(scene.tri_v0, scene.tri_e1, scene.tri_e2)
-    rows = leaf.shape[0] * LEAF
+def _cluster_boxes(scene: Scene):
+    """The flat route's ``(C, 8)`` cluster AABB rows: ``Scene.tri_cluster_min/
+    max`` widened by ``_BOX_MARGIN``; empty clusters stay inverted."""
+    lo, hi = scene.tri_cluster_min, scene.tri_cluster_max
+    real = (lo <= hi).all(dim=1, keepdim=True)
+    big = torch.where(real, torch.maximum(lo.abs(), hi.abs()), 0.0).amax(dim=1, keepdim=True)
+    margin = _BOX_MARGIN * (1.0 + big)
+    lo = torch.where(real, lo - margin, lo)
+    hi = torch.where(real, hi + margin, hi)
+    return torch.cat([lo, hi, lo.new_zeros((lo.shape[0], 2))], dim=1).contiguous()
+
+
+def build_tables(scene: Scene, method: str = "auto") -> Tables:
+    """Pack ``scene`` for the route :func:`resolve_route` picks."""
     t = scene.tri_v0.shape[0]
+    route = resolve_route(t, scene.sph_center.shape[0], method)
     tri = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_normal,
                      scene.tri_mat.to(torch.float32)[:, None],
                      scene.tri_v0.new_zeros((t, 3))], dim=1)
+    no_boxes = tri.new_zeros((0, _BOX_COLS))
+    n_groups = 0
+    if route == "bvh":
+        leaf, group = bvh_aabbs(scene.tri_v0, scene.tri_e1, scene.tri_e2)
+        n_groups = leaf.shape[0] // GROUP
+        rows = leaf.shape[0] * LEAF
+    elif route == "flat":
+        leaf, group = _cluster_boxes(scene), no_boxes
+        rows = leaf.shape[0] * CLUSTER_SIZE
+    else:
+        leaf, group, rows = no_boxes, no_boxes, t
     tri = torch.cat([tri, tri.new_zeros((rows - t, _TRI_COLS))])
 
     centers, radius = scene.sph_center, scene.sph_radius
@@ -127,7 +198,7 @@ def build_tables(scene: Scene) -> Tables:
                      scene.sph_mat.to(torch.float32)[:, None],
                      centers.new_zeros((centers.shape[0], 2))], dim=1)
     return Tables(tri=tri.contiguous(), leaf=leaf, group=group, sph=sph.contiguous(),
-                  tri_rows=t, n_groups=leaf.shape[0] // GROUP)
+                  tri_rows=t, n_groups=n_groups, route=route)
 
 
 # ---------------------------------------------------------------------------
@@ -188,10 +259,10 @@ def _tri_chunks(tri, rows, o, d, t_min, t_max):
         yield c, _tri_ts(tri[c:min(c + TWIN_CHUNK, rows)], o, d, t_min, t_max)
 
 
-def bvh_closest_reference(tables: Tables, o, d, t_min, t_max):
-    """Twin of ``bvh_closest``: brute force over every triangle row, the
-    first (lowest) row on equal ``t``. Returns ``(t, row, outward normal,
-    material)``; a miss is ``(inf, -1, 0, 0)``."""
+def triangle_closest_reference(tables: Tables, o, d, t_min, t_max):
+    """Twin of ``triangle_closest`` and of ``bvh_closest``: brute force over
+    every triangle row, the first (lowest) row on equal ``t``. Returns ``(t,
+    row, outward normal, material)``; a miss is ``(inf, -1, 0, 0)``."""
     best_t = torch.full_like(t_min, _INF)
     best_i = torch.full(t_min.shape, -1, dtype=torch.int64, device=t_min.device)
     for c, ts in _tri_chunks(tables.tri, tables.tri_rows, o, d, t_min, t_max):
@@ -204,6 +275,9 @@ def bvh_closest_reference(tables: Tables, o, d, t_min, t_max):
     normal = torch.where(hit[:, None], row[:, 9:12], 0.0)
     mat = torch.where(hit, row[:, 12].to(torch.int32), 0)
     return best_t, best_i.to(torch.int32), normal, mat
+
+
+bvh_closest_reference = triangle_closest_reference
 
 
 def bvh_anyhit_reference(tables: Tables, o, d, t_min, t_max):
@@ -237,6 +311,29 @@ def any_hit_reference(sph, tri, o, d, t_min, t_max):
     return occ
 
 
+def combined_closest_small_reference(tables: Tables, o, d, t_min, t_max):
+    """Twin of ``combined_closest_small``: the closest triangle in ``[t_min,
+    t_max]``, then the closest sphere in ``[t_min, min(t_max, tri_t)]``; the
+    sphere wins only when strictly nearer. Returns ``(t, global prim id,
+    outward normal, material)``; a miss is ``(inf, -1, 0, 0)``."""
+    tri_t, tri_p, tri_n, tri_m = triangle_closest_reference(tables, o, d, t_min, t_max)
+    sph_t, sph_p, sph_n, sph_m = sphere_closest_reference(
+        tables.sph, o, d, t_min, torch.minimum(t_max, tri_t))
+    return _merge(tables, (sph_t, sph_p, sph_n, sph_m), (tri_t, tri_p, tri_n, tri_m))
+
+
+def _merge(tables: Tables, sph, tri):
+    """The closer of a sphere and a triangle hit, the triangle on equal ``t``;
+    sphere rows become global prim ids."""
+    sph_t, sph_p, sph_n, sph_m = sph
+    tri_t, tri_p, tri_n, tri_m = tri
+    sph_better = sph_t < tri_t
+    return (torch.where(sph_better, sph_t, tri_t),
+            torch.where(sph_better, sph_p + tables.tri_rows, tri_p),
+            torch.where(sph_better[:, None], sph_n, tri_n),
+            torch.where(sph_better, sph_m, tri_m))
+
+
 # ---------------------------------------------------------------------------
 # Dispatching wrappers
 # ---------------------------------------------------------------------------
@@ -259,14 +356,24 @@ def _check_table(name, tab, cols, device):
         raise ValueError(f"{name} on {tab.device}, rays on {device}")
 
 
-def _check_bvh(tables: Tables, device):
+def _check_route(tables: Tables, route: str, device):
+    if tables.route != route:
+        raise ValueError(f"tables of the {tables.route} route passed to a {route} kernel")
     _check_table("tables.tri", tables.tri, _TRI_COLS, device)
+    _check_table("tables.sph", tables.sph, _SPH_COLS, device)
     _check_table("tables.leaf", tables.leaf, _BOX_COLS, device)
     _check_table("tables.group", tables.group, _BOX_COLS, device)
-    if (tables.leaf.shape[0] != tables.n_groups * GROUP
-            or tables.tri.shape[0] != tables.leaf.shape[0] * LEAF
-            or tables.group.shape[0] < tables.n_groups):
-        raise ValueError("BVH tables of inconsistent sizes (use build_tables)")
+    if route == "small":   # the kernel stages both tables in shared memory
+        ok = (tables.tri.shape[0] == tables.tri_rows <= SMALL_MAX_TRIS
+              and tables.sph.shape[0] <= SMALL_MAX_SPHERES)
+    elif route == "flat":
+        ok = tables.tri.shape[0] == tables.leaf.shape[0] * CLUSTER_SIZE
+    else:
+        ok = (tables.leaf.shape[0] == tables.n_groups * GROUP
+              and tables.tri.shape[0] == tables.leaf.shape[0] * LEAF
+              and tables.group.shape[0] >= tables.n_groups)
+    if not ok:
+        raise ValueError(f"{route} tables of inconsistent sizes (use build_tables)")
 
 
 def _empty(shape, dtype, like):
@@ -278,7 +385,7 @@ def bvh_closest(tables: Tables, o, d, t_min, t_max):
     outward normal (N, 3), material (N,) int32)``; a miss is
     ``(inf, -1, 0, 0)``. Counterpart of ``triangle_closest_bvh``."""
     n, kind = _check_rays(o, d, t_min, t_max)
-    _check_bvh(tables, t_min.device)
+    _check_route(tables, "bvh", t_min.device)
     if kind == "cpu":
         return bvh_closest_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
@@ -294,7 +401,7 @@ def bvh_anyhit(tables: Tables, o, d, t_min, t_max):
     """Occlusion by any triangle in ``[t_min, t_max]`` through the BVH:
     bool ``(N,)``. Counterpart of ``triangle_anyhit_bvh``."""
     n, kind = _check_rays(o, d, t_min, t_max)
-    _check_bvh(tables, t_min.device)
+    _check_route(tables, "bvh", t_min.device)
     if kind == "cpu":
         return bvh_anyhit_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
@@ -319,6 +426,40 @@ def sphere_closest(sph, o, d, t_min, t_max):
            _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
     binding.launch_sphere_closest(sph, o, d, t_min, t_max, *out)
     LAUNCHES["sphere_closest"] += 1
+    return out
+
+
+def combined_closest_small(tables: Tables, o, d, t_min, t_max):
+    """Closest hit over the spheres and triangles of a small-route scene in
+    one pass: ``(t, global prim id, outward normal, material)``; a miss is
+    ``(inf, -1, 0, 0)``. Counterpart of ``pallas_intersect.combined_closest_small``."""
+    n, kind = _check_rays(o, d, t_min, t_max)
+    _check_route(tables, "small", t_min.device)
+    if kind == "cpu":
+        return combined_closest_small_reference(tables, o, d, t_min, t_max)
+    from ..kernels import binding
+
+    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
+           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    binding.launch_combined_closest_small(tables, o, d, t_min, t_max, *out)
+    LAUNCHES["combined_closest_small"] += 1
+    return out
+
+
+def triangle_closest(tables: Tables, o, d, t_min, t_max):
+    """Closest triangle hit over the flat route's 256-row clusters: ``(t,
+    row, outward normal, material)``; a miss is ``(inf, -1, 0, 0)``.
+    Counterpart of ``pallas_intersect.triangle_closest``."""
+    n, kind = _check_rays(o, d, t_min, t_max)
+    _check_route(tables, "flat", t_min.device)
+    if kind == "cpu":
+        return triangle_closest_reference(tables, o, d, t_min, t_max)
+    from ..kernels import binding
+
+    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
+           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    binding.launch_triangle_closest(tables, o, d, t_min, t_max, *out)
+    LAUNCHES["triangle_closest"] += 1
     return out
 
 
@@ -350,21 +491,23 @@ def _ranges(o, t_min, t_max):
 
 
 def intersect(tables: Tables, o, d, t_min, t_max, *, twin: bool = False) -> Hit:
-    """Closest hit for a wave of rays ``o``/``d`` ``(N, 3)``; ``t_min``/
-    ``t_max`` scalars or ``(N,)``. ``twin=True`` runs the plain twins on any
-    device (for checking the kernels; never on the render path)."""
+    """Closest hit for a wave of rays ``o``/``d`` ``(N, 3)`` on the route of
+    ``tables``; ``t_min``/``t_max`` scalars or ``(N,)``. ``twin=True`` runs
+    the plain twins on any device (for checking the kernels; never on the
+    render path)."""
     t_lo, t_hi = _ranges(o, t_min, t_max)
-    sph_fn = sphere_closest_reference if twin else sphere_closest
-    tri_fn = bvh_closest_reference if twin else bvh_closest
-    sph_t, sph_p, sph_n, sph_m = sph_fn(tables.sph, o, d, t_lo, t_hi)
-    tri_t, tri_p, tri_n, tri_m = tri_fn(tables, o, d, t_lo, torch.minimum(t_hi, sph_t))
-    sph_p = torch.where(sph_p >= 0, sph_p + tables.tri_rows, -1)
-
-    sph_better = sph_t < tri_t
-    t = torch.where(sph_better, sph_t, tri_t)
-    prim = torch.where(sph_better, sph_p, tri_p)
-    outward = torch.where(sph_better[:, None], sph_n, tri_n)
-    mat = torch.where(sph_better, sph_m, tri_m)
+    if tables.route == "small":
+        fn = combined_closest_small_reference if twin else combined_closest_small
+        t, prim, outward, mat = fn(tables, o, d, t_lo, t_hi)
+    else:
+        sph_fn = sphere_closest_reference if twin else sphere_closest
+        if tables.route == "flat":
+            tri_fn = triangle_closest_reference if twin else triangle_closest
+        else:
+            tri_fn = bvh_closest_reference if twin else bvh_closest
+        sph = sph_fn(tables.sph, o, d, t_lo, t_hi)
+        tri = tri_fn(tables, o, d, t_lo, torch.minimum(t_hi, sph[0]))
+        t, prim, outward, mat = _merge(tables, sph, tri)
     valid = prim >= 0
     mat = torch.where(valid, mat, 0)
     point = o + d * torch.where(valid, t, 0.0)[:, None]
@@ -376,7 +519,10 @@ def intersect(tables: Tables, o, d, t_min, t_max, *, twin: bool = False) -> Hit:
 
 def occluded(tables: Tables, o, d, t_min, t_max):
     """Is anything hit in ``[t_min, t_max]`` (shadow rays): bool ``(N,)``.
-    The spheres go through ``any_hit`` with no triangle rows."""
+    ``any_hit`` takes the spheres and every triangle row; on the bvh route
+    it takes the spheres alone, beside ``bvh_anyhit``."""
     t_lo, t_hi = _ranges(o, t_min, t_max)
+    if tables.route != "bvh":
+        return any_hit(tables.sph, tables.tri[:tables.tri_rows], o, d, t_lo, t_hi)
     return (bvh_anyhit(tables, o, d, t_lo, t_hi)
             | any_hit(tables.sph, tables.tri[:0], o, d, t_lo, t_hi))

@@ -11,14 +11,18 @@ scene as the JAX package chooses them:
   :func:`~pathtrace_tpu_torch.ops.shade.fused_bounce` for the vertex and
   :func:`~pathtrace_tpu_torch.ops.shade.shadow_any_hit` for the NEE shadow
   rays;
-* the **composed** branch, for scenes with at least 4096 triangles (the BVH
-  route): :func:`composed_bounce` runs the vertex as separate ops (closest
-  hit, emissive/MIS term, NEE light sample and BSDF evaluation, BSDF sample,
-  Russian roulette) over the four kernels of ``ops/intersect.py``, and
+* the **composed** branch, for every other scene: :func:`composed_bounce`
+  runs the vertex as separate ops (closest hit, emissive/MIS term, NEE light
+  sample and BSDF evaluation, BSDF sample, Russian roulette) over the
+  kernels of ``ops/intersect.py`` on the scene's route (the BVH for at least
+  4096 triangles, the flat clusters for more than 64, the fused small-scene
+  closest hit for more than 64 lights), and
   :func:`~pathtrace_tpu_torch.ops.intersect.occluded` tests the shadow rays.
 
-Every other scene raises ``NotImplementedError`` naming the ROADMAP item
-that ports its route; nothing falls back to another kernel or to a twin.
+The scenes still without ported kernels (Oren-Nayar or PBR within the fused
+caps; more than 512 spheres with fewer than 4096 triangles) raise
+``NotImplementedError`` naming the ROADMAP item that ports their route;
+nothing falls back to another kernel or to a twin.
 
 Work assignment is the JAX package's, so the same sample indices trace the
 same paths: slot ``s`` owns the work items ``w = chunk * S + s``, whose
@@ -53,39 +57,26 @@ from .ops import bsdf, intersect, lights, shade
 from .utils import rng, vec
 
 FLUSH_EVERY = 8
-# Scenes with at least this many triangle rows take the BVH route, as
-# ``resolve_auto`` sends them in the JAX package.
-BVH_MIN_TRIS = 4096
 INTEGRATORS = ("mis", "nee", "brdf_only")
 
 
 def route(scene: Scene, integrator: str) -> str:
-    """``"fused"`` or ``"composed"``; raises ``NotImplementedError`` naming
-    the ROADMAP item for a scene whose route has no ported kernels yet."""
+    """``"fused"`` or ``"composed"``, as the JAX pool chooses: scenes with
+    at least ``BVH_MIN_TRIS`` triangles and scenes past the fused kernels'
+    caps take the composed branch on the route ``intersect.resolve_route``
+    picks; raises ``NotImplementedError`` naming the ROADMAP item for a
+    scene whose route has no ported kernels yet."""
     if integrator not in INTEGRATORS:
         raise NotImplementedError(f"unknown integrator {integrator!r}; known: {INTEGRATORS}")
     n_tris = scene.tri_v0.shape[0]
-    if n_tris >= BVH_MIN_TRIS:
-        return "composed"
-    if shade.supports_scene(scene, integrator):
+    if n_tris < intersect.BVH_MIN_TRIS and shade.supports_scene(scene, integrator):
         if scene.has_oren_nayar or scene.has_pbr:
             raise NotImplementedError(
                 "Oren-Nayar and PBR materials in a scene within the fused caps "
                 "need the ON/PBR lanes of fused_bounce (ROADMAP Queue 1, item 5.1)")
         return "fused"
-    if n_tris > shade.MAX_TRIS:
-        raise NotImplementedError(
-            f"{n_tris} triangles (more than {shade.MAX_TRIS}, fewer than "
-            f"{BVH_MIN_TRIS}) take the flat triangle_closest route, not ported "
-            "yet (ROADMAP Queue 2, item 8)")
-    if scene.sph_center.shape[0] > shade.MAX_SPHERES:
-        raise NotImplementedError(
-            f"more than {shade.MAX_SPHERES} spheres with few triangles take the "
-            "clustered sphere_closest/any_hit and the flat triangle_closest, not "
-            "ported yet (ROADMAP Queue 2, items 7 and 8)")
-    raise NotImplementedError(
-        f"more than {shade.MAX_LIGHTS} lights with few triangles take "
-        "combined_closest_small, not ported yet (ROADMAP Queue 2, item 3)")
+    intersect.resolve_route(n_tris, scene.sph_center.shape[0])
+    return "composed"
 
 
 def _rr_probability(bounce, next_tp):

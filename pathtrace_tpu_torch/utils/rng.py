@@ -86,3 +86,24 @@ def per_slot_uniforms(keys, bounces: torch.Tensor) -> torch.Tensor:
     slots = torch.arange(NUM_SLOTS, dtype=torch.int64, device=k0.device)[:, None]
     b0, b1 = threefry2x32(k0[None, :], k1[None, :], torch.zeros_like(slots), slots)
     return bits_to_unit_float(b0 ^ b1)
+
+
+def bounce_uniforms(keys, bounce: int) -> torch.Tensor:
+    """The wave engine's draw for one bounce: the same stream as
+    :func:`per_slot_uniforms`, laid out ``(N, NUM_SLOTS)``."""
+    return per_slot_uniforms(keys, torch.full_like(keys[0], bounce)).T
+
+
+def primary_jitter(keys) -> torch.Tensor:
+    """Sub-pixel jitter ``(N, 2)``: slots 7-8 of the bounce-0 draw."""
+    return bounce_uniforms(keys, 0)[:, SLOT_JITTER_X:SLOT_JITTER_Y + 1]
+
+
+# Key-fold namespace of NEE light samples beyond the first: sample j draws
+# from fold_in(key, NEE_FOLD_BASE + j); sample 0 keeps the unfolded key.
+NEE_FOLD_BASE = 0x4E4545   # "NEE"
+
+
+def light_sample_keys(keys, j: int):
+    """Per-ray keys of NEE light sample ``j >= 1``: ``fold_in(key, NEE_FOLD_BASE + j)``."""
+    return fold_in(keys, torch.full_like(keys[0], NEE_FOLD_BASE + j))

@@ -31,8 +31,9 @@ from pathtrace_tpu_torch.convert import (  # noqa: E402
     split_fields,
 )
 from pathtrace_tpu_torch.models import scenes  # noqa: E402
-from pathtrace_tpu_torch.models.materials import Lambertian, OrenNayar  # noqa: E402
+from pathtrace_tpu_torch.models.materials import Emissive, Lambertian, OrenNayar  # noqa: E402
 from pathtrace_tpu_torch.models.scene import SceneBuilder  # noqa: E402
+from pathtrace_tpu_torch.ops import intersect  # noqa: E402
 
 from .imgutil import assert_images_match  # noqa: E402
 
@@ -136,31 +137,88 @@ def test_pool_counter_encoding():
 
 
 def test_unsupported_scenes_raise():
+    """Scenes whose route has no ported kernels yet raise, naming the
+    ROADMAP item: more than 512 spheres with few triangles (the clustered
+    modes) and Oren-Nayar within the fused caps; and unknown integrators."""
     b = SceneBuilder()
-    for i in range(65):      # past the fused kernels' 64-triangle cap
-        b.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), Lambertian((0.5, 0.5, 0.5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
-    b = SceneBuilder()        # between the fused caps and the BVH route
-    for i in range(1000):
-        b.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), Lambertian((0.5, 0.5, 0.5)))
-    with pytest.raises(NotImplementedError, match="triangle_closest.*ROADMAP Queue 2, item 8"):
+    for i in range(600):
+        b.add_sphere((i, 0, -3), 0.4, Lambertian((0.5, 0.5, 0.5)))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
         pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
     b = SceneBuilder().add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
-    with pytest.raises(NotImplementedError, match="Oren-Nayar"):
+    with pytest.raises(NotImplementedError, match="Oren-Nayar.*ROADMAP Queue 1, item 5.1"):
         pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
     with pytest.raises(NotImplementedError):
         pool.render_pool(scenes.cornell_box(), scenes.cornell_camera(4, 4), width=4,
                          height=4, spp=1, integrator="path")
 
 
+def _lights65():
+    from .test_torch_intersect import _lights65 as make
+
+    return make()
+
+
+def test_pool_engine_per_scene():
+    """Which engine the pool runs, and on which intersection route: the JAX
+    pool's choice (``pool.py`` fused gate + ``resolve_auto``)."""
+    def engine(jsc):
+        sc = scene_from_arrays(*split_fields(jsc))
+        branch = pool.route(sc, "mis")
+        return branch, branch == "fused" or intersect.build_tables(sc).route
+
+    assert engine(jax_scenes.cornell_box()) == ("fused", True)
+    assert engine(jax_scenes.many_spheres(n_per_side=3)) == ("fused", True)
+    assert engine(jax_scenes.mesh_scene(1000)) == ("composed", "flat")
+    assert engine(jax_scenes.mesh_scene(4200)) == ("composed", "bvh")
+    assert engine(_lights65()) == ("composed", "small")
+    b = SceneBuilder()
+    for i in range(65):      # past the fused kernels' 64-triangle cap
+        b.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), Lambertian((0.5, 0.5, 0.5)))
+    b.add_triangle((0, 2, 0), (1, 2, 0), (0, 3, 0), Emissive((4.0, 4.0, 4.0)))
+    sc = b.build()
+    assert pool.route(sc, "mis") == "composed" and intersect.build_tables(sc).route == "flat"
+    b = SceneBuilder()
+    for i in range(600):
+        b.add_sphere((i, 0, -3), 0.4, Lambertian((0.5, 0.5, 0.5)))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
+        pool.route(b.build(), "mis")
+    b = SceneBuilder().add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5.1"):
+        pool.route(b.build(), "mis")
+
+
+@pytest.mark.parametrize("integrator", ["mis", "nee", "brdf_only"])
+def test_pool_matches_jax_flat_mesh(integrator):
+    """The composed branch on the flat route's twins (992 triangles) against
+    the JAX pool's composed branch (its CPU default route)."""
+    ref, got = _render_both(
+        jax_scenes.mesh_scene(1000), jax_scenes.mesh_scene_camera(8, 8), fused=False,
+        width=8, height=8, spp=2, integrator=integrator, max_bounces=6,
+        num_slots=64, seed=5)
+    _assert_same_render(ref, got)
+
+
+def test_pool_matches_jax_many_lights():
+    """A small scene with 65 lights: the composed branch on the small
+    route (combined_closest_small's twin) against the JAX composed pool."""
+    ref, got = _render_both(
+        _lights65(), jax_scenes.default_spheres_camera(8, 8), fused=False,
+        width=8, height=8, spp=2, integrator="mis", max_bounces=6, num_slots=64, seed=5)
+    _assert_same_render(ref, got)
+    assert pool.ray_count(got[1]) > 128
+
+
 def test_port_never_imports_jax():
     code = (
-        "import sys, pkgutil, importlib, pathtrace_tpu_torch as p\n"
+        "import sys\n"
+        "for name in ('jax', 'flax', 'pathtrace_tpu'): sys.modules[name] = None  # block them\n"
+        "import pkgutil, importlib, pathtrace_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'pathtrace_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pathtrace_tpu'))\n"
-        "assert len(mods) >= 19, mods\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pathtrace_tpu')\n"
+        "             and sys.modules[k] is not None)\n"
+        "assert len(mods) >= 26, mods\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
