@@ -41,12 +41,27 @@ route for scenes of <= 64 triangles, the flat route for 64 < triangles <
     (Cornell 64x64 2 spp; mesh_scene(2000) 32x32 1 spp) and a
     mesh_scene(2000) composed-pool frame (32x32, 2 spp, depth 8): equal ray
     counts, images within the imgutil budget;
-6.  the CLI: ``python -m pathtrace_tpu_torch render --engine wave --device
-    cuda`` in a subprocess writes a PNG.
 
-The next-to-last lines are the kernels' JSON record (eight kernels) and the
-card's name and power limit; the last line is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+The opt-in per-ray mesh traversals (``method="binned"|"resident"``):
+
+3d. their four kernels against their twins on the card, bitwise, at the
+    65,536 lanes of phase 3b: the binned round kernels on the first round's
+    sorted waves; the binned drivers against the same drivers on the round
+    twins; both drivers and the resident kernels against the brute-force
+    twin on every lane; CUDA-event times, the drivers' rounds counted;
+5d. config 4 at 1 spp through ``render_pool(method=m)`` for bvh, binned and
+    resident: the same rays, iterations and a bitwise-equal image; wall,
+    Mrays/s, launches per iteration and the device's busy share;
+4d. the wave engine on mesh_scene(2000), 32x32, 1 spp, under binned and
+    resident, on the card against the CPU twins;
+6.  the CLI: ``python -m pathtrace_tpu_torch render --engine wave --device
+    cuda`` (Cornell) and ``render --scene mesh --method resident --engine
+    pool`` in subprocesses write PNGs.
+
+The next-to-last lines are the kernels' JSON record (all twelve kernels,
+each with its time, its twin's, its launches on its path and its roofline
+bound) and the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -112,10 +127,78 @@ WAVE_CHECKS = (             # (scene, width, height, spp) rendered on the card a
 )
 FLAT_POOL = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=8,
                  num_slots=1024, seed=0)
+TRAVERSAL_KERNELS = {
+    "binned_round_closest": ("pathtrace_tpu_torch/csrc/binned.cu",
+                             "pathtrace_tpu/ops/binned_intersect.py:99"),
+    "binned_round_anyhit": ("pathtrace_tpu_torch/csrc/binned.cu",
+                            "pathtrace_tpu/ops/binned_intersect.py:189"),
+    "resident_closest": ("pathtrace_tpu_torch/csrc/resident.cu",
+                         "pathtrace_tpu/ops/resident_intersect.py:177"),
+    "resident_anyhit": ("pathtrace_tpu_torch/csrc/resident.cu",
+                        "pathtrace_tpu/ops/resident_intersect.py:259"),
+}
+METHODS = ("bvh", "binned", "resident")   # the per-ray traversals, config 4 at 1 spp
+METHOD_KERNELS = {"bvh": ("bvh_closest", "bvh_anyhit"),
+                  "binned": ("binned_round_closest", "binned_round_anyhit"),
+                  "resident": ("resident_closest", "resident_anyhit")}
+METHOD_WAVE = dict(width=32, height=32, spp=1, integrator="mis", max_bounces=64, seed=0)
+# Roofline of one H100 SXM (NVIDIA's data sheet): float32 outside the tensor
+# cores and HBM bandwidth, at the full 700 W power limit.
+PEAK_FP32 = 67e12
+PEAK_HBM = 3.35e12
+# Float32 operations of one ray-primitive test (csrc/geom.cuh): hit_triangle
+# ~50 (two cross products, three dot products, a division, compares),
+# sphere_root ~20. A bound counts only the tests the inputs need: for a
+# closest hit every box that [t_min, min(t_max, t)] enters, t the answer;
+# for an any hit every entered box of an unoccluded ray and one test of an
+# occluded one. So it is a least time, below what any traversal could take.
+TRI_OPS = 50
+SPH_OPS = 20
+CLUSTER_ROWS = 256        # rows of a binned cluster
+RESIDENT_SHARED_BOXES = 1536   # csrc/resident.cu stages up to this many boxes
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time of a kernel: the larger of its bytes (each input read
+    once, each output written once) over HBM bandwidth and its float32
+    operations over the FP32 peak."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM * 1e3, n_ops / PEAK_FP32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bytes": n_bytes, "ops": n_ops}
+
+
+def entered_rows(boxes, rows: int, o, d, t_min, t_stop) -> int:
+    """Triangle rows in the boxes (``rows`` each) that the segments
+    ``[t_min, t_stop]`` enter, summed over rays."""
+    from pathtrace_tpu_torch.ops.binned import cluster_entries
+
+    n = 0
+    for a in range(0, o.shape[0], 4096):
+        b = a + 4096
+        n += int((cluster_entries(o[a:b], d[a:b], t_min[a:b], t_stop[a:b], boxes)
+                  < float("inf")).sum())
+    return n * rows
+
+
+def closest_tests(boxes, rows, o, d, t_min, t_max, t_hit) -> int:
+    """Triangle tests a closest hit over the boxes needs: every row of every
+    box entered before the answer ``t_hit`` (inf on a miss)."""
+    return entered_rows(boxes, rows, o, d, t_min, torch.minimum(t_max, t_hit))
+
+
+def anyhit_tests(boxes, rows, o, d, t_min, t_max, occ) -> int:
+    """Triangle tests an any hit over the boxes needs: every entered row of
+    an unoccluded ray, one test of an occluded one."""
+    free = ~occ
+    return entered_rows(boxes, rows, o[free], d[free], t_min[free], t_max[free]) + int(occ.sum())
 
 
 def nvidia_smi_line() -> str:
@@ -214,7 +297,7 @@ def check_kernels(dev):
     from pathtrace_tpu_torch.ops import shade
 
     worst = {"fused_bounce": 0.0, "shadow_any_hit": 0.0}
-    ms = {}
+    ms, bounds = {}, {}
     for name, scene, camera in (
         ("cornell", scenes.cornell_box(dev), scenes.cornell_camera(128, 128, dev)),
         ("many_spheres", scenes.many_spheres(device=dev),
@@ -273,6 +356,19 @@ def check_kernels(dev):
             tables, so, sd, st, occ_k, eps=shade.EPS))
         s_p = cuda_ms(lambda: shade.shadow_any_hit_reference(tables, so, sd, st))
         ms[name] = {"fused_bounce": (t_k, t_p), "shadow_any_hit": (s_k, s_p)}
+        # Work: the closest-hit tests of the busy lanes over every row
+        # (fused_bounce; its shading is not counted); every row for an
+        # unoccluded shadow query, one test for an occluded one.
+        n_tri, n_sph = scene.tri_v0.shape[0], scene.sph_center.shape[0]
+        row_ops = n_tri * TRI_OPS + n_sph * SPH_OPS
+        query = st >= shade.EPS
+        bounds[name] = {
+            "fused_bounce": bound(nbytes(*batch, *tables, *out_k),
+                                  int(batch[0].sum()) * row_ops),
+            "shadow_any_hit": bound(nbytes(so, sd, st, occ_k, *tables),
+                                    int((query & ~occ_ref).sum()) * row_ops
+                                    + int((query & occ_ref).sum()) * SPH_OPS),
+        }
         log(f"[kernels] {name} S={SLICE_S}: live/shade agree {frac:.6f}, all outputs "
             f"within tolerance {frac_close:.6f}, occlusion "
             f"agree {frac_occ:.6f} ({int(occ_ref.sum())} blocked); fused_bounce "
@@ -280,7 +376,7 @@ def check_kernels(dev):
             f"{s_p:.4f} ms")
     log(f"[kernels] worst abs error: fused_bounce {worst['fused_bounce']:.4g}, "
         f"shadow_any_hit {worst['shadow_any_hit']:.4g}")
-    return worst, ms
+    return worst, ms, bounds["many_spheres"]
 
 
 def lane_rays(scene, camera, tables, S, bounces=4, seed=0):
@@ -369,12 +465,12 @@ def check_mesh_kernels(dev, scene, camera):
     closest("sphere_closest", ref_s, intersect.sphere_closest(tables.sph, o, d, lo, hi),
             "camera+bounce")
     hi_t = torch.minimum(hi, ref_s[0])                       # as intersect() caps it
-    closest("bvh_closest", intersect.bvh_closest_reference(tables, o, d, lo, hi_t),
-            intersect.bvh_closest(tables, o, d, lo, hi_t), "camera+bounce")
-    occlusion("bvh_anyhit", intersect.bvh_anyhit_reference(tables, so, sd, lo, st),
-              intersect.bvh_anyhit(tables, so, sd, lo, st))
-    occlusion("any_hit", intersect.any_hit_reference(tables.sph, no_tris, so, sd, lo, st),
-              intersect.any_hit(tables.sph, no_tris, so, sd, lo, st))
+    ref_t = intersect.bvh_closest_reference(tables, o, d, lo, hi_t)
+    closest("bvh_closest", ref_t, intersect.bvh_closest(tables, o, d, lo, hi_t), "camera+bounce")
+    ref_occ = intersect.bvh_anyhit_reference(tables, so, sd, lo, st)
+    occlusion("bvh_anyhit", ref_occ, intersect.bvh_anyhit(tables, so, sd, lo, st))
+    ref_socc = intersect.any_hit_reference(tables.sph, no_tris, so, sd, lo, st)
+    occlusion("any_hit", ref_socc, intersect.any_hit(tables.sph, no_tris, so, sd, lo, st))
 
     # Kernels: raw launches into preallocated outputs; twins: fewer runs
     # (brute force over 70k triangles takes a large share of a second).
@@ -397,7 +493,165 @@ def check_mesh_kernels(dev, scene, camera):
         cuda_ms(lambda: intersect.any_hit_reference(tables.sph, no_tris, so, sd, lo, st)))
     log("[mesh-kernels] ms kernel vs twin at S=65536: " + ", ".join(
         f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items()))
-    return worst, ms
+
+    n_sph = tables.sph.shape[0]
+    query = st >= shade.EPS
+    rays, closest_out = nbytes(o, d, lo, hi), nbytes(*out)
+    bounds = {
+        "sphere_closest": bound(rays + nbytes(tables.sph) + closest_out, S * n_sph * SPH_OPS),
+        "bvh_closest": bound(rays + nbytes(tables.tri, tables.leaf, tables.group) + closest_out,
+                             TRI_OPS * closest_tests(tables.leaf, intersect.LEAF, o, d, lo,
+                                                     hi_t, ref_t[0])),
+        "bvh_anyhit": bound(nbytes(so, sd, lo, st, occ, tables.tri, tables.leaf, tables.group),
+                            TRI_OPS * anyhit_tests(tables.leaf, intersect.LEAF, so, sd, lo,
+                                                   st, ref_occ)),
+        "any_hit": bound(nbytes(so, sd, lo, st, occ, tables.sph),
+                         SPH_OPS * (int((query & ~ref_socc).sum()) * n_sph
+                                    + int((query & ref_socc).sum()))),
+    }
+    log("[mesh-kernels] bounds: " + json.dumps(bounds))
+    lanes = dict(o=o, d=d, lo=lo, hi_t=hi_t, ref_t=ref_t, so=so, sd=sd, st=st, ref_occ=ref_occ)
+    return worst, ms, bounds, lanes
+
+
+def _bitwise(name, ref, got) -> float:
+    """Raise unless ``got`` equals ``ref`` bit for bit (a tensor or a tuple of
+    them); returns the largest absolute difference of the float outputs on
+    hit lanes (0 when they are equal)."""
+    torch.cuda.synchronize()
+    ref, got = (ref, got) if isinstance(ref, tuple) else ((ref,), (got,))
+    err = 0.0
+    for a, b in zip(ref, got):
+        if a.dtype == torch.float32:
+            bad = a.view(torch.int32) != b.view(torch.int32)
+            live = torch.isfinite(a)
+            if live.any():
+                err = max(err, (a - b)[live].abs().max().item())
+        else:
+            bad = a != b
+        if bad.any():
+            lanes = bad.any(1) if bad.dim() == 2 else bad
+            raise AssertionError(f"{name}: {int(lanes.sum())} of {lanes.shape[0]} lanes differ")
+    return err
+
+
+def check_traversal_kernels(dev, scene, lanes):
+    """Phase 3d: the binned and resident kernels against their twins on the
+    card, bitwise, at the mesh lanes of phase 3b: the round kernels on the
+    first round's sorted waves; the binned drivers against the same drivers
+    on the round twins; both drivers and the resident kernels against the
+    brute-force twin on every lane."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import binned, intersect
+
+    o, d, lo, hi_t, ref_t = (lanes[k] for k in ("o", "d", "lo", "hi_t", "ref_t"))
+    so, sd, st, ref_occ = (lanes[k] for k in ("so", "sd", "st", "ref_occ"))
+    S = o.shape[0]
+    tb = intersect.build_tables(scene, "binned")
+    tr = intersect.build_tables(scene, "resident")
+    f32, i32 = torch.float32, torch.int32
+    worst, ms, bounds = {}, {}, {}
+    slow = dict(runs=3, calls=1)
+
+    def first_round(o_, d_, t_min, t_max):
+        """The first round's live rays sorted by cluster, as the drivers
+        build them (no hit yet, so the bound is ``t_max``)."""
+        st0, idmask, n_clusters = binned._initial_state(tb, o_, d_, t_min, t_max)
+        live = binned.live_rays(st0["kmin"], idmask, t_max)
+        perm, key = binned._sorted_wave(st0, live, int(live.sum()), idmask, n_clusters)
+        return tuple(x[perm].contiguous() for x in (o_, d_, t_min, t_max)) + (key,)
+
+    def outs(n):
+        return (torch.empty(n, device=dev), torch.empty(n, dtype=i32, device=dev),
+                torch.empty((n, 3), dtype=f32, device=dev), torch.empty(n, dtype=i32, device=dev))
+
+    # One round of each binned kernel.
+    rc = first_round(o, d, lo, hi_t)
+    ref_rc = binned.round_closest_reference(tb, *rc)
+    worst["binned_round_closest"] = _bitwise("binned_round_closest", ref_rc,
+                                             binned.round_closest(tb, *rc))
+    ra = first_round(so, sd, lo, st)
+    ref_ra = binned.round_anyhit_reference(tb, *ra)
+    worst["binned_round_anyhit"] = _bitwise("binned_round_anyhit", ref_ra,
+                                            binned.round_anyhit(tb, *ra))
+    # The whole binned drivers: on the kernels, on the round twins, brute force.
+    stats_c, stats_a = {}, {}
+    got_c = binned.triangle_closest_binned(tb, o, d, lo, hi_t, stats=stats_c)
+    _bitwise("binned closest driver vs its round twin",
+             binned.triangle_closest_binned(tb, o, d, lo, hi_t, round_twin=True), got_c)
+    _bitwise("binned closest driver vs brute force", ref_t, got_c)
+    got_a = binned.triangle_anyhit_binned(tb, so, sd, lo, st, stats=stats_a)
+    _bitwise("binned any-hit driver vs its round twin",
+             binned.triangle_anyhit_binned(tb, so, sd, lo, st, round_twin=True), got_a)
+    _bitwise("binned any-hit driver vs brute force", ref_occ, got_a)
+    # The resident kernels against brute force.
+    worst["resident_closest"] = _bitwise("resident_closest", ref_t,
+                                         intersect.resident_closest(tr, o, d, lo, hi_t))
+    worst["resident_anyhit"] = _bitwise("resident_anyhit", ref_occ,
+                                        intersect.resident_anyhit(tr, so, sd, lo, st))
+    # The same with more boxes than the kernels stage in shared memory, so
+    # they read them from device memory: padded with inverted boxes.
+    pad = RESIDENT_SHARED_BOXES + 8 - tr.leaf.shape[0]
+    inverted = torch.tensor([float("inf")] * 3 + [float("-inf")] * 3 + [0.0, 0.0], device=dev)
+    big = tr._replace(leaf=torch.cat([tr.leaf, inverted.expand(pad, 8)]).contiguous(),
+                      tri=torch.cat([tr.tri, tr.tri.new_zeros((pad * intersect.LEAF, 16))]))
+    _bitwise("resident_closest, boxes in device memory", ref_t,
+             intersect.resident_closest(big, o, d, lo, hi_t))
+    _bitwise("resident_anyhit, boxes in device memory", ref_occ,
+             intersect.resident_anyhit(big, so, sd, lo, st))
+    del big
+
+    out_c, occ_a = outs(rc[0].shape[0]), torch.empty(ra[0].shape[0], dtype=torch.bool, device=dev)
+    out, occ = outs(S), torch.empty(S, dtype=torch.bool, device=dev)
+    ms["binned_round_closest"] = (
+        cuda_ms(lambda: binding.launch_binned_round_closest(tb, *rc, *out_c)),
+        cuda_ms(lambda: binned.round_closest_reference(tb, *rc), **slow))
+    ms["binned_round_anyhit"] = (
+        cuda_ms(lambda: binding.launch_binned_round_anyhit(tb, *ra, occ_a)),
+        cuda_ms(lambda: binned.round_anyhit_reference(tb, *ra), **slow))
+    ms["resident_closest"] = (
+        cuda_ms(lambda: binding.launch_resident_closest(tr, o, d, lo, hi_t, *out)),
+        cuda_ms(lambda: intersect.triangle_closest_reference(tr, o, d, lo, hi_t), **slow))
+    ms["resident_anyhit"] = (
+        cuda_ms(lambda: binding.launch_resident_anyhit(tr, so, sd, lo, st, occ)),
+        cuda_ms(lambda: intersect.bvh_anyhit_reference(tr, so, sd, lo, st), **slow))
+    drivers = {
+        "closest": cuda_ms(lambda: binned.triangle_closest_binned(tb, o, d, lo, hi_t), runs=5,
+                           calls=1),
+        "anyhit": cuda_ms(lambda: binned.triangle_anyhit_binned(tb, so, sd, lo, st), runs=5,
+                          calls=1),
+    }
+
+    cluster_bytes = CLUSTER_ROWS * tb.tri.shape[1] * 4
+    n_rc, n_ra = rc[0].shape[0], ra[0].shape[0]
+    bounds = {
+        "binned_round_closest": bound(
+            nbytes(*rc, *out_c) + cluster_bytes * torch.unique(rc[4]).numel(),
+            n_rc * CLUSTER_ROWS * TRI_OPS),
+        "binned_round_anyhit": bound(
+            nbytes(*ra, occ_a) + cluster_bytes * torch.unique(ra[4]).numel(),
+            TRI_OPS * (int((~ref_ra).sum()) * CLUSTER_ROWS + int(ref_ra.sum()))),
+        "resident_closest": bound(
+            nbytes(o, d, lo, hi_t, tr.tri, tr.leaf, *out),
+            TRI_OPS * closest_tests(tr.leaf, intersect.LEAF, o, d, lo, hi_t, ref_t[0])),
+        "resident_anyhit": bound(
+            nbytes(so, sd, lo, st, tr.tri, tr.leaf, occ),
+            TRI_OPS * anyhit_tests(tr.leaf, intersect.LEAF, so, sd, lo, st, ref_occ)),
+    }
+    log(f"[traversal-kernels] {scene.num_tris} triangles: binned {tb.leaf.shape[0]} clusters "
+        f"of 256 rows, resident {tr.leaf.shape[0]} boxes of 128 rows; S={S}. Bitwise equal to "
+        f"their twins: binned_round_closest on the first round's {n_rc} live rays, "
+        f"binned_round_anyhit on {n_ra}; the binned drivers (closest: {stats_c['rounds']} rounds, "
+        f"{stats_c['ray_rounds']} ray-rounds; any hit: {stats_a['rounds']} rounds, "
+        f"{stats_a['ray_rounds']} ray-rounds) equal the same drivers on the round twins and the "
+        f"brute-force twin on every lane; resident_closest and resident_anyhit equal brute force "
+        f"on every lane, with the boxes in shared memory and (padded to {pad + tr.leaf.shape[0]} "
+        f"boxes) in device memory")
+    log("[traversal-kernels] ms kernel vs twin: " + ", ".join(
+        f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items())
+        + f"; whole binned driver on the kernels: closest {drivers['closest']:.4f} ms, "
+        f"any hit {drivers['anyhit']:.4f} ms; bounds: {json.dumps(bounds)}")
+    return worst, ms, bounds
 
 
 def run_mesh_frame(dev):
@@ -422,7 +676,8 @@ def run_mesh_frame(dev):
         raise AssertionError(f"mesh launches {launches} for {iters} iterations")
     t0 = time.perf_counter()
     img_cpu, counters_cpu, iters_cpu = render_pool(
-        scenes.mesh_scene(MESH_FRAME_TRIS), scenes.mesh_scene_camera(W, H), **MESH_FRAME)
+        scenes.mesh_scene(MESH_FRAME_TRIS, device="cpu"),
+        scenes.mesh_scene_camera(W, H, device="cpu"), **MESH_FRAME)
     cpu_s = time.perf_counter() - t0
     rays, rays_cpu = ray_count(counters), ray_count(counters_cpu)
     if abs(rays - rays_cpu) > 1e-3 * rays_cpu:
@@ -478,6 +733,111 @@ def run_config4(scene, camera, smi: str):
     return launches
 
 
+def device_work(fn) -> tuple[float | None, int]:
+    """``(ms, ops)``: device time and the number of device operations
+    (kernels, copies, fills) over one call of ``fn``, from ``torch.profiler``
+    with CUDA activity only; ms is None when the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us, ops = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            us += t
+            ops += e.count
+    return (us / 1e3 if us > 0 else None), ops
+
+
+def run_config4_methods(scene, camera, smi: str):
+    """Phase 5d: config 4 at 1 spp through ``render_pool(method=m)`` for the
+    three per-ray traversals. Each equals brute force, so the frames must
+    give the same rays, iterations and a bitwise-equal image. Each is timed
+    twice, in turns (bvh, binned, resident, resident, binned, bvh: wall,
+    Mrays/s); its hand-written kernels' launches and all its device
+    operations (a third, profiled run) are counted per iteration, and its
+    device busy share is the profiler's device time over each unprofiled
+    wall."""
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+
+    run = dict(CONFIG4, spp=1)
+    launches, walls, first = {}, {m: [] for m in METHODS}, None
+    for m in METHODS + METHODS[::-1]:
+        shade.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, counters, iters = render_pool(scene, camera, method=m, **run)
+        checksum = float(img.double().sum().item())     # forces completion
+        walls[m].append(time.perf_counter() - t0)
+        if m in launches:
+            continue
+        launches[m] = dict(shade.LAUNCHES)
+        if img.shape != (run["width"] * run["height"], 3) or not torch.isfinite(img).all():
+            raise AssertionError(f"config 4 under {m}: image not finite")
+        for k in METHOD_KERNELS[m]:
+            if launches[m].get(k, 0) <= 0:
+                raise AssertionError(f"{k} was not launched under method {m}: {launches[m]}")
+        rays = ray_count(counters)
+        if first is None:
+            first = (m, img, rays, iters, checksum)
+        elif (rays, iters) != first[2:4] or not torch.equal(img, first[1]):
+            raise AssertionError(
+                f"config 4: {m} gave {rays} rays, {iters} iterations, checksum {checksum}; "
+                f"{first[0]} gave {first[2]}, {first[3]}, {first[4]} (or the images differ)")
+    rays, iters = first[2], first[3]
+    for m in METHODS:
+        dev_ms, dev_ops = device_work(lambda: render_pool(scene, camera, method=m, **run))
+        result = {
+            "workload": f"mesh_scene {scene.num_tris} tris {run['width']}x{run['height']} 1spp "
+                        f"MIS depth {run['max_bounces']} method {m}",
+            "total_rays": rays, "iters": iters, "wall_s": walls[m],
+            "mrays_per_s": [rays / w / 1e6 for w in walls[m]],
+            "device_ops_per_iter": dev_ops / iters,
+            "kernel_launches_per_iter": {k: launches[m][k] / iters for k in sorted(launches[m])},
+            "device_ms": dev_ms,
+            "busy_share": [dev_ms / 1e3 / w for w in walls[m]] if dev_ms else None,
+            "card": smi,
+        }
+        log("[config4-methods] " + json.dumps(result))
+    log(f"[config4-methods] {', '.join(METHODS)}: the same {first[2]} rays, {first[3]} "
+        f"iterations and a bitwise-equal image (checksum {first[4]})")
+    return launches
+
+
+def run_wave_methods(dev):
+    """Phase 4d: the wave engine on mesh_scene(2000) with ``method="binned"``
+    and ``"resident"`` on the card against the same renders on the CPU
+    twins: equal ray queries, images within the imgutil budget."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.render import RenderConfig, render
+
+    W, H = METHOD_WAVE["width"], METHOD_WAVE["height"]
+    for m in ("binned", "resident"):
+        cfg = RenderConfig(method=m, **METHOD_WAVE)
+        shade.LAUNCHES.clear()
+        gpu = render(scenes.mesh_scene(FLAT_TRIS, device=dev),
+                     scenes.mesh_scene_camera(W, H, dev), cfg)
+        img = gpu.image.cpu().numpy()
+        launches = dict(shade.LAUNCHES)
+        cpu = render(scenes.mesh_scene(FLAT_TRIS, device="cpu"),
+                     scenes.mesh_scene_camera(W, H, "cpu"), cfg)
+        if gpu.ray_queries != cpu.ray_queries:
+            raise AssertionError(f"wave {m}: rays GPU {gpu.ray_queries} vs CPU "
+                                 f"{cpu.ray_queries}")
+        assert_images_match(img, cpu.image.numpy())
+        want = {"sphere_closest", "any_hit", *METHOD_KERNELS[m]}
+        if set(launches) != want:
+            raise AssertionError(f"wave {m} launched {launches}")
+        log(f"[wave-methods] mesh_scene({FLAT_TRIS}) {W}x{H} 1spp MIS method {m}: rays "
+            f"{gpu.ray_queries} on both; max pixel diff "
+            f"{np.abs(img - cpu.image.numpy()).max():.4g}; launches {launches}")
+
+
 def run_cornell(dev):
     """Phase 4: the compile-check entry point's frame, GPU against CPU."""
     from pathtrace_tpu_torch.models import scenes
@@ -496,7 +856,7 @@ def run_cornell(dev):
     if launches.get("fused_bounce", 0) != iters or launches.get("shadow_any_hit", 0) <= 0:
         raise AssertionError(f"cornell launches {launches} for {iters} iterations")
     img_cpu, counters_cpu, iters_cpu = render_pool(
-        scenes.cornell_box(), scenes.cornell_camera(W, H), **CORNELL)
+        scenes.cornell_box("cpu"), scenes.cornell_camera(W, H, "cpu"), **CORNELL)
     rays, rays_cpu = ray_count(counters), ray_count(counters_cpu)
     if abs(rays - rays_cpu) > 1e-3 * rays_cpu:
         raise AssertionError(f"cornell rays GPU {rays} vs CPU {rays_cpu}")
@@ -567,7 +927,7 @@ def check_wave_kernels(dev):
     lo = torch.full((S,), shade.EPS, device=dev)
     hi = torch.full((S,), float("inf"), device=dev)
     worst = {"combined_closest_small": 0.0, "triangle_closest": 0.0, "any_hit": 0.0}
-    ms = {}
+    ms, bounds = {}, {}
     f32, i32 = torch.float32, torch.int32
     out = (torch.empty(S, device=dev), torch.empty(S, dtype=i32, device=dev),
            torch.empty((S, 3), dtype=f32, device=dev), torch.empty(S, dtype=i32, device=dev))
@@ -575,23 +935,11 @@ def check_wave_kernels(dev):
     slow = dict(runs=3, calls=1)
 
     def same(name, ref, got):
-        torch.cuda.synchronize()
-        t, idx, nrm, mat = got
-        rt, ridx, rnrm, rmat = ref
-        bad = ((idx != ridx) | (mat != rmat) | (t.view(i32) != rt.view(i32))
-               | (nrm.view(i32) != rnrm.view(i32)).any(1))
-        if bad.any():
-            raise AssertionError(f"{name}: {int(bad.sum())} of {S} lanes differ from the twin")
-        hit = ridx >= 0
-        err = max((t - rt)[hit].abs().max().item(), (nrm - rnrm)[hit].abs().max().item()) \
-            if hit.any() else 0.0
-        worst[name] = max(worst[name], err)
-        return int(hit.sum())
+        worst[name] = max(worst[name], _bitwise(name, ref, got))
+        return int((ref[1] >= 0).sum())
 
     def same_occ(ref, got):
-        torch.cuda.synchronize()
-        if not torch.equal(ref, got):
-            raise AssertionError(f"any_hit: {int((ref != got).sum())} of {S} lanes differ")
+        _bitwise("any_hit", ref, got)
         return int(ref.sum())
 
     cases = (
@@ -629,13 +977,22 @@ def check_wave_kernels(dev):
         a_p = cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
                       **(slow if tables.route == "flat" else {}))
         ms[name] = {kname: (k_ms, p_ms), "any_hit": (a_ms, a_p)}
+        if tables.route == "small":     # no cull: every row for every lane
+            bounds[name] = {kname: bound(
+                nbytes(o, d, lo, hi, tables.tri, tables.sph, *out),
+                S * (tables.tri_rows * TRI_OPS + tables.sph.shape[0] * SPH_OPS))}
+        else:
+            bounds[name] = {kname: bound(
+                nbytes(o, d, lo, hi_t, tables.tri, tables.leaf, *out),
+                TRI_OPS * closest_tests(tables.leaf, tables.tri.shape[0] // tables.leaf.shape[0],
+                                        o, d, lo, hi_t, ref[0]))}
         log(f"[wave-kernels] {name} ({tables.route} route, {tables.tri_rows} triangle rows, "
             f"{tables.sph.shape[0]} spheres) S={S}: {kname} equals its twin bitwise on every "
             f"lane ({hits} hits), {k_ms:.4f} ms vs twin {p_ms:.4f} ms; any_hit equals its twin "
             f"({blocked} blocked of {int((st >= shade.EPS).sum())} queries), {a_ms:.4f} ms vs "
             f"twin {a_p:.4f} ms")
-    log(f"[wave-kernels] worst abs error: {worst}")
-    return worst, ms
+    log(f"[wave-kernels] worst abs error: {worst}; bounds: {json.dumps(bounds)}")
+    return worst, ms, bounds
 
 
 def run_wave_cornell(dev, smi: str):
@@ -710,7 +1067,7 @@ def run_wave_gpu_vs_cpu(dev):
         img = gpu.image.cpu().numpy()
         launches = dict(shade.LAUNCHES)
         t0 = time.perf_counter()
-        cpu = render(*build(name, W, H, None), cfg)
+        cpu = render(*build(name, W, H, "cpu"), cfg)
         cpu_s = time.perf_counter() - t0
         if gpu.ray_queries != cpu.ray_queries:
             raise AssertionError(f"wave {name}: rays GPU {gpu.ray_queries} vs CPU "
@@ -731,7 +1088,7 @@ def run_wave_gpu_vs_cpu(dev):
     img, counters, iters = render_pool(*build("mesh", W, H, dev), **FLAT_POOL)
     img = img.cpu().numpy()
     launches = dict(shade.LAUNCHES)
-    img_cpu, counters_cpu, iters_cpu = render_pool(*build("mesh", W, H, None), **FLAT_POOL)
+    img_cpu, counters_cpu, iters_cpu = render_pool(*build("mesh", W, H, "cpu"), **FLAT_POOL)
     rays, rays_cpu = ray_count(counters), ray_count(counters_cpu)
     if (rays, iters) != (rays_cpu, iters_cpu):
         raise AssertionError(f"flat pool: GPU {rays} rays {iters} iters, CPU {rays_cpu} "
@@ -747,22 +1104,27 @@ def run_wave_gpu_vs_cpu(dev):
 
 
 def run_cli():
-    """Phase 6: the port's CLI renders a wave frame on the card."""
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "cli.png")
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "pathtrace_tpu_torch", "render", "--scene", "cornell",
-             "--engine", "wave", "--width", "64", "--height", "64", "--spp", "2",
-             "--device", "cuda", "--out", out],
-            capture_output=True, text=True, timeout=300)
-        if r.returncode != 0:
-            raise AssertionError(f"CLI exited {r.returncode}: {r.stderr[-2000:]}")
-        with open(out, "rb") as f:
-            if f.read(8) != b"\x89PNG\r\n\x1a\n":
-                raise AssertionError("CLI output is not a PNG")
-    log(f"[cli] render --engine wave --device cuda 64x64 2spp: exit 0, PNG written "
-        f"({time.perf_counter() - t0:.1f} s)")
+    """Phase 6: the port's CLI renders a wave frame, and a mesh pool frame
+    under ``--method resident``, on the card."""
+    for args in (["--scene", "cornell", "--engine", "wave", "--width", "64", "--height", "64",
+                  "--spp", "2"],
+                 ["--scene", "mesh", "--method", "resident", "--engine", "pool", "--width",
+                  "32", "--height", "32", "--spp", "1", "--max-bounces", "4",
+                  "--pool-slots", "1024"]):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "cli.png")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "pathtrace_tpu_torch", "render", *args,
+                 "--device", "cuda", "--out", out],
+                capture_output=True, text=True, timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"CLI {args} exited {r.returncode}: {r.stderr[-2000:]}")
+            with open(out, "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    raise AssertionError(f"CLI {args}: output is not a PNG")
+        log(f"[cli] render {' '.join(args)} --device cuda: exit 0, PNG written "
+            f"({time.perf_counter() - t0:.1f} s)")
 
 
 def main() -> int:
@@ -782,40 +1144,50 @@ def main() -> int:
 
     from pathtrace_tpu_torch.models import scenes
 
-    worst, ms = check_kernels(dev)
+    worst, ms, bnd = check_kernels(dev)
     t0 = time.perf_counter()
     mesh = scenes.mesh_scene(device=dev)
     mesh_cam = scenes.mesh_scene_camera(CONFIG4["width"], CONFIG4["height"], dev)
     log(f"[mesh] mesh_scene: {mesh.num_tris} triangles built in "
         f"{time.perf_counter() - t0:.2f} s")
-    mesh_worst, mesh_ms = check_mesh_kernels(dev, mesh, mesh_cam)
-    wave_worst, wave_ms = check_wave_kernels(dev)
+    mesh_worst, mesh_ms, mesh_bnd, lanes = check_mesh_kernels(dev, mesh, mesh_cam)
+    trav_worst, trav_ms, trav_bnd = check_traversal_kernels(dev, mesh, lanes)
+    del lanes
+    wave_worst, wave_ms, wave_bnd = check_wave_kernels(dev)
     run_cornell(dev)
     run_mesh_frame(dev)
     launches = run_bench(dev, smi)
     mesh_launches = run_config4(mesh, mesh_cam, smi)
+    method_launches = run_config4_methods(mesh, mesh_cam, smi)
     wave_launches = run_wave_cornell(dev, smi)
     flat_launches = run_wave_gpu_vs_cpu(dev)
+    run_wave_methods(dev)
     run_cli()
 
+    def entry(name, src, rep, n_launches, err, times, bnd):
+        return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": n_launches, "max_abs_err": err, "ms": times[0],
+                "plain_ms": times[1], "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                "library_ms": None}   # no single PyTorch call computes a closest or any hit
+
     mesh_worst["any_hit"] = max(mesh_worst["any_hit"], wave_worst["any_hit"])
+    cases = {"combined_closest_small": ("cornell", wave_launches),
+             "triangle_closest": (f"mesh_{FLAT_TRIS}", flat_launches)}
+    method_of = {k: m for m, ks in METHOD_KERNELS.items() for k in ks}
     record = {"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": worst[k],
-         "ms": ms["many_spheres"][k][0], "plain_ms": ms["many_spheres"][k][1]}
+        entry(k, src, rep, launches[k], worst[k], ms["many_spheres"][k], bnd[k])
         for k, (src, rep) in KERNELS.items()
     ] + [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": mesh_launches[k], "max_abs_err": mesh_worst[k],
-         "ms": mesh_ms[k][0], "plain_ms": mesh_ms[k][1]}
+        entry(k, src, rep, mesh_launches[k], mesh_worst[k], mesh_ms[k], mesh_bnd[k])
         for k, (src, rep) in MESH_KERNELS.items()
     ] + [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": run_launches[k], "max_abs_err": wave_worst[k],
-         "ms": wave_ms[case][k][0], "plain_ms": wave_ms[case][k][1]}
-        for (k, (src, rep)), run_launches, case in zip(
-            WAVE_KERNELS.items(), (wave_launches, flat_launches),
-            ("cornell", f"mesh_{FLAT_TRIS}"))
+        entry(k, src, rep, cases[k][1][k], wave_worst[k], wave_ms[cases[k][0]][k],
+              wave_bnd[cases[k][0]][k])
+        for k, (src, rep) in WAVE_KERNELS.items()
+    ] + [
+        entry(k, src, rep, method_launches[method_of[k]][k], trav_worst[k], trav_ms[k],
+              trav_bnd[k])
+        for k, (src, rep) in TRAVERSAL_KERNELS.items()
     ]}
     print(json.dumps(record))
     print(smi)

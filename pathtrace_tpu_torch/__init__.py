@@ -7,6 +7,11 @@ coordinates, on one NVIDIA GPU through hand-written CUDA kernels
 plain-torch twins. Two engines: the persistent path pool
 (:func:`render_pool`) and the wavefront engine (:func:`render`,
 :func:`trace_wave`). It never imports JAX.
+
+Scenes, cameras and loaded checkpoints are built on the GPU (``"cuda"``)
+unless the caller passes ``device="cpu"``; without a GPU the default raises
+and nothing falls back to the CPU. The engines run on the device of the
+scene they are given.
 """
 
 from .integrators import trace_wave

@@ -13,9 +13,13 @@ defaults:
 
 ``--device cuda`` (the default) renders on the GPU through the CUDA kernels
 and fails when there is none; ``--device cpu`` runs the kernels' plain twins,
-and only when asked. Not ported yet, each exiting with status 2 and a
-message naming its ROADMAP item: ``--dtype f64``, ``--method binned`` and
-``--method resident``, the multi-process flags and ``bench``.
+and only when asked. ``--method`` picks the intersection traversal of every
+engine (``render --engine pool|wave``, ``animate``, ``debug-pixel``), as the
+JAX CLI's process default does: ``auto``, ``pallas``, ``bvh``, ``binned``,
+``resident``. ``--method bruteforce`` exits with status 2 (``--device cpu``
+is the port's brute force). Not ported yet, each exiting with status 2 and a
+message naming its ROADMAP item: ``--dtype f64``, the multi-process flags
+and ``bench``.
 """
 
 from __future__ import annotations
@@ -74,9 +78,6 @@ def cmd_render(args) -> int:
         print("--light-samples requires --engine wave (the pool is fixed at the "
               "reference's one light sample per vertex)", file=sys.stderr)
         return 2
-    if args.method != "auto" and args.engine != "wave":
-        raise Unported(f"--method {args.method} with --engine pool: the pool takes the "
-                       "auto route only (ROADMAP Queue 1, item 9)")
     device = _device(args)
     scene, camera = _build(args, device)
     cfg = _config(args, samples_per_batch=args.samples_per_batch,
@@ -97,7 +98,8 @@ def cmd_render(args) -> int:
             img, _, _ = render_pool(
                 scene, camera, width=args.width, height=args.height, spp=n,
                 integrator=args.integrator, max_bounces=args.max_bounces,
-                num_slots=args.pool_slots, seed=args.seed, sample_offset=done)
+                num_slots=args.pool_slots, seed=args.seed, sample_offset=done,
+                method=args.method)
             image_sum = img if image_sum is None else image_sum + img
             done += n
             state = RenderState(image_sum.reshape(args.height, args.width, 3), done)
@@ -161,7 +163,7 @@ def cmd_debug_pixel(args) -> int:
         scene, camera, args.x, args.y,
         width=args.width, height=args.height, spp=args.spp,
         integrator=args.integrator, seed=args.seed,
-        luminance_threshold=args.threshold,
+        luminance_threshold=args.threshold, method=args.method,
     )
     print(json.dumps(report, indent=2))
     return 0
@@ -190,9 +192,11 @@ def main(argv=None) -> int:
         sp.add_argument("--method",
                         choices=["auto", "pallas", "binned", "resident", "bvh", "bruteforce"],
                         default="auto",
-                        help="intersection route: auto (small/flat/bvh by scene size), "
-                             "pallas (no BVH), bvh (BVH past 64 triangles); binned and "
-                             "resident are not ported yet")
+                        help="intersection traversal: auto (small/flat/bvh by scene "
+                             "size), pallas (no BVH); past 64 triangles bvh (two-level "
+                             "BVH), binned (per-ray rounds over 256-row clusters) or "
+                             "resident (per-ray nearest-first 128-row clusters); "
+                             "bruteforce exits 2 (--device cpu runs the plain twins)")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda: the CUDA kernels on a GPU; cpu: their plain twins")
 

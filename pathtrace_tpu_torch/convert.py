@@ -43,14 +43,14 @@ def split_fields(obj) -> tuple[dict, dict]:
 
 
 def scene_from_arrays(arrays: Mapping[str, np.ndarray], static: Mapping,
-                      device=None) -> Scene:
+                      device="cuda") -> Scene:
     """``arrays``: every tensor field of :class:`Scene` by name;
     ``static``: its ints and flags (``num_tris``, ``has_mirror``, ...)."""
     return _fields(Scene, arrays, static, device)
 
 
 def camera_from_arrays(arrays: Mapping[str, np.ndarray], static: Mapping,
-                       device=None) -> Camera:
+                       device="cuda") -> Camera:
     """``arrays``: ``origin``, ``lower_left_corner``, ``horizontal``,
     ``vertical``; ``static``: ``width`` and ``height``."""
     return _fields(Camera, arrays, static, device)

@@ -15,6 +15,7 @@ import torch
 from .integrators import trace_wave
 from .models.camera import Camera
 from .models.scene import Scene
+from .ops import intersect
 from .utils import rng, vec
 
 
@@ -30,15 +31,18 @@ def render_pixel_samples(
     integrator: str = "mis",
     max_bounces: int = 64,
     seed: int = 0,
+    method: str = "auto",
 ) -> np.ndarray:
-    """Radiance of every sample of pixel ``(x, y)``: ``(spp, 3)``."""
+    """Radiance of every sample of pixel ``(x, y)``: ``(spp, 3)``, traced on
+    the intersection route of ``method`` (``intersect.resolve_route``)."""
     device = scene.device
     pixel_id = torch.full((spp,), y * width + x, dtype=torch.int64, device=device)
     sample_idx = torch.arange(spp, dtype=torch.int64, device=device)
     keys = rng.pixel_sample_keys(rng.base_key(seed, device), pixel_id, sample_idx)
     o, d = camera.generate_rays(pixel_id % width, height - 1 - pixel_id // width,
                                 rng.primary_jitter(keys), transposed=False)
-    radiance = trace_wave(scene, o, d, keys, integrator=integrator, max_bounces=max_bounces)
+    radiance = trace_wave(scene, o, d, keys, integrator=integrator, max_bounces=max_bounces,
+                          tables=intersect.build_tables(scene, method))
     return radiance.cpu().numpy()
 
 
@@ -55,12 +59,13 @@ def replay_pixel(
     max_bounces: int = 64,
     seed: int = 0,
     luminance_threshold: float = 10.0,
+    method: str = "auto",
 ) -> dict:
     """Firefly report for one pixel: its mean, its brightest sample and the
     samples whose luminance exceeds ``luminance_threshold``."""
     samples = render_pixel_samples(
         scene, camera, x, y, width=width, height=height, spp=spp,
-        integrator=integrator, max_bounces=max_bounces, seed=seed,
+        integrator=integrator, max_bounces=max_bounces, seed=seed, method=method,
     )
     lum = vec.luminance(torch.from_numpy(samples)).numpy()
     mean = samples.mean(axis=0)

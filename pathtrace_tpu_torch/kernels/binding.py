@@ -1,8 +1,9 @@
 """ctypes binding of the CUDA kernels (built by :mod:`.build` at first use).
 
 Each ``launch_*`` takes contiguous CUDA tensors, already checked by the
-wrappers in ``ops/shade.py`` and ``ops/intersect.py``, passes their raw pointers and PyTorch's current
-stream, and raises if the launch was refused. The kernels allocate nothing
+wrappers in ``ops/shade.py``, ``ops/intersect.py`` and ``ops/binned.py``,
+passes their raw pointers and PyTorch's current stream, and raises if the
+launch was refused. The kernels allocate nothing
 and do not synchronise.
 """
 
@@ -44,6 +45,14 @@ def library() -> ctypes.CDLL:
         lib.pt_combined_closest_small.restype = _I
         lib.pt_triangle_closest.argtypes = [_P, _P, _I] + [_P] * 8 + [_I, _P]
         lib.pt_triangle_closest.restype = _I
+        lib.pt_binned_round_closest.argtypes = [_P, _I] + [_P] * 9 + [_I, _P]
+        lib.pt_binned_round_closest.restype = _I
+        lib.pt_binned_round_anyhit.argtypes = [_P, _I] + [_P] * 6 + [_I, _P]
+        lib.pt_binned_round_anyhit.restype = _I
+        lib.pt_resident_closest.argtypes = [_P, _P, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_resident_closest.restype = _I
+        lib.pt_resident_anyhit.argtypes = [_P, _P, _I] + [_P] * 5 + [_I, _P]
+        lib.pt_resident_anyhit.restype = _I
         _lib = lib
     return _lib
 
@@ -162,3 +171,50 @@ def launch_triangle_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
             idx.data_ptr(), n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "triangle_closest")
+
+
+def launch_binned_round_closest(tables, o, d, t_min, t_up, key, t, idx, n, m) -> None:
+    """``tables`` is an ``ops.intersect.Tables`` of the binned route; the
+    wave is sorted by ``key``."""
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_binned_round_closest(
+            tables.tri.data_ptr(), tables.leaf.shape[0], o.data_ptr(), d.data_ptr(),
+            t_min.data_ptr(), t_up.data_ptr(), key.data_ptr(), t.data_ptr(), idx.data_ptr(),
+            n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "binned_round_closest")
+
+
+def launch_binned_round_anyhit(tables, o, d, t_min, t_max, key, occ) -> None:
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_binned_round_anyhit(
+            tables.tri.data_ptr(), tables.leaf.shape[0], o.data_ptr(), d.data_ptr(),
+            t_min.data_ptr(), t_max.data_ptr(), key.data_ptr(), occ.data_ptr(),
+            t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "binned_round_anyhit")
+
+
+def launch_resident_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
+    """``tables`` is an ``ops.intersect.Tables`` of the resident route."""
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_resident_closest(
+            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0],
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(),
+            idx.data_ptr(), n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "resident_closest")
+
+
+def launch_resident_anyhit(tables, o, d, t_min, t_max, occ) -> None:
+    lib = library()
+    with torch.cuda.device(t_min.device):
+        code = lib.pt_resident_anyhit(
+            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0],
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), occ.data_ptr(),
+            t_min.shape[0], _stream(t_min.device),
+        )
+    _raise_on(code, "resident_anyhit")

@@ -32,7 +32,7 @@ class Camera:
     @classmethod
     def perspective(cls, origin, width: int, height: int,
                     screen_distance: float = 1.0, fov_degrees: float = 35.0,
-                    device=None) -> "Camera":
+                    device="cuda") -> "Camera":
         """Axis-aligned camera looking down -Z."""
         fov = math.radians(fov_degrees)
         aspect = width / height
@@ -50,7 +50,7 @@ class Camera:
 
     @classmethod
     def look_at(cls, origin, target, up, width: int, height: int,
-                fov_degrees: float = 35.0, device=None) -> "Camera":
+                fov_degrees: float = 35.0, device="cuda") -> "Camera":
         """Free-look constructor."""
         fov = math.radians(fov_degrees)
         aspect = width / height

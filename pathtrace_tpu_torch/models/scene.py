@@ -154,9 +154,11 @@ class Scene:
 
 
 class SceneBuilder:
-    """Scene-construction API producing the SoA :class:`Scene`."""
+    """Scene-construction API producing the SoA :class:`Scene` on ``device``
+    (the GPU unless ``"cpu"`` is asked for; :meth:`build` raises where
+    there is no GPU)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device="cuda"):
         self.device = device
         self._tris: List[Tuple[np.ndarray, np.ndarray, np.ndarray, int]] = []
         self._sphs: List[Tuple[np.ndarray, float, int]] = []

@@ -16,7 +16,7 @@ from .materials import Emissive, Lambertian, Mirror
 from .scene import Scene, SceneBuilder
 
 
-def cornell_box(device=None) -> Scene:
+def cornell_box(device="cuda") -> Scene:
     box_size = 1.0
     box_depth = -2.0
     light_size = 0.3
@@ -49,12 +49,12 @@ def cornell_box(device=None) -> Scene:
     return b.build()
 
 
-def cornell_camera(width: int = 400, height: int = 400, device=None) -> Camera:
+def cornell_camera(width: int = 400, height: int = 400, device="cuda") -> Camera:
     """Origin (0,0,2), screen distance 1, FOV 35 degrees."""
     return Camera.perspective((0.0, 0.0, 2.0), width, height, 1.0, 35.0, device=device)
 
 
-def default_spheres(device=None) -> Scene:
+def default_spheres(device="cuda") -> Scene:
     """Ground plane plus a few diffuse, metal, glass and emissive spheres."""
     b = SceneBuilder(device)
     ground = Lambertian((0.5, 0.5, 0.5))
@@ -66,12 +66,12 @@ def default_spheres(device=None) -> Scene:
     return b.build()
 
 
-def default_spheres_camera(width: int = 256, height: int = 256, device=None) -> Camera:
+def default_spheres_camera(width: int = 256, height: int = 256, device="cuda") -> Camera:
     return Camera.look_at((0.0, 2.0, 4.0), (0.0, 1.0, -3.0), (0.0, 1.0, 0.0),
                           width, height, 55.0, device=device)
 
 
-def many_spheres(seed: int = 3, n_per_side: int = 11, device=None) -> Scene:
+def many_spheres(seed: int = 3, n_per_side: int = 11, device="cuda") -> Scene:
     """Random sphere field (diffuse/metal/glass) under an emissive dome."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder(device)
@@ -98,12 +98,12 @@ def many_spheres(seed: int = 3, n_per_side: int = 11, device=None) -> Scene:
     return b.build()
 
 
-def many_spheres_camera(width: int = 512, height: int = 512, device=None) -> Camera:
+def many_spheres_camera(width: int = 512, height: int = 512, device="cuda") -> Camera:
     return Camera.look_at((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
                           width, height, 30.0, device=device)
 
 
-def mesh_scene(n_tris: int = 70000, device=None) -> Scene:
+def mesh_scene(n_tris: int = 70000, device="cuda") -> Scene:
     """A ~``n_tris``-triangle torus knot (standing in for the Stanford bunny)
     among spheres on a ground plane, under an emissive dome."""
     from ..meshes import knot_mesh
@@ -120,14 +120,14 @@ def mesh_scene(n_tris: int = 70000, device=None) -> Scene:
     return b.build()
 
 
-def mesh_scene_camera(width: int = 1920, height: int = 1080, device=None) -> Camera:
+def mesh_scene_camera(width: int = 1920, height: int = 1080, device="cuda") -> Camera:
     return Camera.look_at((0.0, 1.6, 5.5), (0.0, 0.2, 0.0), (0.0, 1.0, 0.0),
                           width, height, 40.0, device=device)
 
 
 def sweep_cameras(num_frames: int = 120, width: int = 640, height: int = 360,
                   radius: float = 5.5, target=(0.0, 0.2, 0.0), fov: float = 40.0,
-                  device=None):
+                  device="cuda"):
     """BASELINE config 5: a circular camera sweep around the mesh scene."""
     cams = []
     for f in range(num_frames):

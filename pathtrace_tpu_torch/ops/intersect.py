@@ -14,11 +14,23 @@ Counterpart of ``pathtrace_tpu/ops/intersect.py`` on the three routes that
 * **bvh** (>= 4096 triangles): :func:`sphere_closest`, then
   :func:`bvh_closest` (``csrc/bvh.cu``, replacing
   ``bvh_intersect.triangle_closest_bvh``) over the two-level hierarchy the
-  JAX package derives from row order (128-row leaves under 16-leaf groups).
+  JAX package derives from row order (128-row leaves under 16-leaf groups);
+
+and on the two opt-in per-ray traversals that ``method="binned"`` and
+``method="resident"`` pick for every scene past the small bounds:
+
+* **binned**: :func:`sphere_closest`, then the round-by-round driver of
+  ``ops/binned.py`` over the flat route's 256-row clusters (its round
+  kernels ``csrc/binned.cu`` replace ``binned_intersect._run_round_*``);
+* **resident**: :func:`sphere_closest`, then :func:`resident_closest`
+  (``csrc/resident.cu``, replacing ``resident_intersect``'s kernels): one
+  launch walks each ray's 128-row clusters nearest-first.
 
 Shadow rays go through :func:`any_hit` (``csrc/intersect.cu``, replacing
 ``pallas_intersect.any_hit``) over the spheres and every triangle row on the
-small and flat routes; on the bvh route through :func:`bvh_anyhit` plus
+small and flat routes; on the bvh, binned and resident routes through the
+route's triangle any-hit (:func:`bvh_anyhit`,
+``binned.triangle_anyhit_binned``, :func:`resident_anyhit`) plus
 :func:`any_hit` over the spheres alone.
 
 Every kernel has a plain-torch twin here, brute force over every row in the
@@ -37,9 +49,9 @@ the reference's: 1e-8 parallel reject, inclusive barycentric bounds, closed
 Left behind from the JAX routes: the ray sort before each trace on big
 meshes (``_ray_sort_key``/``_sort_rays_by_key``/``_unsort``), which changes
 no result and keeps TPU subtiles union-coherent (whether it pays on the GPU
-is still to measure), the ``coherent`` hint, and the ``_lift_tree``
-varying-axes plumbing. Rays are ``(N, 3)`` float32; ``t_min``/``t_max`` are
-``(N,)``.
+is still to measure; the JAX resident trace runs on the sorted wave), the
+``coherent`` hint, and the ``_lift_tree`` varying-axes plumbing. Rays are
+``(N, 3)`` float32; ``t_min``/``t_max`` are ``(N,)``.
 """
 
 from __future__ import annotations
@@ -58,15 +70,15 @@ _INF = float("inf")
 SMALL_MAX_TRIS = 64       # one-tile triangle bound of resolve_auto's routes
 SMALL_MAX_SPHERES = 512   # one-tile sphere bound; the clustered modes lie above
 BVH_MIN_TRIS = 4096       # RAY_SORT_MIN_TRIS: the BVH route from here up
-LEAF = 128         # triangles per BVH leaf
+LEAF = 128         # triangles per BVH leaf and per resident cluster
 GROUP = 16         # leaves per supergroup
 TWIN_CHUNK = 2048  # triangle rows per step of the brute-force twins
 _TRI_COLS = 16     # v0, e1, e2, normal, material, 3 zeros
 _SPH_COLS = 8      # center, |c|^2 - r^2 (NaN on padding), 1/r, material, 2 zeros
 _BOX_COLS = 8      # min, max, 2 zeros
-# Outward margin of the flat route's cluster boxes, relative to 1 + their
-# largest coordinate: slab-test rounding then never culls a cluster that
-# holds a hit the brute-force twin accepts.
+# Outward margin of the cluster boxes of the flat, binned and resident
+# routes, relative to 1 + their largest coordinate: slab-test rounding then
+# never culls a cluster that holds a hit the brute-force twin accepts.
 _BOX_MARGIN = 1e-4
 
 
@@ -89,15 +101,20 @@ class Tables(NamedTuple):
     """Scene tables packed for one route's kernels (built once per render)."""
 
     tri: torch.Tensor    # (rows, 16): the scene's rows (small), zero-padded to
-    #                      whole 256-row clusters (flat) or 16-leaf groups (bvh)
+    #                      whole 256-row clusters (flat, binned), 128-row
+    #                      clusters (resident) or 16-leaf groups (bvh)
     leaf: torch.Tensor   # (blocks, 8) AABBs of the triangle blocks the route culls
-    #                      by: 256-row clusters (flat), 128-row leaves (bvh);
+    #                      by: 256-row clusters (flat, binned), 128-row leaves
+    #                      (bvh) or clusters (resident, a multiple of 8 rows);
     #                      inverted on padding; no rows on the small route
     group: torch.Tensor  # bvh: (max(8, ceil8(n_groups)), 8) group AABBs; else no rows
     sph: torch.Tensor    # (Ps, 8)
     tri_rows: int        # the scene's triangle rows: the sphere prim-id base
     n_groups: int        # bvh: 16-leaf groups; else 0
-    route: str           # "small", "flat" or "bvh"
+    route: str           # "small", "flat", "bvh", "binned" or "resident"
+
+
+PER_RAY_METHODS = ("bvh", "binned", "resident")   # per-ray mesh traversals
 
 
 def resolve_route(num_tris: int, num_spheres: int, method: str = "auto") -> str:
@@ -105,21 +122,20 @@ def resolve_route(num_tris: int, num_spheres: int, method: str = "auto") -> str:
     for a scene of ``num_tris`` triangle rows and ``num_spheres`` sphere rows.
 
     ``method``: ``"auto"`` (the default routes), ``"pallas"`` (no BVH: the
-    flat route for every scene past the small bounds) or ``"bvh"`` (the BVH
-    for every scene past them). Routes whose kernels are not ported raise
-    ``NotImplementedError`` naming their ROADMAP item."""
-    if method in ("binned", "resident"):
-        item = 9 if method == "binned" else 10
+    flat route for every scene past the small bounds), or ``"bvh"``,
+    ``"binned"``, ``"resident"`` (that traversal for every scene past them;
+    the small route below them, as the JAX ``tri_small`` gate). Routes whose
+    kernels are not ported raise ``NotImplementedError`` naming their
+    ROADMAP item."""
+    if method not in ("auto",) + PER_RAY_METHODS + ("pallas",):
         raise NotImplementedError(
-            f"method {method!r}: the {method} traversal kernels are not ported yet "
-            f"(ROADMAP Queue 2, item {item})")
-    if method not in ("auto", "pallas", "bvh"):
-        raise NotImplementedError(
-            f"method {method!r} has no route in the port (it has auto, pallas and bvh; "
-            "CPU tensors run the kernels' plain twins)")
+            f"method {method!r} has no route in the port (it has auto, pallas, "
+            f"{', '.join(PER_RAY_METHODS)}); the kernels' plain twins on the CPU "
+            "(--device cpu) are its brute force")
     small_tris = num_tris <= SMALL_MAX_TRIS
-    if method == "auto" and num_tris >= BVH_MIN_TRIS or method == "bvh" and not small_tris:
-        return "bvh"
+    if not small_tris and (method in PER_RAY_METHODS
+                           or method == "auto" and num_tris >= BVH_MIN_TRIS):
+        return "bvh" if method == "auto" else method
     if num_spheres > SMALL_MAX_SPHERES:
         raise NotImplementedError(
             f"{num_spheres} spheres (more than {SMALL_MAX_SPHERES}) with fewer than "
@@ -128,39 +144,53 @@ def resolve_route(num_tris: int, num_spheres: int, method: str = "auto") -> str:
     return "small" if small_tris else "flat"
 
 
-def bvh_aabbs(v0, e1, e2):
-    """Leaf and group AABB tables, ``[min | max | 0 0]`` rows, of the
-    two-level hierarchy over the triangle rows: the JAX package's
-    ``_derived_aabbs`` + ``_group_aabbs`` (bvh_intersect.py). Rows past the
-    last triangle (padding) contribute inverted boxes, so a padding leaf or
-    group has ``min > max`` and is never entered."""
-    n_leaves = -(-v0.shape[0] // LEAF)
-    n_groups = -(-n_leaves // GROUP)
-    rows = n_groups * GROUP * LEAF
+def _block_boxes(v0, e1, e2, n_blocks: int):
+    """``(min, max)``, each ``(n_blocks, 3)``, of the triangles in each run of
+    ``LEAF`` rows; rows past the last triangle (padding) contribute inverted
+    boxes, so a block of padding has ``min > max`` and is never entered."""
     p1 = v0 + e1
     p2 = v0 + e2
     lo = torch.minimum(torch.minimum(v0, p1), p2)
     hi = torch.maximum(torch.maximum(v0, p1), p2)
-    pad = rows - v0.shape[0]
+    pad = n_blocks * LEAF - v0.shape[0]
     lo = torch.cat([lo, lo.new_full((pad, 3), _INF)])
     hi = torch.cat([hi, hi.new_full((pad, 3), -_INF)])
-    lmin = lo.reshape(-1, LEAF, 3).amin(dim=1)
-    lmax = hi.reshape(-1, LEAF, 3).amax(dim=1)
-    zeros = lo.new_zeros((lmin.shape[0], 2))
+    return lo.reshape(n_blocks, LEAF, 3).amin(dim=1), hi.reshape(n_blocks, LEAF, 3).amax(dim=1)
+
+
+def resident_boxes(v0, e1, e2):
+    """The resident route's unwidened ``(C8, 8)`` cluster AABB rows,
+    ``[min | max | 0 0]``, one per 128-row cluster, padded with inverted
+    rows to a multiple of 8 (at least 8): ``resident_intersect._derived_aabbs``
+    at ``prim_tile=128``."""
+    n = -(-v0.shape[0] // LEAF)
+    lo, hi = _block_boxes(v0, e1, e2, max(8, -(-n // 8) * 8))
+    return torch.cat([lo, hi, lo.new_zeros((lo.shape[0], 2))], dim=1).contiguous()
+
+
+def bvh_aabbs(v0, e1, e2):
+    """Leaf and group AABB tables, ``[min | max | 0 0]`` rows, of the
+    two-level hierarchy over the triangle rows: the JAX package's
+    ``_derived_aabbs`` + ``_group_aabbs`` (bvh_intersect.py). A padding leaf
+    or group is inverted and never entered."""
+    n_leaves = -(-v0.shape[0] // LEAF)
+    n_groups = -(-n_leaves // GROUP)
+    lmin, lmax = _block_boxes(v0, e1, e2, n_groups * GROUP)
+    zeros = lmin.new_zeros((lmin.shape[0], 2))
     leaf = torch.cat([lmin, lmax, zeros], dim=1)
     gmin = lmin.reshape(n_groups, GROUP, 3).amin(dim=1)
     gmax = lmax.reshape(n_groups, GROUP, 3).amax(dim=1)
     g_pad = max(8, -(-n_groups // 8) * 8)
     gmin = torch.cat([gmin, gmin.new_full((g_pad - n_groups, 3), _INF)])
     gmax = torch.cat([gmax, gmax.new_full((g_pad - n_groups, 3), -_INF)])
-    group = torch.cat([gmin, gmax, lo.new_zeros((g_pad, 2))], dim=1)
+    group = torch.cat([gmin, gmax, gmin.new_zeros((g_pad, 2))], dim=1)
     return leaf.contiguous(), group.contiguous()
 
 
-def _cluster_boxes(scene: Scene):
-    """The flat route's ``(C, 8)`` cluster AABB rows: ``Scene.tri_cluster_min/
-    max`` widened by ``_BOX_MARGIN``; empty clusters stay inverted."""
-    lo, hi = scene.tri_cluster_min, scene.tri_cluster_max
+def _widen(lo, hi):
+    """``(C, 8)`` AABB rows ``[min | max | 0 0]`` of the boxes ``lo``/``hi``
+    ``(C, 3)`` widened outward by ``_BOX_MARGIN``; inverted (empty) boxes
+    stay inverted."""
     real = (lo <= hi).all(dim=1, keepdim=True)
     big = torch.where(real, torch.maximum(lo.abs(), hi.abs()), 0.0).amax(dim=1, keepdim=True)
     margin = _BOX_MARGIN * (1.0 + big)
@@ -170,7 +200,10 @@ def _cluster_boxes(scene: Scene):
 
 
 def build_tables(scene: Scene, method: str = "auto") -> Tables:
-    """Pack ``scene`` for the route :func:`resolve_route` picks."""
+    """Pack ``scene`` for the route :func:`resolve_route` picks. The flat and
+    binned routes cull by ``Scene.tri_cluster_min/max`` (256-row clusters),
+    the resident route by :func:`resident_boxes`, both widened by
+    ``_BOX_MARGIN``."""
     t = scene.tri_v0.shape[0]
     route = resolve_route(t, scene.sph_center.shape[0], method)
     tri = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_normal,
@@ -182,9 +215,13 @@ def build_tables(scene: Scene, method: str = "auto") -> Tables:
         leaf, group = bvh_aabbs(scene.tri_v0, scene.tri_e1, scene.tri_e2)
         n_groups = leaf.shape[0] // GROUP
         rows = leaf.shape[0] * LEAF
-    elif route == "flat":
-        leaf, group = _cluster_boxes(scene), no_boxes
+    elif route in ("flat", "binned"):
+        leaf, group = _widen(scene.tri_cluster_min, scene.tri_cluster_max), no_boxes
         rows = leaf.shape[0] * CLUSTER_SIZE
+    elif route == "resident":
+        boxes = resident_boxes(scene.tri_v0, scene.tri_e1, scene.tri_e2)
+        leaf, group = _widen(boxes[:, 0:3], boxes[:, 3:6]), no_boxes
+        rows = leaf.shape[0] * LEAF
     else:
         leaf, group, rows = no_boxes, no_boxes, t
     tri = torch.cat([tri, tri.new_zeros((rows - t, _TRI_COLS))])
@@ -260,7 +297,8 @@ def _tri_chunks(tri, rows, o, d, t_min, t_max):
 
 
 def triangle_closest_reference(tables: Tables, o, d, t_min, t_max):
-    """Twin of ``triangle_closest`` and of ``bvh_closest``: brute force over
+    """Twin of ``triangle_closest``, ``bvh_closest`` and ``resident_closest``
+    (and what the binned driver must equal): brute force over
     every triangle row, the first (lowest) row on equal ``t``. Returns ``(t,
     row, outward normal, material)``; a miss is ``(inf, -1, 0, 0)``."""
     best_t = torch.full_like(t_min, _INF)
@@ -281,7 +319,8 @@ bvh_closest_reference = triangle_closest_reference
 
 
 def bvh_anyhit_reference(tables: Tables, o, d, t_min, t_max):
-    """Twin of ``bvh_anyhit``: is any triangle hit in ``[t_min, t_max]``."""
+    """Twin of ``bvh_anyhit`` and of ``resident_anyhit``: is any triangle hit
+    in ``[t_min, t_max]`` (brute force over every row)."""
     occ = torch.zeros(t_min.shape, dtype=torch.bool, device=t_min.device)
     for _, ts in _tri_chunks(tables.tri, tables.tri_rows, o, d, t_min, t_max):
         occ |= (ts < _INF).any(dim=0)
@@ -366,8 +405,11 @@ def _check_route(tables: Tables, route: str, device):
     if route == "small":   # the kernel stages both tables in shared memory
         ok = (tables.tri.shape[0] == tables.tri_rows <= SMALL_MAX_TRIS
               and tables.sph.shape[0] <= SMALL_MAX_SPHERES)
-    elif route == "flat":
+    elif route in ("flat", "binned"):
         ok = tables.tri.shape[0] == tables.leaf.shape[0] * CLUSTER_SIZE
+    elif route == "resident":
+        ok = (tables.tri.shape[0] == tables.leaf.shape[0] * LEAF
+              and tables.leaf.shape[0] % 8 == 0)
     else:
         ok = (tables.leaf.shape[0] == tables.n_groups * GROUP
               and tables.tri.shape[0] == tables.leaf.shape[0] * LEAF
@@ -463,6 +505,40 @@ def triangle_closest(tables: Tables, o, d, t_min, t_max):
     return out
 
 
+def resident_closest(tables: Tables, o, d, t_min, t_max):
+    """Closest triangle hit by per-ray nearest-first traversal of the
+    resident route's 128-row clusters: ``(t, row, outward normal,
+    material)``; a miss is ``(inf, -1, 0, 0)``. Counterpart of
+    ``resident_intersect.triangle_closest_resident``."""
+    n, kind = _check_rays(o, d, t_min, t_max)
+    _check_route(tables, "resident", t_min.device)
+    if kind == "cpu":
+        return triangle_closest_reference(tables, o, d, t_min, t_max)
+    from ..kernels import binding
+
+    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
+           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    binding.launch_resident_closest(tables, o, d, t_min, t_max, *out)
+    LAUNCHES["resident_closest"] += 1
+    return out
+
+
+def resident_anyhit(tables: Tables, o, d, t_min, t_max):
+    """Occlusion by any triangle in ``[t_min, t_max]`` by the same traversal,
+    stopping at the first hit: bool ``(N,)``. Counterpart of
+    ``resident_intersect.triangle_anyhit_resident``."""
+    n, kind = _check_rays(o, d, t_min, t_max)
+    _check_route(tables, "resident", t_min.device)
+    if kind == "cpu":
+        return bvh_anyhit_reference(tables, o, d, t_min, t_max)
+    from ..kernels import binding
+
+    occ = _empty((n,), torch.bool, o)
+    binding.launch_resident_anyhit(tables, o, d, t_min, t_max, occ)
+    LAUNCHES["resident_anyhit"] += 1
+    return occ
+
+
 def any_hit(sph, tri, o, d, t_min, t_max):
     """Occlusion over the spheres of ``sph`` and the triangles of ``tri``
     (``Tables`` row layouts; ``tri`` may have no rows): bool ``(N,)``.
@@ -500,11 +576,13 @@ def intersect(tables: Tables, o, d, t_min, t_max, *, twin: bool = False) -> Hit:
         fn = combined_closest_small_reference if twin else combined_closest_small
         t, prim, outward, mat = fn(tables, o, d, t_lo, t_hi)
     else:
+        from . import binned
+
         sph_fn = sphere_closest_reference if twin else sphere_closest
-        if tables.route == "flat":
-            tri_fn = triangle_closest_reference if twin else triangle_closest
-        else:
-            tri_fn = bvh_closest_reference if twin else bvh_closest
+        tri_fn = triangle_closest_reference if twin else {
+            "flat": triangle_closest, "bvh": bvh_closest,
+            "binned": binned.triangle_closest_binned,
+            "resident": resident_closest}[tables.route]
         sph = sph_fn(tables.sph, o, d, t_lo, t_hi)
         tri = tri_fn(tables, o, d, t_lo, torch.minimum(t_hi, sph[0]))
         t, prim, outward, mat = _merge(tables, sph, tri)
@@ -519,10 +597,15 @@ def intersect(tables: Tables, o, d, t_min, t_max, *, twin: bool = False) -> Hit:
 
 def occluded(tables: Tables, o, d, t_min, t_max):
     """Is anything hit in ``[t_min, t_max]`` (shadow rays): bool ``(N,)``.
-    ``any_hit`` takes the spheres and every triangle row; on the bvh route
-    it takes the spheres alone, beside ``bvh_anyhit``."""
+    ``any_hit`` takes the spheres and every triangle row; on the bvh, binned
+    and resident routes it takes the spheres alone, beside the route's
+    triangle any-hit."""
     t_lo, t_hi = _ranges(o, t_min, t_max)
-    if tables.route != "bvh":
+    if tables.route in ("small", "flat"):
         return any_hit(tables.sph, tables.tri[:tables.tri_rows], o, d, t_lo, t_hi)
-    return (bvh_anyhit(tables, o, d, t_lo, t_hi)
+    from . import binned
+
+    tri_fn = {"bvh": bvh_anyhit, "binned": binned.triangle_anyhit_binned,
+              "resident": resident_anyhit}[tables.route]
+    return (tri_fn(tables, o, d, t_lo, t_hi)
             | any_hit(tables.sph, tables.tri[:0], o, d, t_lo, t_hi))

@@ -16,7 +16,8 @@ scene as the JAX package chooses them:
   sample and BSDF evaluation, BSDF sample, Russian roulette) over the
   kernels of ``ops/intersect.py`` on the scene's route (the BVH for at least
   4096 triangles, the flat clusters for more than 64, the fused small-scene
-  closest hit for more than 64 lights), and
+  closest hit for more than 64 lights; or the route ``method`` asks for:
+  ``"bvh"``, ``"binned"``, ``"resident"``), and
   :func:`~pathtrace_tpu_torch.ops.intersect.occluded` tests the shadow rays.
 
 The scenes still without ported kernels (Oren-Nayar or PBR within the fused
@@ -60,22 +61,27 @@ FLUSH_EVERY = 8
 INTEGRATORS = ("mis", "nee", "brdf_only")
 
 
-def route(scene: Scene, integrator: str) -> str:
-    """``"fused"`` or ``"composed"``, as the JAX pool chooses: scenes with
-    at least ``BVH_MIN_TRIS`` triangles and scenes past the fused kernels'
-    caps take the composed branch on the route ``intersect.resolve_route``
-    picks; raises ``NotImplementedError`` naming the ROADMAP item for a
-    scene whose route has no ported kernels yet."""
+def route(scene: Scene, integrator: str, method: str | None = None) -> str:
+    """``"fused"`` or ``"composed"``, as the JAX pool chooses: the fused
+    branch only under the default method (``None``, ``"auto"`` or
+    ``"pallas"``) for a scene within the fused kernels' caps; scenes with at
+    least ``BVH_MIN_TRIS`` triangles, scenes past the caps and every other
+    method (``"bvh"``, ``"binned"``, ``"resident"``) take the composed branch
+    on the route ``intersect.resolve_route(..., method)`` picks. Raises
+    ``NotImplementedError`` naming the ROADMAP item for a scene whose route
+    has no ported kernels yet."""
     if integrator not in INTEGRATORS:
         raise NotImplementedError(f"unknown integrator {integrator!r}; known: {INTEGRATORS}")
+    method = method or "auto"
     n_tris = scene.tri_v0.shape[0]
-    if n_tris < intersect.BVH_MIN_TRIS and shade.supports_scene(scene, integrator):
+    if (method in ("auto", "pallas") and n_tris < intersect.BVH_MIN_TRIS
+            and shade.supports_scene(scene, integrator)):
         if scene.has_oren_nayar or scene.has_pbr:
             raise NotImplementedError(
                 "Oren-Nayar and PBR materials in a scene within the fused caps "
                 "need the ON/PBR lanes of fused_bounce (ROADMAP Queue 1, item 5.1)")
         return "fused"
-    intersect.resolve_route(n_tris, scene.sph_center.shape[0])
+    intersect.resolve_route(n_tris, scene.sph_center.shape[0], method)
     return "composed"
 
 
@@ -195,8 +201,13 @@ def render_pool(
     num_slots: int = 32768,
     seed: int = 0,
     sample_offset: int = 0,
+    method: str | None = None,
 ):
     """Render the full frame with a saturated path pool on ``scene.device``.
+
+    ``method`` picks the intersection traversal for this call (:func:`route`;
+    ``None`` is ``"auto"``): ``"bvh"``, ``"binned"`` and ``"resident"`` run
+    the composed branch on that route even for a small scene.
 
     ``sample_offset`` is the first global sample index: progressive passes
     render ``spp`` samples from there, continuing the same RNG streams, so
@@ -207,14 +218,14 @@ def render_pool(
     ``(rays_hi, rays_lo, busy_hi, busy_lo)``, each a 32-bit half, decoded by
     :func:`ray_count` / :func:`busy_count` exactly as the JAX package's.
     """
-    composed = route(scene, integrator) == "composed"
+    composed = route(scene, integrator, method) == "composed"
     device = scene.device
     if camera.origin.device != device:
         raise ValueError(f"camera on {camera.origin.device}, scene on {device}")
     use_nee = integrator in ("mis", "nee")
     eps = shade.EPS
     if composed:
-        tables = intersect.build_tables(scene)
+        tables = intersect.build_tables(scene, method or "auto")
         bounce_kw = dict(integrator=integrator, max_bounces=max_bounces, eps=eps)
     else:
         tables = shade.build_tables(scene)

@@ -70,7 +70,7 @@ class RenderState:
         np.savez(path, image_sum=self.image_sum.cpu().numpy(), num_samples=self.num_samples)
 
     @classmethod
-    def load(cls, path: str, device=None) -> "RenderState":
+    def load(cls, path: str, device="cuda") -> "RenderState":
         z = np.load(path)
         return cls(torch.from_numpy(np.array(z["image_sum"], np.float32)).to(device),
                    int(z["num_samples"]))

@@ -53,7 +53,7 @@ def _material_scene():
     b.add_sphere((12, 0, 0), 1, jax_mat.PBRMaterial((0.8, 0.4, 0.2), 0.5, metallic=0.3))
     b.add_sphere((15, 0, 0), 1, jax_mat.Emissive((3.0, 3.0, 3.0)))
     jsc = b.build()
-    return jsc, scene_from_arrays(*split_fields(jsc))
+    return jsc, scene_from_arrays(*split_fields(jsc), device="cpu")
 
 
 def _unit(g, n):
@@ -182,7 +182,7 @@ LIGHT_SCENES = {
 def test_sample_light_point(name):
     build, lo, hi = LIGHT_SCENES[name]
     jsc = build()
-    tsc = scene_from_arrays(*split_fields(jsc))
+    tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
     g = np.random.default_rng(3)
     p = g.uniform(lo, hi, (N, 3)).astype(np.float32)
     u = g.random((3, N), dtype=np.float32)
@@ -199,7 +199,7 @@ def test_sample_light_point(name):
 def test_light_pdf_toward(name):
     build, lo, hi = LIGHT_SCENES[name]
     jsc = build()
-    tsc = scene_from_arrays(*split_fields(jsc))
+    tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
     g = np.random.default_rng(4)
     p = g.uniform(lo, hi, (N, 3)).astype(np.float32)
     u = g.random((3, N), dtype=np.float32)

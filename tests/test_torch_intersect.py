@@ -42,7 +42,7 @@ INF = float("inf")
 @pytest.fixture(scope="module")
 def mesh():
     jsc = jax_scenes.mesh_scene(4200)
-    tsc = scene_from_arrays(*split_fields(jsc))
+    tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
     return jsc, tsc, intersect.build_tables(tsc)
 
 
@@ -244,7 +244,7 @@ ROUTE_SCENES = {
 def route_scene(request):
     fn, route = ROUTE_SCENES[request.param]
     jsc = fn()
-    tables = intersect.build_tables(scene_from_arrays(*split_fields(jsc)))
+    tables = intersect.build_tables(scene_from_arrays(*split_fields(jsc), device="cpu"))
     assert tables.route == route
     return request.param, jsc, tables
 
@@ -308,7 +308,7 @@ def test_combined_twin_is_the_sphere_then_triangle_merge(name):
     """On the small route the one-pass twin equals the two-kernel
     composition of the other routes (triangles win equal ``t``)."""
     jsc = ROUTE_SCENES[name][0]()
-    tables = intersect.build_tables(scene_from_arrays(*split_fields(jsc)))
+    tables = intersect.build_tables(scene_from_arrays(*split_fields(jsc), device="cpu"))
     o, d, _ = _scene_rays(jsc, 3)
     lo, hi = torch.full((N,), shade.EPS), torch.full((N,), INF)
     t, prim, nrm, mat = intersect.combined_closest_small_reference(tables, _t(o), _t(d), lo, hi)
@@ -325,7 +325,7 @@ def test_combined_twin_is_the_sphere_then_triangle_merge(name):
 
 
 def test_flat_cluster_boxes_cover_their_rows():
-    tsc = scene_from_arrays(*split_fields(jax_scenes.mesh_scene(1000)))
+    tsc = scene_from_arrays(*split_fields(jax_scenes.mesh_scene(1000)), device="cpu")
     tables = intersect.build_tables(tsc)
     c = tables.leaf.shape[0]
     assert tables.tri.shape == (c * 256, 16) and not tables.tri[tables.tri_rows:].any()
@@ -345,12 +345,15 @@ def test_resolve_route():
     assert r(4096, 3) == r(70000, 600) == "bvh"
     assert r(12, 1, "bvh") == "small" and r(992, 3, "bvh") == "bvh"
     assert r(5000, 3, "pallas") == "flat"
+    for m in ("binned", "resident"):     # the per-ray traversals past 64 triangles
+        assert r(65, 3, m) == r(992, 3, m) == r(70000, 600, m) == m
+        assert r(64, 3, m) == r(12, 1, m) == "small"
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
         r(2, 600)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, item 9"):
-        r(992, 3, "binned")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, item 10"):
-        r(992, 3, "resident")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
+        r(12, 600, "binned")
+    with pytest.raises(NotImplementedError, match="--device cpu"):
+        r(992, 3, "bruteforce")
 
 
 def test_route_wrappers_check_tables(route_scene):

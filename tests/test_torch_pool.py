@@ -47,8 +47,8 @@ def _render_both(jsc, jcam, fused=True, **kw):
         img = np.asarray(img)
     finally:
         set_default_method(None)
-    port = pool.render_pool(scene_from_arrays(*split_fields(jsc)),
-                            camera_from_arrays(*split_fields(jcam)), **kw)
+    port = pool.render_pool(scene_from_arrays(*split_fields(jsc), device="cpu"),
+                            camera_from_arrays(*split_fields(jcam), device="cpu"), **kw)
     return (img, counters, int(iters)), port
 
 
@@ -90,7 +90,8 @@ def test_pool_matches_jax_mesh(integrator):
         jsc, jax_scenes.mesh_scene_camera(8, 8), fused=False,
         width=8, height=8, spp=2, integrator=integrator, max_bounces=4,
         num_slots=64, seed=5)
-    assert pool.route(scene_from_arrays(*split_fields(jsc)), integrator) == "composed"
+    sc = scene_from_arrays(*split_fields(jsc), device="cpu")
+    assert pool.route(sc, integrator) == "composed"
     _assert_same_render(ref, got)
     if integrator == "mis":   # the counts measured for the JAX pool
         assert (pool.ray_count(got[1]), got[2]) == (348, 8)
@@ -118,7 +119,7 @@ def test_progressive_passes_sum_to_one_render():
     """Two 1-spp passes at sample offsets 0 and 1 trace the samples of one
     2-spp render."""
     kw = dict(width=16, height=16, integrator="mis", max_bounces=6, num_slots=64, seed=5)
-    args = (scenes.cornell_box(), scenes.cornell_camera(16, 16))
+    args = (scenes.cornell_box(device="cpu"), scenes.cornell_camera(16, 16, device="cpu"))
     a, ca, _ = pool.render_pool(*args, spp=1, sample_offset=0, **kw)
     b, cb, _ = pool.render_pool(*args, spp=1, sample_offset=1, **kw)
     both, cboth, _ = pool.render_pool(*args, spp=2, **kw)
@@ -128,7 +129,8 @@ def test_progressive_passes_sum_to_one_render():
 
 def test_pool_counter_encoding():
     img, counters, iters = pool.render_pool(
-        scenes.cornell_box(), scenes.cornell_camera(8, 8), width=8, height=8, spp=1,
+        scenes.cornell_box(device="cpu"), scenes.cornell_camera(8, 8, device="cpu"), width=8,
+        height=8, spp=1,
         num_slots=16, max_bounces=4)
     assert counters.shape == (4,) and counters.dtype == torch.int64
     assert int(counters.max()) < 2**32 and iters % pool.FLUSH_EVERY == 0
@@ -140,16 +142,17 @@ def test_unsupported_scenes_raise():
     """Scenes whose route has no ported kernels yet raise, naming the
     ROADMAP item: more than 512 spheres with few triangles (the clustered
     modes) and Oren-Nayar within the fused caps; and unknown integrators."""
-    b = SceneBuilder()
+    cam = scenes.cornell_camera(4, 4, device="cpu")
+    b = SceneBuilder(device="cpu")
     for i in range(600):
         b.add_sphere((i, 0, -3), 0.4, Lambertian((0.5, 0.5, 0.5)))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
-        pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
-    b = SceneBuilder().add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
+        pool.render_pool(b.build(), cam, width=4, height=4, spp=1)
+    b = SceneBuilder(device="cpu").add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
     with pytest.raises(NotImplementedError, match="Oren-Nayar.*ROADMAP Queue 1, item 5.1"):
-        pool.render_pool(b.build(), scenes.cornell_camera(4, 4), width=4, height=4, spp=1)
+        pool.render_pool(b.build(), cam, width=4, height=4, spp=1)
     with pytest.raises(NotImplementedError):
-        pool.render_pool(scenes.cornell_box(), scenes.cornell_camera(4, 4), width=4,
+        pool.render_pool(scenes.cornell_box(device="cpu"), cam, width=4,
                          height=4, spp=1, integrator="path")
 
 
@@ -163,7 +166,7 @@ def test_pool_engine_per_scene():
     """Which engine the pool runs, and on which intersection route: the JAX
     pool's choice (``pool.py`` fused gate + ``resolve_auto``)."""
     def engine(jsc):
-        sc = scene_from_arrays(*split_fields(jsc))
+        sc = scene_from_arrays(*split_fields(jsc), device="cpu")
         branch = pool.route(sc, "mis")
         return branch, branch == "fused" or intersect.build_tables(sc).route
 
@@ -172,18 +175,18 @@ def test_pool_engine_per_scene():
     assert engine(jax_scenes.mesh_scene(1000)) == ("composed", "flat")
     assert engine(jax_scenes.mesh_scene(4200)) == ("composed", "bvh")
     assert engine(_lights65()) == ("composed", "small")
-    b = SceneBuilder()
+    b = SceneBuilder(device="cpu")
     for i in range(65):      # past the fused kernels' 64-triangle cap
         b.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), Lambertian((0.5, 0.5, 0.5)))
     b.add_triangle((0, 2, 0), (1, 2, 0), (0, 3, 0), Emissive((4.0, 4.0, 4.0)))
     sc = b.build()
     assert pool.route(sc, "mis") == "composed" and intersect.build_tables(sc).route == "flat"
-    b = SceneBuilder()
+    b = SceneBuilder(device="cpu")
     for i in range(600):
         b.add_sphere((i, 0, -3), 0.4, Lambertian((0.5, 0.5, 0.5)))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
         pool.route(b.build(), "mis")
-    b = SceneBuilder().add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
+    b = SceneBuilder(device="cpu").add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5.1"):
         pool.route(b.build(), "mis")
 

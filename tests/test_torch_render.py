@@ -40,7 +40,7 @@ W = H = 12
 
 
 def _cornell():
-    return scenes.cornell_box(), scenes.cornell_camera(W, H)
+    return scenes.cornell_box(device="cpu"), scenes.cornell_camera(W, H, device="cpu")
 
 
 def _cfg(**kw):
@@ -80,7 +80,7 @@ def test_checkpoints_cross_between_packages(tmp_path):
     jcfg = dict(width=W, height=H, seed=4, max_bounces=64)
     jax_one = jax_render.render(jsc, jcam, jax_render.RenderConfig(spp=1, **jcfg))
     jax_one.save(str(tmp_path / "jax.npz"))
-    state = render.RenderState.load(str(tmp_path / "jax.npz"))
+    state = render.RenderState.load(str(tmp_path / "jax.npz"), device="cpu")
     np.testing.assert_array_equal(state.image_sum.numpy(), np.asarray(jax_one.image_sum))
     assert state.num_samples == 1 and state.image_sum.dtype == torch.float32
     port_two = render.render(*_cornell(), _cfg(spp=2), state=state)
@@ -161,15 +161,31 @@ def test_render_refuses_what_is_not_ported():
     sc, cam = _cornell()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
         render.render(sc, cam, _cfg(dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, item 9"):
-        render.render(sc, cam, _cfg(method="binned"))
     with pytest.raises(ValueError, match="camera"):
-        render.render(sc, scenes.cornell_camera(W + 1, H), _cfg())
+        render.render(sc, scenes.cornell_camera(W + 1, H, device="cpu"), _cfg())
+
+
+def test_render_binned_and_resident_on_cpu():
+    """``RenderConfig(method="binned"|"resident")`` renders on the CPU twins,
+    and the image is bitwise the flat route's: every route equals the
+    brute-force hit."""
+    sc = scenes.mesh_scene(1000, device="cpu")
+    cam = scenes.mesh_scene_camera(6, 6, device="cpu")
+    cfg = dict(width=6, height=6, spp=1, seed=2, max_bounces=8)
+    flat = render.render(sc, cam, render.RenderConfig(method="pallas", **cfg))
+    for m in ("binned", "resident"):
+        got = render.render(sc, cam, render.RenderConfig(method=m, **cfg))
+        assert got.ray_queries == flat.ray_queries > 36
+        assert torch.equal(got.image_sum, flat.image_sum)
 
 
 def _cli(*args, timeout=300):
+    # One intra-op thread, like the in-process tests: the test workers share
+    # the cores, and a mesh render on oversubscribed torch threads can run
+    # past the timeout.
     return subprocess.run([sys.executable, "-m", "pathtrace_tpu_torch", *args], cwd=REPO,
-                          capture_output=True, text=True, timeout=timeout)
+                          capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
 
 
 def test_cli_renders_resumes_and_replays(tmp_path):
@@ -188,9 +204,9 @@ def test_cli_renders_resumes_and_replays(tmp_path):
     z = np.load(ckpt)
     assert int(z["num_samples"]) == 2
     np.testing.assert_array_equal(np.load(npy), z["image_sum"] / 2)
-    cam = scenes.cornell_camera(10, 10)
-    whole = render.render(scenes.cornell_box(), cam, render.RenderConfig(width=10, height=10,
-                                                                         spp=2))
+    cam = scenes.cornell_camera(10, 10, device="cpu")
+    whole = render.render(scenes.cornell_box(device="cpu"), cam,
+                          render.RenderConfig(width=10, height=10, spp=2))
     np.testing.assert_array_equal(z["image_sum"], whole.image_sum.numpy())
 
     pool_ckpt = str(tmp_path / "pool.npz")
@@ -206,11 +222,19 @@ def test_cli_renders_resumes_and_replays(tmp_path):
 
 @pytest.mark.parametrize("args,item", [
     (["render", "--dtype", "f64"], "Queue 1, item 4"),
-    (["render", "--method", "binned", "--engine", "wave"], "Queue 2, item 9"),
-    (["render", "--method", "resident", "--engine", "wave"], "Queue 2, item 10"),
     (["--num-processes", "2", "render"], "Queue 1, item 10"),
     (["bench"], "Queue 1, item 7"),
 ])
 def test_cli_unported_flags_exit_nonzero(args, item):
     r = _cli(*args, "--device", "cpu") if args[-1] != "bench" else _cli(*args)
     assert r.returncode == 2 and f"ROADMAP {item}" in r.stderr, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("method,engine", [("binned", "wave"), ("resident", "pool")])
+def test_cli_renders_with_per_ray_methods(tmp_path, method, engine):
+    """``--method binned|resident`` reaches the wave engine and the pool."""
+    out = str(tmp_path / "m.png")
+    r = _cli("render", "--scene", "mesh", "--method", method, "--engine", engine, "--width", "8",
+             "--height", "8", "--spp", "1", "--max-bounces", "3", "--device", "cpu", "--out", out)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert open(out, "rb").read(8) == b"\x89PNG\r\n\x1a\n"

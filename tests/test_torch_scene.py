@@ -55,16 +55,16 @@ def _assert_fields_equal(port, ref_arrays, ref_static):
 def test_scene_fields_exact(name):
     kw, fn = SCENES[name]
     arrays, static = split_fields(getattr(jax_scenes, fn)(**kw))
-    _assert_fields_equal(getattr(scenes, fn)(**kw), arrays, static)
+    _assert_fields_equal(getattr(scenes, fn)(**kw, device="cpu"), arrays, static)
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_scene_from_arrays_round_trip(name):
     kw, fn = SCENES[name]
     arrays, static = split_fields(getattr(jax_scenes, fn)(**kw))
-    port = scene_from_arrays(arrays, static)
+    port = scene_from_arrays(arrays, static, device="cpu")
     _assert_fields_equal(port, arrays, static)
-    _assert_fields_equal(port, *split_fields(getattr(scenes, fn)(**kw)))
+    _assert_fields_equal(port, *split_fields(getattr(scenes, fn)(**kw, device="cpu")))
 
 
 def _ulps(a, b):
@@ -77,11 +77,11 @@ def _ulps(a, b):
 def test_camera_fields(name):
     fn, (w, h) = CAMERAS[name]
     ref = getattr(jax_scenes, fn)(w, h)
-    port = getattr(scenes, fn)(w, h)
+    port = getattr(scenes, fn)(w, h, device="cpu")
     assert (port.width, port.height) == (ref.width, ref.height)
     for field in ("origin", "lower_left_corner", "horizontal", "vertical"):
         assert _ulps(getattr(port, field).numpy(), getattr(ref, field)) <= 1, field
-    back = camera_from_arrays(*split_fields(ref))
+    back = camera_from_arrays(*split_fields(ref), device="cpu")
     for field in ("origin", "lower_left_corner", "horizontal", "vertical"):
         np.testing.assert_array_equal(getattr(back, field).numpy(),
                                       np.asarray(getattr(ref, field)))
@@ -93,7 +93,7 @@ def test_primary_rays(name):
     (XLA on the CPU may contract a multiply-add; torch does not)."""
     fn, (w, h) = CAMERAS[name]
     ref = getattr(jax_scenes, fn)(w, h)
-    port = camera_from_arrays(*split_fields(ref))
+    port = camera_from_arrays(*split_fields(ref), device="cpu")
     g = np.random.default_rng(3)
     px = g.integers(0, w, 500).astype(np.int32)
     py = g.integers(0, h, 500).astype(np.int32)
@@ -110,7 +110,7 @@ def test_primary_rays(name):
 def test_builder_refuses_mesh_sized_soup():
     """A soup past the morton limit (513 triangles) is no longer refused: it
     takes the SAH split order, row for row the JAX package's."""
-    b, jb = SceneBuilder(), jax_scene.SceneBuilder()
+    b, jb = SceneBuilder(device="cpu"), jax_scene.SceneBuilder()
     g = np.random.default_rng(7)
     for _ in range(513):
         v = g.uniform(-5, 5, (3, 3))
@@ -138,4 +138,4 @@ def test_convert_rejects_unknown_field():
     arrays, static = split_fields(jax_scenes.cornell_box())
     arrays["bogus"] = np.zeros(3)
     with pytest.raises(ValueError, match="bogus"):
-        scene_from_arrays(arrays, static)
+        scene_from_arrays(arrays, static, device="cpu")

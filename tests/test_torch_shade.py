@@ -62,7 +62,7 @@ def _lanes(seed, lo, hi, n=S):
 def _both(name, integrator, seed=0):
     build, kw, lo, hi = SCENES[name]
     jsc = build(**kw)
-    tsc = scene_from_arrays(*split_fields(jsc))
+    tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
     args = _lanes(seed, lo, hi)
     ref = pallas_shade.fused_bounce(
         pallas_shade.build_tables(jsc), *(jnp.asarray(a) for a in args),
@@ -127,7 +127,7 @@ def test_build_tables_exact():
     for build, kw, _, _ in SCENES.values():
         jsc = build(**kw)
         want = pallas_shade.build_tables(jsc)
-        got = shade.build_tables(scene_from_arrays(*split_fields(jsc)))
+        got = shade.build_tables(scene_from_arrays(*split_fields(jsc), device="cpu"))
         for name in ("sph", "tri", "lgt"):
             np.testing.assert_array_equal(getattr(got, name).numpy(),
                                           np.asarray(getattr(want, name)), err_msg=name)
@@ -137,7 +137,7 @@ def _shadow_queries(name):
     """Real shadow rays: the NEE rays of a bounce of random lane states, plus
     lanes with no query (t_max < eps)."""
     build, kw, lo, hi = SCENES[name]
-    tsc = scene_from_arrays(*split_fields(build(**kw)))
+    tsc = scene_from_arrays(*split_fields(build(**kw)), device="cpu")
     tables = shade.build_tables(tsc)
     args = [torch.from_numpy(a) for a in _lanes(7, lo, hi)]
     args[0][:] = True
@@ -179,7 +179,7 @@ def test_shadow_twin_matches_any_hit_quad(name):
 
 def test_wrappers_run_twins_on_cpu_and_check_inputs():
     jsc = jax_scenes.cornell_box()
-    tsc = scene_from_arrays(*split_fields(jsc))
+    tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
     tables = shade.build_tables(tsc)
     args = [torch.from_numpy(a) for a in _lanes(1, [-1, -1, -3], [1, 1, -1], n=64)]
     kw = dict(num_tris=tsc.tri_v0.shape[0], num_lights=tsc.num_lights,

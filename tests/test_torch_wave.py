@@ -80,7 +80,7 @@ def test_primary_rays_n3(name):
     multiply-add)."""
     jcam = (jax_scenes.cornell_camera(16, 16) if name == "cornell"
             else jax_scenes.mesh_scene_camera(24, 16))
-    cam = camera_from_arrays(*split_fields(jcam))
+    cam = camera_from_arrays(*split_fields(jcam), device="cpu")
     g = np.random.default_rng(11)
     px = g.integers(0, jcam.width, 400).astype(np.int32)
     py = g.integers(0, jcam.height, 400).astype(np.int32)
@@ -97,7 +97,8 @@ def test_primary_rays_n3(name):
 
 
 def test_sweep_cameras_match_jax():
-    for cam, jcam in zip(scenes.sweep_cameras(5, 32, 18), jax_scenes.sweep_cameras(5, 32, 18)):
+    for cam, jcam in zip(scenes.sweep_cameras(5, 32, 18, device="cpu"),
+                         jax_scenes.sweep_cameras(5, 32, 18)):
         assert (cam.width, cam.height) == (jcam.width, jcam.height)
         for f in ("origin", "lower_left_corner", "horizontal", "vertical"):
             want = np.asarray(getattr(jcam, f))
@@ -117,8 +118,8 @@ def _wave(jsc, jcam, seed=3, sample=0, **kw):
     jo, jd = jcam.generate_rays(jnp.asarray(pixel % W), jnp.asarray(H - 1 - pixel // W),
                                 jax_rng.primary_jitter(jk))
     want = jax_integrators.trace_wave(jsc, jo, jd, jk, return_stats=True, **kw)
-    tsc = scene_from_arrays(*split_fields(jsc))
-    cam = camera_from_arrays(*split_fields(jcam))
+    tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
+    cam = camera_from_arrays(*split_fields(jcam), device="cpu")
     tp = torch.from_numpy(pixel)
     o, d = cam.generate_rays(tp % W, H - 1 - tp // W, rng.primary_jitter(tk), transposed=False)
     before = dict(shade.LAUNCHES)
@@ -145,7 +146,8 @@ def test_trace_wave_matches_jax_flat_mesh(integrator):
     """``mesh_scene(1000)`` (992 triangles, 3 spheres) at 8x8: the flat
     route (sphere_closest, then triangle_closest over 4 clusters)."""
     jsc = jax_scenes.mesh_scene(1000)
-    assert intersect.build_tables(scene_from_arrays(*split_fields(jsc))).route == "flat"
+    tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
+    assert intersect.build_tables(tsc).route == "flat"
     (want, want_rays), (got, got_rays) = _wave(
         jsc, jax_scenes.mesh_scene_camera(8, 8), integrator=integrator, max_bounces=64)
     assert got_rays == want_rays
@@ -163,7 +165,7 @@ def test_trace_wave_max_bounces_and_count():
 
 
 def test_trace_wave_rejects_bad_arguments():
-    sc = scenes.cornell_box()
+    sc = scenes.cornell_box(device="cpu")
     o = torch.zeros((4, 3))
     keys = rng.pixel_sample_keys(rng.base_key(0), torch.arange(4), torch.zeros(4).long())
     with pytest.raises(ValueError, match="integrator"):
