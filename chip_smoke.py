@@ -55,13 +55,32 @@ The opt-in per-ray mesh traversals (``method="binned"|"resident"``):
 4d. the wave engine on mesh_scene(2000), 32x32, 1 spp, under binned and
     resident, on the card against the CPU twins;
 6.  the CLI: ``python -m pathtrace_tpu_torch render --engine wave --device
-    cuda`` (Cornell) and ``render --scene mesh --method resident --engine
-    pool`` in subprocesses write PNGs.
+    cuda`` (Cornell), ``render --scene mesh --method resident --engine
+    pool`` and the pool on a 1,940-sphere field in subprocesses write PNGs.
 
-The next-to-last lines are the kernels' JSON record (all twelve kernels,
-each with its time, its twin's, its launches on its path and its roofline
-bound) and the card's name and power limit; the last line is ``{"ok": true,
-"device": {...}}``. Imports nothing of JAX.
+The clustered sphere modes (scenes past 512 spheres) and the Oren-Nayar/PBR
+lanes of ``fused_bounce``:
+
+3e. the clustered ``sphere_closest`` and ``any_hit`` against their twins,
+    bitwise, on all 65,536 lanes of ``many_spheres(n_per_side=22)`` (1,940
+    spheres in 8 clusters, the flat route): camera rays, the bounce rays of
+    composed twin bounces and their NEE shadow rays (``any_hit`` with the
+    sphere and the triangle boxes); ``fused_bounce`` with its ON/PBR lanes
+    against its twin at S = 16,384 lanes of the ON/PBR scene;
+4e. GPU against the CPU twins: the sphere field through the composed pool
+    (32x32, 2 spp, depth 8) and the wave engine (32x32, 1 spp), the ON/PBR
+    scene through the fused pool (32x32, 2 spp): equal ray counts, images
+    within the imgutil budget;
+5e. two 1920x1080, 4-spp, MIS, 32-bounce frames with 16,384 slots, timed:
+    the sphere field through the composed pool and the ON/PBR scene through
+    the fused pool; wall, Mrays/s, rays, iterations, checksum, device
+    operations an iteration and the busy share (profiler over a 1-spp run).
+
+The next-to-last lines are the kernels' JSON record (fifteen entries: the
+twelve kernels and the three new modes, each with its time, its twin's, its
+launches on its path and its roofline bound) and the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -142,6 +161,22 @@ METHOD_KERNELS = {"bvh": ("bvh_closest", "bvh_anyhit"),
                   "binned": ("binned_round_closest", "binned_round_anyhit"),
                   "resident": ("resident_closest", "resident_anyhit")}
 METHOD_WAVE = dict(width=32, height=32, spp=1, integrator="mis", max_bounces=64, seed=0)
+FIELD_N = 22                # many_spheres(n_per_side=22): 1,940 spheres in 8 clusters
+CLUSTER_KERNELS = {
+    "sphere_closest_clustered": ("pathtrace_tpu_torch/csrc/intersect.cu",
+                                 "pathtrace_tpu/ops/pallas_intersect.py:240"),
+    "any_hit_clustered": ("pathtrace_tpu_torch/csrc/intersect.cu",
+                          "pathtrace_tpu/ops/pallas_intersect.py:679"),
+    "fused_bounce_on_pbr": ("pathtrace_tpu_torch/csrc/fused_bounce.cu",
+                            "pathtrace_tpu/ops/pallas_shade.py:537"),
+}
+FIELD_POOL = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=8,
+                  num_slots=1024, seed=0)
+FIELD_WAVE = dict(width=32, height=32, spp=1, integrator="mis", max_bounces=64, seed=0)
+ON_PBR_POOL = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=16,
+                   num_slots=1024, seed=0)
+CLUSTER_FRAME = dict(width=1920, height=1080, spp=4, integrator="mis", max_bounces=32,
+                     num_slots=16384, seed=0)
 # Roofline of one H100 SXM (NVIDIA's data sheet): float32 outside the tensor
 # cores and HBM bandwidth, at the full 700 W power limit.
 PEAK_FP32 = 67e12
@@ -175,17 +210,19 @@ def bound(n_bytes: int, n_ops: int) -> dict:
             "operations", "bytes": n_bytes, "ops": n_ops}
 
 
-def entered_rows(boxes, rows: int, o, d, t_min, t_stop) -> int:
-    """Triangle rows in the boxes (``rows`` each) that the segments
-    ``[t_min, t_stop]`` enter, summed over rays."""
+def entered_rows(boxes, rows, o, d, t_min, t_stop) -> int:
+    """Primitive rows in the boxes (``rows`` each, or a ``(C,)`` tensor of
+    per-box counts) that the segments ``[t_min, t_stop]`` enter, summed over
+    rays."""
     from pathtrace_tpu_torch.ops.binned import cluster_entries
 
+    per_box = torch.as_tensor(rows, device=o.device).expand(boxes.shape[0])
     n = 0
     for a in range(0, o.shape[0], 4096):
         b = a + 4096
-        n += int((cluster_entries(o[a:b], d[a:b], t_min[a:b], t_stop[a:b], boxes)
-                  < float("inf")).sum())
-    return n * rows
+        entered = cluster_entries(o[a:b], d[a:b], t_min[a:b], t_stop[a:b], boxes) < float("inf")
+        n += int((entered * per_box).sum())
+    return n
 
 
 def closest_tests(boxes, rows, o, d, t_min, t_max, t_hit) -> int:
@@ -287,7 +324,8 @@ def lane_states(scene, camera, tables, S, bounces=4, seed=0):
 def bounce_kwargs(scene, integrator, max_bounces):
     return dict(num_tris=scene.tri_v0.shape[0], num_lights=scene.num_lights,
                 integrator=integrator, max_bounces=max_bounces,
-                has_tri_lights=scene.has_tri_lights, has_sph_lights=scene.has_sph_lights)
+                has_tri_lights=scene.has_tri_lights, has_sph_lights=scene.has_sph_lights,
+                has_oren_nayar=scene.has_oren_nayar, has_pbr=scene.has_pbr)
 
 
 def check_kernels(dev):
@@ -350,7 +388,8 @@ def check_kernels(dev):
         t_k = cuda_ms(lambda: binding.launch_fused_bounce(
             tables, *batch, out_k, num_tris=kw["num_tris"], num_lights=kw["num_lights"],
             max_bounces=kw["max_bounces"], eps=shade.EPS,
-            **shade.kernel_flags("mis", scene.has_tri_lights, scene.has_sph_lights)))
+            **shade.kernel_flags("mis", scene.has_tri_lights, scene.has_sph_lights,
+                                 scene.has_oren_nayar, scene.has_pbr)))
         t_p = cuda_ms(lambda: shade.fused_bounce_reference(tables, *batch, **kw))
         s_k = cuda_ms(lambda: binding.launch_shadow_any_hit(
             tables, so, sd, st, occ_k, eps=shade.EPS))
@@ -971,9 +1010,11 @@ def check_wave_kernels(dev):
                 tables, o, d, lo, hi_t, *out))
             p_ms = cuda_ms(lambda: intersect.triangle_closest_reference(
                 tables, o, d, lo, hi_t), **slow)
+        tri_box = tables.leaf if tables.route == "flat" else None   # as occluded() passes it
         blocked = same_occ(intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
-                           intersect.any_hit(tables.sph, tri, so, sd, lo, st))
-        a_ms = cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ_k))
+                           intersect.any_hit(tables.sph, tri, so, sd, lo, st, tri_box=tri_box))
+        a_ms = cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ_k,
+                                                      tri_box=tri_box))
         a_p = cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
                       **(slow if tables.route == "flat" else {}))
         ms[name] = {kname: (k_ms, p_ms), "any_hit": (a_ms, a_p)}
@@ -1074,7 +1115,7 @@ def run_wave_gpu_vs_cpu(dev):
                                  f"{cpu.ray_queries}")
         assert_images_match(img, cpu.image.numpy())
         want = ({"combined_closest_small", "any_hit"} if name == "cornell"
-                else {"triangle_closest", "sphere_closest", "any_hit"})
+                else {"triangle_closest", "sphere_closest", "any_hit_clustered"})
         if set(launches) != want:
             raise AssertionError(f"wave {name} launched {launches}")
         if name != "cornell":
@@ -1095,12 +1136,263 @@ def run_wave_gpu_vs_cpu(dev):
                              f"rays {iters_cpu} iters")
     assert_images_match(img, img_cpu.numpy())
     if launches.get("triangle_closest", 0) != iters or set(launches) != {
-            "triangle_closest", "sphere_closest", "any_hit"}:
+            "triangle_closest", "sphere_closest", "any_hit_clustered"}:
         raise AssertionError(f"flat pool launches {launches} for {iters} iterations")
     log(f"[flat-pool] mesh_scene({FLAT_TRIS}) {W}x{H} {FLAT_POOL['spp']}spp MIS depth "
         f"{FLAT_POOL['max_bounces']}: rays {rays}, iters {iters} on both; max pixel diff "
         f"{np.abs(img - img_cpu.numpy()).max():.4g}; launches {launches}")
     return flat_launches
+
+
+def on_pbr_scene(dev):
+    """The ON/PBR scene of the JAX package's ``tests/test_fused.py``: an
+    Oren-Nayar ground, two PBR spheres (dielectric and metal), a GGX mirror,
+    a Lambert sphere, a spherical and a triangle light."""
+    from pathtrace_tpu_torch.models.materials import (Emissive, Lambertian, Mirror, OrenNayar,
+                                                      PBRMaterial)
+    from pathtrace_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder(dev)
+    b.add_quad((-20, 0, -20), (20, 0, -20), (20, 0, 20), (-20, 0, 20),
+               OrenNayar((0.6, 0.55, 0.5), 0.5))
+    b.add_sphere((0.0, 1.0, -3.0), 1.0, PBRMaterial((0.7, 0.3, 0.3), roughness=0.4, metallic=0.0))
+    b.add_sphere((-2.2, 1.0, -3.0), 1.0, PBRMaterial((0.9, 0.8, 0.4), roughness=0.35,
+                                                     metallic=1.0))
+    b.add_sphere((2.2, 1.0, -3.0), 1.0, Mirror(roughness=0.4, metallic=1.0))
+    b.add_sphere((4.0, 1.0, -5.0), 1.0, Lambertian((0.3, 0.5, 0.7)))
+    b.add_sphere((0.0, 6.0, -3.0), 1.5, Emissive((12.0, 12.0, 12.0)))
+    b.add_triangle((-3.0, 5.0, -1.0), (-1.0, 5.0, -1.0), (-2.0, 5.0, -2.0),
+                   Emissive((8.0, 8.0, 8.0)))
+    return b.build()
+
+
+def sphere_field(dev):
+    from pathtrace_tpu_torch.models import scenes
+
+    return scenes.many_spheres(n_per_side=FIELD_N, device=dev)
+
+
+def check_clustered_kernels(dev):
+    """Phase 3e: the clustered sphere_closest and any_hit against their twins,
+    bitwise, on the sphere field's 65,536 lanes; fused_bounce with its ON/PBR
+    lanes against its twin at S = 16,384 lanes of the ON/PBR scene."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+
+    scene = sphere_field(dev)
+    tables = intersect.build_tables(scene)
+    box = tables.sph_box
+    t0 = time.perf_counter()
+    (o, d), (so, sd, st) = lane_rays(scene, scenes.many_spheres_camera(1920, 1080, dev),
+                                     tables, WAVE_S)
+    torch.cuda.synchronize()
+    S = WAVE_S
+    lo = torch.full((S,), shade.EPS, device=dev)
+    hi = torch.full((S,), float("inf"), device=dev)
+    tri = tables.tri[:tables.tri_rows]
+    worst, ms, bounds = {}, {}, {}
+    ref_s = intersect.sphere_closest_reference(tables.sph, o, d, lo, hi)
+    worst["sphere_closest_clustered"] = _bitwise(
+        "sphere_closest_clustered", ref_s, intersect.sphere_closest(tables.sph, o, d, lo, hi,
+                                                                    box=box))
+    ref_occ = intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st)
+    worst["any_hit_clustered"] = _bitwise(
+        "any_hit_clustered", ref_occ,
+        intersect.any_hit(tables.sph, tri, so, sd, lo, st, sph_box=box, tri_box=tables.leaf))
+    ref_socc = intersect.any_hit_reference(tables.sph, tri[:0], so, sd, lo, st)
+    _bitwise("any_hit_clustered, spheres only", ref_socc,
+             intersect.any_hit(tables.sph, tri[:0], so, sd, lo, st, sph_box=box))
+
+    f32, i32 = torch.float32, torch.int32
+    out = (torch.empty(S, device=dev), torch.empty(S, dtype=i32, device=dev),
+           torch.empty((S, 3), dtype=f32, device=dev), torch.empty(S, dtype=i32, device=dev))
+    occ = torch.empty(S, dtype=torch.bool, device=dev)
+    slow = dict(runs=5, calls=1)       # twins: 10-40 ms a call
+    one_tile = cuda_ms(lambda: binding.launch_sphere_closest(tables.sph, o, d, lo, hi, *out))
+    ms["sphere_closest_clustered"] = (
+        cuda_ms(lambda: binding.launch_sphere_closest(tables.sph, o, d, lo, hi, *out, box=box)),
+        cuda_ms(lambda: intersect.sphere_closest_reference(tables.sph, o, d, lo, hi), **slow))
+    ms["any_hit_clustered"] = (
+        cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ,
+                                               sph_box=box, tri_box=tables.leaf)),
+        cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st), **slow))
+    n_sph = tables.sph.shape[0]
+    per_box = torch.clamp(n_sph - 256 * torch.arange(box.shape[0], device=dev), 0, 256)
+    free = ~ref_occ
+    bounds["sphere_closest_clustered"] = bound(
+        nbytes(o, d, lo, hi, tables.sph, box, *out),
+        SPH_OPS * closest_tests(box, per_box, o, d, lo, hi, ref_s[0]))
+    bounds["any_hit_clustered"] = bound(
+        nbytes(so, sd, lo, st, occ, tables.sph, box, tri, tables.leaf),
+        SPH_OPS * entered_rows(box, per_box, so[free], sd[free], lo[free], st[free])
+        + TRI_OPS * entered_rows(tables.leaf, tables.tri_rows, so[free], sd[free], lo[free],
+                                 st[free])
+        + SPH_OPS * int(ref_occ.sum()))
+    log(f"[cluster-kernels] many_spheres(n_per_side={FIELD_N}): {n_sph} spheres in "
+        f"{box.shape[0]} clusters, {tables.tri_rows} triangles ({tables.route} route); lanes "
+        f"from twin bounces in {time.perf_counter() - t0:.2f} s. Bitwise equal to their twins on "
+        f"all {S} lanes: sphere_closest_clustered ({int((ref_s[1] >= 0).sum())} hits), "
+        f"any_hit_clustered ({int(ref_occ.sum())} blocked of {int((st >= shade.EPS).sum())} "
+        f"queries; spheres alone {int(ref_socc.sum())}). ms kernel vs twin: "
+        + ", ".join(f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items())
+        + f"; the one-tile sphere_closest on the same lanes {one_tile:.4f} ms; bounds "
+        + json.dumps(bounds))
+
+    scene = on_pbr_scene(dev)
+    camera = scenes.default_spheres_camera(1920, 1080, dev)
+    ft = shade.build_tables(scene)
+    batch = lane_states(scene, camera, ft, SLICE_S)
+    kw = bounce_kwargs(scene, "mis", 16)
+    ref = shade.fused_bounce_reference(ft, *batch, **kw)
+    got = shade.fused_bounce(ft, *batch, **kw)
+    torch.cuda.synchronize()
+    differ = torch.zeros(SLICE_S, dtype=torch.bool, device=dev)
+    err = 0.0
+    for a, b in zip(ref, got):
+        if a.dtype == torch.float32:
+            bad = (a.view(torch.int32) != b.view(torch.int32)) & ~(a.isnan() & b.isnan())
+            err = max(err, (a - b).abs().nan_to_num(0.0).max().item())
+        else:
+            bad = a != b
+        differ |= bad.any(0) if bad.dim() == 2 else bad
+    n_differ = int(differ.sum())
+    if n_differ:   # the phase-3 rule: knife-edge lanes may flip where libm differs
+        agree = (ref.live == got.live) & (ref.shade == got.shade)
+        close = agree.clone()
+        for a, b in zip(ref, got):
+            if a.dtype != torch.bool:
+                ok = torch.isclose(b, a, rtol=TWIN_RTOL, atol=TWIN_ATOL, equal_nan=True)
+                close &= ok.all(0) if ok.dim() == 2 else ok
+        if close.float().mean().item() < DISCRETE_AGREE:
+            raise AssertionError(f"fused_bounce_on_pbr: {n_differ} lanes differ, only "
+                                 f"{close.float().mean().item():.5f} within rtol {TWIN_RTOL}")
+    worst["fused_bounce_on_pbr"] = err
+    out_k = shade.BounceResult(*(torch.empty_like(x) for x in got))
+    flags = shade.kernel_flags("mis", scene.has_tri_lights, scene.has_sph_lights,
+                               scene.has_oren_nayar, scene.has_pbr)
+    ms["fused_bounce_on_pbr"] = (
+        cuda_ms(lambda: binding.launch_fused_bounce(
+            ft, *batch, out_k, num_tris=kw["num_tris"], num_lights=kw["num_lights"],
+            max_bounces=kw["max_bounces"], eps=shade.EPS, **flags)),
+        cuda_ms(lambda: shade.fused_bounce_reference(ft, *batch, **kw), **slow))
+    row_ops = scene.tri_v0.shape[0] * TRI_OPS + scene.sph_center.shape[0] * SPH_OPS
+    bounds["fused_bounce_on_pbr"] = bound(nbytes(*batch, *ft, *out_k),
+                                          int(batch[0].sum()) * row_ops)
+    kinds = ft.sph[:, 5].tolist() + ft.tri[:, 12].tolist()
+    log(f"[cluster-kernels] fused_bounce_on_pbr S={SLICE_S} on the ON/PBR scene (kinds "
+        f"{sorted(set(int(k) for k in kinds))}): {n_differ} lanes differ bitwise from the twin "
+        f"(max abs error {err:.4g}); {ms['fused_bounce_on_pbr'][0]:.4f} ms vs twin "
+        f"{ms['fused_bounce_on_pbr'][1]:.4f} ms; bound {json.dumps(bounds['fused_bounce_on_pbr'])}")
+    return worst, ms, bounds
+
+
+def run_cluster_frames(dev):
+    """Phase 4e: the sphere field through the composed pool and the wave
+    engine, and the ON/PBR scene through the fused pool, on the card against
+    the CPU twins: equal ray counts, images within the imgutil budget."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+    from pathtrace_tpu_torch.render import RenderConfig, render
+
+    for name, build, cam_fn, kw, want in (
+        ("sphere field pool", sphere_field, scenes.many_spheres_camera, FIELD_POOL,
+         {"sphere_closest_clustered", "triangle_closest", "any_hit_clustered"}),
+        ("ON/PBR fused pool", on_pbr_scene, scenes.default_spheres_camera, ON_PBR_POOL,
+         {"fused_bounce_on_pbr", "shadow_any_hit"}),
+    ):
+        W, H = kw["width"], kw["height"]
+        shade.LAUNCHES.clear()
+        img, counters, iters = render_pool(build(dev), cam_fn(W, H, dev), **kw)
+        img = img.cpu().numpy()
+        launches = dict(shade.LAUNCHES)
+        t0 = time.perf_counter()
+        img_cpu, counters_cpu, iters_cpu = render_pool(build("cpu"), cam_fn(W, H, "cpu"), **kw)
+        cpu_s = time.perf_counter() - t0
+        rays, rays_cpu = ray_count(counters), ray_count(counters_cpu)
+        if (rays, iters) != (rays_cpu, iters_cpu):
+            raise AssertionError(f"{name}: GPU {rays} rays {iters} iters, CPU {rays_cpu} rays "
+                                 f"{iters_cpu} iters")
+        assert_images_match(img, img_cpu.numpy())
+        if set(launches) != want or min(launches.values()) <= 0:
+            raise AssertionError(f"{name} launched {launches}")
+        log(f"[cluster-frames] {name} {W}x{H} {kw['spp']}spp MIS depth {kw['max_bounces']}: "
+            f"rays {rays}, iters {iters} on both (CPU {cpu_s:.1f} s); max pixel diff "
+            f"{np.abs(img - img_cpu.numpy()).max():.4g}; launches {launches}")
+
+    W, H = FIELD_WAVE["width"], FIELD_WAVE["height"]
+    cfg = RenderConfig(**FIELD_WAVE)
+    shade.LAUNCHES.clear()
+    gpu = render(sphere_field(dev), scenes.many_spheres_camera(W, H, dev), cfg)
+    img = gpu.image.cpu().numpy()
+    launches = dict(shade.LAUNCHES)
+    cpu = render(sphere_field("cpu"), scenes.many_spheres_camera(W, H, "cpu"), cfg)
+    if gpu.ray_queries != cpu.ray_queries:
+        raise AssertionError(f"sphere field wave: rays GPU {gpu.ray_queries} vs CPU "
+                             f"{cpu.ray_queries}")
+    assert_images_match(img, cpu.image.numpy())
+    if set(launches) != {"sphere_closest_clustered", "triangle_closest", "any_hit_clustered"}:
+        raise AssertionError(f"sphere field wave launched {launches}")
+    log(f"[cluster-frames] sphere field wave {W}x{H} 1spp MIS: rays {gpu.ray_queries} on both; "
+        f"max pixel diff {np.abs(img - cpu.image.numpy()).max():.4g}; launches {launches}")
+
+
+def run_cluster_bench(dev, smi: str):
+    """Phase 5e: the sphere field (composed pool) and the ON/PBR scene (fused
+    pool) at 1920x1080, 4 spp, MIS, 32 bounces, 16,384 slots, timed. A 1-spp
+    warm-up gives the wall that the profiler's device time over the same
+    1-spp frame is divided by (busy share), and the device operations an
+    iteration; the 4-spp frame gives wall, Mrays/s, rays, iterations and the
+    checksum. Returns the launches of each frame's kernels."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import busy_count, ray_count, render_pool
+
+    W, H = CLUSTER_FRAME["width"], CLUSTER_FRAME["height"]
+    all_launches = {}
+    for name, build, cam_fn, want in (
+        (f"many_spheres(n_per_side={FIELD_N})", sphere_field, scenes.many_spheres_camera,
+         ("sphere_closest_clustered", "any_hit_clustered")),
+        ("on_pbr", on_pbr_scene, scenes.default_spheres_camera, ("fused_bounce_on_pbr",)),
+    ):
+        scene, camera = build(dev), cam_fn(W, H, dev)
+        one = dict(CLUSTER_FRAME, spp=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, iters1 = render_pool(scene, camera, **one)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        dev_ms, dev_ops = device_work(lambda: render_pool(scene, camera, **one))
+        shade.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, counters, iters = render_pool(scene, camera, **CLUSTER_FRAME)
+        checksum = float(img.double().sum().item())     # forces completion
+        wall = time.perf_counter() - t0
+        launches = dict(shade.LAUNCHES)
+        if not torch.isfinite(img).all():
+            raise AssertionError(f"{name}: image not finite")
+        for k in want:
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"{k} was not launched on the {name} frame: {launches}")
+        rays = ray_count(counters)
+        slots = min(CLUSTER_FRAME["num_slots"], W * H)
+        result = {
+            "workload": f"{name} {W}x{H} {CLUSTER_FRAME['spp']}spp MIS depth "
+                        f"{CLUSTER_FRAME['max_bounces']}",
+            "total_rays": rays, "iters": iters,
+            "occupancy": busy_count(counters) / max(iters * slots, 1),
+            "wall_s": wall, "mrays_per_s": rays / wall / 1e6, "image_checksum": checksum,
+            "warmup_1spp_s": warm_s, "iters_1spp": iters1,
+            "device_ms_1spp": dev_ms, "device_ops_per_iter": dev_ops / iters1,
+            "busy_share": dev_ms / 1e3 / warm_s if dev_ms else None,
+            "kernel_launches_per_iter": {k: launches[k] / iters for k in sorted(launches)},
+            "card": smi,
+        }
+        log("[cluster-bench] " + json.dumps(result))
+        all_launches.update(launches)
+    return all_launches
 
 
 def run_cli():
@@ -1110,13 +1402,22 @@ def run_cli():
                   "--spp", "2"],
                  ["--scene", "mesh", "--method", "resident", "--engine", "pool", "--width",
                   "32", "--height", "32", "--spp", "1", "--max-bounces", "4",
-                  "--pool-slots", "1024"]):
+                  "--pool-slots", "1024"],
+                 ["--scene", "many-spheres", "--engine", "pool", "--width", "32", "--height",
+                  "32", "--spp", "1", "--max-bounces", "4", "--pool-slots", "1024"]):
+        # The last one renders the 1,940-sphere field: the CLI's many-spheres
+        # scene built with n_per_side=22 (the clustered sphere kernels).
+        entry = ("from pathtrace_tpu_torch import cli; raise SystemExit(cli.main())"
+                 if "many-spheres" not in args else
+                 "import functools; from pathtrace_tpu_torch import cli; "
+                 "from pathtrace_tpu_torch.models import scenes; "
+                 f"scenes.many_spheres = functools.partial(scenes.many_spheres, "
+                 f"n_per_side={FIELD_N}); raise SystemExit(cli.main())")
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "cli.png")
             t0 = time.perf_counter()
             r = subprocess.run(
-                [sys.executable, "-m", "pathtrace_tpu_torch", "render", *args,
-                 "--device", "cuda", "--out", out],
+                [sys.executable, "-c", entry, "render", *args, "--device", "cuda", "--out", out],
                 capture_output=True, text=True, timeout=300)
             if r.returncode != 0:
                 raise AssertionError(f"CLI {args} exited {r.returncode}: {r.stderr[-2000:]}")
@@ -1154,6 +1455,7 @@ def main() -> int:
     trav_worst, trav_ms, trav_bnd = check_traversal_kernels(dev, mesh, lanes)
     del lanes
     wave_worst, wave_ms, wave_bnd = check_wave_kernels(dev)
+    cl_worst, cl_ms, cl_bnd = check_clustered_kernels(dev)
     run_cornell(dev)
     run_mesh_frame(dev)
     launches = run_bench(dev, smi)
@@ -1162,6 +1464,8 @@ def main() -> int:
     wave_launches = run_wave_cornell(dev, smi)
     flat_launches = run_wave_gpu_vs_cpu(dev)
     run_wave_methods(dev)
+    run_cluster_frames(dev)
+    cluster_launches = run_cluster_bench(dev, smi)
     run_cli()
 
     def entry(name, src, rep, n_launches, err, times, bnd):
@@ -1188,6 +1492,9 @@ def main() -> int:
         entry(k, src, rep, method_launches[method_of[k]][k], trav_worst[k], trav_ms[k],
               trav_bnd[k])
         for k, (src, rep) in TRAVERSAL_KERNELS.items()
+    ] + [
+        entry(k, src, rep, cluster_launches[k], cl_worst[k], cl_ms[k], cl_bnd[k])
+        for k, (src, rep) in CLUSTER_KERNELS.items()
     ]}
     print(json.dumps(record))
     print(smi)

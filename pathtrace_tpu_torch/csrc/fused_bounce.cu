@@ -1,9 +1,18 @@
 // One full path vertex per lane: the pool's bounce kernel.
 //
 // Replaces pathtrace_tpu/ops/pallas_shade.py :: _fused_bounce_kernel
-// (wrapper fused_bounce), split-shadow mode, VPU sphere form, no Oren-Nayar
-// or PBR lanes and no raygen mode. Plain-torch twin and the layout contract:
+// (wrapper fused_bounce), split-shadow mode, VPU sphere form, no raygen
+// mode. Plain-torch twin and the layout contract:
 // pathtrace_tpu_torch/ops/shade.py :: fused_bounce_reference.
+//
+// Material lanes: Lambert, GGX mirror and emissive always; Oren-Nayar and
+// PBR (the JAX has_on/has_pbr lanes, _eval_oren_nayar3, _eval_pbr3 and
+// _sample_pbr3) when the scene's flags set has_on/has_pbr, which the
+// wrapper passes as it passes the light-class flags. The JAX kernel
+// evaluates every enabled lane on every lane of a tile and selects by kind;
+// here a thread branches on its own material kind at run time, so a lane
+// pays only for its own lobe; the twin evaluates the enabled lanes and
+// selects, which gives the same values.
 //
 // What bounds it on the H100: per-lane ALU work over the sphere list (up to
 // 512 spheres x ~20 flops for the closest hit, plus ~64 triangles x ~40),
@@ -22,7 +31,8 @@
 //
 // Rounding: built with -fmad=false and without fast math, the arithmetic
 // matches the twin operation for operation (IEEE division and sqrt), except
-// cosf/sinf. Compare with the twin, not bitwise: knife-edge lanes may flip.
+// cosf/sinf/atan2f, which are the same CUDA math functions torch's own
+// kernels call on the card.
 // NaN sphere padding rows (k = NaN) rely on NaN failing every compare,
 // which fast math would break.
 
@@ -43,7 +53,7 @@ constexpr int kTcN = 9, kTcKind = 12;
 constexpr int kScInvR = 4, kScKind = 5;
 constexpr int kLcIsTri = 0, kLcP = 1, kLcRad = 4, kLcE1 = 4, kLcE2 = 7, kLcN = 10,
               kLcArea = 13, kLcEmi = 14, kLcPrim = 17;
-constexpr int kKindEmissive = 1, kKindMirror = 2;
+constexpr int kKindEmissive = 1, kKindMirror = 2, kKindOrenNayar = 3, kKindPbr = 4;
 constexpr int kRrMinDepth = 4, kRrMaxDepth = 50;
 
 // Inexact constants are rounded from double, as the twin's Python floats are.
@@ -55,6 +65,11 @@ constexpr float kF_0p999 = static_cast<float>(0.999);
 constexpr float kF_0p2126 = static_cast<float>(0.2126);
 constexpr float kF_0p7152 = static_cast<float>(0.7152);
 constexpr float kF_0p0722 = static_cast<float>(0.0722);
+constexpr float kF_1em6 = static_cast<float>(1e-6);
+constexpr float kF_0p33 = static_cast<float>(0.33);
+constexpr float kF_0p45 = static_cast<float>(0.45);
+constexpr float kF_0p09 = static_cast<float>(0.09);
+constexpr float kF_0p04 = static_cast<float>(0.04);
 
 struct Params {
   const bool* busy;
@@ -81,7 +96,7 @@ struct Params {
   float* shadow_tmax;
   int S, n_sph, n_tri, n_lgt;
   int num_tris, num_lights, max_bounces;
-  int use_mis, use_nee, has_tri_l, has_sph_l;
+  int use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr;
   float eps;
 };
 
@@ -277,6 +292,116 @@ __device__ void sample_mirror(const Mat& m, V3 i, V3 normal, float eta, float r1
 
   bool bad = fail || !finite3(bsdf) || !finite1(pdf) || (pdf <= 0.0f);
   if (bad) {
+    float z = 0.0f * pdf;
+    o = normal;
+    bsdf = v3(z, z, z);
+    pdf = 1.0f;
+    cs = 0.0f;
+  }
+  *o_out = o;
+  *bsdf_out = bsdf;
+  *pdf_out = pdf;
+  *cos_out = cs;
+}
+
+// Oren-Nayar bsdf and pdf toward o (pallas_shade.py :: _eval_oren_nayar3).
+__device__ void eval_oren_nayar(V3 color, float rough, V3 i, V3 o, V3 normal, V3* bsdf,
+                                float* pdf) {
+  float sigma2 = rough * rough;
+  float a = 1.0f - 0.5f * sigma2 / (sigma2 + kF_0p33);
+  float b = kF_0p45 * sigma2 / (sigma2 + kF_0p09);
+
+  float cos_i = clamp_min(dot3(i, normal), 0.0f);
+  float cos_o = clamp_min(dot3(o, normal), 0.0f);
+  float sin_i = sqrtf(clamp_min(1.0f - cos_i * cos_i, 0.0f));
+  float sin_o = sqrtf(clamp_min(1.0f - cos_o * cos_o, 0.0f));
+
+  V3 tangent, bitangent;
+  tangent_frame(normal, &tangent, &bitangent);
+  float phi_i = atan2f(dot3(i, bitangent), dot3(i, tangent));
+  float phi_o = atan2f(dot3(o, bitangent), dot3(o, tangent));
+  float cos_phi_diff = clamp_min(cosf(phi_i - phi_o), 0.0f);
+
+  // alpha = the larger angle, beta = the smaller, by the cosine comparison.
+  bool i_steeper = cos_i > cos_o;
+  float tan_beta = i_steeper ? (cos_i > kF_1em6 ? sin_i / clamp_min(cos_i, kF_1em6) : 0.0f)
+                             : (cos_o > kF_1em6 ? sin_o / clamp_min(cos_o, kF_1em6) : 0.0f);
+  float sin_alpha = i_steeper ? sin_o : sin_i;
+
+  float term = (a + b * cos_phi_diff * sin_alpha * tan_beta) / kPiF;
+  *bsdf = scale3(color, term);
+  *pdf = cos_o / kPiF;
+}
+
+// PBR bsdf and pdf toward o: GGX specular reflection plus Oren-Nayar diffuse
+// scaled by kd, the pdf a Fresnel-weighted blend (pallas_shade.py ::
+// _eval_pbr3).
+__device__ void eval_pbr(const Mat& m, V3 i, V3 o, V3 normal, V3* bsdf, float* pdf) {
+  float alpha = m.rough * m.rough;
+  float alpha2 = alpha * alpha;
+
+  V3 h = normalize3(add3(i, o));
+  float n_h = dot3(normal, h);
+  float d_ggx = ggx_d(alpha2, n_h);
+  float cos_i = clamp_min(dot3(i, normal), 0.0f);
+  float cos_o = clamp_min(dot3(o, normal), 0.0f);
+  float g2 = smith_g2(alpha2, cos_i, cos_o);
+  float cos_f = clamp_min(dot3(i, h), 0.0f);
+  V3 f = fresnel3(m.col, m.metal, m.ior, cos_f);
+  V3 spec_brdf = scale3(f, d_ggx * g2 / (4.0f * cos_i * cos_o));
+  float spec_pdf = d_ggx * fabsf(n_h) / (4.0f * fabsf(dot3(i, h)));
+
+  // Diffuse: Oren-Nayar x kd; metals do not diffuse.
+  V3 diff_raw;
+  float diff_pdf;
+  eval_oren_nayar(m.col, m.rough, i, o, normal, &diff_raw, &diff_pdf);
+  bool not_metal = m.metal < 1.0f;
+  float one_m = 1.0f - m.metal;
+  V3 diff_brdf = not_metal ? v3(diff_raw.x * (1.0f - f.x) * one_m,
+                                diff_raw.y * (1.0f - f.y) * one_m,
+                                diff_raw.z * (1.0f - f.z) * one_m)
+                           : v3(0.0f, 0.0f, 0.0f);
+
+  V3 b = add3(spec_brdf, diff_brdf);
+  float f_avg = (f.x + f.y + f.z) / 3.0f;
+  float sw = f_avg;
+  float dw = (1.0f - f_avg) * one_m;
+  float tw = sw + dw;
+  float p = tw > kF_1em6 ? (sw * spec_pdf + dw * diff_pdf) / clamp_min(tw, kF_1em6) : spec_pdf;
+  if (cos_o <= 0.0f || !finite3(b) || !finite1(p)) {
+    float z = 0.0f * p;
+    b = v3(z, z, z);
+    p = 1.0f;
+  }
+  *bsdf = b;
+  *pdf = p;
+}
+
+// PBR sample: a coin weighted by the approximate Fresnel picks the GGX VNDF
+// reflection or the shared cosine sample d_diff, evaluated there
+// (pallas_shade.py :: _sample_pbr3).
+__device__ void sample_pbr(const Mat& m, V3 i, V3 normal, float r1, float r2, float u_coin,
+                           V3 d_diff, V3* o_out, V3* bsdf_out, float* pdf_out, float* cos_out) {
+  float cos_i = clamp_min(dot3(i, normal), 0.0f);
+  float mean_c = (m.col.x + m.col.y + m.col.z) / 3.0f;
+  float f0s = m.metal > 0.5f ? mean_c : kF_0p04;
+  float f_approx = f0s + (1.0f - f0s) * pow5(1.0f - cos_i);
+  float sw = f_approx;
+  float dw = (1.0f - f_approx) * (1.0f - m.metal);
+  float tw = sw + dw;
+  float p_spec = tw > kF_1em6 ? sw / clamp_min(tw, kF_1em6) : 1.0f;
+  bool use_spec = u_coin < p_spec;
+
+  V3 h = sample_vndf(i, normal, m.rough, r1, r2);
+  V3 o_spec = normalize3(sub3(scale3(h, 2.0f * dot3(i, h)), i));
+
+  V3 o = use_spec ? o_spec : d_diff;
+  V3 bsdf;
+  float pdf;
+  eval_pbr(m, i, o, normal, &bsdf, &pdf);
+  float cs = clamp_min(dot3(o, normal), 0.0f);
+
+  if (!finite3(bsdf) || !finite1(pdf) || pdf <= 0.0f) {
     float z = 0.0f * pdf;
     o = normal;
     bsdf = v3(z, z, z);
@@ -533,7 +658,13 @@ __global__ void __launch_bounds__(kThreads) fused_bounce_kernel(Params p) {
     float cos_l = fabsf(ldir_n);
     V3 bsdf_l = scale3(m.col, kInvPiF);
     float pdf_l = clamp_min(ldir_n, 0.0f) * kInvPiF;
-    if (kind == kKindMirror) eval_mirror(m, i3, ldir, normal, eta_in, &bsdf_l, &pdf_l);
+    if (kind == kKindMirror) {
+      eval_mirror(m, i3, ldir, normal, eta_in, &bsdf_l, &pdf_l);
+    } else if (p.has_on && kind == kKindOrenNayar) {
+      eval_oren_nayar(m.col, m.rough, i3, ldir, normal, &bsdf_l, &pdf_l);
+    } else if (p.has_pbr && kind == kKindPbr) {
+      eval_pbr(m, i3, ldir, normal, &bsdf_l, &pdf_l);
+    }
     if (kind == kKindEmissive) {
       bsdf_l = zero3;
       pdf_l = 1.0f;
@@ -559,6 +690,11 @@ __global__ void __launch_bounds__(kThreads) fused_bounce_kernel(Params p) {
   float cos_s = clamp_min(dot3(d_diff, normal), 0.0f);
   if (kind == kKindMirror) {
     sample_mirror(m, i3, normal, eta_s, u[3], u[4], u[5], &o_dir, &bsdf_s, &pdf_s, &cos_s);
+  } else if (p.has_on && kind == kKindOrenNayar) {
+    // The shared cosine sample: only the evaluated brdf/pdf differ.
+    eval_oren_nayar(m.col, m.rough, i3, d_diff, normal, &bsdf_s, &pdf_s);
+  } else if (p.has_pbr && kind == kKindPbr) {
+    sample_pbr(m, i3, normal, u[3], u[4], u[5], d_diff, &o_dir, &bsdf_s, &pdf_s, &cos_s);
   }
   if (kind == kKindEmissive) {
     o_dir = normal;
@@ -619,13 +755,14 @@ extern "C" int pt_fused_bounce(
     float* next_d, float* next_eta, float* next_pdf, float* next_prefix, bool* live,
     bool* shade, float* nee_gain, float* shadow_d, float* shadow_tmax, int S, int num_tris,
     int num_lights, int max_bounces, int use_mis, int use_nee, int has_tri_l, int has_sph_l,
-    float eps, void* stream) {
+    int has_on, int has_pbr, float eps, void* stream) {
   if (S <= 0) return 0;
   pt::Params p{busy,      bounce,     o,          d,         eta,      pdf_prev,   prefix,
                u,         sph,        tri,        lgt,       rad,      next_o,     next_d,
                next_eta,  next_pdf,   next_prefix, live,     shade,    nee_gain,   shadow_d,
                shadow_tmax, S,        n_sph,      n_tri,     n_lgt,    num_tris,   num_lights,
-               max_bounces, use_mis,  use_nee,    has_tri_l, has_sph_l, eps};
+               max_bounces, use_mis,  use_nee,    has_tri_l, has_sph_l, has_on,
+               has_pbr,   eps};
   size_t smem = sizeof(float) * (static_cast<size_t>(n_sph) * pt::kSphCols +
                                  static_cast<size_t>(n_tri) * pt::kTriCols +
                                  static_cast<size_t>(n_lgt) * pt::kLgtCols);

@@ -29,13 +29,13 @@ def library() -> ctypes.CDLL:
         path, _ = build.build()
         lib = ctypes.CDLL(str(path))
         lib.pt_fused_bounce.argtypes = [_P] * 8 + [_P, _I, _P, _I, _P, _I] + [_P] * 11 + \
-            [_I] * 8 + [_F, _P]
+            [_I] * 10 + [_F, _P]
         lib.pt_fused_bounce.restype = _I
         lib.pt_shadow_any_hit.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _P]
         lib.pt_shadow_any_hit.restype = _I
-        lib.pt_sphere_closest.argtypes = [_P, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_sphere_closest.argtypes = [_P, _I, _P, _I] + [_P] * 8 + [_I, _P]
         lib.pt_sphere_closest.restype = _I
-        lib.pt_any_hit.argtypes = [_P, _I, _P, _I] + [_P] * 5 + [_I, _P]
+        lib.pt_any_hit.argtypes = [_P, _I] * 4 + [_P] * 5 + [_I, _P]
         lib.pt_any_hit.restype = _I
         lib.pt_bvh_closest.argtypes = [_P] * 3 + [_I] + [_P] * 8 + [_I, _P]
         lib.pt_bvh_closest.restype = _I
@@ -68,7 +68,7 @@ def _raise_on(code: int, name: str) -> None:
 
 def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, out, *,
                         num_tris, num_lights, max_bounces, eps,
-                        use_mis, use_nee, has_tri_l, has_sph_l) -> None:
+                        use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr) -> None:
     """``out`` is a ``BounceResult`` of preallocated outputs; the flags are
     ``ops.shade.kernel_flags``."""
     lib = library()
@@ -84,7 +84,8 @@ def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefi
             out.live.data_ptr(), out.shade.data_ptr(), out.nee_gain.data_ptr(),
             out.shadow_d.data_ptr(), out.shadow_tmax.data_ptr(),
             busy.shape[0], num_tris, num_lights, max_bounces,
-            int(use_mis), int(use_nee), int(has_tri_l), int(has_sph_l), eps,
+            int(use_mis), int(use_nee), int(has_tri_l), int(has_sph_l), int(has_on),
+            int(has_pbr), eps,
             _stream(busy.device),
         )
     _raise_on(code, "fused_bounce")
@@ -102,22 +103,30 @@ def launch_shadow_any_hit(tables, o, d, t_max, occ, *, eps) -> None:
     _raise_on(code, "shadow_any_hit")
 
 
-def launch_sphere_closest(sph, o, d, t_min, t_max, t, idx, n, m) -> None:
+def _boxes(box) -> tuple:
+    """Pointer and row count of an optional cluster box table (none: 0, 0)."""
+    return (None, 0) if box is None or box.shape[0] == 0 else (box.data_ptr(), box.shape[0])
+
+
+def launch_sphere_closest(sph, o, d, t_min, t_max, t, idx, n, m, box=None) -> None:
+    """``box``: ``Tables.sph_box`` for the clustered mode, else one tile."""
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_sphere_closest(
-            sph.data_ptr(), sph.shape[0], o.data_ptr(), d.data_ptr(),
+            sph.data_ptr(), sph.shape[0], *_boxes(box), o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(), idx.data_ptr(),
             n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "sphere_closest")
 
 
-def launch_any_hit(sph, tri, o, d, t_min, t_max, occ) -> None:
+def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None) -> None:
+    """``sph_box``/``tri_box``: cluster boxes of 256 rows each, or one tile."""
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_any_hit(
-            sph.data_ptr(), sph.shape[0], tri.data_ptr(), tri.shape[0],
+            sph.data_ptr(), sph.shape[0], *_boxes(sph_box), tri.data_ptr(), tri.shape[0],
+            *_boxes(tri_box),
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             occ.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )

@@ -7,8 +7,9 @@ Counterpart of ``pathtrace_tpu/ops/intersect.py`` on the three routes that
 * **small** (<= 64 triangle rows and <= 512 sphere rows): one fused closest
   hit, :func:`combined_closest_small` (``csrc/combined_closest_small.cu``),
   replacing ``pallas_intersect.combined_closest_small``;
-* **flat** (64 < triangles < 4096, <= 512 spheres): :func:`sphere_closest`,
-  then :func:`triangle_closest` (``csrc/triangle_closest.cu``, replacing
+* **flat** (64 < triangles < 4096, or fewer triangles beside more than 512
+  spheres): :func:`sphere_closest`, then :func:`triangle_closest`
+  (``csrc/triangle_closest.cu``, replacing
   ``pallas_intersect.triangle_closest``) over 256-row clusters, capped by
   the sphere hits;
 * **bvh** (>= 4096 triangles): :func:`sphere_closest`, then
@@ -17,7 +18,7 @@ Counterpart of ``pathtrace_tpu/ops/intersect.py`` on the three routes that
   JAX package derives from row order (128-row leaves under 16-leaf groups);
 
 and on the two opt-in per-ray traversals that ``method="binned"`` and
-``method="resident"`` pick for every scene past the small bounds:
+``method="resident"`` pick for every scene past 64 triangles:
 
 * **binned**: :func:`sphere_closest`, then the round-by-round driver of
   ``ops/binned.py`` over the flat route's 256-row clusters (its round
@@ -26,19 +27,29 @@ and on the two opt-in per-ray traversals that ``method="binned"`` and
   (``csrc/resident.cu``, replacing ``resident_intersect``'s kernels): one
   launch walks each ray's 128-row clusters nearest-first.
 
+Past 512 sphere rows (the JAX ``sph_small`` gate) every route passes the
+sphere kernels the 256-row sphere cluster boxes (``Tables.sph_box``), and
+:func:`sphere_closest` and :func:`any_hit` run their clustered mode, as the
+JAX ``sphere_closest``/``any_hit`` do. A scene with <= 64 triangles and more
+than 512 spheres takes the flat route: the JAX package skips
+``combined_closest_small`` there and runs the one-tile ``triangle_closest``
+beside the clustered spheres; the flat route's one padded 256-row cluster
+gives the same answers.
+
 Shadow rays go through :func:`any_hit` (``csrc/intersect.cu``, replacing
 ``pallas_intersect.any_hit``) over the spheres and every triangle row on the
-small and flat routes; on the bvh, binned and resident routes through the
-route's triangle any-hit (:func:`bvh_anyhit`,
-``binned.triangle_anyhit_binned``, :func:`resident_anyhit`) plus
-:func:`any_hit` over the spheres alone.
+small and flat routes (the flat route with its triangle cluster boxes); on
+the bvh, binned and resident routes through the route's triangle any-hit
+(:func:`bvh_anyhit`, ``binned.triangle_anyhit_binned``,
+:func:`resident_anyhit`) plus :func:`any_hit` over the spheres alone.
 
 Every kernel has a plain-torch twin here, brute force over every row in the
 kernels' op order (triangles in chunks of ``TWIN_CHUNK``); a kernel must give
 the same answer, which is what ``chip_smoke.py`` checks on the card. The
 wrappers dispatch on the device of their inputs: CPU tensors run the twin,
 CUDA tensors launch the kernel (or raise); there is no fallback. Each launch
-adds one to ``shade.LAUNCHES``.
+adds one to ``shade.LAUNCHES`` under the kernel's name, the clustered mode of
+``sphere_closest``/``any_hit`` under ``*_clustered``.
 
 :func:`intersect` and :func:`occluded` compose them as the JAX package does:
 global prim ids are triangle rows, then spheres offset by the padded
@@ -61,7 +72,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.scene import CLUSTER_SIZE, Scene
+from ..models.scene import CLUSTER_SIZE, SPH_CLUSTER_SIZE, Scene
 from ..utils import vec
 from .shade import LAUNCHES, _check, _device_kind, _sphere_ts, _tri_hits
 
@@ -75,7 +86,7 @@ GROUP = 16         # leaves per supergroup
 TWIN_CHUNK = 2048  # triangle rows per step of the brute-force twins
 _TRI_COLS = 16     # v0, e1, e2, normal, material, 3 zeros
 _SPH_COLS = 8      # center, |c|^2 - r^2 (NaN on padding), 1/r, material, 2 zeros
-_BOX_COLS = 8      # min, max, 2 zeros
+_BOX_COLS = 8      # min, max, 2 zeros (sphere boxes: min, max, reach, least radius)
 # Outward margin of the cluster boxes of the flat, binned and resident
 # routes, relative to 1 + their largest coordinate: slab-test rounding then
 # never culls a cluster that holds a hit the brute-force twin accepts.
@@ -109,6 +120,9 @@ class Tables(NamedTuple):
     #                      inverted on padding; no rows on the small route
     group: torch.Tensor  # bvh: (max(8, ceil8(n_groups)), 8) group AABBs; else no rows
     sph: torch.Tensor    # (Ps, 8)
+    sph_box: torch.Tensor  # past 512 sphere rows: (ceil(Ps / 256), 8) rows
+    #                      [min | max | reach | least radius] of the 256-row
+    #                      sphere clusters (sphere_cluster_boxes); else no rows
     tri_rows: int        # the scene's triangle rows: the sphere prim-id base
     n_groups: int        # bvh: 16-leaf groups; else 0
     route: str           # "small", "flat", "bvh", "binned" or "resident"
@@ -123,10 +137,10 @@ def resolve_route(num_tris: int, num_spheres: int, method: str = "auto") -> str:
 
     ``method``: ``"auto"`` (the default routes), ``"pallas"`` (no BVH: the
     flat route for every scene past the small bounds), or ``"bvh"``,
-    ``"binned"``, ``"resident"`` (that traversal for every scene past them;
-    the small route below them, as the JAX ``tri_small`` gate). Routes whose
-    kernels are not ported raise ``NotImplementedError`` naming their
-    ROADMAP item."""
+    ``"binned"``, ``"resident"`` (that traversal for every scene past 64
+    triangles; below, as the JAX ``tri_small`` gate, the small route, or the
+    flat one beside more than 512 spheres). An unknown method raises
+    ``NotImplementedError``."""
     if method not in ("auto",) + PER_RAY_METHODS + ("pallas",):
         raise NotImplementedError(
             f"method {method!r} has no route in the port (it has auto, pallas, "
@@ -136,12 +150,7 @@ def resolve_route(num_tris: int, num_spheres: int, method: str = "auto") -> str:
     if not small_tris and (method in PER_RAY_METHODS
                            or method == "auto" and num_tris >= BVH_MIN_TRIS):
         return "bvh" if method == "auto" else method
-    if num_spheres > SMALL_MAX_SPHERES:
-        raise NotImplementedError(
-            f"{num_spheres} spheres (more than {SMALL_MAX_SPHERES}) with fewer than "
-            f"{BVH_MIN_TRIS} triangles take the clustered sphere_closest/any_hit modes, "
-            "not ported yet (ROADMAP Queue 2, items 4 and 7)")
-    return "small" if small_tris else "flat"
+    return "small" if small_tris and num_spheres <= SMALL_MAX_SPHERES else "flat"
 
 
 def _block_boxes(v0, e1, e2, n_blocks: int):
@@ -199,13 +208,36 @@ def _widen(lo, hi):
     return torch.cat([lo, hi, lo.new_zeros((lo.shape[0], 2))], dim=1).contiguous()
 
 
+def sphere_cluster_boxes(scene: Scene):
+    """``(C, 8)`` rows ``[min | max | reach | least radius]`` of the 256-row
+    sphere clusters: ``Scene.sph_cluster_min/max`` widened by ``_widen``,
+    then the largest ``|c| + r`` and the smallest ``r`` over the cluster's
+    spheres (``csrc/intersect.cu`` derives each ray's cull margin from them;
+    0 and 1 on a cluster without spheres, whose box is inverted)."""
+    box = _widen(scene.sph_cluster_min, scene.sph_cluster_max)
+    n = box.shape[0] * SPH_CLUSTER_SIZE
+    radius = scene.sph_radius
+    real = radius > 0.0
+    reach = torch.where(real, torch.linalg.vector_norm(scene.sph_center, dim=1) + radius, 0.0)
+    least = torch.where(real, radius, _INF)
+    reach = torch.cat([reach, reach.new_zeros(n - reach.shape[0])])
+    least = torch.cat([least, least.new_full((n - least.shape[0],), _INF)])
+    reach = reach.reshape(-1, SPH_CLUSTER_SIZE).amax(dim=1)
+    least = least.reshape(-1, SPH_CLUSTER_SIZE).amin(dim=1)
+    box[:, 6] = reach
+    box[:, 7] = torch.where(least < _INF, least, 1.0)
+    return box
+
+
 def build_tables(scene: Scene, method: str = "auto") -> Tables:
     """Pack ``scene`` for the route :func:`resolve_route` picks. The flat and
     binned routes cull by ``Scene.tri_cluster_min/max`` (256-row clusters),
     the resident route by :func:`resident_boxes`, both widened by
-    ``_BOX_MARGIN``."""
+    ``_BOX_MARGIN``; past 512 sphere rows every route gets the sphere
+    cluster boxes (:func:`sphere_cluster_boxes`)."""
     t = scene.tri_v0.shape[0]
-    route = resolve_route(t, scene.sph_center.shape[0], method)
+    s_rows = scene.sph_center.shape[0]
+    route = resolve_route(t, s_rows, method)
     tri = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_normal,
                      scene.tri_mat.to(torch.float32)[:, None],
                      scene.tri_v0.new_zeros((t, 3))], dim=1)
@@ -234,8 +266,9 @@ def build_tables(scene: Scene, method: str = "auto") -> Tables:
     sph = torch.cat([centers, k[:, None], inv_r[:, None],
                      scene.sph_mat.to(torch.float32)[:, None],
                      centers.new_zeros((centers.shape[0], 2))], dim=1)
+    sph_box = sphere_cluster_boxes(scene) if s_rows > SMALL_MAX_SPHERES else no_boxes
     return Tables(tri=tri.contiguous(), leaf=leaf, group=group, sph=sph.contiguous(),
-                  tri_rows=t, n_groups=n_groups, route=route)
+                  sph_box=sph_box, tri_rows=t, n_groups=n_groups, route=route)
 
 
 # ---------------------------------------------------------------------------
@@ -395,11 +428,20 @@ def _check_table(name, tab, cols, device):
         raise ValueError(f"{name} on {tab.device}, rays on {device}")
 
 
+def _check_sph_box(sph, box, device):
+    """Sphere cluster boxes must cover every row of ``sph`` (or be absent)."""
+    _check_table("sph_box", box, _BOX_COLS, device)
+    if box.shape[0] and box.shape[0] * SPH_CLUSTER_SIZE < sph.shape[0]:
+        raise ValueError(f"{box.shape[0]} sphere cluster boxes for {sph.shape[0]} sphere rows "
+                         "(use build_tables)")
+
+
 def _check_route(tables: Tables, route: str, device):
     if tables.route != route:
         raise ValueError(f"tables of the {tables.route} route passed to a {route} kernel")
     _check_table("tables.tri", tables.tri, _TRI_COLS, device)
     _check_table("tables.sph", tables.sph, _SPH_COLS, device)
+    _check_sph_box(tables.sph, tables.sph_box, device)
     _check_table("tables.leaf", tables.leaf, _BOX_COLS, device)
     _check_table("tables.group", tables.group, _BOX_COLS, device)
     if route == "small":   # the kernel stages both tables in shared memory
@@ -454,20 +496,24 @@ def bvh_anyhit(tables: Tables, o, d, t_min, t_max):
     return occ
 
 
-def sphere_closest(sph, o, d, t_min, t_max):
-    """Closest sphere hit over every row of ``sph`` (``Tables.sph``):
-    ``(t, row, outward normal, material)``. Counterpart of
+def sphere_closest(sph, o, d, t_min, t_max, box=None):
+    """Closest sphere hit over the rows of ``sph`` (``Tables.sph``): ``(t,
+    row, outward normal, material)``. With ``box`` (``Tables.sph_box``, rows
+    past 512 spheres) the kernel skips the 256-row clusters a ray's segment
+    misses; the answer is the same. Counterpart of
     ``pallas_intersect.sphere_closest``."""
     n, kind = _check_rays(o, d, t_min, t_max)
     _check_table("sph", sph, _SPH_COLS, t_min.device)
+    box = sph.new_zeros((0, _BOX_COLS)) if box is None else box
+    _check_sph_box(sph, box, t_min.device)
     if kind == "cpu":
         return sphere_closest_reference(sph, o, d, t_min, t_max)
     from ..kernels import binding
 
     out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
            _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
-    binding.launch_sphere_closest(sph, o, d, t_min, t_max, *out)
-    LAUNCHES["sphere_closest"] += 1
+    binding.launch_sphere_closest(sph, o, d, t_min, t_max, *out, box=box)
+    LAUNCHES["sphere_closest_clustered" if box.shape[0] else "sphere_closest"] += 1
     return out
 
 
@@ -539,20 +585,29 @@ def resident_anyhit(tables: Tables, o, d, t_min, t_max):
     return occ
 
 
-def any_hit(sph, tri, o, d, t_min, t_max):
+def any_hit(sph, tri, o, d, t_min, t_max, sph_box=None, tri_box=None):
     """Occlusion over the spheres of ``sph`` and the triangles of ``tri``
-    (``Tables`` row layouts; ``tri`` may have no rows): bool ``(N,)``.
-    Counterpart of ``pallas_intersect.any_hit``."""
+    (``Tables`` row layouts; ``tri`` may have no rows): bool ``(N,)``. With
+    ``sph_box`` (``Tables.sph_box``) or ``tri_box`` (the flat route's
+    ``Tables.leaf``, 256 rows a box) the kernel skips the clusters a ray's
+    segment misses; the answer is the same. Counterpart of
+    ``pallas_intersect.any_hit``."""
     n, kind = _check_rays(o, d, t_min, t_max)
     _check_table("sph", sph, _SPH_COLS, t_min.device)
     _check_table("tri", tri, _TRI_COLS, t_min.device)
+    sph_box = sph.new_zeros((0, _BOX_COLS)) if sph_box is None else sph_box
+    tri_box = tri.new_zeros((0, _BOX_COLS)) if tri_box is None else tri_box
+    _check_sph_box(sph, sph_box, t_min.device)
+    _check_table("tri_box", tri_box, _BOX_COLS, t_min.device)
+    if tri_box.shape[0] and tri_box.shape[0] * CLUSTER_SIZE < tri.shape[0]:
+        raise ValueError(f"{tri_box.shape[0]} triangle cluster boxes for {tri.shape[0]} rows")
     if kind == "cpu":
         return any_hit_reference(sph, tri, o, d, t_min, t_max)
     from ..kernels import binding
 
     occ = _empty((n,), torch.bool, o)
-    binding.launch_any_hit(sph, tri, o, d, t_min, t_max, occ)
-    LAUNCHES["any_hit"] += 1
+    binding.launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=sph_box, tri_box=tri_box)
+    LAUNCHES["any_hit_clustered" if sph_box.shape[0] or tri_box.shape[0] else "any_hit"] += 1
     return occ
 
 
@@ -578,12 +633,12 @@ def intersect(tables: Tables, o, d, t_min, t_max, *, twin: bool = False) -> Hit:
     else:
         from . import binned
 
-        sph_fn = sphere_closest_reference if twin else sphere_closest
         tri_fn = triangle_closest_reference if twin else {
             "flat": triangle_closest, "bvh": bvh_closest,
             "binned": binned.triangle_closest_binned,
             "resident": resident_closest}[tables.route]
-        sph = sph_fn(tables.sph, o, d, t_lo, t_hi)
+        sph = (sphere_closest_reference(tables.sph, o, d, t_lo, t_hi) if twin else
+               sphere_closest(tables.sph, o, d, t_lo, t_hi, box=tables.sph_box))
         tri = tri_fn(tables, o, d, t_lo, torch.minimum(t_hi, sph[0]))
         t, prim, outward, mat = _merge(tables, sph, tri)
     valid = prim >= 0
@@ -597,15 +652,18 @@ def intersect(tables: Tables, o, d, t_min, t_max, *, twin: bool = False) -> Hit:
 
 def occluded(tables: Tables, o, d, t_min, t_max):
     """Is anything hit in ``[t_min, t_max]`` (shadow rays): bool ``(N,)``.
-    ``any_hit`` takes the spheres and every triangle row; on the bvh, binned
-    and resident routes it takes the spheres alone, beside the route's
-    triangle any-hit."""
+    ``any_hit`` takes the spheres and every triangle row (on the flat route
+    with the triangle cluster boxes); on the bvh, binned and resident routes
+    it takes the spheres alone, beside the route's triangle any-hit. The
+    sphere cluster boxes go with the spheres wherever the tables have them."""
     t_lo, t_hi = _ranges(o, t_min, t_max)
     if tables.route in ("small", "flat"):
-        return any_hit(tables.sph, tables.tri[:tables.tri_rows], o, d, t_lo, t_hi)
+        return any_hit(tables.sph, tables.tri[:tables.tri_rows], o, d, t_lo, t_hi,
+                       sph_box=tables.sph_box,
+                       tri_box=tables.leaf if tables.route == "flat" else None)
     from . import binned
 
     tri_fn = {"bvh": bvh_anyhit, "binned": binned.triangle_anyhit_binned,
               "resident": resident_anyhit}[tables.route]
     return (tri_fn(tables, o, d, t_lo, t_hi)
-            | any_hit(tables.sph, tables.tri[:0], o, d, t_lo, t_hi))
+            | any_hit(tables.sph, tables.tri[:0], o, d, t_lo, t_hi, sph_box=tables.sph_box))

@@ -8,8 +8,9 @@ plain-torch twin here with the same op order:
   the sphere and triangle tables with the winner's material row, the
   emissive/MIS terminal term (the bsdf-side pdf deliberately NOT divided by
   the light count), the NEE light pick, sample and BSDF evaluation, the BSDF
-  sample (Lambert, GGX mirror with VNDF, Fresnel coin, reflect/refract),
-  Russian roulette and the next ray state. Split-shadow mode only: the shadow
+  sample (Lambert, GGX mirror with VNDF, Fresnel coin, reflect/refract; the
+  Oren-Nayar and PBR lanes when the scene's ``has_oren_nayar``/``has_pbr``
+  flags set them), Russian roulette and the next ray state. Split-shadow mode only: the shadow
   ray is exported and tested by :func:`shadow_any_hit`.
 * :func:`shadow_any_hit` / :func:`shadow_any_hit_reference`: occlusion of
   the NEE shadow rays, Moller-Trumbore over the triangles OR the sphere
@@ -30,8 +31,8 @@ TPU workarounds of the JAX kernel left behind here:
 * ``ray_tile`` lane padding is gone: any ``S`` is accepted;
 * the ``_lift_tree``/``vma`` varying-axes plumbing has no counterpart.
 
-Not ported yet (ROADMAP): the Oren-Nayar and PBR lanes, the raygen mode and
-the fused in-kernel shadow sweep.
+Not ported yet (ROADMAP): the raygen mode and the fused in-kernel shadow
+sweep.
 """
 
 from __future__ import annotations
@@ -78,7 +79,9 @@ _LC_EMI = 14
 _LC_PRIM = 17
 _LGT_COLS = 18
 
-# Kernel launches per wrapper, counted where the kernel is launched.
+# Kernel launches per wrapper, counted where the kernel is launched; a kernel
+# with a further mode counts it apart (``fused_bounce_on_pbr``: the Oren-Nayar
+# or PBR lanes on; ``*_clustered`` in ops/intersect.py).
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -108,15 +111,20 @@ class Tables(NamedTuple):
     lgt: torch.Tensor  # (L8, 18): light_geom row + global prim id (-2 on padding)
 
 
-def kernel_flags(integrator: str, has_tri_lights: bool, has_sph_lights: bool) -> dict:
-    """The fused kernel's static switches: which estimator terms run, and
-    which light-class lanes (a scene with one light class skips the other;
-    inconsistent flags keep both)."""
+def kernel_flags(integrator: str, has_tri_lights: bool, has_sph_lights: bool,
+                 has_oren_nayar: bool = False, has_pbr: bool = False) -> dict:
+    """The fused kernel's static switches: which estimator terms run, which
+    light-class lanes (a scene with one light class skips the other;
+    inconsistent flags keep both), and whether the Oren-Nayar and PBR lanes
+    run (the JAX ``has_on``/``has_pbr``; without them those kinds shade as
+    Lambert)."""
     return dict(
         use_mis=integrator == "mis",
         use_nee=integrator in ("mis", "nee"),
         has_tri_l=has_tri_lights or not has_sph_lights,
         has_sph_l=has_sph_lights or not has_tri_lights,
+        has_on=bool(has_oren_nayar),
+        has_pbr=bool(has_pbr),
     )
 
 
@@ -450,6 +458,104 @@ def _sample_mirror(color, rough, metal, ior, i, normal, eta, r1, r2, u_coin):
     return o, bsdf, pdf, cos
 
 
+def _eval_oren_nayar3(color, rough, i, o, normal):
+    """Oren-Nayar bsdf and pdf toward ``o`` (the JAX ``_eval_oren_nayar3``,
+    op for op ``ops/bsdf.py::_eval_oren_nayar``)."""
+    sigma2 = rough * rough
+    a = 1.0 - 0.5 * sigma2 / (sigma2 + 0.33)
+    b = 0.45 * sigma2 / (sigma2 + 0.09)
+
+    cos_i = torch.clamp_min(_dot3(i, normal), 0.0)
+    cos_o = torch.clamp_min(_dot3(o, normal), 0.0)
+    sin_i = torch.sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0))
+    sin_o = torch.sqrt(torch.clamp_min(1.0 - cos_o * cos_o, 0.0))
+
+    tangent, bitangent = _tangent_frame(normal)
+    phi_i = torch.atan2(_dot3(i, bitangent), _dot3(i, tangent))
+    phi_o = torch.atan2(_dot3(o, bitangent), _dot3(o, tangent))
+    cos_phi_diff = torch.clamp_min(torch.cos(phi_i - phi_o), 0.0)
+
+    # alpha = the larger angle, beta = the smaller, by the cosine comparison.
+    i_steeper = cos_i > cos_o
+    tan_beta = torch.where(
+        i_steeper,
+        torch.where(cos_i > 1e-6, sin_i / torch.clamp_min(cos_i, 1e-6), 0.0),
+        torch.where(cos_o > 1e-6, sin_o / torch.clamp_min(cos_o, 1e-6), 0.0),
+    )
+    sin_alpha = torch.where(i_steeper, sin_o, sin_i)
+
+    pi = _full_like(cos_i, _PI)
+    term = (a + b * cos_phi_diff * sin_alpha * tan_beta) / pi
+    return _scale3(color, term), cos_o / pi
+
+
+def _eval_pbr3(color, rough, metal, ior, i, o, normal):
+    """PBR bsdf and pdf toward ``o``: GGX specular reflection plus Oren-Nayar
+    diffuse scaled by kd, the pdf a Fresnel-weighted blend of the two
+    techniques (the JAX ``_eval_pbr3``, op for op ``ops/bsdf.py::_eval_pbr``)."""
+    alpha = rough * rough
+    alpha2 = alpha * alpha
+
+    h = _normalize3(_add3(i, o))
+    n_h = _dot3(normal, h)
+    d_ggx = _ggx_d(alpha2, n_h)
+    cos_i = torch.clamp_min(_dot3(i, normal), 0.0)
+    cos_o = torch.clamp_min(_dot3(o, normal), 0.0)
+    g2 = _smith_g2(alpha2, cos_i, cos_o)
+    cos_f = torch.clamp_min(_dot3(i, h), 0.0)
+    f = _fresnel3(color, metal, ior, cos_f)
+    spec_brdf = _scale3(f, d_ggx * g2 / (4.0 * cos_i * cos_o))
+    spec_pdf = d_ggx * torch.abs(n_h) / (4.0 * torch.abs(_dot3(i, h)))
+
+    # Diffuse: Oren-Nayar x kd; metals do not diffuse.
+    diff_raw, diff_pdf = _eval_oren_nayar3(color, rough, i, o, normal)
+    not_metal = metal < 1.0
+    one_m = 1.0 - metal
+    diff_brdf = tuple(torch.where(not_metal, diff_raw[c] * (1.0 - f[c]) * one_m, 0.0)
+                      for c in range(3))
+
+    brdf = _add3(spec_brdf, diff_brdf)
+    f_avg = (f[0] + f[1] + f[2]) / _full_like(cos_i, 3.0)
+    sw = f_avg
+    dw = (1.0 - f_avg) * one_m
+    tw = sw + dw
+    pdf = torch.where(tw > 1e-6, (sw * spec_pdf + dw * diff_pdf) / torch.clamp_min(tw, 1e-6),
+                      spec_pdf)
+    bad = (cos_o <= 0.0) | ~_finite3(brdf) | ~torch.isfinite(pdf)
+    brdf = _where3(bad, (0.0 * pdf,) * 3, brdf)
+    pdf = torch.where(bad, 1.0, pdf)
+    return brdf, pdf
+
+
+def _sample_pbr3(color, rough, metal, ior, i, normal, r1, r2, u_coin, d_diff):
+    """PBR sample: a coin weighted by the approximate Fresnel picks the GGX
+    VNDF reflection or the shared cosine sample ``d_diff``; the blended
+    bsdf/pdf is evaluated there (the JAX ``_sample_pbr3``)."""
+    cos_i = torch.clamp_min(_dot3(i, normal), 0.0)
+    mean_c = (color[0] + color[1] + color[2]) / _full_like(cos_i, 3.0)
+    f0s = torch.where(metal > 0.5, mean_c, 0.04)
+    f_approx = f0s + (1.0 - f0s) * _pow5(1.0 - cos_i)
+    sw = f_approx
+    dw = (1.0 - f_approx) * (1.0 - metal)
+    tw = sw + dw
+    p_spec = torch.where(tw > 1e-6, sw / torch.clamp_min(tw, 1e-6), 1.0)
+    use_spec = u_coin < p_spec
+
+    h = _sample_vndf(i, normal, rough, r1, r2)
+    o_spec = _normalize3(_sub3(_scale3(h, 2.0 * _dot3(i, h)), i))
+
+    o = _where3(use_spec, o_spec, d_diff)
+    bsdf, pdf = _eval_pbr3(color, rough, metal, ior, i, o, normal)
+    cos = torch.clamp_min(_dot3(o, normal), 0.0)
+
+    bad = ~_finite3(bsdf) | ~torch.isfinite(pdf) | (pdf <= 0.0)
+    o = _where3(bad, normal, o)
+    bsdf = _where3(bad, (0.0 * pdf,) * 3, bsdf)
+    pdf = torch.where(bad, 1.0, pdf)
+    cos = torch.where(bad, 0.0, cos)
+    return o, bsdf, pdf, cos
+
+
 def _tri_hits(tri, o3, d3, t_max, eps):
     """Moller-Trumbore of every lane against every triangle row: ``(ok, t)``,
     each ``(rows, S)``; ``ok`` means a hit with t in [eps, t_max]."""
@@ -513,15 +619,19 @@ def fused_bounce_reference(
     tables: Tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, *,
     num_tris: int, num_lights: int, integrator: str, max_bounces: int,
     eps: float = EPS, has_tri_lights: bool = True, has_sph_lights: bool = True,
+    has_oren_nayar: bool = False, has_pbr: bool = False,
 ) -> BounceResult:
     """Plain-torch twin of the ``fused_bounce`` kernel (same op order).
 
     ``num_tris`` is the scene's padded triangle row count: the global prim-id
-    base of the spheres.
+    base of the spheres. ``has_oren_nayar``/``has_pbr`` (the scene's flags)
+    add the Oren-Nayar and PBR lanes, as ``has_on``/``has_pbr`` do in the
+    JAX kernel; without them those kinds shade as Lambert.
     """
-    flags = kernel_flags(integrator, has_tri_lights, has_sph_lights)
+    flags = kernel_flags(integrator, has_tri_lights, has_sph_lights, has_oren_nayar, has_pbr)
     use_mis, use_nee = flags["use_mis"], flags["use_nee"]
     has_tri_l, has_sph_l = flags["has_tri_l"], flags["has_sph_l"]
+    has_on, has_pbr = flags["has_on"], flags["has_pbr"]
     sph, tri, lgt = tables
     ox, oy, oz = ray_o[0], ray_o[1], ray_o[2]
     dx, dy, dz = ray_d[0], ray_d[1], ray_d[2]
@@ -721,6 +831,16 @@ def fused_bounce_reference(
         is_mir = kind_i == mat.KIND_MIRROR
         bsdf_l = _where3(is_mir, mir_b, lam_b)
         pdf_l = torch.where(is_mir, mir_p, lam_p)
+        if has_on:
+            on_b, on_p = _eval_oren_nayar3(m_col, m_rough, i3, ldir, normal)
+            is_on = kind_i == mat.KIND_OREN_NAYAR
+            bsdf_l = _where3(is_on, on_b, bsdf_l)
+            pdf_l = torch.where(is_on, on_p, pdf_l)
+        if has_pbr:
+            pbr_b, pbr_p = _eval_pbr3(m_col, m_rough, m_metal, m_ior, i3, ldir, normal)
+            is_pbr = kind_i == mat.KIND_PBR
+            bsdf_l = _where3(is_pbr, pbr_b, bsdf_l)
+            pdf_l = torch.where(is_pbr, pbr_p, pdf_l)
         is_em_k = kind_i == mat.KIND_EMISSIVE
         bsdf_l = _where3(is_em_k, zero3, bsdf_l)
         pdf_l = torch.where(is_em_k, 1.0, pdf_l)
@@ -749,6 +869,20 @@ def fused_bounce_reference(
     bsdf_s = _where3(is_mir, mb, lam_b)
     pdf_s = torch.where(is_mir, mp, lam_p)
     cos_s = torch.where(is_mir, mc, cos_diff)
+    if has_on:
+        # The shared cosine sample: only the evaluated brdf/pdf differ.
+        on_b, on_p = _eval_oren_nayar3(m_col, m_rough, i3, d_diff, normal)
+        is_on = kind_i == mat.KIND_OREN_NAYAR
+        bsdf_s = _where3(is_on, on_b, bsdf_s)
+        pdf_s = torch.where(is_on, on_p, pdf_s)
+    if has_pbr:
+        pbr_o, pbr_b, pbr_p, pbr_c = _sample_pbr3(
+            m_col, m_rough, m_metal, m_ior, i3, normal, u3, u4, u5, d_diff)
+        is_pbr = kind_i == mat.KIND_PBR
+        o_dir = _where3(is_pbr, pbr_o, o_dir)
+        bsdf_s = _where3(is_pbr, pbr_b, bsdf_s)
+        pdf_s = torch.where(is_pbr, pbr_p, pdf_s)
+        cos_s = torch.where(is_pbr, pbr_c, cos_s)
     is_em_k = kind_i == mat.KIND_EMISSIVE
     o_dir = _where3(is_em_k, normal, o_dir)
     bsdf_s = _where3(is_em_k, zero3, bsdf_s)
@@ -836,6 +970,7 @@ def fused_bounce(
     tables: Tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, *,
     num_tris: int, num_lights: int, integrator: str, max_bounces: int,
     eps: float = EPS, has_tri_lights: bool = True, has_sph_lights: bool = True,
+    has_oren_nayar: bool = False, has_pbr: bool = False,
 ) -> BounceResult:
     """One full path vertex for every lane (see the module docstring).
 
@@ -855,7 +990,7 @@ def fused_bounce(
         _check(name, x, torch.float32, shape)
     kw = dict(num_tris=num_tris, num_lights=num_lights, integrator=integrator,
               max_bounces=max_bounces, eps=eps, has_tri_lights=has_tri_lights,
-              has_sph_lights=has_sph_lights)
+              has_sph_lights=has_sph_lights, has_oren_nayar=has_oren_nayar, has_pbr=has_pbr)
     device = busy.device
     for x in (bounce, ray_o, ray_d, eta, pdf_prev, prefix, u):
         if x.device != device:
@@ -879,8 +1014,8 @@ def fused_bounce(
     binding.launch_fused_bounce(
         tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, out,
         num_tris=num_tris, num_lights=num_lights, max_bounces=max_bounces, eps=eps,
-        **kernel_flags(integrator, has_tri_lights, has_sph_lights))
-    LAUNCHES["fused_bounce"] += 1
+        **kernel_flags(integrator, has_tri_lights, has_sph_lights, has_oren_nayar, has_pbr))
+    LAUNCHES["fused_bounce_on_pbr" if has_oren_nayar or has_pbr else "fused_bounce"] += 1
     return out
 
 

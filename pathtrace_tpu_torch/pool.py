@@ -7,7 +7,9 @@ runs one path vertex for every busy slot by one of two branches, chosen per
 scene as the JAX package chooses them:
 
 * the **fused** branch, for scenes within the fused kernels' caps (<= 64
-  triangles, 512 spheres, 64 lights) without Oren-Nayar or PBR materials:
+  triangles, 512 spheres, 64 lights), Oren-Nayar and PBR materials included
+  (the kernel's lanes for them run when the scene's ``has_oren_nayar``/
+  ``has_pbr`` flags are set, as the JAX ``has_on``/``has_pbr`` do):
   :func:`~pathtrace_tpu_torch.ops.shade.fused_bounce` for the vertex and
   :func:`~pathtrace_tpu_torch.ops.shade.shadow_any_hit` for the NEE shadow
   rays;
@@ -15,15 +17,14 @@ scene as the JAX package chooses them:
   runs the vertex as separate ops (closest hit, emissive/MIS term, NEE light
   sample and BSDF evaluation, BSDF sample, Russian roulette) over the
   kernels of ``ops/intersect.py`` on the scene's route (the BVH for at least
-  4096 triangles, the flat clusters for more than 64, the fused small-scene
-  closest hit for more than 64 lights; or the route ``method`` asks for:
-  ``"bvh"``, ``"binned"``, ``"resident"``), and
-  :func:`~pathtrace_tpu_torch.ops.intersect.occluded` tests the shadow rays.
+  4096 triangles, the flat clusters for more than 64 triangles or beside
+  more than 512 spheres, the fused small-scene closest hit for more than 64
+  lights; or the route ``method`` asks for: ``"bvh"``, ``"binned"``,
+  ``"resident"``; past 512 spheres every route runs the clustered sphere
+  kernels), and :func:`~pathtrace_tpu_torch.ops.intersect.occluded` tests
+  the shadow rays.
 
-The scenes still without ported kernels (Oren-Nayar or PBR within the fused
-caps; more than 512 spheres with fewer than 4096 triangles) raise
-``NotImplementedError`` naming the ROADMAP item that ports their route;
-nothing falls back to another kernel or to a twin.
+Nothing falls back to another kernel or to a twin.
 
 Work assignment is the JAX package's, so the same sample indices trace the
 same paths: slot ``s`` owns the work items ``w = chunk * S + s``, whose
@@ -68,18 +69,13 @@ def route(scene: Scene, integrator: str, method: str | None = None) -> str:
     least ``BVH_MIN_TRIS`` triangles, scenes past the caps and every other
     method (``"bvh"``, ``"binned"``, ``"resident"``) take the composed branch
     on the route ``intersect.resolve_route(..., method)`` picks. Raises
-    ``NotImplementedError`` naming the ROADMAP item for a scene whose route
-    has no ported kernels yet."""
+    ``NotImplementedError`` for an unknown integrator or method."""
     if integrator not in INTEGRATORS:
         raise NotImplementedError(f"unknown integrator {integrator!r}; known: {INTEGRATORS}")
     method = method or "auto"
     n_tris = scene.tri_v0.shape[0]
     if (method in ("auto", "pallas") and n_tris < intersect.BVH_MIN_TRIS
             and shade.supports_scene(scene, integrator)):
-        if scene.has_oren_nayar or scene.has_pbr:
-            raise NotImplementedError(
-                "Oren-Nayar and PBR materials in a scene within the fused caps "
-                "need the ON/PBR lanes of fused_bounce (ROADMAP Queue 1, item 5.1)")
         return "fused"
     intersect.resolve_route(n_tris, scene.sph_center.shape[0], method)
     return "composed"
@@ -233,6 +229,7 @@ def render_pool(
             num_tris=scene.tri_v0.shape[0], num_lights=scene.num_lights,
             integrator=integrator, max_bounces=max_bounces, eps=eps,
             has_tri_lights=scene.has_tri_lights, has_sph_lights=scene.has_sph_lights,
+            has_oren_nayar=scene.has_oren_nayar, has_pbr=scene.has_pbr,
         )
 
     num_pixels = width * height

@@ -348,10 +348,9 @@ def test_resolve_route():
     for m in ("binned", "resident"):     # the per-ray traversals past 64 triangles
         assert r(65, 3, m) == r(992, 3, m) == r(70000, 600, m) == m
         assert r(64, 3, m) == r(12, 1, m) == "small"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
-        r(2, 600)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
-        r(12, 600, "binned")
+    # More than 512 spheres beside <= 64 triangles: the composed form, served
+    # by the flat route's tables under every method (the JAX tri_small gate).
+    assert r(2, 600) == r(12, 600, "binned") == r(64, 513, "resident") == "flat"
     with pytest.raises(NotImplementedError, match="--device cpu"):
         r(992, 3, "bruteforce")
 

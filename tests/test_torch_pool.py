@@ -139,21 +139,70 @@ def test_pool_counter_encoding():
 
 
 def test_unsupported_scenes_raise():
-    """Scenes whose route has no ported kernels yet raise, naming the
-    ROADMAP item: more than 512 spheres with few triangles (the clustered
-    modes) and Oren-Nayar within the fused caps; and unknown integrators."""
+    """Only unknown integrators raise now. More than 512 spheres with few
+    triangles takes the composed branch on the flat route with the sphere
+    cluster boxes, and Oren-Nayar within the fused caps the fused branch with
+    its Oren-Nayar lane (both rendered here on the CPU twins)."""
     cam = scenes.cornell_camera(4, 4, device="cpu")
     b = SceneBuilder(device="cpu")
     for i in range(600):
         b.add_sphere((i, 0, -3), 0.4, Lambertian((0.5, 0.5, 0.5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
-        pool.render_pool(b.build(), cam, width=4, height=4, spp=1)
+    sc = b.build()
+    assert pool.route(sc, "mis") == "composed"
+    tables = intersect.build_tables(sc)
+    assert tables.route == "flat" and tables.sph_box.shape[0] == 3
+    img, _, _ = pool.render_pool(sc, cam, width=4, height=4, spp=1)
+    assert torch.isfinite(img).all()
     b = SceneBuilder(device="cpu").add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
-    with pytest.raises(NotImplementedError, match="Oren-Nayar.*ROADMAP Queue 1, item 5.1"):
-        pool.render_pool(b.build(), cam, width=4, height=4, spp=1)
+    sc = b.build()
+    assert sc.has_oren_nayar and pool.route(sc, "mis") == "fused"
+    img, _, _ = pool.render_pool(sc, cam, width=4, height=4, spp=1)
+    assert torch.isfinite(img).all()
     with pytest.raises(NotImplementedError):
         pool.render_pool(scenes.cornell_box(device="cpu"), cam, width=4,
                          height=4, spp=1, integrator="path")
+
+
+def _on_pbr_scene():
+    """The ON/PBR scene of ``tests/test_fused.py``, built by the JAX builder:
+    an Oren-Nayar ground, two PBR spheres (dielectric and metal), a GGX
+    mirror, a Lambert sphere, a spherical and a triangle light; all lobes at
+    least 0.3 rough."""
+    from pathtrace_tpu.models import materials as jm
+    from pathtrace_tpu.models.scene import SceneBuilder as JaxBuilder
+
+    b = JaxBuilder()
+    b.add_quad((-20, 0, -20), (20, 0, -20), (20, 0, 20), (-20, 0, 20),
+               jm.OrenNayar((0.6, 0.55, 0.5), 0.5))
+    b.add_sphere((0.0, 1.0, -3.0), 1.0, jm.PBRMaterial((0.7, 0.3, 0.3), roughness=0.4,
+                                                       metallic=0.0))
+    b.add_sphere((-2.2, 1.0, -3.0), 1.0, jm.PBRMaterial((0.9, 0.8, 0.4), roughness=0.35,
+                                                        metallic=1.0))
+    b.add_sphere((2.2, 1.0, -3.0), 1.0, jm.Mirror(roughness=0.4, metallic=1.0))
+    b.add_sphere((4.0, 1.0, -5.0), 1.0, jm.Lambertian((0.3, 0.5, 0.7)))
+    b.add_sphere((0.0, 6.0, -3.0), 1.5, jm.Emissive((12.0, 12.0, 12.0)))
+    b.add_triangle((-3.0, 5.0, -1.0), (-1.0, 5.0, -1.0), (-2.0, 5.0, -2.0),
+                   jm.Emissive((8.0, 8.0, 8.0)))
+    return b.build()
+
+
+@pytest.mark.parametrize("integrator", ["mis", "brdf_only"])
+def test_pool_matches_jax_on_pbr(integrator):
+    """The fused pool with the Oren-Nayar and PBR lanes against the JAX fused
+    pool (its kernel in interpret mode, ``has_on``/``has_pbr`` set from the
+    scene) on the ON/PBR scene, 16x16."""
+    jsc = _on_pbr_scene()
+    assert jsc.has_oren_nayar and jsc.has_pbr
+    ref, got = _render_both(
+        jsc, jax_scenes.default_spheres_camera(16, 16),
+        width=16, height=16, spp=2, integrator=integrator, max_bounces=6,
+        num_slots=64, seed=3)
+    assert pool.route(scene_from_arrays(*split_fields(jsc), device="cpu"), integrator) == "fused"
+    _assert_same_render(ref, got)
+    assert (pool.ray_count(got[1]), got[2]) == ON_PBR_COUNTS[integrator]
+
+
+ON_PBR_COUNTS = {"mis": (1328, 24), "brdf_only": (913, 24)}   # measured for the JAX fused pool
 
 
 def _lights65():
@@ -184,11 +233,12 @@ def test_pool_engine_per_scene():
     b = SceneBuilder(device="cpu")
     for i in range(600):
         b.add_sphere((i, 0, -3), 0.4, Lambertian((0.5, 0.5, 0.5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, items 4 and 7"):
-        pool.route(b.build(), "mis")
+    sc = b.build()
+    assert pool.route(sc, "mis") == "composed" and intersect.build_tables(sc).route == "flat"
+    assert engine(jax_scenes.many_spheres(n_per_side=12)) == ("composed", "flat")
     b = SceneBuilder(device="cpu").add_sphere((0, 0, -3), 1.0, OrenNayar((0.5, 0.5, 0.5), 0.3))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5.1"):
-        pool.route(b.build(), "mis")
+    assert pool.route(b.build(), "mis") == "fused"
+    assert engine(_on_pbr_scene()) == ("fused", True)
 
 
 @pytest.mark.parametrize("integrator", ["mis", "nee", "brdf_only"])

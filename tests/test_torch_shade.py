@@ -15,6 +15,15 @@ Tolerances, and why:
   ``tests/test_fused.py``): discrete outputs agree on >= 99.9% of lanes and
   the 99th percentile of the relative error over all consumed float outputs
   is <= 1e-3.
+* the ON/PBR scene of ``tests/test_fused.py`` (Oren-Nayar ground, PBR and
+  mirror spheres, every lobe at least 0.3 rough), with the Oren-Nayar and
+  PBR lanes on: the Cornell bounds, but up to 2% of lanes may have a
+  ``next_pdf``, and the ``next_prefix`` divided by it, past 1e-4 (measured
+  13 of 1024, worst 3.2e-4 relative, for each integrator; the prefix 2
+  lanes, 2.0e-4): the PBR pdf blends the GGX pdf, which amplifies the
+  FMA and sqrt differences as the glass Jacobian does, and the Oren-Nayar
+  lane adds ``atan2`` and ``cos``, which torch and XLA round differently on
+  the CPU.
 
 A float output is compared on the lanes where the pool consumes it: the NEE
 gain and the shadow ray only on live lanes.
@@ -36,9 +45,30 @@ from pathtrace_tpu_torch.ops import shade  # noqa: E402
 
 S = 1024
 CONSUMED_ON_LIVE = ("nee_gain", "shadow_d")
+def _on_pbr_scene():
+    """The ON/PBR scene of ``tests/test_fused.py``, built by the JAX builder."""
+    from pathtrace_tpu.models import materials as jm
+    from pathtrace_tpu.models.scene import SceneBuilder as JaxBuilder
+
+    b = JaxBuilder()
+    b.add_quad((-20, 0, -20), (20, 0, -20), (20, 0, 20), (-20, 0, 20),
+               jm.OrenNayar((0.6, 0.55, 0.5), 0.5))
+    b.add_sphere((0.0, 1.0, -3.0), 1.0, jm.PBRMaterial((0.7, 0.3, 0.3), roughness=0.4,
+                                                       metallic=0.0))
+    b.add_sphere((-2.2, 1.0, -3.0), 1.0, jm.PBRMaterial((0.9, 0.8, 0.4), roughness=0.35,
+                                                        metallic=1.0))
+    b.add_sphere((2.2, 1.0, -3.0), 1.0, jm.Mirror(roughness=0.4, metallic=1.0))
+    b.add_sphere((4.0, 1.0, -5.0), 1.0, jm.Lambertian((0.3, 0.5, 0.7)))
+    b.add_sphere((0.0, 6.0, -3.0), 1.5, jm.Emissive((12.0, 12.0, 12.0)))
+    b.add_triangle((-3.0, 5.0, -1.0), (-1.0, 5.0, -1.0), (-2.0, 5.0, -2.0),
+                   jm.Emissive((8.0, 8.0, 8.0)))
+    return b.build()
+
+
 SCENES = {
     "cornell": (jax_scenes.cornell_box, {}, [-1.0, -1.0, -3.0], [1.0, 1.0, -1.0]),
     "many": (jax_scenes.many_spheres, {"n_per_side": 3}, [-4.0, 0.05, -4.0], [4.0, 3.0, 4.0]),
+    "on_pbr": (_on_pbr_scene, {}, [-3.0, 0.05, -6.0], [3.0, 4.0, 2.0]),
 }
 
 
@@ -59,9 +89,13 @@ def _lanes(seed, lo, hi, n=S):
     return busy, bounce, o, d, eta, pdf, pfx, u
 
 
-def _both(name, integrator, seed=0):
+def _both(name, integrator, seed=0, has_pbr=None):
+    """The JAX kernel and the port's twin on the same lanes; ``has_pbr``
+    overrides the scene's flag in both."""
     build, kw, lo, hi = SCENES[name]
     jsc = build(**kw)
+    if has_pbr is not None:
+        jsc = jsc.replace(has_pbr=has_pbr)
     tsc = scene_from_arrays(*split_fields(jsc), device="cpu")
     args = _lanes(seed, lo, hi)
     ref = pallas_shade.fused_bounce(
@@ -77,6 +111,7 @@ def _both(name, integrator, seed=0):
         num_tris=tsc.tri_v0.shape[0], num_lights=tsc.num_lights,
         integrator=integrator, max_bounces=6,
         has_tri_lights=tsc.has_tri_lights, has_sph_lights=tsc.has_sph_lights,
+        has_oren_nayar=tsc.has_oren_nayar, has_pbr=tsc.has_pbr,
     )
     return ref, got
 
@@ -121,6 +156,41 @@ def test_fused_bounce_twin_many_spheres(integrator):
         assert np.isfinite(b).all(), field
         errs.append((np.abs(b - a) / np.maximum(np.abs(a), 1.0)).ravel())
     assert np.quantile(np.concatenate(errs), 0.99) <= 1e-3
+
+
+@pytest.mark.parametrize("integrator", ["mis", "nee", "brdf_only"])
+def test_fused_bounce_twin_on_pbr(integrator):
+    """The Oren-Nayar and PBR lanes of the twin against the JAX kernel's."""
+    ref, got = _both("on_pbr", integrator)
+    tables = pallas_shade.build_tables(SCENES["on_pbr"][0]())
+    kinds = set(np.asarray(tables.sph)[:, 5].tolist()) | set(np.asarray(tables.tri)[:, 12].tolist())
+    assert {3.0, 4.0} <= kinds                            # KIND_OREN_NAYAR, KIND_PBR
+    _assert_close_cornell_bounds(ref, got, loose=("next_pdf", "next_prefix"), share=0.02)
+
+
+def _assert_close_cornell_bounds(ref, got, loose=("next_pdf",), share=0.01):
+    """Discrete outputs exact; floats to rtol 1e-4 / atol 1e-5, the ``loose``
+    ones to rtol 1e-3 with at most ``share`` of lanes past 1e-4."""
+    for field in ("live", "shade"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(ref, field)))
+    for field in FLOAT_FIELDS:
+        a, b = _consumed(ref, got, field)
+        assert b.shape == a.shape and b.dtype == np.float32, field
+        if field in loose:
+            np.testing.assert_allclose(b, a, rtol=1e-3, atol=1e-5, err_msg=field)
+            assert (~np.isclose(b, a, rtol=1e-4, atol=1e-5)).mean() <= share
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5, err_msg=field)
+
+
+def test_fused_bounce_twin_honours_has_pbr():
+    """A scene whose ``has_pbr`` is False (a hand-built JAX ``Scene``'s
+    default) shades its PBR rows as Lambert, in the JAX kernel and in the
+    twin alike; with the flag the PBR lane changes those lanes."""
+    ref, got = _both("on_pbr", "mis", has_pbr=False)
+    _assert_close_cornell_bounds(ref, got)
+    _, on = _both("on_pbr", "mis")
+    assert not torch.equal(got.next_prefix, on.next_prefix)
 
 
 def test_build_tables_exact():
