@@ -6,14 +6,20 @@ its last line):
 
 1. device: torch version, card name and power limit;
 2. build: compile the CUDA kernels from ``pathtrace_tpu_torch/csrc``;
-3. kernels against their plain-torch twins on the card, at S = 16384 lanes
-   of real lane states (camera rays and the bounce rays of the first pool
-   bounces) of the Cornell box and the many-spheres field;
+3. the pool's two kernels (``fused_bounce``, ``shadow_any_hit``) against
+   their plain-torch twins on the card, bitwise, at every split of their
+   sweeps (1-16 threads a lane) and through the wrappers (the host's split),
+   each split timed: S = 16384 lanes of real lane states (camera rays and
+   the bounce rays of the first pool bounces) of the Cornell box and the
+   many-spheres field, and 4096 edge lanes (rows repeated with other
+   materials, so equal t; all-miss lanes; NaN sphere padding; shadow t_max
+   of -1, NaN and inf);
 4. the Cornell frame of the JAX package's compile-check entry point
    (128x128, 1 spp, MIS, 16 bounces, 4096 slots, seed 0) on the card, checked
    against the same frame rendered on the CPU with the twins;
 5. the benchmark workload: many-spheres at 1920x1080, 16 spp, MIS, 32
-   bounces, 16384 slots, timed, with launch counts of both kernels.
+   bounces, 16384 slots, timed, with launch counts of both kernels; its
+   rays, iterations and checksum must repeat ``BENCH_EXPECT``.
 
 The mesh path (scenes with >= 4096 triangles, the pool's composed branch):
 
@@ -65,8 +71,10 @@ lanes of ``fused_bounce``:
     bitwise, on all 65,536 lanes of ``many_spheres(n_per_side=22)`` (1,940
     spheres in 8 clusters, the flat route): camera rays, the bounce rays of
     composed twin bounces and their NEE shadow rays (``any_hit`` with the
-    sphere and the triangle boxes); ``fused_bounce`` with its ON/PBR lanes
-    against its twin at S = 16,384 lanes of the ON/PBR scene;
+    sphere and the triangle boxes), timed there and on the first 16,384
+    lanes (the field's pool frame runs 16,384 slots); ``fused_bounce`` with
+    its ON/PBR lanes and ``shadow_any_hit`` against their twins, bitwise, at
+    every split, at S = 16,384 lanes of the ON/PBR scene;
 4e. GPU against the CPU twins: the sphere field through the composed pool
     (32x32, 2 spp, depth 8) and the wave engine (32x32, 1 spp), the ON/PBR
     scene through the fused pool (32x32, 2 spp): equal ray counts, images
@@ -77,10 +85,11 @@ lanes of ``fused_bounce``:
     operations an iteration and the busy share (profiler over a 1-spp run).
 
 The next-to-last lines are the kernels' JSON record (fifteen entries: the
-twelve kernels and the three new modes, each with its time, its twin's, its
-launches on its path and its roofline bound) and the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``. Imports nothing
-of JAX.
+twelve kernels and the three further modes, each with its time, its twin's,
+its launches on its path and its roofline bound; the pool's two kernels with
+the host's split and their time at every split, the clustered modes with
+their time and bound at 16,384 lanes) and the card's name and power limit;
+the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -97,6 +106,7 @@ import numpy as np
 import torch
 
 SLICE_S = 16384
+EDGE_S = 4096               # lanes of the edge scene (phase 3)
 TWIN_RTOL, TWIN_ATOL = 1e-4, 1e-6
 DISCRETE_AGREE = 0.999
 CORNELL = dict(width=128, height=128, spp=1, integrator="mis", max_bounces=16,
@@ -105,6 +115,10 @@ BENCH = dict(width=1920, height=1080, spp=16, integrator="mis", max_bounces=32,
              num_slots=16384, seed=0)
 BENCH_BUDGET_S = 120.0
 REFERENCE_CHECKSUM = 29173072.0   # the JAX package's image sum for this frame
+# The port's own counts for this frame at 16 spp, repeated exactly by every
+# version of the kernels since they were first run (rays, iterations, image
+# sum to two decimals): any split of the sweeps must give them again.
+BENCH_EXPECT = (114892360, 4896, 29178592.04)
 MESH_S = 65536
 MESH_FRAME = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=8,
                   num_slots=1024, seed=0)
@@ -328,8 +342,130 @@ def bounce_kwargs(scene, integrator, max_bounces):
                 has_oren_nayar=scene.has_oren_nayar, has_pbr=scene.has_pbr)
 
 
+def hold_pool_kernels(name, tables, batch, kw, shadow=None):
+    """``fused_bounce`` and ``shadow_any_hit`` against their twins, bitwise
+    (NaNs equal whatever their payload), at every split the kernels take and
+    through the wrappers (the host's split); the shadow rays are the twin's
+    (``shadow``: others in their place). Returns ``(ref, {split: (fused ms,
+    shadow ms)}, worst abs error)``, raw launches timed into preallocated
+    outputs so that the wrappers' allocations do not starve the card."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import shade
+
+    ref = shade.fused_bounce_reference(tables, *batch, **kw)
+    so, sd, st = shadow or (ref.next_o, ref.shadow_d, ref.shadow_tmax)
+    occ_ref = shade.shadow_any_hit_reference(tables, so, sd, st)
+    err = _bitwise(f"fused_bounce {name}", tuple(ref),
+                   tuple(shade.fused_bounce(tables, *batch, **kw)), nan_equal=True)
+    _bitwise(f"shadow_any_hit {name}", occ_ref, shade.shadow_any_hit(tables, so, sd, st))
+    flags = shade.kernel_flags(kw["integrator"], kw["has_tri_lights"], kw["has_sph_lights"],
+                               kw["has_oren_nayar"], kw["has_pbr"])
+    launch = dict(num_tris=kw["num_tris"], num_lights=kw["num_lights"],
+                  max_bounces=kw["max_bounces"], eps=shade.EPS, **flags)
+    out = shade.BounceResult(*(torch.empty_like(x) for x in ref))
+    occ = torch.empty_like(occ_ref)
+    ms = {}
+    for split in binding.SPLITS:
+        binding.launch_fused_bounce(tables, *batch, out, split=split, **launch)
+        err = max(err, _bitwise(f"fused_bounce {name} split {split}", tuple(ref), tuple(out),
+                                nan_equal=True))
+        binding.launch_shadow_any_hit(tables, so, sd, st, occ, eps=shade.EPS, split=split)
+        _bitwise(f"shadow_any_hit {name} split {split}", occ_ref, occ)
+        ms[split] = (
+            cuda_ms(lambda: binding.launch_fused_bounce(tables, *batch, out, split=split,
+                                                        **launch)),
+            cuda_ms(lambda: binding.launch_shadow_any_hit(tables, so, sd, st, occ,
+                                                          eps=shade.EPS, split=split)))
+    return ref, occ_ref, ms, err
+
+
+def edge_scene(dev):
+    """A scene of knife edges for the split sweep: spheres and triangles
+    repeated row for row with other materials (equal t, so the lower row
+    must win), at row distances 1, 3, 8 and 16 (within one thread's rows and
+    across threads at every split), 37 spheres (three NaN padding rows) and
+    11 triangles (five zero padding rows), a spherical and a triangle
+    light."""
+    from pathtrace_tpu_torch.models.materials import Emissive, Lambertian, Mirror
+    from pathtrace_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder(dev)
+    rng = np.random.default_rng(7)
+    mats = (Lambertian((0.8, 0.2, 0.2)), Mirror(roughness=0.3, metallic=1.0),
+            Lambertian((0.2, 0.7, 0.3)))
+    sph = [(tuple(rng.uniform(-6, 6, 3)), float(rng.uniform(0.4, 1.2))) for _ in range(37)]
+    for a, dist in ((2, 1), (4, 3), (5, 8), (6, 16)):
+        sph[a + dist] = sph[a]
+    for r, (c, rad) in enumerate(sph):
+        b.add_sphere(c, rad, mats[r % 3] if r != 36 else Emissive((6.0, 6.0, 6.0)))
+    tri = [tuple(tuple(rng.uniform(-6, 6, 3)) for _ in range(3)) for _ in range(11)]
+    for a, dist in ((0, 1), (2, 3), (1, 8)):
+        tri[a + dist] = tri[a]
+    for r, v in enumerate(tri):
+        b.add_triangle(*v, mats[(r + 1) % 3] if r != 10 else Emissive((4.0, 4.0, 4.0)))
+    return b.build(), sph, tri
+
+
+def edge_lanes(dev, S=EDGE_S, seed=0):
+    """Lane states aimed at the edge scene: a third at the repeated spheres'
+    centers, a third at the repeated triangles' centroids (each from a
+    random point 20 away, jittered), a third pointing away from everything
+    (all-miss lanes); random depths, 10% not busy; the shadow rays' t_max
+    with some lanes set to NaN and to inf. Returns the scene's tables, the
+    batch, the bounce kwargs and a count of the lanes whose nearest sphere or
+    triangle t is shared by two rows."""
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.utils import rng as prng
+
+    scene, sph, tri = edge_scene(dev)
+    tables = shade.build_tables(scene)
+    g = np.random.default_rng(seed)
+    dup_c = np.array([sph[a][0] for a in (2, 4, 5, 6)])
+    dup_t = np.array([np.mean(tri[a], axis=0) for a in (0, 2, 1)])
+    k = np.arange(S) % 3
+    tgt = np.where((k == 0)[:, None], dup_c[g.integers(0, 4, S)], dup_t[g.integers(0, 3, S)])
+    tgt = tgt + g.normal(0, 0.05, (S, 3))
+    dirs = g.normal(size=(S, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    o = tgt + 20.0 * dirs
+    d = np.where((k == 2)[:, None], dirs, -dirs)            # away from the scene, or at it
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(a, dtype=dt, device=dev)
+
+    lane = torch.arange(S, dtype=torch.int64, device=dev)
+    bounce = t(g.integers(0, 6, S), torch.int32)
+    keys = prng.pixel_sample_keys(prng.base_key(seed, dev), lane, torch.zeros_like(lane))
+    u = prng.per_slot_uniforms(keys, bounce.long())
+    batch = [t(g.random(S) < 0.9, torch.bool), bounce, t(o.T.copy()), t(d.T.copy()),
+             t(g.uniform(0.6, 1.5, S)), t(g.uniform(0.1, 3.0, S)), t(g.uniform(0, 1, (3, S))), u]
+    batch = [x.contiguous() for x in batch]
+    o3, d3 = tuple(batch[2]), tuple(batch[3])
+    ts = shade._sphere_ts(tables.sph, o3, d3, shade.EPS)
+    ts = torch.where(ts >= shade.EPS, ts, float("inf"))
+    ok, tt = shade._tri_hits(tables.tri, o3, d3, float("inf"), shade.EPS)
+    tt = torch.where(ok, tt, float("inf"))
+    ties = 0
+    for x in (ts, tt):
+        best = x.min(0).values
+        ties += int((((x == best) & torch.isfinite(best)).sum(0) > 1).sum())
+    return scene, tables, batch, ties
+
+
+def edge_shadow(ref):
+    """The twin's shadow rays with every 17th t_max set to NaN and every
+    29th to inf."""
+    st = ref.shadow_tmax.clone()
+    st[::17] = float("nan")
+    st[::29] = float("inf")
+    return ref.next_o, ref.shadow_d, st
+
+
 def check_kernels(dev):
-    """Phase 3: each kernel against its twin on the card."""
+    """Phase 3: the pool's two kernels against their twins on the card,
+    bitwise, at every split: S = 16,384 real lane states of Cornell and
+    many_spheres, and the edge lanes. Returns the worst errors, per scene the
+    times at every split, and many_spheres' bounds."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import shade
@@ -344,57 +480,15 @@ def check_kernels(dev):
         tables = shade.build_tables(scene)
         batch = lane_states(scene, camera, tables, SLICE_S)
         kw = bounce_kwargs(scene, "mis", 16)
-        ref = shade.fused_bounce_reference(tables, *batch, **kw)
-        out = shade.fused_bounce(tables, *batch, **kw)
-        torch.cuda.synchronize()
-        agree = (ref.live == out.live) & (ref.shade == out.shade)
-        frac = agree.float().mean().item()
-        if frac < DISCRETE_AGREE:
-            raise AssertionError(f"fused_bounce {name}: live/shade agree on {frac:.5f} of lanes")
-        # Float outputs: within tolerance on >= 99.9% of lanes. The rest are
-        # near-delta GGX lanes (roughness 0.02), where one ulp anywhere moves
-        # a pdf by percents. The shadow ray and NEE gain are compared where
-        # they are consumed: on live lanes.
-        close = agree.clone()
-        for field in ref._fields:
-            a, b = getattr(ref, field), getattr(out, field)
-            if a.dtype == torch.bool:
-                continue
-            used = ref.live & agree if field in ("nee_gain", "shadow_d") else agree
-            ok = torch.isclose(b, a, rtol=TWIN_RTOL, atol=TWIN_ATOL, equal_nan=True)
-            close &= (ok.all(0) if ok.dim() == 2 else ok) | ~used
-            err = (b - a)[..., used].abs().nan_to_num(0.0).max().item()
-            worst["fused_bounce"] = max(worst["fused_bounce"], err)
-        frac_close = close.float().mean().item()
-        if frac_close < DISCRETE_AGREE:
-            raise AssertionError(
-                f"fused_bounce {name}: outputs within rtol {TWIN_RTOL} on only "
-                f"{frac_close:.5f} of lanes")
-
+        ref, occ_ref, ms_split, err = hold_pool_kernels(name, tables, batch, kw)
+        worst["fused_bounce"] = max(worst["fused_bounce"], err)
         so, sd, st = ref.next_o, ref.shadow_d, ref.shadow_tmax
-        occ_ref = shade.shadow_any_hit_reference(tables, so, sd, st)
-        occ = shade.shadow_any_hit(tables, so, sd, st)
-        torch.cuda.synchronize()
-        frac_occ = (occ == occ_ref).float().mean().item()
-        if frac_occ < DISCRETE_AGREE:
-            raise AssertionError(f"shadow_any_hit {name}: masks agree on {frac_occ:.5f}")
-        worst["shadow_any_hit"] = max(worst["shadow_any_hit"],
-                                      float((occ != occ_ref).any().item()))
-
-        # Kernels timed through the raw launch into preallocated outputs, so
-        # that the wrapper's allocations do not starve the card.
-        out_k = shade.BounceResult(*(torch.empty_like(x) for x in out))
-        occ_k = torch.empty_like(occ)
-        t_k = cuda_ms(lambda: binding.launch_fused_bounce(
-            tables, *batch, out_k, num_tris=kw["num_tris"], num_lights=kw["num_lights"],
-            max_bounces=kw["max_bounces"], eps=shade.EPS,
-            **shade.kernel_flags("mis", scene.has_tri_lights, scene.has_sph_lights,
-                                 scene.has_oren_nayar, scene.has_pbr)))
-        t_p = cuda_ms(lambda: shade.fused_bounce_reference(tables, *batch, **kw))
-        s_k = cuda_ms(lambda: binding.launch_shadow_any_hit(
-            tables, so, sd, st, occ_k, eps=shade.EPS))
-        s_p = cuda_ms(lambda: shade.shadow_any_hit_reference(tables, so, sd, st))
-        ms[name] = {"fused_bounce": (t_k, t_p), "shadow_any_hit": (s_k, s_p)}
+        rows = tables.sph.shape[0] + tables.tri.shape[0]
+        ms[name] = {"split": tuple(binding.sweep_split(rows, k) for k in KERNELS),
+                    "by_split": ms_split,
+                    "twin": (cuda_ms(lambda: shade.fused_bounce_reference(tables, *batch, **kw)),
+                             cuda_ms(lambda: shade.shadow_any_hit_reference(tables, so, sd,
+                                                                            st)))}
         # Work: the closest-hit tests of the busy lanes over every row
         # (fused_bounce; its shading is not counted); every row for an
         # unoccluded shadow query, one test for an occluded one.
@@ -402,19 +496,29 @@ def check_kernels(dev):
         row_ops = n_tri * TRI_OPS + n_sph * SPH_OPS
         query = st >= shade.EPS
         bounds[name] = {
-            "fused_bounce": bound(nbytes(*batch, *tables, *out_k),
-                                  int(batch[0].sum()) * row_ops),
-            "shadow_any_hit": bound(nbytes(so, sd, st, occ_k, *tables),
+            "fused_bounce": bound(nbytes(*batch, *tables, *ref), int(batch[0].sum()) * row_ops),
+            "shadow_any_hit": bound(nbytes(so, sd, st, occ_ref, *tables),
                                     int((query & ~occ_ref).sum()) * row_ops
                                     + int((query & occ_ref).sum()) * SPH_OPS),
         }
-        log(f"[kernels] {name} S={SLICE_S}: live/shade agree {frac:.6f}, all outputs "
-            f"within tolerance {frac_close:.6f}, occlusion "
-            f"agree {frac_occ:.6f} ({int(occ_ref.sum())} blocked); fused_bounce "
-            f"{t_k:.4f} ms vs twin {t_p:.4f} ms; shadow_any_hit {s_k:.4f} ms vs twin "
-            f"{s_p:.4f} ms")
-    log(f"[kernels] worst abs error: fused_bounce {worst['fused_bounce']:.4g}, "
-        f"shadow_any_hit {worst['shadow_any_hit']:.4g}")
+        log(f"[kernels] {name} S={SLICE_S} ({rows} rows, host split {ms[name]['split']}): "
+            f"fused_bounce and shadow_any_hit ({int(occ_ref.sum())} blocked) bitwise equal to "
+            f"their twins on every lane at splits {list(binding.SPLITS)}; ms (fused_bounce, "
+            f"shadow_any_hit) by split {json.dumps(ms_split)}; twins {ms[name]['twin']}")
+
+    scene, tables, batch, ties = edge_lanes(dev)
+    kw = bounce_kwargs(scene, "mis", 16)
+    ref = shade.fused_bounce_reference(tables, *batch, **kw)
+    _, occ_ref, _, err = hold_pool_kernels("edge lanes", tables, batch, kw,
+                                           shadow=edge_shadow(ref))
+    worst["fused_bounce"] = max(worst["fused_bounce"], err)
+    hit = ref.shade | (ref.rad_delta != 0).any(0)
+    if ties == 0 or hit.all() or not hit.any():
+        raise AssertionError(f"edge lanes: {ties} tied lanes, {int(hit.sum())} hit lanes")
+    log(f"[kernels] edge lanes S={EDGE_S} ({tables.sph.shape[0]} sphere rows, "
+        f"{tables.tri.shape[0]} triangle rows): both kernels bitwise equal to their twins at "
+        f"every split; {ties} lanes' nearest t shared by two rows, {int((~hit).sum())} lanes "
+        f"that shade nothing, {int(occ_ref.sum())} blocked shadow rays")
     return worst, ms, bounds["many_spheres"]
 
 
@@ -553,16 +657,19 @@ def check_mesh_kernels(dev, scene, camera):
     return worst, ms, bounds, lanes
 
 
-def _bitwise(name, ref, got) -> float:
+def _bitwise(name, ref, got, nan_equal=False) -> float:
     """Raise unless ``got`` equals ``ref`` bit for bit (a tensor or a tuple of
-    them); returns the largest absolute difference of the float outputs on
-    hit lanes (0 when they are equal)."""
+    them; ``nan_equal``: two NaNs are equal whatever their payload); returns
+    the largest absolute difference of the float outputs on hit lanes (0
+    when they are equal)."""
     torch.cuda.synchronize()
     ref, got = (ref, got) if isinstance(ref, tuple) else ((ref,), (got,))
     err = 0.0
     for a, b in zip(ref, got):
         if a.dtype == torch.float32:
             bad = a.view(torch.int32) != b.view(torch.int32)
+            if nan_equal:
+                bad &= ~(a.isnan() & b.isnan())
             live = torch.isfinite(a)
             if live.any():
                 err = max(err, (a - b)[live].abs().max().item())
@@ -937,6 +1044,9 @@ def run_bench(dev, smi: str):
     if launches["fused_bounce"] != iters:
         raise AssertionError(f"fused_bounce launches {launches} != iters {iters}")
     rays = ray_count(counters)
+    if spp == BENCH["spp"] and (rays, iters, round(checksum, 2)) != BENCH_EXPECT:
+        raise AssertionError(f"many_spheres: {rays} rays, {iters} iterations, checksum "
+                             f"{checksum}; expected {BENCH_EXPECT}")
     slots = min(run["num_slots"], run["width"] * run["height"])
     result = {
         "workload": f"many_spheres {run['width']}x{run['height']} {spp}spp MIS",
@@ -1219,16 +1329,35 @@ def check_clustered_kernels(dev):
         cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st), **slow))
     n_sph = tables.sph.shape[0]
     per_box = torch.clamp(n_sph - 256 * torch.arange(box.shape[0], device=dev), 0, 256)
-    free = ~ref_occ
-    bounds["sphere_closest_clustered"] = bound(
-        nbytes(o, d, lo, hi, tables.sph, box, *out),
-        SPH_OPS * closest_tests(box, per_box, o, d, lo, hi, ref_s[0]))
-    bounds["any_hit_clustered"] = bound(
-        nbytes(so, sd, lo, st, occ, tables.sph, box, tri, tables.leaf),
-        SPH_OPS * entered_rows(box, per_box, so[free], sd[free], lo[free], st[free])
-        + TRI_OPS * entered_rows(tables.leaf, tables.tri_rows, so[free], sd[free], lo[free],
-                                 st[free])
-        + SPH_OPS * int(ref_occ.sum()))
+
+    def work(n):
+        """Bounds of both kernels on the first ``n`` lanes."""
+        free = ~ref_occ[:n]
+        fo, fd, flo, fst = so[:n][free], sd[:n][free], lo[:n][free], st[:n][free]
+        return {
+            "sphere_closest_clustered": bound(
+                nbytes(o[:n], d[:n], lo[:n], hi[:n], tables.sph, box, *(x[:n] for x in out)),
+                SPH_OPS * closest_tests(box, per_box, o[:n], d[:n], lo[:n], hi[:n],
+                                        ref_s[0][:n])),
+            "any_hit_clustered": bound(
+                nbytes(so[:n], sd[:n], lo[:n], st[:n], occ[:n], tables.sph, box, tri,
+                       tables.leaf),
+                SPH_OPS * entered_rows(box, per_box, fo, fd, flo, fst)
+                + TRI_OPS * entered_rows(tables.leaf, tables.tri_rows, fo, fd, flo, fst)
+                + SPH_OPS * int(ref_occ[:n].sum())),
+        }
+
+    bounds.update(work(S))
+    # The same kernels at the 16,384 lanes the field's pool frame runs.
+    n = SLICE_S
+    at_slice = {
+        "sphere_closest_clustered": cuda_ms(lambda: binding.launch_sphere_closest(
+            tables.sph, o[:n], d[:n], lo[:n], hi[:n], *(x[:n] for x in out), box=box)),
+        "any_hit_clustered": cuda_ms(lambda: binding.launch_any_hit(
+            tables.sph, tri, so[:n], sd[:n], lo[:n], st[:n], occ[:n], sph_box=box,
+            tri_box=tables.leaf)),
+    }
+    at_slice = {k: {"ms": v, **work(n)[k]} for k, v in at_slice.items()}
     log(f"[cluster-kernels] many_spheres(n_per_side={FIELD_N}): {n_sph} spheres in "
         f"{box.shape[0]} clusters, {tables.tri_rows} triangles ({tables.route} route); lanes "
         f"from twin bounces in {time.perf_counter() - t0:.2f} s. Bitwise equal to their twins on "
@@ -1237,54 +1366,30 @@ def check_clustered_kernels(dev):
         f"queries; spheres alone {int(ref_socc.sum())}). ms kernel vs twin: "
         + ", ".join(f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items())
         + f"; the one-tile sphere_closest on the same lanes {one_tile:.4f} ms; bounds "
-        + json.dumps(bounds))
+        + json.dumps(bounds) + f"; on the first {n} lanes: " + json.dumps(at_slice))
 
     scene = on_pbr_scene(dev)
     camera = scenes.default_spheres_camera(1920, 1080, dev)
     ft = shade.build_tables(scene)
     batch = lane_states(scene, camera, ft, SLICE_S)
     kw = bounce_kwargs(scene, "mis", 16)
-    ref = shade.fused_bounce_reference(ft, *batch, **kw)
-    got = shade.fused_bounce(ft, *batch, **kw)
-    torch.cuda.synchronize()
-    differ = torch.zeros(SLICE_S, dtype=torch.bool, device=dev)
-    err = 0.0
-    for a, b in zip(ref, got):
-        if a.dtype == torch.float32:
-            bad = (a.view(torch.int32) != b.view(torch.int32)) & ~(a.isnan() & b.isnan())
-            err = max(err, (a - b).abs().nan_to_num(0.0).max().item())
-        else:
-            bad = a != b
-        differ |= bad.any(0) if bad.dim() == 2 else bad
-    n_differ = int(differ.sum())
-    if n_differ:   # the phase-3 rule: knife-edge lanes may flip where libm differs
-        agree = (ref.live == got.live) & (ref.shade == got.shade)
-        close = agree.clone()
-        for a, b in zip(ref, got):
-            if a.dtype != torch.bool:
-                ok = torch.isclose(b, a, rtol=TWIN_RTOL, atol=TWIN_ATOL, equal_nan=True)
-                close &= ok.all(0) if ok.dim() == 2 else ok
-        if close.float().mean().item() < DISCRETE_AGREE:
-            raise AssertionError(f"fused_bounce_on_pbr: {n_differ} lanes differ, only "
-                                 f"{close.float().mean().item():.5f} within rtol {TWIN_RTOL}")
+    ref, occ_ref, ms_split, err = hold_pool_kernels("ON/PBR", ft, batch, kw)
     worst["fused_bounce_on_pbr"] = err
-    out_k = shade.BounceResult(*(torch.empty_like(x) for x in got))
-    flags = shade.kernel_flags("mis", scene.has_tri_lights, scene.has_sph_lights,
-                               scene.has_oren_nayar, scene.has_pbr)
-    ms["fused_bounce_on_pbr"] = (
-        cuda_ms(lambda: binding.launch_fused_bounce(
-            ft, *batch, out_k, num_tris=kw["num_tris"], num_lights=kw["num_lights"],
-            max_bounces=kw["max_bounces"], eps=shade.EPS, **flags)),
-        cuda_ms(lambda: shade.fused_bounce_reference(ft, *batch, **kw), **slow))
+    split = tuple(binding.sweep_split(ft.sph.shape[0] + ft.tri.shape[0], k) for k in KERNELS)
+    ms["fused_bounce_on_pbr"] = {
+        "split": split, "by_split": ms_split,
+        "twin": (cuda_ms(lambda: shade.fused_bounce_reference(ft, *batch, **kw), **slow),)}
     row_ops = scene.tri_v0.shape[0] * TRI_OPS + scene.sph_center.shape[0] * SPH_OPS
-    bounds["fused_bounce_on_pbr"] = bound(nbytes(*batch, *ft, *out_k),
+    bounds["fused_bounce_on_pbr"] = bound(nbytes(*batch, *ft, *ref),
                                           int(batch[0].sum()) * row_ops)
     kinds = ft.sph[:, 5].tolist() + ft.tri[:, 12].tolist()
-    log(f"[cluster-kernels] fused_bounce_on_pbr S={SLICE_S} on the ON/PBR scene (kinds "
-        f"{sorted(set(int(k) for k in kinds))}): {n_differ} lanes differ bitwise from the twin "
-        f"(max abs error {err:.4g}); {ms['fused_bounce_on_pbr'][0]:.4f} ms vs twin "
-        f"{ms['fused_bounce_on_pbr'][1]:.4f} ms; bound {json.dumps(bounds['fused_bounce_on_pbr'])}")
-    return worst, ms, bounds
+    log(f"[cluster-kernels] ON/PBR scene S={SLICE_S} (kinds "
+        f"{sorted(set(int(k) for k in kinds))}, host split {split}): fused_bounce_on_pbr and "
+        f"shadow_any_hit ({int(occ_ref.sum())} blocked) bitwise equal to their twins at every "
+        f"split; ms (fused, shadow) by split {json.dumps(ms_split)}; twin "
+        f"{ms['fused_bounce_on_pbr']['twin'][0]:.4f} ms; bound "
+        f"{json.dumps(bounds['fused_bounce_on_pbr'])}")
+    return worst, ms, bounds, at_slice
 
 
 def run_cluster_frames(dev):
@@ -1455,7 +1560,7 @@ def main() -> int:
     trav_worst, trav_ms, trav_bnd = check_traversal_kernels(dev, mesh, lanes)
     del lanes
     wave_worst, wave_ms, wave_bnd = check_wave_kernels(dev)
-    cl_worst, cl_ms, cl_bnd = check_clustered_kernels(dev)
+    cl_worst, cl_ms, cl_bnd, cl_slice = check_clustered_kernels(dev)
     run_cornell(dev)
     run_mesh_frame(dev)
     launches = run_bench(dev, smi)
@@ -1468,19 +1573,27 @@ def main() -> int:
     cluster_launches = run_cluster_bench(dev, smi)
     run_cli()
 
-    def entry(name, src, rep, n_launches, err, times, bnd):
+    def entry(name, src, rep, n_launches, err, times, bnd, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": n_launches, "max_abs_err": err, "ms": times[0],
                 "plain_ms": times[1], "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
-                "library_ms": None}   # no single PyTorch call computes a closest or any hit
+                "library_ms": None,   # no single PyTorch call computes a closest or any hit
+                **extra}
+
+    def split_entry(name, src, rep, n_launches, err, m, which, bnd):
+        """A pool kernel at the host's split, with its time at every split."""
+        split = m["split"][which]
+        return entry(name, src, rep, n_launches, err,
+                     (m["by_split"][split][which], m["twin"][which]), bnd, split=split,
+                     ms_by_split={t: v[which] for t, v in m["by_split"].items()})
 
     mesh_worst["any_hit"] = max(mesh_worst["any_hit"], wave_worst["any_hit"])
     cases = {"combined_closest_small": ("cornell", wave_launches),
              "triangle_closest": (f"mesh_{FLAT_TRIS}", flat_launches)}
     method_of = {k: m for m, ks in METHOD_KERNELS.items() for k in ks}
     record = {"kernels": [
-        entry(k, src, rep, launches[k], worst[k], ms["many_spheres"][k], bnd[k])
-        for k, (src, rep) in KERNELS.items()
+        split_entry(k, src, rep, launches[k], worst[k], ms["many_spheres"], which, bnd[k])
+        for which, (k, (src, rep)) in enumerate(KERNELS.items())
     ] + [
         entry(k, src, rep, mesh_launches[k], mesh_worst[k], mesh_ms[k], mesh_bnd[k])
         for k, (src, rep) in MESH_KERNELS.items()
@@ -1493,8 +1606,13 @@ def main() -> int:
               trav_bnd[k])
         for k, (src, rep) in TRAVERSAL_KERNELS.items()
     ] + [
-        entry(k, src, rep, cluster_launches[k], cl_worst[k], cl_ms[k], cl_bnd[k])
-        for k, (src, rep) in CLUSTER_KERNELS.items()
+        entry(k, src, rep, cluster_launches[k], cl_worst[k], cl_ms[k], cl_bnd[k],
+              ms_16384=cl_slice[k]["ms"], bound_ms_16384=cl_slice[k]["bound_ms"])
+        for k, (src, rep) in CLUSTER_KERNELS.items() if k in cl_slice
+    ] + [
+        split_entry("fused_bounce_on_pbr", *CLUSTER_KERNELS["fused_bounce_on_pbr"],
+                    cluster_launches["fused_bounce_on_pbr"], cl_worst["fused_bounce_on_pbr"],
+                    cl_ms["fused_bounce_on_pbr"], 0, cl_bnd["fused_bounce_on_pbr"])
     ]}
     print(json.dumps(record))
     print(smi)

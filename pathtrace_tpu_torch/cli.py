@@ -15,11 +15,12 @@ defaults:
 and fails when there is none; ``--device cpu`` runs the kernels' plain twins,
 and only when asked. ``--method`` picks the intersection traversal of every
 engine (``render --engine pool|wave``, ``animate``, ``debug-pixel``), as the
-JAX CLI's process default does: ``auto``, ``pallas``, ``bvh``, ``binned``,
-``resident``. ``--method bruteforce`` exits with status 2 (``--device cpu``
-is the port's brute force). Not ported yet, each exiting with status 2 and a
-message naming its ROADMAP item: ``--dtype f64``, the multi-process flags
-and ``bench``.
+JAX CLI's process default does: ``auto``, ``pallas``, ``bruteforce``,
+``bvh``, ``binned``, ``resident``. ``bruteforce`` takes the route of
+``pallas`` (every route gives the brute-force hit), and the pool runs it on
+its composed branch, as the JAX pool does. Not ported yet, each exiting with
+status 2 and a message naming its ROADMAP item: ``--dtype f64``, the
+multi-process flags and ``bench``.
 """
 
 from __future__ import annotations
@@ -131,7 +132,7 @@ def cmd_render(args) -> int:
 
 def cmd_animate(args) -> int:
     """The camera sweep on one device (the JAX CLI shards frames over a
-    device mesh when it has one; multi-GPU is ROADMAP Queue 1, item 10)."""
+    device mesh when it has one; multi-GPU is ROADMAP Queue 1, item 5)."""
     from . import io as ptio
     from .models import scenes as S
     from .render import render, to_srgb_u8
@@ -150,7 +151,7 @@ def cmd_animate(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise Unported("bench: the port has no benchmark run yet (ROADMAP Queue 1, item 7); "
+    raise Unported("bench: the port has no benchmark run yet (ROADMAP Queue 1, item 1); "
                    "python3 chip_smoke.py times the port's frames on a GPU")
 
 
@@ -196,7 +197,8 @@ def main(argv=None) -> int:
                              "size), pallas (no BVH); past 64 triangles bvh (two-level "
                              "BVH), binned (per-ray rounds over 256-row clusters) or "
                              "resident (per-ray nearest-first 128-row clusters); "
-                             "bruteforce exits 2 (--device cpu runs the plain twins)")
+                             "bruteforce (the route of pallas: every route gives the "
+                             "brute-force hit; the pool's composed branch)")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda: the CUDA kernels on a GPU; cpu: their plain twins")
 
@@ -236,7 +238,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     try:
         if args.coordinator or args.num_processes or os.environ.get("PT_COORDINATOR"):
-            raise Unported("multi-process runs are not ported yet (ROADMAP Queue 1, item 10)")
+            raise Unported("multi-process runs are not ported yet (ROADMAP Queue 1, item 5)")
         if getattr(args, "dtype", "f32") == "f64":
             raise Unported("--dtype f64: the port renders in float32 only "
                            "(ROADMAP Queue 1, item 4)")

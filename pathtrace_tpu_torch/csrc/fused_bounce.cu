@@ -14,19 +14,40 @@
 // pays only for its own lobe; the twin evaluates the enabled lanes and
 // selects, which gives the same values.
 //
-// What bounds it on the H100: per-lane ALU work over the sphere list (up to
-// 512 spheres x ~20 flops for the closest hit, plus ~64 triangles x ~40),
-// then a few hundred flops of shading. Device traffic is ~260 bytes a lane,
-// negligible next to that. The scene tables (<= 512x15 + 64x22 + 64x18
-// floats, ~40 KB) are staged once per block into shared memory, where every
-// thread of a warp reads the same row at the same time (a broadcast, no bank
-// conflict), so the sweep runs from shared memory at full rate.
-// One thread per lane, 128 threads a block: simple and exact first; with
-// S = 16384 lanes that is only ~4 warps an SM, so a later PR can split the
-// sphere sweep over several threads per lane.
+// What bounds it on the H100: the closest-hit sweep over the sphere and
+// triangle rows (up to 512 spheres x ~20 flops plus ~64 triangles x ~40 per
+// lane), then a few hundred flops of shading. Device traffic is ~260 bytes a
+// lane, negligible next to that. Each row is a dependent chain of ~40
+// instructions (no contracted multiply-adds, a correctly rounded sqrtf), so
+// with one thread per lane the pool's 16,384 lanes fill only ~4 warps an SM
+// and the sweep is a latency chain, not arithmetic.
+//
+// Design: a group of `split` threads (T, a power of two up to 16, chosen
+// by the host from the row count: kernels/binding.py :: sweep_split) shares one
+// lane's sweep; thread j of the group tests rows j, j+T, j+2T, ..., which
+// gives 4-64 warps an SM for the latency to hide behind. Each row's t comes
+// from the same arithmetic whichever thread computes it, and the group's
+// bests are combined as a lexicographic min over (t, row) from (inf, 0) by
+// warp shuffles: the twin's strict first-minimum argmin exactly (ties to the
+// lower row, row 0 when nothing is hit). Triangles first, then spheres
+// against t <= the triangles' best, as before. The winners go to shared
+// memory, and one thread per lane (`lanes` threads a block, whole warps)
+// shades: the shading below is the single-thread code line for line.
+// Only the sweep's columns are staged in shared memory (center and k of a
+// sphere as one float4, v0/e1/e2 of a triangle at a stride of 9 floats, so
+// the T rows a warp reads at once sit in distinct banks and lanes reading the
+// same row share a broadcast), with the light table; the winner's material,
+// 1/r and normal are read once per lane from device memory. A row whose
+// discriminant is negative or NaN (a miss, or a padding row) skips the square
+// root (geom.cuh :: sphere_root). Blocks are lanes x T threads: 128 lanes at
+// T = 1, 64 at T = 2, 32 from T = 4 up (128-512 threads).
+// The host gives each thread at most ~128 rows (T = 4 for the 496 rows of
+// many_spheres, 1 up to 128 rows): the shading, still one thread a lane and
+// ~4 warps an SM, now sets a floor of ~0.02-0.03 ms at 16,384 lanes, and
+// larger blocks (fewer resident at once) only add waves.
 //
 // TPU workarounds of the JAX kernel not carried over: the bf16x3 one-hot
-// MXU row select is an indexed load from shared memory, the MXU quadratic-
+// MXU row select is an indexed load, the MXU quadratic-
 // form sphere tables are not used, and there is no ray_tile lane padding.
 //
 // Rounding: built with -fmad=false and without fast math, the arithmetic
@@ -44,10 +65,11 @@
 namespace pt {
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 512;  // lanes x split threads a block
 constexpr int kSphCols = 15;
 constexpr int kTriCols = 22;
 constexpr int kLgtCols = 18;
+constexpr int kTriUse = 9;        // v0, e1, e2: the triangle columns the sweep reads
 // Table columns (ops/shade.py).
 constexpr int kTcN = 9, kTcKind = 12;
 constexpr int kScInvR = 4, kScKind = 5;
@@ -95,6 +117,7 @@ struct Params {
   float* shadow_d;
   float* shadow_tmax;
   int S, n_sph, n_tri, n_lgt;
+  int split, lanes;  // threads sharing a lane's sweep; lanes a block
   int num_tris, num_lights, max_bounces;
   int use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr;
   float eps;
@@ -426,21 +449,100 @@ __device__ __forceinline__ Mat mat_row(const float* row, bool hit) {
   return m;
 }
 
-__global__ void __launch_bounds__(kThreads) fused_bounce_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* s_sph = smem;
-  float* s_tri = s_sph + p.n_sph * kSphCols;
-  float* s_lgt = s_tri + p.n_tri * kTriCols;
-  for (int k = threadIdx.x; k < p.n_sph * kSphCols; k += blockDim.x) s_sph[k] = p.sph[k];
-  for (int k = threadIdx.x; k < p.n_tri * kTriCols; k += blockDim.x) s_tri[k] = p.tri[k];
+// The (t, row) lexicographic min over the `split` threads of each aligned
+// group of a warp; every thread of the warp takes part and ends with its
+// group's best. No t is NaN here (a miss is inf), so this is the strict
+// first-minimum argmin over the group's rows.
+__device__ __forceinline__ void group_min(float* t, int* row, int split) {
+  for (int off = split >> 1; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(0xffffffffu, *t, off);
+    const int orow = __shfl_xor_sync(0xffffffffu, *row, off);
+    if (ot < *t || (ot == *t && orow < *row)) {
+      *t = ot;
+      *row = orow;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float4* s_sph = smem4;                                      // cx, cy, cz, k
+  float* s_tri = reinterpret_cast<float*>(s_sph + p.n_sph);   // v0, e1, e2
+  float* s_lgt = s_tri + p.n_tri * kTriUse;
+  float* s_tri_t = s_lgt + p.n_lgt * kLgtCols;                // per lane of the block
+  float* s_sph_t = s_tri_t + p.lanes;
+  int* s_tri_arg = reinterpret_cast<int*>(s_sph_t + p.lanes);
+  int* s_sph_arg = s_tri_arg + p.lanes;
+  for (int k = threadIdx.x; k < p.n_sph; k += blockDim.x) {
+    const float* row = p.sph + k * kSphCols;
+    s_sph[k] = make_float4(row[0], row[1], row[2], row[3]);
+  }
+  for (int k = threadIdx.x; k < p.n_tri * kTriUse; k += blockDim.x)
+    s_tri[k] = p.tri[(k / kTriUse) * kTriCols + k % kTriUse];
   for (int k = threadIdx.x; k < p.n_lgt * kLgtCols; k += blockDim.x) s_lgt[k] = p.lgt[k];
   __syncthreads();
 
   const int S = p.S;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S) return;
   const float eps = p.eps;
   const float inf = INFINITY;
+
+  // ---- 1. Closest hit, split: thread `part` of the lane's group tests rows
+  // part, part + T, ...; lanes past S sweep lane S - 1 and write nothing, so
+  // every thread of a warp reaches the shuffles.
+  {
+    const int T = p.split;
+    const int part = threadIdx.x & (T - 1);
+    const int local = threadIdx.x / T;
+    const int lane = blockIdx.x * p.lanes + local;
+    const int il = lane < S ? lane : S - 1;
+    const V3 o3 = v3(p.o[il], p.o[S + il], p.o[2 * S + il]);
+    const V3 d3 = v3(p.d[il], p.d[S + il], p.d[2 * S + il]);
+
+    // Triangles (Moller-Trumbore).
+    float tri_t = inf;
+    int tri_arg = 0;
+    for (int r = part; r < p.n_tri; r += T) {
+      float t;
+      float ts = hit_triangle(s_tri + r * kTriUse, o3, d3, eps, inf, &t) ? t : inf;
+      if (ts < tri_t) {  // strict: the first minimum wins, like argmin
+        tri_t = ts;
+        tri_arg = r;
+      }
+    }
+    group_min(&tri_t, &tri_arg, T);
+
+    // Spheres, against t <= the triangles' best.
+    const float od = dot3(o3, d3);
+    const float oo = dot3(o3, o3);
+    float sph_t = inf;
+    int sph_arg = 0;
+#pragma unroll 4
+    for (int r = part; r < p.n_sph; r += T) {
+      float t_c = sphere_root(s_sph[r], o3, d3, od, oo, eps);
+      float tss = (t_c >= eps && t_c <= tri_t) ? t_c : inf;
+      if (tss < sph_t) {
+        sph_t = tss;
+        sph_arg = r;
+      }
+    }
+    group_min(&sph_t, &sph_arg, T);
+    if (part == 0) {
+      s_tri_t[local] = tri_t;
+      s_tri_arg[local] = tri_arg;
+      s_sph_t[local] = sph_t;
+      s_sph_arg[local] = sph_arg;
+    }
+  }
+  __syncthreads();
+
+  // ---- 2-4. One thread per lane shades ----
+  if (threadIdx.x >= p.lanes) return;
+  const int i = blockIdx.x * p.lanes + threadIdx.x;
+  if (i >= S) return;
+  const float tri_t = s_tri_t[threadIdx.x];
+  const int tri_arg = s_tri_arg[threadIdx.x];
+  const float sph_t = s_sph_t[threadIdx.x];
+  const int sph_arg = s_sph_arg[threadIdx.x];
 
   const bool busy = p.busy[i];
   const int bounce = p.bounce[i];
@@ -452,35 +554,11 @@ __global__ void __launch_bounds__(kThreads) fused_bounce_kernel(Params p) {
   const float ox = o3.x, oy = o3.y, oz = o3.z;
   const float dx = d3.x, dy = d3.y, dz = d3.z;
 
-  // ---- 1. Closest hit: triangles (Moller-Trumbore), then spheres ----
-  float tri_t = inf;
-  int tri_arg = 0;
-  for (int r = 0; r < p.n_tri; ++r) {
-    float t;
-    float ts = hit_triangle(s_tri + r * kTriCols, o3, d3, eps, inf, &t) ? t : inf;
-    if (ts < tri_t) {  // strict: the first minimum wins, like argmin
-      tri_t = ts;
-      tri_arg = r;
-    }
-  }
   const bool tri_hit = tri_t < inf;
-
-  const float od = dot3(o3, d3);
-  const float oo = dot3(o3, o3);
-  float sph_t = inf;
-  int sph_arg = 0;
-  for (int r = 0; r < p.n_sph; ++r) {
-    float t_c = sphere_root(s_sph + r * kSphCols, o3, d3, od, oo, eps);
-    float tss = (t_c >= eps && t_c <= tri_t) ? t_c : inf;
-    if (tss < sph_t) {
-      sph_t = tss;
-      sph_arg = r;
-    }
-  }
   const bool sph_hit = sph_t < tri_t;  // a triangle wins a tie
 
-  const float* trow = s_tri + tri_arg * kTriCols;
-  const float* srow = s_sph + sph_arg * kSphCols;
+  const float* trow = p.tri + tri_arg * kTriCols;
+  const float* srow = p.sph + sph_arg * kSphCols;
   const float best_t = sph_hit ? sph_t : tri_t;
   const bool hit_valid = sph_hit || tri_hit;
   const float tt0 = hit_valid ? best_t : 0.0f;
@@ -755,18 +833,24 @@ extern "C" int pt_fused_bounce(
     float* next_d, float* next_eta, float* next_pdf, float* next_prefix, bool* live,
     bool* shade, float* nee_gain, float* shadow_d, float* shadow_tmax, int S, int num_tris,
     int num_lights, int max_bounces, int use_mis, int use_nee, int has_tri_l, int has_sph_l,
-    int has_on, int has_pbr, float eps, void* stream) {
+    int has_on, int has_pbr, float eps, int split, int lanes, void* stream) {
   if (S <= 0) return 0;
+  // split: a power of two up to 16; lanes: whole warps.
+  if (split < 1 || split > 16 || (split & (split - 1)) != 0 || lanes < 32 || lanes % 32 != 0 ||
+      lanes * split > pt::kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   pt::Params p{busy,      bounce,     o,          d,         eta,      pdf_prev,   prefix,
                u,         sph,        tri,        lgt,       rad,      next_o,     next_d,
                next_eta,  next_pdf,   next_prefix, live,     shade,    nee_gain,   shadow_d,
-               shadow_tmax, S,        n_sph,      n_tri,     n_lgt,    num_tris,   num_lights,
-               max_bounces, use_mis,  use_nee,    has_tri_l, has_sph_l, has_on,
-               has_pbr,   eps};
-  size_t smem = sizeof(float) * (static_cast<size_t>(n_sph) * pt::kSphCols +
-                                 static_cast<size_t>(n_tri) * pt::kTriCols +
-                                 static_cast<size_t>(n_lgt) * pt::kLgtCols);
-  int grid = (S + pt::kThreads - 1) / pt::kThreads;
-  pt::fused_bounce_kernel<<<grid, pt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+               shadow_tmax, S,        n_sph,      n_tri,     n_lgt,    split,      lanes,
+               num_tris,  num_lights, max_bounces, use_mis,  use_nee,  has_tri_l,  has_sph_l,
+               has_on,    has_pbr,    eps};
+  // kernels/binding.py :: shared_bytes mirrors this carve-up.
+  size_t smem = sizeof(float4) * static_cast<size_t>(n_sph) +
+                sizeof(float) * (static_cast<size_t>(n_tri) * pt::kTriUse +
+                                 static_cast<size_t>(n_lgt) * pt::kLgtCols +
+                                 static_cast<size_t>(lanes) * 4);
+  int grid = (S + lanes - 1) / lanes;
+  pt::fused_bounce_kernel<<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -79,21 +79,30 @@ __device__ __forceinline__ bool hit_triangle(const float* row, V3 o, V3 d, float
          t >= eps && t <= t_max;
 }
 
-// One sphere row (center and k = |c|^2 - r^2 in its first four floats), with
-// od = o.d and oo = o.o: the near root if it is >= eps, else the far one.
-// NaN on a miss and on a padding row (k = NaN), so every compare with it
-// fails (twin: ops/shade.py::_sphere_ts).
-__device__ __forceinline__ float sphere_root(const float* row, V3 o, V3 d, float od, float oo,
+// One sphere row (center and k = |c|^2 - r^2), with od = o.d and oo = o.o:
+// the near root if it is >= eps, else the far one. NaN on a miss and on a
+// padding row (k = NaN), so every compare with it fails (twin:
+// ops/shade.py::_sphere_ts). A negative or NaN discriminant returns NaN
+// before the square root, where sqrtf would give NaN anyway: a miss, the
+// common case of a sweep, skips the correctly rounded sqrtf, the costliest
+// step of the test.
+__device__ __forceinline__ float sphere_root(float4 s, V3 o, V3 d, float od, float oo,
                                              float eps) {
-  float cx = row[0], cy = row[1], cz = row[2], k = row[3];
-  float cd = cx * d.x + cy * d.y + cz * d.z;
-  float co = cx * o.x + cy * o.y + cz * o.z;
+  float cd = s.x * d.x + s.y * d.y + s.z * d.z;
+  float co = s.x * o.x + s.y * o.y + s.z * o.z;
   float half_b = od - cd;
-  float c = oo - 2.0f * co + k;
+  float c = oo - 2.0f * co + s.w;
   float disc = half_b * half_b - c;
+  if (!(disc >= 0.0f)) return NAN;
   float sq = sqrtf(disc);
   float root1 = -half_b - sq;
   return root1 >= eps ? root1 : -half_b + sq;
+}
+
+// The same on a table row holding center and k in its first four floats.
+__device__ __forceinline__ float sphere_root(const float* row, V3 o, V3 d, float od, float oo,
+                                             float eps) {
+  return sphere_root(make_float4(row[0], row[1], row[2], row[3]), o, d, od, oo, eps);
 }
 
 // Reciprocal of a direction component, |c| clamped up to 1e-20.

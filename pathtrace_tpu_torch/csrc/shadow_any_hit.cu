@@ -7,12 +7,28 @@
 // near-then-far root select, for t in [eps, t_max]. Plain-torch twin:
 // pathtrace_tpu_torch/ops/shade.py :: shadow_any_hit_reference.
 //
-// What bounds it on the H100: per-lane ALU work, ~20 flops per sphere and
-// ~40 per triangle, with ~40 bytes of device traffic a lane. The geometry
-// columns the test needs (center and k per sphere, v0/e1/e2 per triangle,
-// ~10 KB) are staged once per block into shared memory and read as warp
-// broadcasts. Occlusion needs no winner, so a lane stops at its first hit,
-// and lanes with t_max < eps (no NEE query) return 0 without a sweep.
+// What bounds it on the H100: the sweep over the rows, ~20 flops per sphere
+// and ~40 per triangle, each row a dependent chain (no contracted
+// multiply-adds, a correctly rounded sqrtf), with ~40 bytes of device
+// traffic a lane. An unoccluded ray sweeps every row, and with one thread
+// per lane the pool's 16,384 lanes fill ~4 warps an SM, so the sweep is a
+// latency chain that a warp's slowest lane sets.
+//
+// Design: as csrc/fused_bounce.cu, a group of `split` threads (a power of two
+// up to 16, chosen by the host from the row count) shares one lane; thread j
+// tests triangle rows j, j+T, ..., then sphere rows j, j+T, .... Occlusion
+// needs no winner: the answer is an OR over rows, which any order and any
+// early exit give alike. The group votes (__any_sync over its own threads)
+// after every kCheck rows a thread and leaves at the first hit it sees; all
+// threads of a group share the lane, so they take the same branches around
+// each vote. Lanes with t_max < eps (no NEE query) write 0 without a sweep.
+// The geometry columns the test needs (center and k of a sphere as one
+// float4, v0/e1/e2 of a triangle at a stride of 9 floats, at most ~10 KB)
+// are staged once per block into shared memory, where the T rows a warp
+// reads at once sit in distinct banks. A sphere row whose discriminant is
+// negative or NaN skips the square root (geom.cuh :: sphere_root).
+// Blocks are lanes x T threads; the host gives each thread at most ~32 rows
+// (T = 16 for the 496 rows of many_spheres, 1 up to 32 rows).
 //
 // The TPU kernel's MXU quadratic-form tables and bf16 splits are not
 // carried over: on this card the sphere test is plain FP32 ALU work.
@@ -25,65 +41,90 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 512;  // lanes x split threads a block
 constexpr int kSphCols = 15;
 constexpr int kTriCols = 22;
-constexpr int kSphUse = 4;  // cx, cy, cz, k
 constexpr int kTriUse = 9;  // v0, e1, e2
+constexpr int kCheck = 4;   // rows a thread tests between two votes of its group
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
     shadow_any_hit_kernel(const float* __restrict__ sph, int n_sph, const float* __restrict__ tri,
                           int n_tri, const float* __restrict__ o, const float* __restrict__ d,
                           const float* __restrict__ t_max_in, bool* __restrict__ occ, int S,
-                          float eps) {
-  extern __shared__ float smem[];
-  float* s_sph = smem;
-  float* s_tri = smem + n_sph * kSphUse;
-  for (int k = threadIdx.x; k < n_sph * kSphUse; k += blockDim.x)
-    s_sph[k] = sph[(k / kSphUse) * kSphCols + k % kSphUse];
+                          float eps, int split, int lanes) {
+  extern __shared__ float4 smem4[];
+  float4* s_sph = smem4;                                     // cx, cy, cz, k
+  float* s_tri = reinterpret_cast<float*>(s_sph + n_sph);    // v0, e1, e2
+  for (int k = threadIdx.x; k < n_sph; k += blockDim.x) {
+    const float* row = sph + k * kSphCols;
+    s_sph[k] = make_float4(row[0], row[1], row[2], row[3]);
+  }
   for (int k = threadIdx.x; k < n_tri * kTriUse; k += blockDim.x)
     s_tri[k] = tri[(k / kTriUse) * kTriCols + k % kTriUse];
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S) return;
+  const int T = split;
+  const int part = threadIdx.x & (T - 1);
+  const int i = blockIdx.x * lanes + threadIdx.x / T;
+  if (i >= S) return;  // the whole group leaves together
   const float t_max = t_max_in[i];
   if (!(t_max >= eps)) {  // no query (also NaN): nothing can lie in [eps, t_max]
-    occ[i] = false;
+    if (part == 0) occ[i] = false;
     return;
   }
+  // The group's threads within the warp (T <= 16 divides 32; groups are aligned).
+  const unsigned group = ((1u << T) - 1u) << ((threadIdx.x & 31) & ~(T - 1));
   const pt::V3 o3 = pt::v3(o[i], o[S + i], o[2 * S + i]);
   const pt::V3 d3 = pt::v3(d[i], d[S + i], d[2 * S + i]);
-
-  for (int r = 0; r < n_tri; ++r) {
-    float t;
-    if (pt::hit_triangle(s_tri + r * kTriUse, o3, d3, eps, t_max, &t)) {
-      occ[i] = true;
-      return;
-    }
-  }
   const float od = pt::dot3(o3, d3);
   const float oo = pt::dot3(o3, o3);
-  for (int r = 0; r < n_sph; ++r) {
-    float t_c = pt::sphere_root(s_sph + r * kSphUse, o3, d3, od, oo, eps);
-    if (t_c >= eps && t_c <= t_max) {
-      occ[i] = true;
+
+  // Triangles, then spheres; each group votes after every kCheck rows a thread.
+  bool hit = false;
+  for (int base = 0; base < n_tri; base += kCheck * T) {
+#pragma unroll
+    for (int c = 0; c < kCheck; ++c) {
+      const int r = base + c * T + part;
+      float t;
+      if (!hit && r < n_tri) hit = pt::hit_triangle(s_tri + r * kTriUse, o3, d3, eps, t_max, &t);
+    }
+    if (__any_sync(group, hit)) {
+      if (part == 0) occ[i] = true;
       return;
     }
   }
-  occ[i] = false;
+  for (int base = 0; base < n_sph; base += kCheck * T) {
+#pragma unroll
+    for (int c = 0; c < kCheck; ++c) {
+      const int r = base + c * T + part;
+      if (!hit && r < n_sph) {
+        const float t_c = pt::sphere_root(s_sph[r], o3, d3, od, oo, eps);
+        hit = t_c >= eps && t_c <= t_max;
+      }
+    }
+    if (__any_sync(group, hit)) {
+      if (part == 0) occ[i] = true;
+      return;
+    }
+  }
+  if (part == 0) occ[i] = false;
 }
 
 }  // namespace
 
 extern "C" int pt_shadow_any_hit(const float* sph, int n_sph, const float* tri, int n_tri,
                                  const float* o, const float* d, const float* t_max, bool* occ,
-                                 int S, float eps, void* stream) {
+                                 int S, float eps, int split, int lanes, void* stream) {
   if (S <= 0) return 0;
-  size_t smem = sizeof(float) * (static_cast<size_t>(n_sph) * kSphUse +
-                                 static_cast<size_t>(n_tri) * kTriUse);
-  int grid = (S + kThreads - 1) / kThreads;
-  shadow_any_hit_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      sph, n_sph, tri, n_tri, o, d, t_max, occ, S, eps);
+  // split: a power of two up to 16; lanes: whole warps.
+  if (split < 1 || split > 16 || (split & (split - 1)) != 0 || lanes < 32 || lanes % 32 != 0 ||
+      lanes * split > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // kernels/binding.py :: shared_bytes mirrors this carve-up.
+  size_t smem = sizeof(float4) * static_cast<size_t>(n_sph) +
+                sizeof(float) * static_cast<size_t>(n_tri) * kTriUse;
+  int grid = (S + lanes - 1) / lanes;
+  shadow_any_hit_kernel<<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(
+      sph, n_sph, tri, n_tri, o, d, t_max, occ, S, eps, split, lanes);
   return static_cast<int>(cudaGetLastError());
 }

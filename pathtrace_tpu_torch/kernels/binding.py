@@ -5,6 +5,11 @@ wrappers in ``ops/shade.py``, ``ops/intersect.py`` and ``ops/binned.py``,
 passes their raw pointers and PyTorch's current stream, and raises if the
 launch was refused. The kernels allocate nothing
 and do not synchronise.
+
+The pool's two kernels (``pt_fused_bounce``, ``pt_shadow_any_hit``) split
+each lane's sweep over ``split`` threads; :func:`sweep_split` picks it from
+the scene's row count and :func:`launch_shape` gives the block shape. Every
+split gives the same bits.
 """
 
 from __future__ import annotations
@@ -21,6 +26,61 @@ _F = ctypes.c_float
 
 _lib: ctypes.CDLL | None = None
 
+SPLITS = (1, 2, 4, 8, 16)      # threads a lane's sweep can take
+SHARED_LIMIT = 48 * 1024       # dynamic shared memory without an opt-in attribute
+_SPH_USE, _TRI_USE, _LGT_COLS = 16, 36, 72   # staged bytes a sphere, triangle, light row
+
+
+# Rows a thread sweeps at most, by kernel, as measured on an H100 (PERF.md):
+# the vertex kernel's one-thread-per-lane shading sets a floor that larger
+# blocks (fewer resident at once) only raise, while the any hit gains down to
+# ~32 rows a thread.
+ROWS_PER_THREAD = {"fused_bounce": 128, "shadow_any_hit": 32}
+
+
+def sweep_split(rows: int, kernel: str) -> int:
+    """Threads sharing one lane's sweep over ``rows`` sphere and triangle
+    rows (the tables' padded row counts): the fewest of :data:`SPLITS` that
+    leave each thread at most ``ROWS_PER_THREAD[kernel]`` rows (one for a
+    small scene, where a split only adds shuffles)."""
+    split = 1
+    while split < SPLITS[-1] and rows > split * ROWS_PER_THREAD[kernel]:
+        split *= 2
+    return split
+
+
+def launch_shape(split: int) -> tuple[int, int]:
+    """``(lanes, threads)`` of a block at ``split`` threads a lane: 128 lanes
+    at split 1, 64 at 2, 32 from 4 up, so the lanes that shade fill whole
+    warps."""
+    if split not in SPLITS:
+        raise ValueError(f"split {split} not in {SPLITS}")
+    lanes = max(32, 128 // split)
+    return lanes, lanes * split
+
+
+def shared_bytes(n_sph: int, n_tri: int, n_lgt: int = 0, lanes: int = 0) -> int:
+    """Dynamic shared memory of a block: the sweep's sphere and triangle
+    columns, plus (``pt_fused_bounce``) the light table and four words a lane
+    for the group's winners; ``pt_shadow_any_hit`` stages the first two
+    only (``n_lgt = lanes = 0``)."""
+    return n_sph * _SPH_USE + n_tri * _TRI_USE + n_lgt * _LGT_COLS + lanes * 16
+
+
+def _shape(tables, split, kernel: str) -> tuple[int, int]:
+    """``(split, lanes)`` of a launch of ``kernel`` on ``tables`` (``split``
+    None: :func:`sweep_split`); raises past the shared-memory limit."""
+    n_sph, n_tri = tables.sph.shape[0], tables.tri.shape[0]
+    split = sweep_split(n_sph + n_tri, kernel) if split is None else split
+    lanes, _ = launch_shape(split)
+    if kernel == "fused_bounce":
+        smem = shared_bytes(n_sph, n_tri, tables.lgt.shape[0], lanes)
+    else:
+        smem = shared_bytes(n_sph, n_tri)
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"{smem} bytes of shared memory exceed {SHARED_LIMIT}")
+    return split, lanes
+
 
 def library() -> ctypes.CDLL:
     """Load (building first if needed) the kernel library, once per process."""
@@ -29,9 +89,9 @@ def library() -> ctypes.CDLL:
         path, _ = build.build()
         lib = ctypes.CDLL(str(path))
         lib.pt_fused_bounce.argtypes = [_P] * 8 + [_P, _I, _P, _I, _P, _I] + [_P] * 11 + \
-            [_I] * 10 + [_F, _P]
+            [_I] * 10 + [_F, _I, _I, _P]
         lib.pt_fused_bounce.restype = _I
-        lib.pt_shadow_any_hit.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _P]
+        lib.pt_shadow_any_hit.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _P]
         lib.pt_shadow_any_hit.restype = _I
         lib.pt_sphere_closest.argtypes = [_P, _I, _P, _I] + [_P] * 8 + [_I, _P]
         lib.pt_sphere_closest.restype = _I
@@ -68,9 +128,12 @@ def _raise_on(code: int, name: str) -> None:
 
 def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, out, *,
                         num_tris, num_lights, max_bounces, eps,
-                        use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr) -> None:
+                        use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr,
+                        split=None) -> None:
     """``out`` is a ``BounceResult`` of preallocated outputs; the flags are
-    ``ops.shade.kernel_flags``."""
+    ``ops.shade.kernel_flags``; ``split``: threads a lane (default
+    :func:`sweep_split`)."""
+    split, lanes = _shape(tables, split, "fused_bounce")
     lib = library()
     with torch.cuda.device(busy.device):   # launch on the inputs' card
         code = lib.pt_fused_bounce(
@@ -85,20 +148,21 @@ def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefi
             out.shadow_d.data_ptr(), out.shadow_tmax.data_ptr(),
             busy.shape[0], num_tris, num_lights, max_bounces,
             int(use_mis), int(use_nee), int(has_tri_l), int(has_sph_l), int(has_on),
-            int(has_pbr), eps,
+            int(has_pbr), eps, split, lanes,
             _stream(busy.device),
         )
     _raise_on(code, "fused_bounce")
 
 
-def launch_shadow_any_hit(tables, o, d, t_max, occ, *, eps) -> None:
+def launch_shadow_any_hit(tables, o, d, t_max, occ, *, eps, split=None) -> None:
+    split, lanes = _shape(tables, split, "shadow_any_hit")
     lib = library()
     with torch.cuda.device(t_max.device):
         code = lib.pt_shadow_any_hit(
             tables.sph.data_ptr(), tables.sph.shape[0],
             tables.tri.data_ptr(), tables.tri.shape[0],
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), occ.data_ptr(),
-            t_max.shape[0], eps, _stream(t_max.device),
+            t_max.shape[0], eps, split, lanes, _stream(t_max.device),
         )
     _raise_on(code, "shadow_any_hit")
 

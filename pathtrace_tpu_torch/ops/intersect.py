@@ -136,16 +136,18 @@ def resolve_route(num_tris: int, num_spheres: int, method: str = "auto") -> str:
     for a scene of ``num_tris`` triangle rows and ``num_spheres`` sphere rows.
 
     ``method``: ``"auto"`` (the default routes), ``"pallas"`` (no BVH: the
-    flat route for every scene past the small bounds), or ``"bvh"``,
+    flat route for every scene past the small bounds), ``"bruteforce"``
+    (the route ``"pallas"`` takes: the JAX package's brute force tests every
+    row, and every route of the port gives that brute-force answer exactly,
+    so the same hits come from the hand-written kernels), or ``"bvh"``,
     ``"binned"``, ``"resident"`` (that traversal for every scene past 64
     triangles; below, as the JAX ``tri_small`` gate, the small route, or the
     flat one beside more than 512 spheres). An unknown method raises
     ``NotImplementedError``."""
-    if method not in ("auto",) + PER_RAY_METHODS + ("pallas",):
+    if method not in ("auto", "pallas", "bruteforce") + PER_RAY_METHODS:
         raise NotImplementedError(
             f"method {method!r} has no route in the port (it has auto, pallas, "
-            f"{', '.join(PER_RAY_METHODS)}); the kernels' plain twins on the CPU "
-            "(--device cpu) are its brute force")
+            f"bruteforce, {', '.join(PER_RAY_METHODS)})")
     small_tris = num_tris <= SMALL_MAX_TRIS
     if not small_tris and (method in PER_RAY_METHODS
                            or method == "auto" and num_tris >= BVH_MIN_TRIS):

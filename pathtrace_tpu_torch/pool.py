@@ -67,8 +67,10 @@ def route(scene: Scene, integrator: str, method: str | None = None) -> str:
     branch only under the default method (``None``, ``"auto"`` or
     ``"pallas"``) for a scene within the fused kernels' caps; scenes with at
     least ``BVH_MIN_TRIS`` triangles, scenes past the caps and every other
-    method (``"bvh"``, ``"binned"``, ``"resident"``) take the composed branch
-    on the route ``intersect.resolve_route(..., method)`` picks. Raises
+    method (``"bruteforce"``, ``"bvh"``, ``"binned"``, ``"resident"``) take
+    the composed branch on the route ``intersect.resolve_route(..., method)``
+    picks. ``"bruteforce"`` goes there because the JAX pool's fused gate
+    wants a Pallas method, so it runs such a call composed. Raises
     ``NotImplementedError`` for an unknown integrator or method."""
     if integrator not in INTEGRATORS:
         raise NotImplementedError(f"unknown integrator {integrator!r}; known: {INTEGRATORS}")

@@ -351,8 +351,11 @@ def test_resolve_route():
     # More than 512 spheres beside <= 64 triangles: the composed form, served
     # by the flat route's tables under every method (the JAX tri_small gate).
     assert r(2, 600) == r(12, 600, "binned") == r(64, 513, "resident") == "flat"
-    with pytest.raises(NotImplementedError, match="--device cpu"):
-        r(992, 3, "bruteforce")
+    # Brute force takes the route of "pallas": every route gives its hits.
+    for n_tris, n_sph in ((12, 1), (64, 513), (992, 3), (70000, 600)):
+        assert r(n_tris, n_sph, "bruteforce") == r(n_tris, n_sph, "pallas")
+    with pytest.raises(NotImplementedError, match="bruteforce"):
+        r(992, 3, "mxu")
 
 
 def test_route_wrappers_check_tables(route_scene):

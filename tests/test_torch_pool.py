@@ -107,6 +107,27 @@ def test_pool_matches_jax_mesh_long_paths():
     assert got[2] >= 32
 
 
+@pytest.mark.parametrize("name", ["cornell", "mesh"])
+def test_pool_bruteforce_matches_jax_composed(name):
+    """``method="bruteforce"``: the JAX pool runs its composed branch (its
+    fused gate wants a Pallas method) with the brute-force intersection; the
+    port runs its composed branch on the route of ``"pallas"``, whose hits
+    are brute force's. Same rays, busy slots and iterations, at the sizes
+    and seed of the cases above."""
+    if name == "cornell":
+        jsc, jcam = jax_scenes.cornell_box(), jax_scenes.cornell_camera(16, 16)
+        kw = dict(width=16, height=16, spp=2, max_bounces=6)
+    else:
+        jsc, jcam = jax_scenes.mesh_scene(4200), jax_scenes.mesh_scene_camera(8, 8)
+        kw = dict(width=8, height=8, spp=2, max_bounces=4)
+    ref, got = _render_both(jsc, jcam, fused=False, integrator="mis", num_slots=64, seed=5,
+                            method="bruteforce", **kw)
+    sc = scene_from_arrays(*split_fields(jsc), device="cpu")
+    assert pool.route(sc, "mis", "bruteforce") == "composed"
+    assert pool.route(sc, "mis") == ("fused" if name == "cornell" else "composed")
+    _assert_same_render(ref, got)
+
+
 def test_sample_offset_matches_jax():
     ref, got = _render_both(
         jax_scenes.cornell_box(), jax_scenes.cornell_camera(16, 16),

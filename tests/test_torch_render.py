@@ -222,17 +222,19 @@ def test_cli_renders_resumes_and_replays(tmp_path):
 
 @pytest.mark.parametrize("args,item", [
     (["render", "--dtype", "f64"], "Queue 1, item 4"),
-    (["--num-processes", "2", "render"], "Queue 1, item 10"),
-    (["bench"], "Queue 1, item 7"),
+    (["--num-processes", "2", "render"], "Queue 1, item 5"),
+    (["bench"], "Queue 1, item 1"),
 ])
 def test_cli_unported_flags_exit_nonzero(args, item):
     r = _cli(*args, "--device", "cpu") if args[-1] != "bench" else _cli(*args)
     assert r.returncode == 2 and f"ROADMAP {item}" in r.stderr, r.stderr[-2000:]
 
 
-@pytest.mark.parametrize("method,engine", [("binned", "wave"), ("resident", "pool")])
+@pytest.mark.parametrize("method,engine", [("binned", "wave"), ("resident", "pool"),
+                                           ("bruteforce", "pool")])
 def test_cli_renders_with_per_ray_methods(tmp_path, method, engine):
-    """``--method binned|resident`` reaches the wave engine and the pool."""
+    """``--method binned|resident|bruteforce`` reaches the wave engine and
+    the pool."""
     out = str(tmp_path / "m.png")
     r = _cli("render", "--scene", "mesh", "--method", method, "--engine", engine, "--width", "8",
              "--height", "8", "--spp", "1", "--max-bounces", "3", "--device", "cpu", "--out", out)
