@@ -23,9 +23,14 @@ its last line):
 
 The mesh path (scenes with >= 4096 triangles, the pool's composed branch):
 
-3b. its four kernels against their twins on the card, at S = 65536 lanes of
-    the 70k-triangle mesh scene: camera rays, the bounce rays of composed
-    twin bounces, and their NEE shadow rays;
+3b. its four kernels against their twins on the card, bitwise, at S = 65536
+    lanes of the 70k-triangle mesh scene: camera rays, the bounce rays of
+    composed twin bounces, and their NEE shadow rays; the BVH pair also at
+    every team size (1-32 threads a ray), with per-ray counters held
+    against ``bvh_traversal_reference``, on edge lanes (t_max NaN, -1, 0,
+    t_min, inf) and the tie case; ``bvh_closest(counters=True)`` against
+    the model's per-span sums; times at every team size, and the mean
+    groups, leaves and triangle tests a ray against the bound's;
 4b. a mesh frame (8192 triangles, 32x32, 2 spp, MIS, depth 8, 1024 slots)
     on the card, checked against the same frame on the CPU with the twins;
 5b. BASELINE config 4: the 70k-triangle mesh scene at 1920x1080, 4 spp,
@@ -84,11 +89,13 @@ lanes of ``fused_bounce``:
     the fused pool; wall, Mrays/s, rays, iterations, checksum, device
     operations an iteration and the busy share (profiler over a 1-spp run).
 
-The next-to-last lines are the kernels' JSON record (fifteen entries: the
-twelve kernels and the three further modes, each with its time, its twin's,
+The next-to-last lines are the kernels' JSON record (sixteen entries: the
+twelve kernels and the four further modes, each with its time, its twin's,
 its launches on its path and its roofline bound; the pool's two kernels with
-the host's split and their time at every split, the clustered modes with
-their time and bound at 16,384 lanes) and the card's name and power limit;
+the host's split and their time at every split, the BVH pair with the host's
+team, its time at every team and its work a ray, ``bvh_closest_counters`` with its launches in
+phase 3b, the clustered modes with their time and bound at 16,384 lanes) and
+the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -107,8 +114,6 @@ import torch
 
 SLICE_S = 16384
 EDGE_S = 4096               # lanes of the edge scene (phase 3)
-TWIN_RTOL, TWIN_ATOL = 1e-4, 1e-6
-DISCRETE_AGREE = 0.999
 CORNELL = dict(width=128, height=128, spp=1, integrator="mis", max_bounces=16,
                num_slots=4096, seed=0)
 BENCH = dict(width=1920, height=1080, spp=16, integrator="mis", max_bounces=32,
@@ -141,6 +146,12 @@ MESH_KERNELS = {
                        "pathtrace_tpu/ops/pallas_intersect.py:240"),
     "any_hit": ("pathtrace_tpu_torch/csrc/intersect.cu",
                 "pathtrace_tpu/ops/pallas_intersect.py:679"),
+}
+# bvh_closest(counters=True), the JAX diagnostic mode: no render path runs
+# it, so its launches are those of phase 3b's wrapper call.
+COUNTER_KERNELS = {
+    "bvh_closest_counters": ("pathtrace_tpu_torch/csrc/bvh.cu",
+                             "pathtrace_tpu/ops/bvh_intersect.py:388"),
 }
 WAVE_S = 65536
 WAVE_KERNELS = {
@@ -556,8 +567,133 @@ def lane_rays(scene, camera, tables, S, bounces=4, seed=0):
             (gather(shadows, 0), gather(shadows, 1), gather(shadows, 2)))
 
 
+def tie_tables(dev, upper_leaf):
+    """BVH tables of triangles in a given row order (the scene builder would
+    reorder them): triangle A (row 0, leaf 0) and its copy B (the first row
+    of ``upper_leaf``), both in the plane z = 0, where rays from z = 5 along
+    -z (:data:`TIE_RAYS`) hit them at t = 5. Leaf 0 reaches up to z = 0, so
+    it is entered at t = 5; ``upper_leaf`` also holds a triangle at z = 1 off
+    the rays' path, so it is entered first, at t = 4. Every other row is a
+    small triangle at z = -5, x = 20. The brute-force answer is A, the lower
+    row: a walk must enter leaf 0 at an entry equal to its best t. Returns
+    the tables and B's row."""
+    from pathtrace_tpu_torch.ops import intersect
+
+    n = (upper_leaf + 1) * intersect.LEAF
+    b = upper_leaf * intersect.LEAF
+    v0 = torch.tensor([20.0, 20.0, -5.0], device=dev).repeat(n, 1)
+    e1 = torch.tensor([0.1, 0.0, 0.0], device=dev).repeat(n, 1)
+    e2 = torch.tensor([0.0, 0.1, 0.0], device=dev).repeat(n, 1)
+    for r in (0, b):                                   # A and B
+        v0[r] = torch.tensor([-1.0, -1.0, 0.0])
+        e1[r] = torch.tensor([2.0, 0.0, 0.0])
+        e2[r] = torch.tensor([0.0, 2.0, 0.0])
+    v0[b + 1] = torch.tensor([10.0, 10.0, 1.0])        # lifts the upper leaf's box to z = 1
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=1, keepdim=True)
+    leaf, group = intersect.bvh_aabbs(v0, e1, e2)
+    tri = torch.cat([v0, e1, e2, nrm, torch.ones_like(v0[:, :1]), torch.zeros_like(v0)], dim=1)
+    tri = torch.cat([tri, tri.new_zeros((leaf.shape[0] * intersect.LEAF - n, 16))])
+    empty = tri.new_zeros((0, 8))
+    tables = intersect.Tables(tri=tri.contiguous(), leaf=leaf, group=group, sph=empty,
+                              sph_box=empty, tri_rows=n, n_groups=leaf.shape[0] // intersect.GROUP,
+                              route="bvh")
+    return tables, b
+
+
+TIE_RAYS = ((-0.5, -0.5), (-0.2, 0.1), (0.3, -0.6), (-0.9, 0.8))   # (x, y) inside A and B
+
+
+def hold_bvh_kernels(what, tables, closest, shadow):
+    """The BVH pair through raw launches at every team size, with and
+    without per-ray counters: the hits bitwise equal to the
+    brute-force twins' (``closest`` = ``(o, d, t_min, t_max, twin's
+    4-tuple)``, ``shadow`` = ``(o, d, t_min, t_max, twin's occlusion)``),
+    the counts equal to ``bvh_traversal_reference``'s. Outputs are scrubbed
+    before each launch. Returns the model's closest and any-hit results."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import intersect
+
+    o, d, lo, hi, ref = closest
+    so, sd, slo, st, ref_occ = shadow
+    model = intersect.bvh_traversal_reference(tables, o, d, lo, hi, chunk=o.shape[0])
+    _bitwise(f"{what}: the closest walk (bvh_traversal_reference) vs brute force", ref,
+             model[:4])
+    a_model = intersect.bvh_traversal_reference(tables, so, sd, slo, st, anyhit=True,
+                                                chunk=so.shape[0])
+    _bitwise(f"{what}: the any-hit walk vs brute force", ref_occ, a_model[0])
+    out = tuple(torch.empty_like(x) for x in ref)
+    counts = tuple(torch.empty_like(x) for x in model[4:])
+    occ = torch.empty_like(ref_occ)
+    a_counts = tuple(torch.empty_like(x) for x in a_model[1:])
+
+    def scrub():
+        for x in out + counts + a_counts:
+            x.fill_(float("nan") if x.dtype == torch.float32 else -7)
+        occ.copy_(~ref_occ)
+
+    for team in binding.TEAMS:
+        how = f"{what}, team {team}"
+        scrub()
+        binding.launch_bvh_closest(tables, o, d, lo, hi, *out, team=team)
+        binding.launch_bvh_anyhit(tables, so, sd, slo, st, occ, team=team)
+        _bitwise(f"bvh_closest, {how}", ref, out)
+        _bitwise(f"bvh_anyhit, {how}", ref_occ, occ)
+        scrub()
+        binding.launch_bvh_closest(tables, o, d, lo, hi, *out, counts=counts, team=team)
+        binding.launch_bvh_anyhit(tables, so, sd, slo, st, occ, counts=a_counts, team=team)
+        _bitwise(f"bvh_closest with counters, {how}", ref + model[4:], out + counts)
+        _bitwise(f"bvh_anyhit with counters, {how}", (ref_occ,) + a_model[1:],
+                 (occ,) + a_counts)
+    return model, a_model
+
+
+def bvh_edge_cases(dev, tables, o, d, so, sd, lo):
+    """The BVH pair on edge lanes: 1,024 of the mesh lanes with t_max NaN,
+    -1, 0 (below t_min), t_min itself and inf; and the tie case
+    (:func:`tie_tables`, the upper leaf in the same group and in the next
+    one), where the kernels must return the lower row, with shadow t_max 5
+    (the hit lies at t_max) and 4.5 (no hit)."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import intersect, shade
+
+    n = 1024
+    hi = torch.full((n,), float("inf"), device=dev)
+    st = torch.full((n,), 6.0, device=dev)
+    for k, v in enumerate((float("nan"), -1.0, 0.0, shade.EPS, float("inf"))):
+        hi[k::7] = v
+        st[k::7] = v
+    e = (o[:n], d[:n], lo[:n], hi), (so[:n], sd[:n], lo[:n], st)
+    hold_bvh_kernels("edge lanes", tables, (*e[0], intersect.bvh_closest_reference(tables, *e[0])),
+                     (*e[1], intersect.bvh_anyhit_reference(tables, *e[1])))
+    for upper in (1, 16):
+        tt, b = tie_tables(dev, upper)
+        m = len(TIE_RAYS)
+        to = torch.tensor([[x, y, 5.0] for x, y in TIE_RAYS], device=dev)
+        td = torch.tensor([[0.0, 0.0, -1.0]] * m, device=dev)
+        tlo = torch.full((m,), shade.EPS, device=dev)
+        thi = torch.full((m,), float("inf"), device=dev)
+        tst = torch.tensor([5.0, 4.5] * (m // 2), device=dev)
+        ref = intersect.bvh_closest_reference(tt, to, td, tlo, thi)
+        if not ((ref[0] == 5.0).all() and (ref[1] == 0).all()):
+            raise AssertionError(f"tie case (upper leaf {upper}): twin gave {ref[:2]}")
+        model, a_model = hold_bvh_kernels(
+            f"tie case, upper leaf {upper}", tt, (to, td, tlo, thi, ref),
+            (to, td, tlo, tst, intersect.bvh_anyhit_reference(tt, to, td, tlo, tst)))
+        if not ((model[5] == 2).all() and torch.equal(a_model[0], tst == 5.0)):
+            raise AssertionError(f"tie case (upper leaf {upper}): leaves swept {model[5]}, "
+                                 f"occlusion {a_model[0]}")
+    log(f"[mesh-kernels] edge lanes: bvh_closest and bvh_anyhit bitwise equal to their twins, "
+        f"their counts to the model's, at teams {list(binding.TEAMS)}, on {n} mesh lanes with t_max NaN, -1, 0, t_min, inf, and the tie case "
+        f"(B at row 128 and at row 2048, entered first): row 0, both leaves swept")
+
+
 def check_mesh_kernels(dev, scene, camera):
-    """Phase 3b: the mesh path's four kernels against their twins on the card."""
+    """Phase 3b: the mesh path's four kernels against their twins on the
+    card, bitwise; the BVH pair also at every team size, with per-ray
+    counters held against the traversal model, on edge lanes and the tie case; ``bvh_closest(counters
+    =True)`` against the model's per-span sums. Times, bounds and the BVH
+    pair's per-ray work."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.ops import intersect, shade
 
@@ -571,55 +707,43 @@ def check_mesh_kernels(dev, scene, camera):
     lo = torch.full((S,), shade.EPS, device=dev)
     hi = torch.full((S,), float("inf"), device=dev)
     no_tris = tables.tri[:0]
-    worst, ms = {}, {}
-
-    def closest(name, ref, got, what):
-        torch.cuda.synchronize()
-        t, idx, nrm, mat = got
-        rt, ridx, rnrm, rmat = ref
-        same = idx == ridx
-        frac = same.float().mean().item()
-        frac_mat = (mat == rmat).float().mean().item()
-        if frac < DISCRETE_AGREE or frac_mat < DISCRETE_AGREE:
-            raise AssertionError(f"{name}: prim agrees on {frac:.6f}, material on "
-                                 f"{frac_mat:.6f} of lanes")
-        hit = same & (ridx >= 0)
-        ok = (torch.isclose(t, rt, rtol=TWIN_RTOL, atol=TWIN_ATOL)
-              & torch.isclose(nrm, rnrm, rtol=TWIN_RTOL, atol=TWIN_ATOL).all(1)) | ~hit
-        if not ok.all():
-            raise AssertionError(f"{name}: t or normal outside rtol {TWIN_RTOL} on "
-                                 f"{int((~ok).sum())} lanes")
-        worst[name] = max((t - rt)[hit].abs().max().item() if hit.any() else 0.0,
-                          (nrm - rnrm)[hit].abs().max().item() if hit.any() else 0.0)
-        log(f"[mesh-kernels] {name}: prim agrees on {frac:.6f}, material on "
-            f"{frac_mat:.6f} of {S} {what} lanes ({int((ridx >= 0).sum())} hits); max abs "
-            f"error {worst[name]:.4g}")
-
-    def occlusion(name, ref, got):
-        torch.cuda.synchronize()
-        frac = (got == ref).float().mean().item()
-        if frac < DISCRETE_AGREE:
-            raise AssertionError(f"{name}: occlusion agrees on {frac:.6f} of lanes")
-        worst[name] = float((got != ref).any().item())
-        log(f"[mesh-kernels] {name}: occlusion agrees on {frac:.6f} of {S} shadow lanes "
-            f"({int(ref.sum())} blocked, {int((st >= shade.EPS).sum())} queries)")
+    worst, ms, extra = {}, {}, {}
 
     ref_s = intersect.sphere_closest_reference(tables.sph, o, d, lo, hi)
-    closest("sphere_closest", ref_s, intersect.sphere_closest(tables.sph, o, d, lo, hi),
-            "camera+bounce")
+    worst["sphere_closest"] = _bitwise("sphere_closest", ref_s,
+                                       intersect.sphere_closest(tables.sph, o, d, lo, hi))
     hi_t = torch.minimum(hi, ref_s[0])                       # as intersect() caps it
     ref_t = intersect.bvh_closest_reference(tables, o, d, lo, hi_t)
-    closest("bvh_closest", ref_t, intersect.bvh_closest(tables, o, d, lo, hi_t), "camera+bounce")
+    worst["bvh_closest"] = _bitwise("bvh_closest", ref_t,
+                                    intersect.bvh_closest(tables, o, d, lo, hi_t))
     ref_occ = intersect.bvh_anyhit_reference(tables, so, sd, lo, st)
-    occlusion("bvh_anyhit", ref_occ, intersect.bvh_anyhit(tables, so, sd, lo, st))
+    worst["bvh_anyhit"] = _bitwise("bvh_anyhit", ref_occ,
+                                   intersect.bvh_anyhit(tables, so, sd, lo, st))
     ref_socc = intersect.any_hit_reference(tables.sph, no_tris, so, sd, lo, st)
-    occlusion("any_hit", ref_socc, intersect.any_hit(tables.sph, no_tris, so, sd, lo, st))
+    worst["any_hit"] = _bitwise("any_hit", ref_socc,
+                                intersect.any_hit(tables.sph, no_tris, so, sd, lo, st))
+    log(f"[mesh-kernels] sphere_closest, bvh_closest ({int((ref_t[1] >= 0).sum())} hits), "
+        f"bvh_anyhit ({int(ref_occ.sum())} blocked of {int((st >= shade.EPS).sum())} queries) and "
+        f"any_hit bitwise equal to their twins on all {S} lanes (max abs error "
+        f"{max(worst.values()):.4g})")
+
+    # The BVH pair at every team size, with counters.
+    model, a_model = hold_bvh_kernels("config-4 lanes", tables, (o, d, lo, hi_t, ref_t),
+                                      (so, sd, lo, st, ref_occ))
+    shade.LAUNCHES.clear()
+    sums = tuple(intersect.bvh_span_sums(c, S) for c in model[4:])
+    worst["bvh_closest_counters"] = _bitwise(
+        "bvh_closest(counters=True) vs the model's per-span sums", ref_t + sums,
+        intersect.bvh_closest(tables, o, d, lo, hi_t, counters=True))
+    counter_launches = shade.LAUNCHES["bvh_closest_counters"]
+    bvh_edge_cases(dev, tables, o, d, so, sd, lo)
 
     # Kernels: raw launches into preallocated outputs; twins: fewer runs
     # (brute force over 70k triangles takes a large share of a second).
     f32, i32 = torch.float32, torch.int32
     out = (torch.empty(S, device=dev), torch.empty(S, dtype=i32, device=dev),
            torch.empty((S, 3), dtype=f32, device=dev), torch.empty(S, dtype=i32, device=dev))
+    counts = (torch.empty(S, dtype=i32, device=dev), torch.empty(S, dtype=i32, device=dev))
     occ = torch.empty(S, dtype=torch.bool, device=dev)
     slow = dict(runs=3, calls=1)
     ms["sphere_closest"] = (
@@ -631,30 +755,58 @@ def check_mesh_kernels(dev, scene, camera):
     ms["bvh_anyhit"] = (
         cuda_ms(lambda: binding.launch_bvh_anyhit(tables, so, sd, lo, st, occ)),
         cuda_ms(lambda: intersect.bvh_anyhit_reference(tables, so, sd, lo, st), **slow))
+    ms["bvh_closest_counters"] = (
+        cuda_ms(lambda: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out, counts=counts)),
+        cuda_ms(lambda: intersect.bvh_traversal_reference(tables, o, d, lo, hi_t, chunk=S),
+                **slow))
     ms["any_hit"] = (
         cuda_ms(lambda: binding.launch_any_hit(tables.sph, no_tris, so, sd, lo, st, occ)),
         cuda_ms(lambda: intersect.any_hit_reference(tables.sph, no_tris, so, sd, lo, st)))
+    # The BVH pair at every team size.
+    by_team = {team: (
+        cuda_ms(lambda: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out, team=team)),
+        cuda_ms(lambda: binding.launch_bvh_anyhit(tables, so, sd, lo, st, occ, team=team)))
+        for team in binding.TEAMS}
     log("[mesh-kernels] ms kernel vs twin at S=65536: " + ", ".join(
         f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items()))
 
     n_sph = tables.sph.shape[0]
     query = st >= shade.EPS
     rays, closest_out = nbytes(o, d, lo, hi), nbytes(*out)
+    need_c = closest_tests(tables.leaf, intersect.LEAF, o, d, lo, hi_t, ref_t[0])
+    need_a = anyhit_tests(tables.leaf, intersect.LEAF, so, sd, lo, st, ref_occ)
     bounds = {
         "sphere_closest": bound(rays + nbytes(tables.sph) + closest_out, S * n_sph * SPH_OPS),
         "bvh_closest": bound(rays + nbytes(tables.tri, tables.leaf, tables.group) + closest_out,
-                             TRI_OPS * closest_tests(tables.leaf, intersect.LEAF, o, d, lo,
-                                                     hi_t, ref_t[0])),
+                             TRI_OPS * need_c),
+        "bvh_closest_counters": bound(
+            rays + nbytes(tables.tri, tables.leaf, tables.group) + closest_out + nbytes(*counts),
+            TRI_OPS * need_c),
         "bvh_anyhit": bound(nbytes(so, sd, lo, st, occ, tables.tri, tables.leaf, tables.group),
-                            TRI_OPS * anyhit_tests(tables.leaf, intersect.LEAF, so, sd, lo,
-                                                   st, ref_occ)),
+                            TRI_OPS * need_a),
         "any_hit": bound(nbytes(so, sd, lo, st, occ, tables.sph),
                          SPH_OPS * (int((query & ~ref_socc).sum()) * n_sph
                                     + int((query & ref_socc).sum()))),
     }
     log("[mesh-kernels] bounds: " + json.dumps(bounds))
+
+    def per_ray(res, need):
+        """Mean groups visited, leaves swept and triangle tests a ray, beside
+        the tests the bound counts."""
+        visited, swept = res[-2:]
+        return {"groups": visited.double().mean().item(), "leaves": swept.double().mean().item(),
+                "tests": swept.double().mean().item() * intersect.LEAF, "bound_tests": need / S}
+
+    work = {"bvh_closest": per_ray(model, need_c), "bvh_anyhit": per_ray(a_model, need_a)}
+    for which, k in enumerate(("bvh_closest", "bvh_anyhit")):
+        extra[k] = {"team": binding.BVH_TEAM[k],
+                    "ms_by_team": {t: v[which] for t, v in by_team.items()},
+                    "per_ray": work[k]}
+    log(f"[mesh-kernels] BVH pair (closest, any hit) ms by team {json.dumps(by_team)}; host "
+        f"team {binding.BVH_TEAM['bvh_closest']}, {binding.BVH_TEAM['bvh_anyhit']}; per ray "
+        f"{json.dumps(work)}")
     lanes = dict(o=o, d=d, lo=lo, hi_t=hi_t, ref_t=ref_t, so=so, sd=sd, st=st, ref_occ=ref_occ)
-    return worst, ms, bounds, lanes
+    return worst, ms, bounds, lanes, extra, counter_launches
 
 
 def _bitwise(name, ref, got, nan_equal=False) -> float:
@@ -1556,7 +1708,8 @@ def main() -> int:
     mesh_cam = scenes.mesh_scene_camera(CONFIG4["width"], CONFIG4["height"], dev)
     log(f"[mesh] mesh_scene: {mesh.num_tris} triangles built in "
         f"{time.perf_counter() - t0:.2f} s")
-    mesh_worst, mesh_ms, mesh_bnd, lanes = check_mesh_kernels(dev, mesh, mesh_cam)
+    mesh_worst, mesh_ms, mesh_bnd, lanes, mesh_extra, counter_launches = check_mesh_kernels(
+        dev, mesh, mesh_cam)
     trav_worst, trav_ms, trav_bnd = check_traversal_kernels(dev, mesh, lanes)
     del lanes
     wave_worst, wave_ms, wave_bnd = check_wave_kernels(dev)
@@ -1595,8 +1748,12 @@ def main() -> int:
         split_entry(k, src, rep, launches[k], worst[k], ms["many_spheres"], which, bnd[k])
         for which, (k, (src, rep)) in enumerate(KERNELS.items())
     ] + [
-        entry(k, src, rep, mesh_launches[k], mesh_worst[k], mesh_ms[k], mesh_bnd[k])
+        entry(k, src, rep, mesh_launches[k], mesh_worst[k], mesh_ms[k], mesh_bnd[k],
+              **mesh_extra.get(k, {}))
         for k, (src, rep) in MESH_KERNELS.items()
+    ] + [
+        entry(k, src, rep, counter_launches, mesh_worst[k], mesh_ms[k], mesh_bnd[k])
+        for k, (src, rep) in COUNTER_KERNELS.items()
     ] + [
         entry(k, src, rep, cases[k][1][k], wave_worst[k], wave_ms[cases[k][0]][k],
               wave_bnd[cases[k][0]][k])

@@ -1,37 +1,76 @@
-// Closest hit and occlusion over a triangle mesh through a two-level BVH.
+// Closest hit and occlusion over a triangle mesh through a two-level BVH,
+// walked nearest-first by a team of threads per ray.
 //
 // Replaces pathtrace_tpu/ops/bvh_intersect.py :: _bvh_closest_kernel
-// (wrapper triangle_closest_bvh) and _bvh_anyhit_kernel (triangle_anyhit_bvh).
-// The hierarchy is the JAX package's, derived from row order: leaves of 128
-// rows under groups of 16 leaves, the table padded to whole groups with zero
-// rows (rejected by |a| < 1e-8), padding leaves and groups with inverted
-// boxes (excluded by min <= max, not by the slab test). The wrapper builds
-// the tables (ops/intersect.py :: build_tables). Plain-torch twins:
-// ops/intersect.py :: bvh_closest_reference / bvh_anyhit_reference
-// (brute force over every row).
+// (wrapper triangle_closest_bvh, also its counters=True mode) and
+// _bvh_anyhit_kernel (triangle_anyhit_bvh). The hierarchy is the JAX
+// package's, derived from row order: leaves of 128 rows under groups of 16
+// leaves, the table padded to whole groups with zero rows (rejected by
+// |a| < 1e-8), padding leaves and groups with inverted boxes (never
+// entered). The wrapper builds the tables (ops/intersect.py :: build_tables).
+// Plain-torch versions in ops/intersect.py: bvh_closest_reference /
+// bvh_anyhit_reference (brute force over every row: the hits), and
+// bvh_traversal_reference (this walk step for step: the hits and the
+// per-ray counts of groups visited and leaves swept).
 //
-// One thread per ray. A thread visits the groups, then their leaves, in row
-// order, entering a box only if its slab entry (the `1/d` clamp of
-// _entries_from) is below min(best_t, t_max), and runs Moller-Trumbore with
-// the reference's epsilons (csrc/geom.cuh :: hit_triangle: 1e-8 parallel
-// reject, inclusive barycentric bounds, closed [t_min, t_max]). Equal t is
-// resolved to the lower row, so the answer does not depend on the visit
-// order and equals the brute-force twin. The any-hit kernel stops at the
-// first accepted triangle.
+// The walk. A team of K threads (1, 2, 4, 8, 16 or 32, aligned in a warp;
+// 128 threads a block, so 128 / K rays) shares one ray; every decision is
+// taken on a team-reduced value, so the team's control flow is uniform, and
+// every shuffle and vote names the team's own lanes (csrc/geom.cuh ::
+// team_mask): other teams of the warp may be elsewhere in their loops.
+// - Groups, nearest-first: each round the team finds the entered group that
+//   follows the last visited one in ascending (entry, id) order (the
+//   successor scan of resident.cu, with thread j scanning groups j, j+K, ...,
+//   then a lexicographic min over the team: group_min), and stops when
+//   there is none or its entry is above min(best_t, t_max).
+// - Leaves, nearest-first, inside the group: the 16 leaf entries are held in
+//   registers spread over the team and visited in the same order under the
+//   same bound.
+// - The leaf sweep, split: thread j tests rows j, j+K, ..., so the team
+//   reads K neighbouring 64-byte rows at a time as float4 loads, keeps its
+//   strict first minimum of (t, row), and the team combines them as a
+//   lexicographic min over (t, row) (the rule of fused_bounce.cu, modelled
+//   in tests/test_torch_sweep.py and tests/test_torch_bvh.py). The bound
+//   tightens after each leaf.
+// - The gate is entry <= bound, not <: out of row order, a leaf entered
+//   exactly at the current best t may hold an equal-t hit in a lower row,
+//   which the brute-force twin returns. Box entries are the slab entries
+//   into [t_min, t_max] (geom.cuh :: box_entry); hits are Moller-Trumbore
+//   with the reference's epsilons (hit_triangle: 1e-8 parallel reject,
+//   inclusive barycentric bounds, closed [t_min, bound]); equal t goes to
+//   the lower row. So the answer equals the brute-force twin whatever the
+//   team size, and every team size gives the same counts.
+// - The any hit walks the same order under t_max, votes every kCheck rows a
+//   thread and stops at the first hit; an empty or NaN range occludes
+//   nothing.
+// - The group and leaf boxes are read from device memory through the
+//   read-only cache (const __restrict__). On the H100 (PERF.md) staging them
+//   in shared memory gained nothing: the group boxes staged or not time
+//   alike, and staging the leaf boxes too cost 0.03-0.05 ms a launch (a
+//   19 KB copy per block of 4-128 rays).
 //
-// What bounds it on the H100: per-ray ALU work, ~40 flops per triangle test
-// times the triangles of the leaves a ray enters, with divergent control
-// flow across a warp. The table (70k rows x 64 bytes, ~4.6 MB) stays in
-// device memory and L2; threads of a warp that enter the same leaf read the
-// same rows. Visiting nearest groups first, and a wider traversal per
-// thread, are later work.
+// What bounds it on the H100: per-ray work with divergent control flow. One
+// thread per ray in row order (the design before this one) ran the union of
+// a warp's 32 rays' leaves, 128 serial tests each, mostly masked, and
+// entered many leaves before the nearest hit: 148x its operation bound.
+// Nearest-first, a closest ray of the config-4 frame sweeps 1.9 leaves
+// (242 tests against the 238 its bound counts); the team splits each sweep,
+// so a warp holds 32 / K rays and diverges less, at the price of the
+// team's shuffles a step (the host takes K = 16 for the closest hit and 32
+// for the any hit, which only votes). What is left is instruction latency
+// and the per-step successor scans and shuffles, not tests. The rows
+// (4.6 MB at 70k triangles) stay in L2. No TMA or wgmma: the table already
+// sits in L2, and the work is per-ray branching, not a product.
 //
 // TPU workarounds not carried over: the union sweep over 256-lane subtiles
 // with packed (entry, id) int32 group keys, the 128-lane half gating, the
 // lane-transposed (16, T) table and its per-supergroup DMA streaming with
-// prefetch, and the MXU Moller-Trumbore form with its recentered bf16-split
-// coefficient tables (_mt_coeff_table, _mt_features, _mt_ts_mxu). This is
-// the plain float32 form.
+// prefetch, the MXU Moller-Trumbore form with its recentered bf16-split
+// coefficient tables (_mt_coeff_table, _mt_features, _mt_ts_mxu), and the
+// ray sort before the trace (ops/intersect.py :: _ray_sort_key). The
+// counters count per-ray work, not the TPU's subtile rounds.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -44,9 +83,8 @@ constexpr int kTriCols = 16;  // v0, e1, e2, normal, material, 3 zeros
 constexpr int kBoxCols = 8;   // min, max, 2 zeros
 constexpr int kLeaf = 128;
 constexpr int kGroup = 16;
-
-using pt::box_entry;
-using pt::safe_inv;
+constexpr int kCheck = 4;     // rows a thread tests between two votes of the any hit
+constexpr int kNone = INT_MAX;
 
 struct Ray {
   pt::V3 o, d, inv;
@@ -59,48 +97,141 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float
   Ray r;
   r.o = pt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
   r.d = pt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  r.inv = pt::v3(safe_inv(r.d.x), safe_inv(r.d.y), safe_inv(r.d.z));
+  r.inv = pt::v3(pt::safe_inv(r.d.x), pt::safe_inv(r.d.y), pt::safe_inv(r.d.z));
   r.t_min = t_min[i];
   r.t_max = t_max[i];
   return r;
 }
 
+// The entered group after (*e, *c) in ascending (entry, id) order, searched
+// by the team (thread `part` scans groups part, part + K, ...); sets (*e, *c)
+// to it and returns true, or returns false when there is none.
+template <int K>
+__device__ __forceinline__ bool next_group(const float* __restrict__ boxes, int n_groups, const Ray& ray,
+                                           int part, unsigned mask, float* e, int* c) {
+  const float last_e = *e;
+  const int last_c = *c;
+  float best_e = INFINITY;
+  int best_c = kNone;
+  for (int g = part; g < n_groups; g += K) {
+    const float eg = pt::box_entry(boxes + g * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max);
+    if (!(eg < INFINITY)) continue;  // not entered
+    const bool after = eg > last_e || (eg == last_e && g > last_c);
+    if (after && eg < best_e) {  // ids ascend: the first of equal entries wins
+      best_e = eg;
+      best_c = g;
+    }
+  }
+  pt::group_min(&best_e, &best_c, K, mask);
+  *e = best_e;
+  *c = best_c;
+  return best_c != kNone;
+}
+
+__host__ __device__ constexpr int leaves_per_thread(int k) { return (kGroup + k - 1) / k; }
+
+// The same over a group's 16 leaves, whose entries the team holds in
+// registers: thread `part` holds leaves part, part + K, ... (none past 16).
+template <int K>
+__device__ __forceinline__ bool next_leaf(const float (&le)[leaves_per_thread(K)], int part,
+                                          unsigned mask, float* e, int* c) {
+  const float last_e = *e;
+  const int last_c = *c;
+  float best_e = INFINITY;
+  int best_c = kNone;
+#pragma unroll
+  for (int s = 0; s < leaves_per_thread(K); ++s) {
+    const int l = part + s * K;
+    const float el = le[s];
+    if (!(el < INFINITY)) continue;
+    const bool after = el > last_e || (el == last_e && l > last_c);
+    if (after && el < best_e) {
+      best_e = el;
+      best_c = l;
+    }
+  }
+  pt::group_min(&best_e, &best_c, K, mask);
+  *e = best_e;
+  *c = best_c;
+  return best_c != kNone;
+}
+
+// The walk: the ray's entered groups, then each group's entered leaves, in
+// ascending (entry, id) order while the entry is <= bound(); calls
+// sweep(leaf) on each leaf, and stops when it returns true. Counts the
+// groups visited and the leaves swept. `group` holds n_groups boxes,
+// `leaf` n_groups * kGroup.
+template <int K, typename Bound, typename Sweep>
+__device__ __forceinline__ void walk(const float* __restrict__ group,
+                                     const float* __restrict__ leaf, int n_groups, const Ray& ray,
+                                     int part, unsigned mask, Bound bound, Sweep sweep,
+                                     int* n_visited, int* n_swept) {
+  float ge = -INFINITY;
+  int gc = -1;
+  while (next_group<K>(group, n_groups, ray, part, mask, &ge, &gc) && ge <= bound()) {
+    ++*n_visited;
+    float le[leaves_per_thread(K)];
+#pragma unroll
+    for (int s = 0; s < leaves_per_thread(K); ++s) {
+      const int l = part + s * K;
+      le[s] = l < kGroup ? pt::box_entry(leaf + (gc * kGroup + l) * kBoxCols, ray.o, ray.inv,
+                                         ray.t_min, ray.t_max)
+                         : INFINITY;
+    }
+    float e = -INFINITY;
+    int c = -1;
+    while (next_leaf<K>(le, part, mask, &e, &c) && e <= bound()) {
+      ++*n_swept;
+      if (sweep(gc * kGroup + c)) return;
+    }
+  }
+}
+
+template <int K, bool kCount>
 __global__ void __launch_bounds__(kThreads)
-    bvh_closest_kernel(const float* __restrict__ tri, const float* __restrict__ leaf,
+    bvh_closest_kernel(const float4* __restrict__ tri, const float* __restrict__ leaf,
                        const float* __restrict__ group, int n_groups,
                        const float* __restrict__ o, const float* __restrict__ d,
                        const float* __restrict__ t_min, const float* __restrict__ t_max,
                        float* __restrict__ t_out, int* __restrict__ idx_out,
-                       float* __restrict__ n_out, int* __restrict__ m_out, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
+                       float* __restrict__ n_out, int* __restrict__ m_out,
+                       int* __restrict__ visited_out, int* __restrict__ swept_out, int N) {
+  const int part = threadIdx.x & (K - 1);
+  const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
+  if (i >= N) return;  // the whole team leaves together
+  const unsigned mask = pt::team_mask(K);
   const Ray ray = load_ray(o, d, t_min, t_max, i);
   float best_t = INFINITY;
   int best_i = -1;
-  for (int g = 0; g < n_groups; ++g) {
-    if (!(box_entry(group + g * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max) <
-          fminf(best_t, ray.t_max)))
-      continue;
-    for (int l = g * kGroup; l < (g + 1) * kGroup; ++l) {
-      float bound = fminf(best_t, ray.t_max);
-      if (!(box_entry(leaf + l * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max) < bound))
-        continue;
-      const float* row = tri + static_cast<size_t>(l) * kLeaf * kTriCols;
-      for (int r = l * kLeaf; r < (l + 1) * kLeaf; ++r, row += kTriCols) {
-        float t;
-        if (pt::hit_triangle(row, ray.o, ray.d, ray.t_min, bound, &t) &&
-            (t < best_t || (t == best_t && r < best_i))) {
-          best_t = t;
-          best_i = r;
-          bound = fminf(best_t, ray.t_max);
-        }
+  int n_visited = 0, n_swept = 0;
+  // NaN t_max stays NaN, so nothing passes the gate.
+  auto bound = [&] { return pt::clamp_max(ray.t_max, best_t); };
+  auto sweep = [&](int l) {
+    const float cap = bound();
+    const float4* row = tri + (static_cast<size_t>(l) * kLeaf + part) * (kTriCols / 4);
+    float lt = INFINITY;
+    int lr = kNone;
+#pragma unroll 4
+    for (int r = part; r < kLeaf; r += K, row += K * (kTriCols / 4)) {
+      float t;
+      if (pt::hit_triangle(row, ray.o, ray.d, ray.t_min, cap, &t) && t < lt) {
+        lt = t;  // strict: a thread's first minimum in row order
+        lr = l * kLeaf + r;
       }
     }
-  }
+    pt::group_min(&lt, &lr, K, mask);
+    if (lt < best_t || (lt == best_t && lr < best_i)) {
+      best_t = lt;
+      best_i = lr;
+    }
+    return false;
+  };
+  walk<K>(group, leaf, n_groups, ray, part, mask, bound, sweep, &n_visited, &n_swept);
+  if (part != 0) return;
   t_out[i] = best_t;
   idx_out[i] = best_i;
   if (best_i >= 0) {
-    const float* row = tri + static_cast<size_t>(best_i) * kTriCols;
+    const float* row = reinterpret_cast<const float*>(tri) + static_cast<size_t>(best_i) * kTriCols;
     n_out[3 * i] = row[9];
     n_out[3 * i + 1] = row[10];
     n_out[3 * i + 2] = row[11];
@@ -111,59 +242,141 @@ __global__ void __launch_bounds__(kThreads)
     n_out[3 * i + 2] = 0.0f;
     m_out[i] = 0;
   }
+  if (kCount) {
+    visited_out[i] = n_visited;
+    swept_out[i] = n_swept;
+  }
 }
 
+template <int K, bool kCount>
 __global__ void __launch_bounds__(kThreads)
-    bvh_anyhit_kernel(const float* __restrict__ tri, const float* __restrict__ leaf,
+    bvh_anyhit_kernel(const float4* __restrict__ tri, const float* __restrict__ leaf,
                       const float* __restrict__ group, int n_groups,
                       const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ t_min, const float* __restrict__ t_max,
-                      bool* __restrict__ occ, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                      bool* __restrict__ occ, int* __restrict__ visited_out,
+                      int* __restrict__ swept_out, int N) {
+  const int part = threadIdx.x & (K - 1);
+  const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;
+  const unsigned mask = pt::team_mask(K);
   const Ray ray = load_ray(o, d, t_min, t_max, i);
-  if (!(ray.t_max >= ray.t_min)) {  // empty range (also NaN): nothing to hit
-    occ[i] = false;
-    return;
-  }
-  for (int g = 0; g < n_groups; ++g) {
-    if (!(box_entry(group + g * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max) < ray.t_max))
-      continue;
-    for (int l = g * kGroup; l < (g + 1) * kGroup; ++l) {
-      if (!(box_entry(leaf + l * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max) < ray.t_max))
-        continue;
-      const float* row = tri + static_cast<size_t>(l) * kLeaf * kTriCols;
-      for (int r = 0; r < kLeaf; ++r, row += kTriCols) {
-        float t;
-        if (pt::hit_triangle(row, ray.o, ray.d, ray.t_min, ray.t_max, &t)) {
-          occ[i] = true;
-          return;
+  bool hit = false;
+  int n_visited = 0, n_swept = 0;
+  if (ray.t_max >= ray.t_min) {  // else an empty range (also NaN): nothing to hit
+    auto bound = [&] { return ray.t_max; };
+    auto sweep = [&](int l) {
+      const float4* base = tri + static_cast<size_t>(l) * kLeaf * (kTriCols / 4);
+      for (int b = 0; b < kLeaf; b += kCheck * K) {  // kCheck * K divides kLeaf
+        bool mine = false;
+#pragma unroll
+        for (int c = 0; c < kCheck; ++c) {
+          const int r = b + c * K + part;
+          float t;
+          if (!mine)
+            mine = pt::hit_triangle(base + r * (kTriCols / 4), ray.o, ray.d, ray.t_min,
+                                    ray.t_max, &t);
+        }
+        if (__any_sync(mask, mine)) {
+          hit = true;
+          return true;
         }
       }
-    }
+      return false;
+    };
+    walk<K>(group, leaf, n_groups, ray, part, mask, bound, sweep, &n_visited, &n_swept);
   }
-  occ[i] = false;
+  if (part != 0) return;
+  occ[i] = hit;
+  if (kCount) {
+    visited_out[i] = n_visited;
+    swept_out[i] = n_swept;
+  }
 }
+
+template <int K, bool kCount>
+cudaError_t launch_closest(const float* tri, const float* leaf, const float* group, int n_groups,
+                           const float* o, const float* d, const float* t_min,
+                           const float* t_max, float* t_out, int* idx_out, float* n_out,
+                           int* m_out, int* visited, int* swept, int N, cudaStream_t stream) {
+  const int grid = (N + kThreads / K - 1) / (kThreads / K);
+  bvh_closest_kernel<K, kCount><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(tri), leaf, group, n_groups, o, d, t_min, t_max, t_out,
+      idx_out, n_out, m_out, visited, swept, N);
+  return cudaGetLastError();
+}
+
+template <int K, bool kCount>
+cudaError_t launch_anyhit(const float* tri, const float* leaf, const float* group, int n_groups,
+                          const float* o, const float* d, const float* t_min,
+                          const float* t_max, bool* occ, int* visited, int* swept, int N,
+                          cudaStream_t stream) {
+  const int grid = (N + kThreads / K - 1) / (kThreads / K);
+  bvh_anyhit_kernel<K, kCount><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(tri), leaf, group, n_groups, o, d, t_min, t_max, occ,
+      visited, swept, N);
+  return cudaGetLastError();
+}
+
+// The instance of `fn` for team size `team` (1-32) and counters on/off.
+#define PT_BY_TEAM(fn, team, count, ...)                                         \
+  switch ((team) * 2 + ((count) ? 1 : 0)) {                                      \
+    case 2: return fn<1, false>(__VA_ARGS__);                                    \
+    case 3: return fn<1, true>(__VA_ARGS__);                                     \
+    case 4: return fn<2, false>(__VA_ARGS__);                                    \
+    case 5: return fn<2, true>(__VA_ARGS__);                                     \
+    case 8: return fn<4, false>(__VA_ARGS__);                                    \
+    case 9: return fn<4, true>(__VA_ARGS__);                                     \
+    case 16: return fn<8, false>(__VA_ARGS__);                                   \
+    case 17: return fn<8, true>(__VA_ARGS__);                                    \
+    case 32: return fn<16, false>(__VA_ARGS__);                                  \
+    case 33: return fn<16, true>(__VA_ARGS__);                                   \
+    case 64: return fn<32, false>(__VA_ARGS__);                                  \
+    case 65: return fn<32, true>(__VA_ARGS__);                                   \
+    default: return cudaErrorInvalidValue;                                       \
+  }
+
+cudaError_t closest(const float* tri, const float* leaf, const float* group, int n_groups,
+                    int team, const float* o, const float* d, const float* t_min,
+                    const float* t_max, float* t_out, int* idx_out, float* n_out, int* m_out,
+                    int* visited, int* swept, int N, cudaStream_t stream) {
+  PT_BY_TEAM(launch_closest, team, visited != nullptr, tri, leaf, group, n_groups, o, d, t_min,
+             t_max, t_out, idx_out, n_out, m_out, visited, swept, N, stream)
+}
+
+cudaError_t anyhit(const float* tri, const float* leaf, const float* group, int n_groups,
+                   int team, const float* o, const float* d, const float* t_min,
+                   const float* t_max, bool* occ, int* visited, int* swept, int N,
+                   cudaStream_t stream) {
+  PT_BY_TEAM(launch_anyhit, team, visited != nullptr, tri, leaf, group, n_groups, o, d, t_min,
+             t_max, occ, visited, swept, N, stream)
+}
+
+#undef PT_BY_TEAM
 
 }  // namespace
 
+// team: threads a ray (1, 2, 4, 8, 16 or 32); visited/swept: per-ray counts
+// of groups visited and leaves swept, or null for the kernel without
+// counters.
 extern "C" int pt_bvh_closest(const float* tri, const float* leaf, const float* group,
-                              int n_groups, const float* o, const float* d, const float* t_min,
-                              const float* t_max, float* t_out, int* idx_out, float* n_out,
-                              int* m_out, int N, void* stream) {
+                              int n_groups, int team, const float* o, const float* d,
+                              const float* t_min, const float* t_max, float* t_out, int* idx_out,
+                              float* n_out, int* m_out, int* visited, int* swept, int N,
+                              void* stream) {
   if (N <= 0) return 0;
-  int grid = (N + kThreads - 1) / kThreads;
-  bvh_closest_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tri, leaf, group, n_groups, o, d, t_min, t_max, t_out, idx_out, n_out, m_out, N);
-  return static_cast<int>(cudaGetLastError());
+  if ((visited == nullptr) != (swept == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(closest(tri, leaf, group, n_groups, team, o, d, t_min, t_max, t_out,
+                                  idx_out, n_out, m_out, visited, swept, N,
+                                  static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int pt_bvh_anyhit(const float* tri, const float* leaf, const float* group,
-                             int n_groups, const float* o, const float* d, const float* t_min,
-                             const float* t_max, bool* occ, int N, void* stream) {
+                             int n_groups, int team, const float* o, const float* d,
+                             const float* t_min, const float* t_max, bool* occ, int* visited,
+                             int* swept, int N, void* stream) {
   if (N <= 0) return 0;
-  int grid = (N + kThreads - 1) / kThreads;
-  bvh_anyhit_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tri, leaf, group, n_groups, o, d, t_min, t_max, occ, N);
-  return static_cast<int>(cudaGetLastError());
+  if ((visited == nullptr) != (swept == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(anyhit(tri, leaf, group, n_groups, team, o, d, t_min, t_max, occ,
+                                 visited, swept, N, static_cast<cudaStream_t>(stream)));
 }

@@ -449,21 +449,6 @@ __device__ __forceinline__ Mat mat_row(const float* row, bool hit) {
   return m;
 }
 
-// The (t, row) lexicographic min over the `split` threads of each aligned
-// group of a warp; every thread of the warp takes part and ends with its
-// group's best. No t is NaN here (a miss is inf), so this is the strict
-// first-minimum argmin over the group's rows.
-__device__ __forceinline__ void group_min(float* t, int* row, int split) {
-  for (int off = split >> 1; off > 0; off >>= 1) {
-    const float ot = __shfl_xor_sync(0xffffffffu, *t, off);
-    const int orow = __shfl_xor_sync(0xffffffffu, *row, off);
-    if (ot < *t || (ot == *t && orow < *row)) {
-      *t = ot;
-      *row = orow;
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float4* s_sph = smem4;                                      // cx, cy, cz, k
@@ -509,7 +494,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
         tri_arg = r;
       }
     }
-    group_min(&tri_t, &tri_arg, T);
+    group_min(&tri_t, &tri_arg, T, 0xffffffffu);
 
     // Spheres, against t <= the triangles' best.
     const float od = dot3(o3, d3);
@@ -525,7 +510,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
         sph_arg = r;
       }
     }
-    group_min(&sph_t, &sph_arg, T);
+    group_min(&sph_t, &sph_arg, T, 0xffffffffu);
     if (part == 0) {
       s_tri_t[local] = tri_t;
       s_tri_arg[local] = tri_arg;

@@ -54,14 +54,13 @@ __device__ __forceinline__ V3 forz3(V3 a) { return V3{forz(a.x), forz(a.y), forz
 __device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
 __device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
 
-// Moller-Trumbore against one triangle row (v0, e1, e2 in its first nine
-// floats). Sets *t_out and returns whether it is a hit with t in
-// [eps, t_max] (twin: ops/shade.py::_tri_hits).
-__device__ __forceinline__ bool hit_triangle(const float* row, V3 o, V3 d, float eps, float t_max,
+// Moller-Trumbore against one triangle given as v0, e1, e2. Sets *t_out and
+// returns whether it is a hit with t in [eps, t_max] (twin:
+// ops/shade.py::_tri_hits).
+__device__ __forceinline__ bool hit_triangle(float v0x, float v0y, float v0z, float e1x,
+                                             float e1y, float e1z, float e2x, float e2y,
+                                             float e2z, V3 o, V3 d, float eps, float t_max,
                                              float* t_out) {
-  float v0x = row[0], v0y = row[1], v0z = row[2];
-  float e1x = row[3], e1y = row[4], e1z = row[5];
-  float e2x = row[6], e2y = row[7], e2z = row[8];
   float hx = d.y * e2z - d.z * e2y;
   float hy = d.z * e2x - d.x * e2z;
   float hz = d.x * e2y - d.y * e2x;
@@ -77,6 +76,42 @@ __device__ __forceinline__ bool hit_triangle(const float* row, V3 o, V3 d, float
   *t_out = t;
   return fabsf(a) >= kF_1em8 && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && uu + vv <= 1.0f &&
          t >= eps && t <= t_max;
+}
+
+// The same on a table row holding v0, e1, e2 in its first nine floats.
+__device__ __forceinline__ bool hit_triangle(const float* row, V3 o, V3 d, float eps, float t_max,
+                                             float* t_out) {
+  return hit_triangle(row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7], row[8], o,
+                      d, eps, t_max, t_out);
+}
+
+// The same on a 16-float row aligned to 16 bytes, read as three float4 loads.
+__device__ __forceinline__ bool hit_triangle(const float4* row, V3 o, V3 d, float eps,
+                                             float t_max, float* t_out) {
+  const float4 a = row[0], b = row[1], c = row[2];
+  return hit_triangle(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, o, d, eps, t_max, t_out);
+}
+
+// The (t, row) lexicographic min over each aligned team of `k` threads (a
+// power of two up to 32) of a warp; `mask` holds the calling thread's team
+// (or more: every thread in it must make the same call). Every thread ends
+// with its team's least t and, among equal t, the least row. No t may be NaN
+// (a miss is inf), so this is the strict first-minimum argmin over the rows
+// the team's threads kept.
+__device__ __forceinline__ void group_min(float* t, int* row, int k, unsigned mask) {
+  for (int off = k >> 1; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(mask, *t, off);
+    const int orow = __shfl_xor_sync(mask, *row, off);
+    if (ot < *t || (ot == *t && orow < *row)) {
+      *t = ot;
+      *row = orow;
+    }
+  }
+}
+
+// The lanes of the calling thread's aligned team of `k` threads in its warp.
+__device__ __forceinline__ unsigned team_mask(int k) {
+  return k >= 32 ? 0xffffffffu : ((1u << k) - 1u) << ((threadIdx.x & 31) & ~(k - 1));
 }
 
 // One sphere row (center and k = |c|^2 - r^2), with od = o.d and oo = o.o:

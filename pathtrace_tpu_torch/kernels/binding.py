@@ -8,8 +8,10 @@ and do not synchronise.
 
 The pool's two kernels (``pt_fused_bounce``, ``pt_shadow_any_hit``) split
 each lane's sweep over ``split`` threads; :func:`sweep_split` picks it from
-the scene's row count and :func:`launch_shape` gives the block shape. Every
-split gives the same bits.
+the scene's row count and :func:`launch_shape` gives the block shape. The
+BVH kernels (``pt_bvh_closest``, ``pt_bvh_anyhit``) walk each ray with a
+team of ``team`` threads (:data:`BVH_TEAM`). Every split and every team
+gives the same bits and counts.
 """
 
 from __future__ import annotations
@@ -31,11 +33,19 @@ SHARED_LIMIT = 48 * 1024       # dynamic shared memory without an opt-in attribu
 _SPH_USE, _TRI_USE, _LGT_COLS = 16, 36, 72   # staged bytes a sphere, triangle, light row
 
 
-# Rows a thread sweeps at most, by kernel, as measured on an H100 (PERF.md):
+# Rows a thread sweeps at most, by kernel, as measured on an H100 (PERF.md,
+# the time at each split):
 # the vertex kernel's one-thread-per-lane shading sets a floor that larger
 # blocks (fewer resident at once) only raise, while the any hit gains down to
 # ~32 rows a thread.
 ROWS_PER_THREAD = {"fused_bounce": 128, "shadow_any_hit": 32}
+
+TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH walk can take
+# Threads sharing one ray's walk in csrc/bvh.cu, by kernel: the fastest of
+# TEAMS in chip_smoke.py's times on the 65,536 config-4 lanes of an H100
+# (PERF.md): the closest hit 0.165 ms at 16 (0.175 at 8, 0.20 at 32), the
+# any hit, which only votes, 0.085 ms at 32 (0.097 at 16).
+BVH_TEAM = {"bvh_closest": 16, "bvh_anyhit": 32}
 
 
 def sweep_split(rows: int, kernel: str) -> int:
@@ -97,9 +107,9 @@ def library() -> ctypes.CDLL:
         lib.pt_sphere_closest.restype = _I
         lib.pt_any_hit.argtypes = [_P, _I] * 4 + [_P] * 5 + [_I, _P]
         lib.pt_any_hit.restype = _I
-        lib.pt_bvh_closest.argtypes = [_P] * 3 + [_I] + [_P] * 8 + [_I, _P]
+        lib.pt_bvh_closest.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 10 + [_I, _P]
         lib.pt_bvh_closest.restype = _I
-        lib.pt_bvh_anyhit.argtypes = [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]
+        lib.pt_bvh_anyhit.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I, _P]
         lib.pt_bvh_anyhit.restype = _I
         lib.pt_combined_closest_small.argtypes = [_P, _I, _P, _I, _I] + [_P] * 8 + [_I, _P]
         lib.pt_combined_closest_small.restype = _I
@@ -197,26 +207,52 @@ def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None
     _raise_on(code, "any_hit")
 
 
-def launch_bvh_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
-    """``tables`` is an ``ops.intersect.Tables``."""
+def _bvh_team(tables, team, kernel: str) -> int:
+    """Team size of a ``csrc/bvh.cu`` launch (None: :data:`BVH_TEAM`);
+    raises on a team size the kernels lack, or on a table the float4 row
+    loads cannot read."""
+    team = BVH_TEAM[kernel] if team is None else team
+    if team not in TEAMS:
+        raise ValueError(f"team {team} not in {TEAMS}")
+    if tables.tri.data_ptr() % 16:
+        raise ValueError("tables.tri must be 16-byte aligned")
+    return team
+
+
+def _counts(counts) -> tuple:
+    """Pointers of the optional per-ray ``(groups visited, leaves swept)``
+    int32 outputs (none: null, the kernel without counters)."""
+    return (None, None) if counts is None else tuple(c.data_ptr() for c in counts)
+
+
+def launch_bvh_closest(tables, o, d, t_min, t_max, t, idx, n, m, counts=None,
+                       team=None) -> None:
+    """``tables`` is an ``ops.intersect.Tables``; ``counts``: two int32
+    ``(N,)`` outputs for the per-ray groups visited and leaves swept, or
+    None; ``team``: threads a ray (default :data:`BVH_TEAM`)."""
+    team = _bvh_team(tables, team, "bvh_closest")
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_bvh_closest(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.group.data_ptr(),
-            tables.n_groups, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+            tables.n_groups, team, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
             t_max.data_ptr(), t.data_ptr(), idx.data_ptr(), n.data_ptr(), m.data_ptr(),
-            t_min.shape[0], _stream(t_min.device),
+            *_counts(counts), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "bvh_closest")
 
 
-def launch_bvh_anyhit(tables, o, d, t_min, t_max, occ) -> None:
+def launch_bvh_anyhit(tables, o, d, t_min, t_max, occ, counts=None, team=None) -> None:
+    """As :func:`launch_bvh_closest`; the counts stop at the leaf of the
+    first hit."""
+    team = _bvh_team(tables, team, "bvh_anyhit")
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_bvh_anyhit(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.group.data_ptr(),
-            tables.n_groups, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
-            t_max.data_ptr(), occ.data_ptr(), t_min.shape[0], _stream(t_min.device),
+            tables.n_groups, team, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), occ.data_ptr(), *_counts(counts), t_min.shape[0],
+            _stream(t_min.device),
         )
     _raise_on(code, "bvh_anyhit")
 

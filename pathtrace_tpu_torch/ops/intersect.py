@@ -14,8 +14,11 @@ Counterpart of ``pathtrace_tpu/ops/intersect.py`` on the three routes that
   the sphere hits;
 * **bvh** (>= 4096 triangles): :func:`sphere_closest`, then
   :func:`bvh_closest` (``csrc/bvh.cu``, replacing
-  ``bvh_intersect.triangle_closest_bvh``) over the two-level hierarchy the
-  JAX package derives from row order (128-row leaves under 16-leaf groups);
+  ``bvh_intersect.triangle_closest_bvh``, with its ``counters=True`` mode)
+  over the two-level hierarchy the JAX package derives from row order
+  (128-row leaves under 16-leaf groups), walked nearest-first by a team of
+  threads a ray; :func:`bvh_traversal_reference` is that walk in plain
+  torch, with its per-ray counts;
 
 and on the two opt-in per-ray traversals that ``method="binned"`` and
 ``method="resident"`` pick for every scene past 64 triangles:
@@ -59,10 +62,10 @@ the reference's: 1e-8 parallel reject, inclusive barycentric bounds, closed
 
 Left behind from the JAX routes: the ray sort before each trace on big
 meshes (``_ray_sort_key``/``_sort_rays_by_key``/``_unsort``), which changes
-no result and keeps TPU subtiles union-coherent (whether it pays on the GPU
-is still to measure; the JAX resident trace runs on the sorted wave), the
-``coherent`` hint, and the ``_lift_tree`` varying-axes plumbing. Rays are
-``(N, 3)`` float32; ``t_min``/``t_max`` are ``(N,)``.
+no result and keeps TPU subtiles union-coherent (on the GPU, rays sorted by
+first entered group move the BVH kernels by under 0.01 ms, less than a sort
+costs: PERF.md), the ``coherent`` hint, and the ``_lift_tree`` varying-axes
+plumbing. Rays are ``(N, 3)`` float32; ``t_min``/``t_max`` are ``(N,)``.
 """
 
 from __future__ import annotations
@@ -84,6 +87,9 @@ BVH_MIN_TRIS = 4096       # RAY_SORT_MIN_TRIS: the BVH route from here up
 LEAF = 128         # triangles per BVH leaf and per resident cluster
 GROUP = 16         # leaves per supergroup
 TWIN_CHUNK = 2048  # triangle rows per step of the brute-force twins
+# bvh_closest(counters=True): sums over spans of 256 lanes (the JAX SUB_W)
+# of the wave padded to whole tiles of 1024 lanes (the JAX RAY_TILE).
+_COUNTER_SPAN, _COUNTER_TILE = 256, 1024
 _TRI_COLS = 16     # v0, e1, e2, normal, material, 3 zeros
 _SPH_COLS = 8      # center, |c|^2 - r^2 (NaN on padding), 1/r, material, 2 zeros
 _BOX_COLS = 8      # min, max, 2 zeros (sphere boxes: min, max, reach, least radius)
@@ -353,6 +359,122 @@ def triangle_closest_reference(tables: Tables, o, d, t_min, t_max):
 bvh_closest_reference = triangle_closest_reference
 
 
+def _successor(entries, last_e, last_c):
+    """Per row of ``entries`` ``(n, B)`` (inf: not entered), the entered box
+    after ``(last_e, last_c)`` in ascending (entry, id) order: ``(entry,
+    id)``, entry inf when there is none."""
+    ids = torch.arange(entries.shape[1], device=entries.device)
+    after = (entries > last_e[:, None]) | ((entries == last_e[:, None])
+                                           & (ids[None, :] > last_c[:, None]))
+    return torch.min(torch.where(after, entries, _INF), dim=1)   # first of equal: least id
+
+
+def bvh_traversal_reference(tables: Tables, o, d, t_min, t_max, anyhit: bool = False,
+                            chunk: int = 8192):
+    """The walk of ``csrc/bvh.cu`` step for step, vectorised over rays in
+    chunks of ``chunk``: each ray's entered groups, then each group's
+    entered leaves, in ascending (entry, id) order while the entry is ``<=
+    min(best_t, t_max)`` (``t_max`` for the any hit); a swept leaf gives its
+    least ``(t, row)`` with ``t <= `` that bound, which replaces the best on
+    a smaller ``t`` or an equal ``t`` in a lower row; the any hit stops at
+    the first leaf with a hit and walks nothing on an empty or NaN range.
+
+    Returns ``(t, row, outward normal, material, groups visited, leaves
+    swept)`` (the any hit: ``(occluded, groups visited, leaves swept)``),
+    the counts int32 ``(N,)``; the hits equal the brute-force twins'."""
+    rows = tables.tri.view(-1, LEAF, _TRI_COLS)
+    groups = tables.group[:tables.n_groups]
+    parts = [_walk_chunk(tables, rows, groups, o[a:a + chunk], d[a:a + chunk],
+                         t_min[a:a + chunk], t_max[a:a + chunk], anyhit)
+             for a in range(0, max(t_min.shape[0], 1), chunk)]
+    res = tuple(torch.cat(x) for x in zip(*parts))
+    if anyhit:
+        return res
+    best_t, best_i, visited, swept = res
+    hit = best_i >= 0
+    row = tables.tri[best_i.clamp_min(0)]
+    normal = torch.where(hit[:, None], row[:, 9:12], 0.0)
+    mat = torch.where(hit, row[:, 12].to(torch.int32), 0)
+    return best_t, best_i.to(torch.int32), normal, mat, visited, swept
+
+
+def _walk_chunk(tables, rows, groups, o, d, t_min, t_max, anyhit):
+    """:func:`bvh_traversal_reference` on one chunk of rays. Each pass moves
+    every ray one step: a ray between groups finds its next group (or
+    stops), a ray inside a group its next leaf (or leaves the group), and
+    the rays that found a leaf sweep it. Box entries are the kernels'
+    (``binned.cluster_entries`` is ``geom.cuh :: box_entry`` in the same op
+    order; on a NaN range it enters nothing, where the kernels' gate then
+    visits nothing)."""
+    from .binned import cluster_entries
+
+    n, dev = t_min.shape[0], t_min.device
+    ge = cluster_entries(o, d, t_min, t_max, groups)                      # (n, G)
+    le = cluster_entries(o, d, t_min, t_max, tables.leaf).view(n, -1, GROUP)
+    best_t = torch.full((n,), _INF, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    visited = torch.zeros(n, dtype=torch.int32, device=dev)
+    swept = torch.zeros(n, dtype=torch.int32, device=dev)
+    g_e = torch.full((n,), -_INF, device=dev)
+    g_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    l_e, l_c = g_e.clone(), g_c.clone()
+    in_group = torch.zeros(n, dtype=torch.bool, device=dev)
+    # The any hit walks nothing on an empty or NaN range.
+    done = ~(t_max >= t_min) if anyhit else torch.zeros(n, dtype=torch.bool, device=dev)
+    while not bool(done.all()):
+        bound = t_max if anyhit else torch.minimum(t_max, best_t)   # NaN t_max stays NaN
+        need = (~done & ~in_group).nonzero().squeeze(1)
+        if need.numel():
+            e, c = _successor(ge[need], g_e[need], g_c[need])
+            go = (e < _INF) & (e <= bound[need])
+            done[need[~go]] = True
+            g_e[need], g_c[need] = e, c
+            enter = need[go]
+            in_group[enter] = True
+            l_e[enter], l_c[enter] = -_INF, -1
+            visited[enter] += 1
+        act = (~done & in_group).nonzero().squeeze(1)
+        if not act.numel():
+            continue
+        e, c = _successor(le[act, g_c[act]], l_e[act], l_c[act])
+        go = (e < _INF) & (e <= bound[act])
+        in_group[act[~go]] = False
+        l_e[act], l_c[act] = e, c
+        ray = act[go]
+        if not ray.numel():
+            continue
+        swept[ray] += 1
+        leaf = g_c[ray] * GROUP + c[go]
+        k = ray.numel()
+        tri = rows[leaf].reshape(k * LEAF, _TRI_COLS)
+        rep = [x[ray].repeat_interleave(LEAF, dim=0) for x in (o, d, t_min, bound)]
+        ok, t = _tri_hits(tri, rep[0].T[:, :, None], rep[1].T[:, :, None], rep[3][:, None],
+                          rep[2][:, None])
+        ts = torch.where(ok, t, _INF).view(k, LEAF)
+        if anyhit:
+            hit = (ts < _INF).any(dim=1)
+            occ[ray[hit]] = True
+            done[ray[hit]] = True
+            continue
+        lt, arg = torch.min(ts, dim=1)                     # first minimum: the lower row
+        lr = leaf * LEAF + arg
+        bt, bi = best_t[ray], best_i[ray]
+        better = (lt < bt) | ((lt == bt) & (lr < bi) & (lt < _INF))
+        best_t[ray] = torch.where(better, lt, bt)
+        best_i[ray] = torch.where(better, lr, bi)
+    return (occ, visited, swept) if anyhit else (best_t, best_i, visited, swept)
+
+
+def bvh_span_sums(counts, n: int):
+    """Per-ray counts summed over each 256-lane span of the wave padded to
+    whole 1024-lane tiles: int32 ``(N_pad / 256,)``, the shape of the JAX
+    ``triangle_closest_bvh(counters=True)`` diagnostics."""
+    n_pad = -(-n // _COUNTER_TILE) * _COUNTER_TILE
+    padded = torch.cat([counts, counts.new_zeros(n_pad - n)])
+    return padded.view(-1, _COUNTER_SPAN).sum(dim=1, dtype=torch.int32)
+
+
 def bvh_anyhit_reference(tables: Tables, o, d, t_min, t_max):
     """Twin of ``bvh_anyhit`` and of ``resident_anyhit``: is any triangle hit
     in ``[t_min, t_max]`` (brute force over every row)."""
@@ -466,21 +588,37 @@ def _empty(shape, dtype, like):
     return torch.empty(shape, dtype=dtype, device=like.device)
 
 
-def bvh_closest(tables: Tables, o, d, t_min, t_max):
+def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
     """Closest triangle hit through the BVH: ``(t (N,), row (N,) int32,
     outward normal (N, 3), material (N,) int32)``; a miss is
-    ``(inf, -1, 0, 0)``. Counterpart of ``triangle_closest_bvh``."""
+    ``(inf, -1, 0, 0)``. Counterpart of ``triangle_closest_bvh``.
+
+    ``counters=True`` appends two int32 ``(N_pad / 256,)`` diagnostics, the
+    shape of the JAX ``counters=True`` tuple: the groups visited and the
+    leaves swept, per ray, summed over each 256-lane span of the wave padded
+    to 1024 lanes (:func:`bvh_span_sums`). The JAX counts are its subtiles'
+    rounds and half-gated sweeps; these are the port's per-ray work. The
+    hits are those of ``counters=False``. The kernel with counters is
+    counted under ``bvh_closest_counters``."""
     n, kind = _check_rays(o, d, t_min, t_max)
     _check_route(tables, "bvh", t_min.device)
     if kind == "cpu":
-        return bvh_closest_reference(tables, o, d, t_min, t_max)
+        if not counters:
+            return bvh_closest_reference(tables, o, d, t_min, t_max)
+        *out, visited, swept = bvh_traversal_reference(tables, o, d, t_min, t_max)
+        return (*out, bvh_span_sums(visited, n), bvh_span_sums(swept, n))
     from ..kernels import binding
 
     out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
            _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
-    binding.launch_bvh_closest(tables, o, d, t_min, t_max, *out)
-    LAUNCHES["bvh_closest"] += 1
-    return out
+    if not counters:
+        binding.launch_bvh_closest(tables, o, d, t_min, t_max, *out)
+        LAUNCHES["bvh_closest"] += 1
+        return out
+    counts = (_empty((n,), torch.int32, o), _empty((n,), torch.int32, o))
+    binding.launch_bvh_closest(tables, o, d, t_min, t_max, *out, counts=counts)
+    LAUNCHES["bvh_closest_counters"] += 1
+    return (*out, *(bvh_span_sums(c, n) for c in counts))
 
 
 def bvh_anyhit(tables: Tables, o, d, t_min, t_max):

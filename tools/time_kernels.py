@@ -1,0 +1,118 @@
+"""Time a redesigned kernel pair of one checkout of the repository on the GPU.
+
+    python3 tools/time_kernels.py ROOT pool|bvh
+
+Imports ``chip_smoke`` and ``pathtrace_tpu_torch`` from the checkout at
+ROOT, builds its kernels, and times raw launches with CUDA events
+(``chip_smoke.cuda_ms``: median of 20 runs of 10 launches) at the host's
+setting and, where the checkout's binding takes the knob, at each of its
+values:
+
+- ``pool``: ``fused_bounce`` and ``shadow_any_hit`` on the lane states of
+  ``chip_smoke.py``'s phase 3 (S = 16,384 lanes of Cornell, many_spheres
+  and the ON/PBR scene), at every split of their sweeps (``SPLITS``);
+- ``bvh``: ``bvh_closest`` and ``bvh_anyhit`` on the lanes of phase 3b
+  (S = 65,536 camera and bounce rays of the 70k-triangle mesh scene, capped
+  by the sphere hits, and their NEE shadow rays), at every team size
+  (``TEAMS``).
+
+Prints one JSON line: the card, ROOT, and the milliseconds (kernel pair per
+setting; per scene for ``pool``). To compare two versions on one card, run
+it in turns in one command (old, new, new, old), each checkout in its own
+process.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import torch
+
+
+def pair_ms(cs, binding, knob, values, first, second):
+    """``{setting: (ms of first(**kw), ms of second(**kw))}`` at the host's
+    setting ("host", no keyword) and at each of ``binding.<values>`` as
+    ``knob=value``, where the checkout's binding has that table."""
+    times = {}
+    for value in (None,) + tuple(getattr(binding, values, None) or ()):
+        kw = {} if value is None else {knob: value}
+        times["host" if value is None else str(value)] = (
+            cs.cuda_ms(lambda: first(**kw)), cs.cuda_ms(lambda: second(**kw)))
+    return times
+
+
+def pool_ms(cs, binding, dev):
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+
+    ms = {}
+    for name, scene, camera in (
+        ("cornell", scenes.cornell_box(dev), scenes.cornell_camera(128, 128, dev)),
+        ("many_spheres", scenes.many_spheres(device=dev),
+         scenes.many_spheres_camera(1920, 1080, dev)),
+        ("on_pbr", cs.on_pbr_scene(dev), scenes.default_spheres_camera(1920, 1080, dev)),
+    ):
+        tables = shade.build_tables(scene)
+        batch = cs.lane_states(scene, camera, tables, cs.SLICE_S)
+        kw = cs.bounce_kwargs(scene, "mis", 16)
+        ref = shade.fused_bounce_reference(tables, *batch, **kw)
+        so, sd, st = ref.next_o, ref.shadow_d, ref.shadow_tmax
+        out = shade.BounceResult(*(torch.empty_like(x) for x in ref))
+        occ = torch.empty(st.shape, dtype=torch.bool, device=dev)
+        launch = dict(num_tris=kw["num_tris"], num_lights=kw["num_lights"],
+                      max_bounces=kw["max_bounces"], eps=shade.EPS,
+                      **shade.kernel_flags("mis", scene.has_tri_lights, scene.has_sph_lights,
+                                           scene.has_oren_nayar, scene.has_pbr))
+        ms[name] = pair_ms(
+            cs, binding, "split", "SPLITS",
+            lambda **x: binding.launch_fused_bounce(tables, *batch, out, **launch, **x),
+            lambda **x: binding.launch_shadow_any_hit(tables, so, sd, st, occ, eps=shade.EPS,
+                                                      **x))
+    return ms
+
+
+def bvh_ms(cs, binding, dev):
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+
+    scene = scenes.mesh_scene(device=dev)
+    camera = scenes.mesh_scene_camera(1920, 1080, dev)
+    tables = intersect.build_tables(scene)
+    (o, d), (so, sd, st) = cs.lane_rays(scene, camera, tables, cs.MESH_S)
+    S = o.shape[0]
+    lo = torch.full((S,), shade.EPS, device=dev)
+    hi = torch.full((S,), float("inf"), device=dev)
+    hi_t = torch.minimum(hi, intersect.sphere_closest_reference(tables.sph, o, d, lo, hi)[0])
+    out = (torch.empty(S, device=dev), torch.empty(S, dtype=torch.int32, device=dev),
+           torch.empty((S, 3), device=dev), torch.empty(S, dtype=torch.int32, device=dev))
+    occ = torch.empty(S, dtype=torch.bool, device=dev)
+    return pair_ms(
+        cs, binding, "team", "TEAMS",
+        lambda **x: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out, **x),
+        lambda **x: binding.launch_bvh_anyhit(tables, so, sd, lo, st, occ, **x))
+
+
+def main() -> int:
+    if len(sys.argv) != 3 or sys.argv[2] not in ("pool", "bvh"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    root = os.path.abspath(sys.argv[1])
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from pathtrace_tpu_torch.kernels import binding, build
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    build.build()
+    ms = (pool_ms if sys.argv[2] == "pool" else bvh_ms)(cs, binding, dev)
+    print(json.dumps({"card": cs.nvidia_smi_line(), "root": root, "pair": sys.argv[2],
+                      "ms": ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
