@@ -73,12 +73,18 @@ The clustered sphere modes (scenes past 512 spheres) and the Oren-Nayar/PBR
 lanes of ``fused_bounce``:
 
 3e. the clustered ``sphere_closest`` and ``any_hit`` against their twins,
-    bitwise, on all 65,536 lanes of ``many_spheres(n_per_side=22)`` (1,940
-    spheres in 8 clusters, the flat route): camera rays, the bounce rays of
-    composed twin bounces and their NEE shadow rays (``any_hit`` with the
-    sphere and the triangle boxes), timed there and on the first 16,384
-    lanes (the field's pool frame runs 16,384 slots); ``fused_bounce`` with
-    its ON/PBR lanes and ``shadow_any_hit`` against their twins, bitwise, at
+    bitwise, at every team size (1-32 threads a ray), on all 65,536 lanes of
+    ``many_spheres(n_per_side=22)`` (1,940 spheres in 8 clusters, the flat
+    route: camera rays, the bounce rays of composed twin bounces and their
+    NEE shadow rays, ``any_hit`` with the sphere and the triangle boxes) and
+    on their first 16,384 (the field's pool frame runs 16,384 slots), on
+    phase 3c's ``mesh_scene(2000)`` shadow lanes with its triangle boxes, on
+    edge lanes (t_max NaN, -1, 0, t_min, inf; rays from far outside the
+    field; grazing rays) and on the cross-cluster tie
+    (:func:`sphere_tie_tables`), with ``cluster_walk_reference`` against
+    the twins; every team timed at both lane counts, the walk's clusters
+    and rows a ray against the bound's rows; ``fused_bounce`` with its
+    ON/PBR lanes and ``shadow_any_hit`` against their twins, bitwise, at
     every split, at S = 16,384 lanes of the ON/PBR scene;
 4e. GPU against the CPU twins: the sphere field through the composed pool
     (32x32, 2 spp, depth 8) and the wave engine (32x32, 1 spp), the ON/PBR
@@ -86,16 +92,18 @@ lanes of ``fused_bounce``:
     within the imgutil budget;
 5e. two 1920x1080, 4-spp, MIS, 32-bounce frames with 16,384 slots, timed:
     the sphere field through the composed pool and the ON/PBR scene through
-    the fused pool; wall, Mrays/s, rays, iterations, checksum, device
-    operations an iteration and the busy share (profiler over a 1-spp run).
+    the fused pool; wall, Mrays/s, rays, iterations, checksum (which must
+    repeat ``CLUSTER_EXPECT``), device operations an iteration and the busy
+    share (profiler over a 1-spp run).
 
 The next-to-last lines are the kernels' JSON record (sixteen entries: the
 twelve kernels and the four further modes, each with its time, its twin's,
 its launches on its path and its roofline bound; the pool's two kernels with
 the host's split and their time at every split, the BVH pair with the host's
 team, its time at every team and its work a ray, ``bvh_closest_counters`` with its launches in
-phase 3b, the clustered modes with their time and bound at 16,384 lanes) and
-the card's name and power limit;
+phase 3b, the clustered modes with their time and bound at 16,384 lanes, the
+host's team, their time at every team and their work a ray) and the card's
+name and power limit;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -202,6 +210,11 @@ ON_PBR_POOL = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=16,
                    num_slots=1024, seed=0)
 CLUSTER_FRAME = dict(width=1920, height=1080, spp=4, integrator="mis", max_bounces=32,
                      num_slots=16384, seed=0)
+# The port's counts for phase 5e's two frames (rays, iterations, image sum to
+# two decimals), repeated by every version of the kernels since they were
+# first run: every team and split must give them again.
+CLUSTER_EXPECT = {f"many_spheres(n_per_side={FIELD_N})": (30369475, 1328, 6769461.23),
+                  "on_pbr": (21056179, 936, 2927024.11)}
 # Roofline of one H100 SXM (NVIDIA's data sheet): float32 outside the tensor
 # cores and HBM bandwidth, at the full 700 W power limit.
 PEAK_FP32 = 67e12
@@ -602,6 +615,44 @@ def tie_tables(dev, upper_leaf):
 
 
 TIE_RAYS = ((-0.5, -0.5), (-0.2, 0.1), (0.3, -0.6), (-0.9, 0.8))   # (x, y) inside A and B
+
+
+def sphere_tie_tables(dev, upper_cluster):
+    """Clustered sphere tables in a given row order (the scene builder would
+    reorder the spheres): sphere A (row 0, cluster 0) and its copy B (the
+    first row of ``upper_cluster``), unit spheres at (0, 0, -1) whose top
+    z = 0 rays from z = 5 along -z (:data:`SPHERE_TIE_RAYS`) reach at t in
+    [5, 6), the same t for both. Cluster 0's box reaches up to z = 0, so it
+    is entered at about t = 5; ``upper_cluster`` also holds a sphere at z = 3
+    off the rays' path, so it is entered first, at about t = 1.5. Every
+    other row is a small sphere at (20, 20, -5). The brute-force answer is
+    A, the lower row. Returns ``(sph, box, B's row)``: ``Tables.sph`` and
+    ``Tables.sph_box`` rows (``intersect.sphere_cluster_boxes``)."""
+    import types
+
+    from pathtrace_tpu_torch.ops import intersect
+
+    n = (upper_cluster + 1) * 256
+    b = upper_cluster * 256
+    center = torch.tensor([20.0, 20.0, -5.0], device=dev).repeat(n, 1)
+    radius = torch.full((n,), 0.1, device=dev)
+    mat = torch.zeros(n, device=dev)
+    for r, m in ((0, 1.0), (b, 2.0)):                  # A and B, told apart by material
+        center[r] = torch.tensor([0.0, 0.0, -1.0])
+        radius[r], mat[r] = 1.0, m
+    center[b + 1], radius[b + 1] = torch.tensor([10.0, 10.0, 3.0]), 0.5   # lifts B's box
+    c2 = center * center
+    k = c2[:, 0] + c2[:, 1] + c2[:, 2] - radius * radius
+    sph = torch.cat([center, k[:, None], (1.0 / radius)[:, None], mat[:, None],
+                     center.new_zeros((n, 2))], dim=1).contiguous()
+    lo = (center - radius[:, None]).view(-1, 256, 3).amin(dim=1)
+    hi = (center + radius[:, None]).view(-1, 256, 3).amax(dim=1)
+    box = intersect.sphere_cluster_boxes(types.SimpleNamespace(
+        sph_cluster_min=lo, sph_cluster_max=hi, sph_center=center, sph_radius=radius))
+    return sph, box, b
+
+
+SPHERE_TIE_RAYS = ((0.0, 0.0), (0.3, -0.2), (-0.5, 0.4), (0.1, 0.6))   # (x, y) over A and B
 
 
 def hold_bvh_kernels(what, tables, closest, shadow):
@@ -1219,7 +1270,9 @@ def run_bench(dev, smi: str):
 def check_wave_kernels(dev):
     """Phase 3c: the wave engine's two new kernels, and ``any_hit`` with the
     small and flat triangle tables, against their twins on the card. The
-    expected result is bitwise agreement: any lane that differs fails."""
+    expected result is bitwise agreement: any lane that differs fails.
+    Returns the worst errors, times and bounds, and the flat route's tables
+    and shadow lanes ``(tables, o, d, t_max)``."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import intersect, shade
@@ -1228,7 +1281,7 @@ def check_wave_kernels(dev):
     lo = torch.full((S,), shade.EPS, device=dev)
     hi = torch.full((S,), float("inf"), device=dev)
     worst = {"combined_closest_small": 0.0, "triangle_closest": 0.0, "any_hit": 0.0}
-    ms, bounds = {}, {}
+    ms, bounds, flat = {}, {}, None
     f32, i32 = torch.float32, torch.int32
     out = (torch.empty(S, device=dev), torch.empty(S, dtype=i32, device=dev),
            torch.empty((S, 3), dtype=f32, device=dev), torch.empty(S, dtype=i32, device=dev))
@@ -1273,6 +1326,8 @@ def check_wave_kernels(dev):
             p_ms = cuda_ms(lambda: intersect.triangle_closest_reference(
                 tables, o, d, lo, hi_t), **slow)
         tri_box = tables.leaf if tables.route == "flat" else None   # as occluded() passes it
+        if tables.route == "flat":
+            flat = (tables, so, sd, st)
         blocked = same_occ(intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
                            intersect.any_hit(tables.sph, tri, so, sd, lo, st, tri_box=tri_box))
         a_ms = cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ_k,
@@ -1295,7 +1350,7 @@ def check_wave_kernels(dev):
             f"({blocked} blocked of {int((st >= shade.EPS).sum())} queries), {a_ms:.4f} ms vs "
             f"twin {a_p:.4f} ms")
     log(f"[wave-kernels] worst abs error: {worst}; bounds: {json.dumps(bounds)}")
-    return worst, ms, bounds
+    return worst, ms, bounds, flat
 
 
 def run_wave_cornell(dev, smi: str):
@@ -1434,10 +1489,134 @@ def sphere_field(dev):
     return scenes.many_spheres(n_per_side=FIELD_N, device=dev)
 
 
-def check_clustered_kernels(dev):
+def hold_cluster_kernels(what, sph, box, closest, shadow, tri=None, tri_box=None):
+    """The clustered pair through raw launches at every team size (1-32):
+    ``sphere_closest`` (``closest`` = ``(o, d, t_min, t_max, twin's
+    4-tuple)``, or None) and ``any_hit`` over ``sph`` and ``tri`` (``shadow``
+    = ``(o, d, t_min, t_max, twin's occlusion)``) bitwise equal to the
+    brute-force twins, outputs scrubbed before each launch; the walk model
+    (``cluster_walk_reference``) equal to the twins too. Returns the model's
+    closest (None without ``closest``) and any-hit results, counts
+    included."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import intersect
+
+    tri = sph.new_zeros((0, 16)) if tri is None else tri
+    model = None
+    if closest is not None:
+        o, d, lo, hi, ref = closest
+        model = intersect.cluster_walk_reference(sph, o, d, lo, hi, box)
+        _bitwise(f"{what}: the closest walk (cluster_walk_reference) vs brute force", ref,
+                 model[:4])
+        out = tuple(torch.empty_like(x) for x in ref)
+    so, sd, slo, st, ref_occ = shadow
+    a_model = intersect.cluster_walk_reference(sph, so, sd, slo, st, box, tri, tri_box,
+                                               anyhit=True)
+    _bitwise(f"{what}: the any-hit walk vs brute force", ref_occ, a_model[0])
+    occ = torch.empty_like(ref_occ)
+    for team in binding.TEAMS:
+        if closest is not None:
+            for x in out:
+                x.fill_(float("nan") if x.dtype == torch.float32 else -7)
+            binding.launch_sphere_closest(sph, o, d, lo, hi, *out, box=box, team=team)
+            _bitwise(f"sphere_closest_clustered, {what}, team {team}", ref, out)
+        occ.copy_(~ref_occ)
+        binding.launch_any_hit(sph, tri, so, sd, slo, st, occ, sph_box=box, tri_box=tri_box,
+                               team=team)
+        _bitwise(f"any_hit_clustered, {what}, team {team}", ref_occ, occ)
+    return model, a_model
+
+
+def cluster_edge_lanes(dev, tables, o, d, so, sd, lo, n=1024, seed=0):
+    """Edge lanes of the sphere field: ``n`` of its lanes with t_max NaN, -1,
+    0 (below t_min), t_min itself and inf; ``n`` rays from 150-200 away aimed
+    at its spheres; ``n`` grazing rays aimed at sphere silhouettes from up to
+    ~100 away, a third with directions up to 1e-3 off unit length (the cases
+    the sphere boxes' pad covers). Returns closest ``(o, d, t_min, t_max)``
+    and shadow ``(o, d, t_min, t_max)`` lanes."""
+    from pathtrace_tpu_torch.ops import shade
+
+    g = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    hi = torch.full((n,), float("inf"), device=dev)
+    st = t(g.uniform(0.05, 60.0, n))
+    for k, v in enumerate((float("nan"), -1.0, 0.0, shade.EPS, float("inf"))):
+        hi[k::7] = v
+        st[k::7] = v
+    center = tables.sph[:, 0:3].cpu().numpy()
+    radius = np.where(tables.sph[:, 4].cpu().numpy() > 0, 1.0 / tables.sph[:, 4].cpu().numpy(), 0)
+    pick = g.choice(np.nonzero(radius > 0)[0], 2 * n)
+    far = g.normal(size=(n, 3))
+    far_o = far / np.linalg.norm(far, axis=1, keepdims=True) * g.uniform(150, 200, (n, 1))
+    far_d = center[pick[:n]] + g.uniform(-1, 1, (n, 3)) * radius[pick[:n], None] - far_o
+    v = g.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    aim = center[pick[n:]] + v * (radius[pick[n:]] * (1 + g.uniform(-1e-3, 1e-3, n)))[:, None]
+    graze_o = g.uniform(-100, 100, (n, 3))
+    graze_d = aim - graze_o
+    eo = np.concatenate([far_o, graze_o])
+    ed = np.concatenate([far_d, graze_d])
+    ed /= np.linalg.norm(ed, axis=1, keepdims=True)
+    ed[n:] *= np.where(g.random(n) < 0.3, 1 + g.uniform(-1e-3, 1e-3, n), 1.0)[:, None]
+    eo, ed = t(eo), t(ed)
+    inf = torch.full((2 * n,), float("inf"), device=dev)
+    elo = torch.full((2 * n,), shade.EPS, device=dev)
+    return ((torch.cat([o[:n], eo]), torch.cat([d[:n], ed]), torch.cat([lo[:n], elo]),
+             torch.cat([hi, inf])),
+            (torch.cat([so[:n], eo]), torch.cat([sd[:n], ed]), torch.cat([lo[:n], elo]),
+             torch.cat([st, t(g.uniform(0.05, 250.0, 2 * n))])))
+
+
+def check_cluster_edges(dev, tables, lanes):
+    """The clustered pair at every team size on the field's edge lanes
+    (:func:`cluster_edge_lanes`) and the cross-cluster tie
+    (:func:`sphere_tie_tables`, B in the next cluster and the one after),
+    where both must return row 0, the twin's answer, with shadow t_max at
+    the hit (occluded) and 0.5 before it (not)."""
+    from pathtrace_tpu_torch.ops import intersect
+
+    box, tri = tables.sph_box, tables.tri[:tables.tri_rows]
+    c, s = cluster_edge_lanes(dev, tables, *lanes)
+    ref = intersect.sphere_closest_reference(tables.sph, *c)
+    ref_occ = intersect.any_hit_reference(tables.sph, tri, *s)
+    hold_cluster_kernels("edge lanes", tables.sph, box, (*c, ref), (*s, ref_occ), tri,
+                         tables.leaf)
+    for upper in (1, 2):
+        sph, tbox, b = sphere_tie_tables(dev, upper)
+        m = len(SPHERE_TIE_RAYS)
+        to = torch.tensor([[x, y, 5.0] for x, y in SPHERE_TIE_RAYS], device=dev)
+        td = torch.tensor([[0.0, 0.0, -1.0]] * m, device=dev)
+        tlo = torch.full((m,), 1e-3, device=dev)
+        thi = torch.full((m,), float("inf"), device=dev)
+        tref = intersect.sphere_closest_reference(sph, to, td, tlo, thi)
+        if not (tref[1] == 0).all():
+            raise AssertionError(f"sphere tie case (B at row {b}): twin gave {tref[:2]}")
+        tst = tref[0] - torch.tensor([0.0, 0.5] * (m // 2), device=dev)
+        model, a_model = hold_cluster_kernels(
+            f"sphere tie case, B at row {b}", sph, tbox, (to, td, tlo, thi, tref),
+            (to, td, tlo, tst, intersect.any_hit_reference(sph, sph.new_zeros((0, 16)), to, td,
+                                                           tlo, tst)))
+        if not ((model[4] == 2).all() and torch.equal(a_model[0], tst == tref[0])):
+            raise AssertionError(f"sphere tie case (B at row {b}): clusters visited {model[4]}, "
+                                 f"occlusion {a_model[0]}")
+    log(f"[cluster-kernels] edge lanes: sphere_closest_clustered and any_hit_clustered bitwise "
+        f"equal to their twins at every team on {c[0].shape[0]} lanes (field lanes with t_max "
+        f"NaN, -1, 0, t_min, inf; rays from 150-200 away; grazing rays) and on the sphere tie "
+        f"case (B at row 256 and 512, its cluster entered first): row 0, both clusters swept")
+
+
+def check_clustered_kernels(dev, flat):
     """Phase 3e: the clustered sphere_closest and any_hit against their twins,
-    bitwise, on the sphere field's 65,536 lanes; fused_bounce with its ON/PBR
-    lanes against its twin at S = 16,384 lanes of the ON/PBR scene."""
+    bitwise, at every team size 1-32: the sphere field's 65,536 lanes and
+    their first 16,384, the flat ``mesh_scene(2000)`` shadow lanes of phase
+    3c (``flat``: ``(tables, o, d, t_max)``) with the triangle boxes, the
+    field's edge lanes and the cross-cluster tie; every team timed at both
+    lane counts, the flat any hit at 65,536; the walk's work a ray against
+    the bound's. Then fused_bounce with its ON/PBR lanes against its twin at
+    S = 16,384 lanes of the ON/PBR scene."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import intersect, shade
@@ -1466,59 +1645,109 @@ def check_clustered_kernels(dev):
     _bitwise("any_hit_clustered, spheres only", ref_socc,
              intersect.any_hit(tables.sph, tri[:0], so, sd, lo, st, sph_box=box))
 
+    # Every team size: all lanes, the first 16,384, the flat shadow lanes.
+    n = SLICE_S
+    model, a_model = hold_cluster_kernels(
+        f"field, {S} lanes", tables.sph, box, (o, d, lo, hi, ref_s),
+        (so, sd, lo, st, ref_occ), tri, tables.leaf)
+    hold_cluster_kernels(f"field, first {n} lanes", tables.sph, box,
+                         (o[:n], d[:n], lo[:n], hi[:n], tuple(x[:n] for x in ref_s)),
+                         (so[:n], sd[:n], lo[:n], st[:n], ref_occ[:n]), tri, tables.leaf)
+    ft, fo, fd, fst = flat
+    ftri = ft.tri[:ft.tri_rows]
+    flo = torch.full((fo.shape[0],), shade.EPS, device=dev)
+    f_occ = intersect.any_hit_reference(ft.sph, ftri, fo, fd, flo, fst)
+    hold_cluster_kernels(f"mesh_{FLAT_TRIS} shadow lanes", ft.sph, ft.sph_box, None,
+                         (fo, fd, flo, fst, f_occ), ftri, ft.leaf)
+    check_cluster_edges(dev, tables, (o, d, so, sd, lo))
+
     f32, i32 = torch.float32, torch.int32
     out = (torch.empty(S, device=dev), torch.empty(S, dtype=i32, device=dev),
            torch.empty((S, 3), dtype=f32, device=dev), torch.empty(S, dtype=i32, device=dev))
     occ = torch.empty(S, dtype=torch.bool, device=dev)
     slow = dict(runs=5, calls=1)       # twins: 10-40 ms a call
-    one_tile = cuda_ms(lambda: binding.launch_sphere_closest(tables.sph, o, d, lo, hi, *out))
+    host = {"sphere_closest_clustered": binding.cluster_team("sphere_closest", (tables.sph, box)),
+            "any_hit_clustered": binding.cluster_team("any_hit", (tables.sph, box),
+                                                      (tri, tables.leaf))}
+
+    def team_ms(m, team):
+        """(closest ms, any-hit ms) on the first ``m`` lanes at ``team``."""
+        return (cuda_ms(lambda: binding.launch_sphere_closest(
+                    tables.sph, o[:m], d[:m], lo[:m], hi[:m], *(x[:m] for x in out), box=box,
+                    team=team)),
+                cuda_ms(lambda: binding.launch_any_hit(
+                    tables.sph, tri, so[:m], sd[:m], lo[:m], st[:m], occ[:m], sph_box=box,
+                    tri_box=tables.leaf, team=team)))
+
+    by_team = {m: {team: team_ms(m, team) for team in binding.TEAMS} for m in (n, S)}
     ms["sphere_closest_clustered"] = (
-        cuda_ms(lambda: binding.launch_sphere_closest(tables.sph, o, d, lo, hi, *out, box=box)),
+        by_team[S][host["sphere_closest_clustered"]][0],
         cuda_ms(lambda: intersect.sphere_closest_reference(tables.sph, o, d, lo, hi), **slow))
     ms["any_hit_clustered"] = (
-        cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ,
-                                               sph_box=box, tri_box=tables.leaf)),
+        by_team[S][host["any_hit_clustered"]][1],
         cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st), **slow))
+    # The field frame's third kernel, on its 2 triangles (one padded cluster),
+    # capped by the sphere hits as intersect() caps it: for the ranking.
+    hi_t = torch.minimum(hi, ref_s[0])
+    tri_ms = cuda_ms(lambda: binding.launch_triangle_closest(
+        tables, o[:n], d[:n], lo[:n], hi_t[:n], *(x[:n] for x in out)))
+    focc = torch.empty_like(f_occ)
+    flat_by_team = {team: cuda_ms(lambda: binding.launch_any_hit(
+        ft.sph, ftri, fo, fd, flo, fst, focc, sph_box=ft.sph_box, tri_box=ft.leaf, team=team))
+        for team in binding.TEAMS}
     n_sph = tables.sph.shape[0]
     per_box = torch.clamp(n_sph - 256 * torch.arange(box.shape[0], device=dev), 0, 256)
 
-    def work(n):
-        """Bounds of both kernels on the first ``n`` lanes."""
-        free = ~ref_occ[:n]
-        fo, fd, flo, fst = so[:n][free], sd[:n][free], lo[:n][free], st[:n][free]
+    def work(m):
+        """Bounds of both kernels on the first ``m`` lanes, and the rows a ray
+        their operation counts test."""
+        free = ~ref_occ[:m]
+        fo_, fd_, flo_, fst_ = so[:m][free], sd[:m][free], lo[:m][free], st[:m][free]
+        rows_c = closest_tests(box, per_box, o[:m], d[:m], lo[:m], hi[:m], ref_s[0][:m])
+        rows_s = entered_rows(box, per_box, fo_, fd_, flo_, fst_)
+        rows_t = entered_rows(tables.leaf, tables.tri_rows, fo_, fd_, flo_, fst_)
+        n_occ = int(ref_occ[:m].sum())
         return {
             "sphere_closest_clustered": bound(
-                nbytes(o[:n], d[:n], lo[:n], hi[:n], tables.sph, box, *(x[:n] for x in out)),
-                SPH_OPS * closest_tests(box, per_box, o[:n], d[:n], lo[:n], hi[:n],
-                                        ref_s[0][:n])),
+                nbytes(o[:m], d[:m], lo[:m], hi[:m], tables.sph, box, *(x[:m] for x in out)),
+                SPH_OPS * rows_c),
             "any_hit_clustered": bound(
-                nbytes(so[:n], sd[:n], lo[:n], st[:n], occ[:n], tables.sph, box, tri,
+                nbytes(so[:m], sd[:m], lo[:m], st[:m], occ[:m], tables.sph, box, tri,
                        tables.leaf),
-                SPH_OPS * entered_rows(box, per_box, fo, fd, flo, fst)
-                + TRI_OPS * entered_rows(tables.leaf, tables.tri_rows, fo, fd, flo, fst)
-                + SPH_OPS * int(ref_occ[:n].sum())),
-        }
+                SPH_OPS * rows_s + TRI_OPS * rows_t + SPH_OPS * n_occ),
+        }, {"sphere_closest_clustered": rows_c / m,
+            "any_hit_clustered": (rows_s + rows_t + n_occ) / m}
 
-    bounds.update(work(S))
+    bounds_s, bound_rows = work(S)
+    bounds.update(bounds_s)
     # The same kernels at the 16,384 lanes the field's pool frame runs.
-    n = SLICE_S
-    at_slice = {
-        "sphere_closest_clustered": cuda_ms(lambda: binding.launch_sphere_closest(
-            tables.sph, o[:n], d[:n], lo[:n], hi[:n], *(x[:n] for x in out), box=box)),
-        "any_hit_clustered": cuda_ms(lambda: binding.launch_any_hit(
-            tables.sph, tri, so[:n], sd[:n], lo[:n], st[:n], occ[:n], sph_box=box,
-            tri_box=tables.leaf)),
-    }
-    at_slice = {k: {"ms": v, **work(n)[k]} for k, v in at_slice.items()}
+    at_slice = {k: {"ms": by_team[n][host[k]][which], **work(n)[0][k]}
+                for which, k in enumerate(host)}
+    extra = {}
+    for which, (k, res) in enumerate(zip(host, (model, a_model))):
+        visited, tested = res[-2:]
+        extra[k] = {
+            "team": host[k],
+            "ms_by_team": {t: v[which] for t, v in by_team[n].items()},
+            "ms_by_team_65536": {t: v[which] for t, v in by_team[S].items()},
+            "per_ray": {"clusters": visited.double().mean().item(),
+                        "rows": tested.double().mean().item(), "bound_rows": bound_rows[k]}}
+    extra["any_hit_clustered"]["flat_ms_by_team"] = flat_by_team
     log(f"[cluster-kernels] many_spheres(n_per_side={FIELD_N}): {n_sph} spheres in "
         f"{box.shape[0]} clusters, {tables.tri_rows} triangles ({tables.route} route); lanes "
         f"from twin bounces in {time.perf_counter() - t0:.2f} s. Bitwise equal to their twins on "
-        f"all {S} lanes: sphere_closest_clustered ({int((ref_s[1] >= 0).sum())} hits), "
-        f"any_hit_clustered ({int(ref_occ.sum())} blocked of {int((st >= shade.EPS).sum())} "
-        f"queries; spheres alone {int(ref_socc.sum())}). ms kernel vs twin: "
+        f"all {S} lanes and the first {n} at teams {list(binding.TEAMS)}: "
+        f"sphere_closest_clustered ({int((ref_s[1] >= 0).sum())} hits), any_hit_clustered "
+        f"({int(ref_occ.sum())} blocked of {int((st >= shade.EPS).sum())} queries; spheres alone "
+        f"{int(ref_socc.sum())}); any_hit on mesh_{FLAT_TRIS}'s {fo.shape[0]} shadow lanes with "
+        f"its {ft.leaf.shape[0]} triangle boxes ({int(f_occ.sum())} blocked). ms kernel vs twin: "
         + ", ".join(f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items())
-        + f"; the one-tile sphere_closest on the same lanes {one_tile:.4f} ms; bounds "
-        + json.dumps(bounds) + f"; on the first {n} lanes: " + json.dumps(at_slice))
+        + "; bounds " + json.dumps(bounds) + f"; on the first {n} lanes: " + json.dumps(at_slice))
+    log("[cluster-kernels] (closest, any hit) ms by team: " + json.dumps(by_team)
+        + f"; flat any hit by team {json.dumps(flat_by_team)}; triangle_closest on the "
+        f"field's first {n} lanes {tri_ms:.4f} ms; host team "
+        + json.dumps({k: v["team"] for k, v in extra.items()}) + "; per ray "
+        + json.dumps({k: v["per_ray"] for k, v in extra.items()}))
 
     scene = on_pbr_scene(dev)
     camera = scenes.default_spheres_camera(1920, 1080, dev)
@@ -1541,7 +1770,7 @@ def check_clustered_kernels(dev):
         f"split; ms (fused, shadow) by split {json.dumps(ms_split)}; twin "
         f"{ms['fused_bounce_on_pbr']['twin'][0]:.4f} ms; bound "
         f"{json.dumps(bounds['fused_bounce_on_pbr'])}")
-    return worst, ms, bounds, at_slice
+    return worst, ms, bounds, at_slice, extra
 
 
 def run_cluster_frames(dev):
@@ -1634,6 +1863,9 @@ def run_cluster_bench(dev, smi: str):
             if launches.get(k, 0) <= 0:
                 raise AssertionError(f"{k} was not launched on the {name} frame: {launches}")
         rays = ray_count(counters)
+        if (rays, iters, round(checksum, 2)) != CLUSTER_EXPECT[name]:
+            raise AssertionError(f"{name}: {rays} rays, {iters} iterations, checksum {checksum}; "
+                                 f"expected {CLUSTER_EXPECT[name]}")
         slots = min(CLUSTER_FRAME["num_slots"], W * H)
         result = {
             "workload": f"{name} {W}x{H} {CLUSTER_FRAME['spp']}spp MIS depth "
@@ -1712,8 +1944,9 @@ def main() -> int:
         dev, mesh, mesh_cam)
     trav_worst, trav_ms, trav_bnd = check_traversal_kernels(dev, mesh, lanes)
     del lanes
-    wave_worst, wave_ms, wave_bnd = check_wave_kernels(dev)
-    cl_worst, cl_ms, cl_bnd, cl_slice = check_clustered_kernels(dev)
+    wave_worst, wave_ms, wave_bnd, flat = check_wave_kernels(dev)
+    cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra = check_clustered_kernels(dev, flat)
+    del flat
     run_cornell(dev)
     run_mesh_frame(dev)
     launches = run_bench(dev, smi)
@@ -1764,7 +1997,7 @@ def main() -> int:
         for k, (src, rep) in TRAVERSAL_KERNELS.items()
     ] + [
         entry(k, src, rep, cluster_launches[k], cl_worst[k], cl_ms[k], cl_bnd[k],
-              ms_16384=cl_slice[k]["ms"], bound_ms_16384=cl_slice[k]["bound_ms"])
+              ms_16384=cl_slice[k]["ms"], bound_ms_16384=cl_slice[k]["bound_ms"], **cl_extra[k])
         for k, (src, rep) in CLUSTER_KERNELS.items() if k in cl_slice
     ] + [
         split_entry("fused_bounce_on_pbr", *CLUSTER_KERNELS["fused_bounce_on_pbr"],

@@ -19,10 +19,11 @@
 // every shuffle and vote names the team's own lanes (csrc/geom.cuh ::
 // team_mask): other teams of the warp may be elsewhere in their loops.
 // - Groups, nearest-first: each round the team finds the entered group that
-//   follows the last visited one in ascending (entry, id) order (the
-//   successor scan of resident.cu, with thread j scanning groups j, j+K, ...,
-//   then a lexicographic min over the team: group_min), and stops when
-//   there is none or its entry is above min(best_t, t_max).
+//   follows the last visited one in ascending (entry, id) order (the team
+//   successor scan csrc/geom.cuh :: next_box, shared with the cluster walk
+//   of intersect.cu: thread j scans groups j, j+K, ..., then a
+//   lexicographic min over the team, group_min), and stops when there is
+//   none or its entry is above min(best_t, t_max).
 // - Leaves, nearest-first, inside the group: the 16 leaf entries are held in
 //   registers spread over the team and visited in the same order under the
 //   same bound.
@@ -70,8 +71,6 @@
 // ray sort before the trace (ops/intersect.py :: _ray_sort_key). The
 // counters count per-ray work, not the TPU's subtile rounds.
 
-#include <climits>
-
 #include <cuda_runtime.h>
 
 #include "geom.cuh"
@@ -84,7 +83,7 @@ constexpr int kBoxCols = 8;   // min, max, 2 zeros
 constexpr int kLeaf = 128;
 constexpr int kGroup = 16;
 constexpr int kCheck = 4;     // rows a thread tests between two votes of the any hit
-constexpr int kNone = INT_MAX;
+using pt::kNone;
 
 struct Ray {
   pt::V3 o, d, inv;
@@ -103,35 +102,12 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float
   return r;
 }
 
-// The entered group after (*e, *c) in ascending (entry, id) order, searched
-// by the team (thread `part` scans groups part, part + K, ...); sets (*e, *c)
-// to it and returns true, or returns false when there is none.
-template <int K>
-__device__ __forceinline__ bool next_group(const float* __restrict__ boxes, int n_groups, const Ray& ray,
-                                           int part, unsigned mask, float* e, int* c) {
-  const float last_e = *e;
-  const int last_c = *c;
-  float best_e = INFINITY;
-  int best_c = kNone;
-  for (int g = part; g < n_groups; g += K) {
-    const float eg = pt::box_entry(boxes + g * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max);
-    if (!(eg < INFINITY)) continue;  // not entered
-    const bool after = eg > last_e || (eg == last_e && g > last_c);
-    if (after && eg < best_e) {  // ids ascend: the first of equal entries wins
-      best_e = eg;
-      best_c = g;
-    }
-  }
-  pt::group_min(&best_e, &best_c, K, mask);
-  *e = best_e;
-  *c = best_c;
-  return best_c != kNone;
-}
-
 __host__ __device__ constexpr int leaves_per_thread(int k) { return (kGroup + k - 1) / k; }
 
-// The same over a group's 16 leaves, whose entries the team holds in
-// registers: thread `part` holds leaves part, part + K, ... (none past 16).
+// The entered leaf after (*e, *c) in ascending (entry, id) order among a
+// group's 16 leaves, whose entries the team holds in registers: thread
+// `part` holds leaves part, part + K, ... (none past 16). The groups take
+// geom.cuh :: next_box, the scan of the entries it computes.
 template <int K>
 __device__ __forceinline__ bool next_leaf(const float (&le)[leaves_per_thread(K)], int part,
                                           unsigned mask, float* e, int* c) {
@@ -166,9 +142,12 @@ __device__ __forceinline__ void walk(const float* __restrict__ group,
                                      const float* __restrict__ leaf, int n_groups, const Ray& ray,
                                      int part, unsigned mask, Bound bound, Sweep sweep,
                                      int* n_visited, int* n_swept) {
+  auto group_entry = [&](int g) {
+    return pt::box_entry(group + g * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max);
+  };
   float ge = -INFINITY;
   int gc = -1;
-  while (next_group<K>(group, n_groups, ray, part, mask, &ge, &gc) && ge <= bound()) {
+  while (pt::next_box<K>(n_groups, part, mask, group_entry, &ge, &gc) && ge <= bound()) {
     ++*n_visited;
     float le[leaves_per_thread(K)];
 #pragma unroll

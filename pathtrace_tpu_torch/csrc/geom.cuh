@@ -114,6 +114,36 @@ __device__ __forceinline__ unsigned team_mask(int k) {
   return k >= 32 ? 0xffffffffu : ((1u << k) - 1u) << ((threadIdx.x & 31) & ~(k - 1));
 }
 
+constexpr int kNone = 0x7fffffff;  // no row, no box: above every real id
+
+// The team successor scan of a nearest-first walk: the entered box after
+// (*e, *c) in ascending (entry, id) order among boxes 0 .. n - 1, where
+// entry(b) is box b's entry distance (+inf or NaN: not entered). Thread
+// `part` of the team of K scans boxes part, part + K, ..., then group_min
+// over `mask`; sets (*e, *c) to the box and returns true, or returns false
+// (*c = kNone) when there is none. Every thread of the team must call it.
+template <int K, typename Entry>
+__device__ __forceinline__ bool next_box(int n, int part, unsigned mask, Entry entry, float* e,
+                                         int* c) {
+  const float last_e = *e;
+  const int last_c = *c;
+  float best_e = INFINITY;
+  int best_c = kNone;
+  for (int b = part; b < n; b += K) {
+    const float eb = entry(b);
+    if (!(eb < INFINITY)) continue;  // not entered
+    const bool after = eb > last_e || (eb == last_e && b > last_c);
+    if (after && eb < best_e) {  // ids ascend: the first of equal entries wins
+      best_e = eb;
+      best_c = b;
+    }
+  }
+  group_min(&best_e, &best_c, K, mask);
+  *e = best_e;
+  *c = best_c;
+  return best_c != kNone;
+}
+
 // One sphere row (center and k = |c|^2 - r^2), with od = o.d and oo = o.o:
 // the near root if it is >= eps, else the far one. NaN on a miss and on a
 // padding row (k = NaN), so every compare with it fails (twin:

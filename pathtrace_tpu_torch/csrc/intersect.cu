@@ -1,31 +1,55 @@
-// Closest sphere hit and general occlusion: two kernels of the mesh path.
+// Closest sphere hit and general occlusion, walked cluster by cluster,
+// nearest-first, by a team of threads per ray.
 //
 // sphere_closest replaces pathtrace_tpu/ops/pallas_intersect.py ::
 // _sphere_kernel (wrapper sphere_closest): the nearest sphere with its
 // outward normal (o + t d - c) * (1/r) and material. any_hit replaces
 // _anyhit_kernel (wrapper any_hit): is anything hit in [t_min, t_max],
-// spheres first, then triangles. Plain-torch twins: ops/intersect.py ::
-// sphere_closest_reference / any_hit_reference, brute force over every row.
+// spheres first, then triangles. Plain-torch versions in ops/intersect.py:
+// sphere_closest_reference / any_hit_reference (brute force over every row:
+// the hits) and cluster_walk_reference (this walk step for step: the hits
+// and the per-ray counts of clusters visited and rows tested).
 //
 // The sphere test is csrc/geom.cuh :: sphere_root: k = |c|^2 - r^2 per row
 // (NaN on padding rows and radius <= 0, which fails every compare), the
-// near root unless it lies before t_min, then the far one. Strict < keeps
-// the first minimum, like argmin. Directions are unit length (a = 1).
+// near root unless it lies before t_min, then the far one. Directions are
+// unit length (a = 1).
 //
-// Two modes each, as the JAX kernels have:
-// * one tile (no boxes: <= 512 spheres, and the triangle rows of the small
-//   route): every row is tested;
-// * clustered (more than 512 sphere rows; the flat route's triangles): the
-//   rows fall in 256-row clusters with one box each (ops/intersect.py ::
-//   sphere_cluster_boxes, and Tables.leaf for triangles). A thread visits the
-//   clusters in row order and skips one when pt::box_entry of its box misses
-//   [t_min, min(t_max, best_t)] (any_hit: [t_min, t_max]); it tests the rows
-//   of the others. Only a strictly nearer sphere replaces the best, so equal
-//   t goes to the lower row and the kernel equals its brute-force twin
-//   exactly; any_hit stops at the first accepted hit and returns the twin's
-//   boolean. The JAX kernel visits clusters nearest-first with a strict <,
-//   so it can differ from this one on equal-t ties across clusters and
-//   nowhere else.
+// Clusters. The rows fall in clusters of 256 with one box each: the sphere
+// clusters past 512 sphere rows (ops/intersect.py :: sphere_cluster_boxes:
+// [min | max | reach | least radius]) and the flat route's triangle
+// clusters (Tables.leaf). Without boxes (<= 512 sphere rows; the small
+// route's triangles) the whole table is one cluster, entered at t_min, and
+// the same code sweeps it.
+//
+// The walk. A team of K threads (1, 2, 4, 8, 16 or 32, aligned in a warp;
+// 128 threads a block, so 128 / K rays) shares one ray; every decision is
+// taken on a team-reduced value, and every shuffle and vote names the
+// team's own lanes (geom.cuh :: team_mask), as in bvh.cu.
+// - Clusters, nearest-first: each round the team finds the entered cluster
+//   that follows the last visited one in ascending (entry, id) order
+//   (geom.cuh :: next_box, the successor scan bvh.cu walks its groups with:
+//   thread j scans clusters j, j+K, ..., then group_min), and stops when
+//   there is none or its entry is above the bound, min(best_t, t_max) for
+//   the closest hit and t_max for the any hit. A sphere cluster's entry is
+//   the slab entry into its box widened by the ray's root-error pad (below),
+//   a triangle cluster's the plain slab entry (geom.cuh :: box_entry).
+// - The sweep, split: thread j tests rows j, j+K, ... of the cluster (a
+//   sphere row's center and k as one float4, a triangle row as three),
+//   keeps its strict first minimum of (t, row) under the bound, and the team
+//   combines them as a lexicographic (t, row) min (group_min); the ray's
+//   best takes it on a smaller t or an equal t in a lower row. The bound
+//   tightens after each cluster.
+// - The gate is entry <= bound, not <: out of row order, a cluster entered
+//   exactly at the current best t may hold an equal-t hit in a lower row,
+//   which the brute-force twin returns. So the answer equals the twin
+//   whatever the team size. (The JAX kernel visits clusters nearest-first
+//   with a strict < and keeps the first cluster's row on equal t, so it can
+//   differ from this one on equal-t ties across clusters and nowhere else.)
+// - The any hit walks the sphere clusters, then the triangle clusters, in
+//   the same order under t_max, votes every kCheck rows a thread and stops at
+//   the first hit; an empty or NaN range occludes nothing. The order is for
+//   speed: any order gives the same boolean.
 //
 // Cull safety of the sphere boxes. The f32 quadratic cancels for rays far
 // from the origin, so a root the twin accepts can lie off the sphere: its
@@ -41,18 +65,35 @@
 // the slab test's own rounding (a few u L) lies far inside it, and the
 // boxes also carry the triangles' 1e-4 margin. tests/test_torch_clustered.py
 // checks the bound in float32 with this op order on 400,000 grazing rays
-// (|o| up to ~170, r from 0.02 to 30, |d.d - 1| up to 1e-3).
+// (|o| up to ~170, r from 0.02 to 30, |d.d - 1| up to 1e-3). For the ordered
+// walk: a root t the twin accepts has its point inside its cluster's widened
+// box, so the cluster's entry is <= t; while the ray's best is >= t the
+// bound is too, so the walk reaches that cluster before its bound drops
+// below the root, and a root above the best cannot be the answer.
 //
-// What bounds them on the H100: per-ray ALU work, ~20 flops a sphere row
-// and ~50 a triangle row times the rows of the clusters a ray enters (~20
-// flops a box); the rows are read from device memory through L1 and L2,
-// every thread of a warp that enters a cluster reading the same row. One
-// thread per ray, no shared memory.
+// What bounds them on the H100: per-ray work with divergent control flow,
+// ~20 flops a sphere row and ~50 a triangle row times the rows of the
+// clusters a ray enters. One thread per ray in row order (the design before
+// this one) gave 128 blocks of 128 threads at the field frame's 16,384
+// rays, four warps an SM with nothing to hide each row's load and square
+// root, and each warp ran the union of its 32 rays' clusters, every entered
+// cluster before the nearest hit. Nearest-first, a closest ray sweeps few
+// clusters past its hit; the team splits each sweep, so a frame's rays fill
+// K times the warps and each thread tests 256 / K rows a cluster. On the
+// 1,940-sphere field (PERF.md) a closest ray visits 3.1 clusters, 682 rows
+// against the 676 its bound counts (the clusters overlap), and the host
+// takes K = 8 for the closest hit and 32 for the any hit, which only votes
+// (kernels/binding.py :: cluster_team). What is left is latency, the
+// per-round scans and shuffles, and divergence, not tests. No TMA, wgmma or
+// shared-memory staging: the whole sphere table (64 KB at 1,940 spheres)
+// sits in L1/L2, the work is per-ray branching, not a product, and staging
+// bvh.cu's boxes measured no gain (PERF.md).
 //
 // TPU workarounds not carried over: the per-tile key prepass over the
 // cluster boxes (_keys_prepass), the front-to-back extract-min/clear-key
-// loop (_extract_min), the (krows, 128) key scratch, the one-hot MXU winner
-// select (_select_winner), and any_hit's per-tile triangle DMA.
+// loop over the tile's least entries (_extract_min, _clear_key), the
+// (krows, 128) key scratch, the one-hot MXU winner select (_select_winner),
+// and any_hit's per-tile double-buffered triangle DMA.
 
 #include <cuda_runtime.h>
 
@@ -65,7 +106,9 @@ constexpr int kSphCols = 8;   // center, k, 1/r, material, 2 zeros
 constexpr int kTriCols = 16;  // v0, e1, e2, normal, material, 3 zeros
 constexpr int kBoxCols = 8;   // min, max; sphere boxes: reach, least radius
 constexpr int kCluster = 256;
+constexpr int kCheck = 4;     // rows a thread tests between two votes of the any hit
 constexpr float kRootErr = 7.62939453125e-06f;  // 2^-17 = 128 u
+using pt::kNone;
 
 struct Ray {
   pt::V3 o, d, inv;
@@ -89,56 +132,102 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d, const fl
   return r;
 }
 
-// Does [t_min, t_up] enter sphere cluster box `box`, widened by the ray's
-// root-error pad (file header)?
-__device__ __forceinline__ bool enters_sphere_box(const float* __restrict__ box, const Ray& r,
-                                                  float t_up) {
+// Entry of [t_min, t_max] into sphere cluster box `box`, widened by the
+// ray's root-error pad (file header); +inf when it misses.
+__device__ __forceinline__ float sphere_entry(const float* __restrict__ box, const Ray& r) {
   float pad = r.gain * (r.len_o + box[6]);
   pad = fminf(pad, pad * pad / (2.0f * box[7]));
   const float wide[6] = {box[0] - pad, box[1] - pad, box[2] - pad,
                          box[3] + pad, box[4] + pad, box[5] + pad};
-  return pt::box_entry(wide, r.o, r.inv, r.lo, t_up) < INFINITY;
+  return pt::box_entry(wide, r.o, r.inv, r.lo, r.hi);
 }
 
-__device__ __forceinline__ void closest_rows(const float* __restrict__ sph, int r0, int r1,
-                                             const Ray& ray, float* best_t, int* best_r) {
-  for (int r = r0; r < r1; ++r) {
-    float t_c = pt::sphere_root(sph + r * kSphCols, ray.o, ray.d, ray.od, ray.oo, ray.lo);
-    if (t_c >= ray.lo && t_c <= ray.hi && t_c < *best_t) {
-      *best_t = t_c;
-      *best_r = r;
-    }
+// The walk over a table of n_rows rows: its n_box clusters of kCluster rows
+// with entry(c), or (n_box = 0) one cluster of every row, entered at t_min;
+// in ascending (entry, id) order while the entry is <= bound(). Calls
+// sweep(first row, end row) on each cluster and returns true as soon as one
+// returns true.
+template <int K, typename Entry, typename Bound, typename Sweep>
+__device__ __forceinline__ bool walk(int n_rows, int n_box, const Ray& ray, int part,
+                                     unsigned mask, Entry entry, Bound bound, Sweep sweep) {
+  if (n_rows <= 0) return false;
+  const int n = n_box > 0 ? n_box : 1;
+  const int size = n_box > 0 ? kCluster : n_rows;
+  auto enter = [&](int c) { return n_box > 0 ? entry(c) : ray.lo; };
+  float e = -INFINITY;
+  int c = -1;
+  while (pt::next_box<K>(n, part, mask, enter, &e, &c) && e <= bound()) {
+    const int r0 = c * size;
+    if (sweep(r0, min(r0 + size, n_rows))) return true;
   }
+  return false;
 }
 
+// Does any row r of [r0, r1) pass hit(r)? Thread `part` tests rows r0 +
+// part, r0 + part + K, ..., and the team votes every kCheck rows a thread.
+template <int K, typename Hit>
+__device__ __forceinline__ bool vote(int r0, int r1, int part, unsigned mask, Hit hit) {
+  for (int b = r0; b < r1; b += kCheck * K) {
+    bool mine = false;
+#pragma unroll
+    for (int c = 0; c < kCheck; ++c) {
+      const int r = b + c * K + part;
+      if (!mine && r < r1) mine = hit(r);
+    }
+    if (__any_sync(mask, mine)) return true;
+  }
+  return false;
+}
+
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-    sphere_closest_kernel(const float* __restrict__ sph, int n_sph, const float* __restrict__ box,
+    sphere_closest_kernel(const float4* __restrict__ sph, int n_sph, const float* __restrict__ box,
                           int n_box, const float* __restrict__ o, const float* __restrict__ d,
                           const float* __restrict__ t_min, const float* __restrict__ t_max,
                           float* __restrict__ t_out, int* __restrict__ idx_out,
                           float* __restrict__ n_out, int* __restrict__ m_out, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
+  const int part = threadIdx.x & (K - 1);
+  const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
+  if (i >= N) return;  // the whole team leaves together
+  const unsigned mask = pt::team_mask(K);
   const Ray ray = load_ray(o, d, t_min, t_max, i);
   float best_t = INFINITY;
-  int best_r = -1;
-  if (n_box == 0) closest_rows(sph, 0, n_sph, ray, &best_t, &best_r);
-  for (int c = 0; c < n_box; ++c) {
-    // NaN t_max propagates, as in the twin (the row test then fails too).
-    if (!enters_sphere_box(box + c * kBoxCols, ray, pt::clamp_max(ray.hi, best_t))) continue;
-    const int r0 = c * kCluster;
-    closest_rows(sph, r0, min(r0 + kCluster, n_sph), ray, &best_t, &best_r);
-  }
+  int best_r = kNone;
+  // NaN t_max stays NaN, so nothing passes the gate or the row test.
+  auto bound = [&] { return pt::clamp_max(ray.hi, best_t); };
+  auto entry = [&](int c) { return sphere_entry(box + c * kBoxCols, ray); };
+  auto sweep = [&](int r0, int r1) {
+    const float cap = bound();
+    float lt = INFINITY;
+    int lr = kNone;
+    for (int r = r0 + part; r < r1; r += K) {
+      const float t = pt::sphere_root(sph[r * (kSphCols / 4)], ray.o, ray.d, ray.od, ray.oo,
+                                      ray.lo);
+      if (t >= ray.lo && t <= cap && t < lt) {
+        lt = t;  // strict: a thread's first minimum in row order
+        lr = r;
+      }
+    }
+    pt::group_min(&lt, &lr, K, mask);
+    if (lt < best_t || (lt == best_t && lr < best_r)) {
+      best_t = lt;
+      best_r = lr;
+    }
+    return false;
+  };
+  walk<K>(n_sph, n_box, ray, part, mask, entry, bound, sweep);
+  if (part != 0) return;
   t_out[i] = best_t;
-  idx_out[i] = best_r;
-  if (best_r >= 0) {
-    const float* row = sph + best_r * kSphCols;
+  if (best_r != kNone) {
+    const float* row = reinterpret_cast<const float*>(sph) + best_r * kSphCols;
     const float ir = row[4];
+    idx_out[i] = best_r;
     n_out[3 * i] = (ray.o.x + best_t * ray.d.x - row[0]) * ir;
     n_out[3 * i + 1] = (ray.o.y + best_t * ray.d.y - row[1]) * ir;
     n_out[3 * i + 2] = (ray.o.z + best_t * ray.d.z - row[2]) * ir;
     m_out[i] = static_cast<int>(row[5]);
   } else {
+    idx_out[i] = -1;
     n_out[3 * i] = 0.0f;
     n_out[3 * i + 1] = 0.0f;
     n_out[3 * i + 2] = 0.0f;
@@ -146,76 +235,117 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__device__ __forceinline__ bool any_sphere(const float* __restrict__ sph, int r0, int r1,
-                                           const Ray& ray) {
-  for (int r = r0; r < r1; ++r) {
-    float t_c = pt::sphere_root(sph + r * kSphCols, ray.o, ray.d, ray.od, ray.oo, ray.lo);
-    if (t_c >= ray.lo && t_c <= ray.hi) return true;
-  }
-  return false;
-}
-
-__device__ __forceinline__ bool any_triangle(const float* __restrict__ tri, int r0, int r1,
-                                             const Ray& ray) {
-  for (int r = r0; r < r1; ++r) {
-    float t;
-    if (pt::hit_triangle(tri + static_cast<size_t>(r) * kTriCols, ray.o, ray.d, ray.lo, ray.hi,
-                         &t))
-      return true;
-  }
-  return false;
-}
-
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-    any_hit_kernel(const float* __restrict__ sph, int n_sph, const float* __restrict__ sph_box,
-                   int n_sph_box, const float* __restrict__ tri, int n_tri,
+    any_hit_kernel(const float4* __restrict__ sph, int n_sph, const float* __restrict__ sph_box,
+                   int n_sph_box, const float4* __restrict__ tri, int n_tri,
                    const float* __restrict__ tri_box, int n_tri_box, const float* __restrict__ o,
                    const float* __restrict__ d, const float* __restrict__ t_min,
                    const float* __restrict__ t_max, bool* __restrict__ occ, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int part = threadIdx.x & (K - 1);
+  const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;
-  if (!(t_max[i] >= t_min[i])) {  // empty range (also NaN): nothing to hit
-    occ[i] = false;
-    return;
-  }
+  const unsigned mask = pt::team_mask(K);
   const Ray ray = load_ray(o, d, t_min, t_max, i);
-  bool hit = n_sph_box == 0 && any_sphere(sph, 0, n_sph, ray);
-  for (int c = 0; c < n_sph_box && !hit; ++c) {
-    if (!enters_sphere_box(sph_box + c * kBoxCols, ray, ray.hi)) continue;
-    const int r0 = c * kCluster;
-    hit = any_sphere(sph, r0, min(r0 + kCluster, n_sph), ray);
+  bool hit = false;
+  if (ray.hi >= ray.lo) {  // else an empty range (also NaN): nothing to hit
+    auto bound = [&] { return ray.hi; };
+    auto sph_entry = [&](int c) { return sphere_entry(sph_box + c * kBoxCols, ray); };
+    auto tri_entry = [&](int c) {
+      return pt::box_entry(tri_box + c * kBoxCols, ray.o, ray.inv, ray.lo, ray.hi);
+    };
+    auto sph_hit = [&](int r) {
+      const float t = pt::sphere_root(sph[r * (kSphCols / 4)], ray.o, ray.d, ray.od, ray.oo,
+                                      ray.lo);
+      return t >= ray.lo && t <= ray.hi;
+    };
+    auto tri_hit = [&](int r) {
+      float t;
+      return pt::hit_triangle(tri + static_cast<size_t>(r) * (kTriCols / 4), ray.o, ray.d,
+                              ray.lo, ray.hi, &t);
+    };
+    auto sph_sweep = [&](int r0, int r1) { return vote<K>(r0, r1, part, mask, sph_hit); };
+    auto tri_sweep = [&](int r0, int r1) { return vote<K>(r0, r1, part, mask, tri_hit); };
+    hit = walk<K>(n_sph, n_sph_box, ray, part, mask, sph_entry, bound, sph_sweep) ||
+          walk<K>(n_tri, n_tri_box, ray, part, mask, tri_entry, bound, tri_sweep);
   }
-  if (!hit && n_tri_box == 0) hit = any_triangle(tri, 0, n_tri, ray);
-  for (int c = 0; c < n_tri_box && !hit; ++c) {
-    if (!(pt::box_entry(tri_box + c * kBoxCols, ray.o, ray.inv, ray.lo, ray.hi) < INFINITY))
-      continue;
-    const int r0 = c * kCluster;
-    hit = any_triangle(tri, r0, min(r0 + kCluster, n_tri), ray);
-  }
-  occ[i] = hit;
+  if (part == 0) occ[i] = hit;
 }
+
+template <int K>
+cudaError_t launch_closest(const float* sph, int n_sph, const float* box, int n_box,
+                           const float* o, const float* d, const float* t_min,
+                           const float* t_max, float* t_out, int* idx_out, float* n_out,
+                           int* m_out, int N, cudaStream_t stream) {
+  const int grid = (N + kThreads / K - 1) / (kThreads / K);
+  sphere_closest_kernel<K><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(sph), n_sph, box, n_box, o, d, t_min, t_max, t_out,
+      idx_out, n_out, m_out, N);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_any_hit(const float* sph, int n_sph, const float* sph_box, int n_sph_box,
+                           const float* tri, int n_tri, const float* tri_box, int n_tri_box,
+                           const float* o, const float* d, const float* t_min,
+                           const float* t_max, bool* occ, int N, cudaStream_t stream) {
+  const int grid = (N + kThreads / K - 1) / (kThreads / K);
+  any_hit_kernel<K><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(sph), n_sph, sph_box, n_sph_box,
+      reinterpret_cast<const float4*>(tri), n_tri, tri_box, n_tri_box, o, d, t_min, t_max, occ,
+      N);
+  return cudaGetLastError();
+}
+
+// The instance of `fn` for team size `team` (1-32).
+#define PT_BY_TEAM(fn, team, ...)              \
+  switch (team) {                              \
+    case 1: return fn<1>(__VA_ARGS__);         \
+    case 2: return fn<2>(__VA_ARGS__);         \
+    case 4: return fn<4>(__VA_ARGS__);         \
+    case 8: return fn<8>(__VA_ARGS__);         \
+    case 16: return fn<16>(__VA_ARGS__);       \
+    case 32: return fn<32>(__VA_ARGS__);       \
+    default: return cudaErrorInvalidValue;     \
+  }
+
+cudaError_t closest(const float* sph, int n_sph, const float* box, int n_box, int team,
+                    const float* o, const float* d, const float* t_min, const float* t_max,
+                    float* t_out, int* idx_out, float* n_out, int* m_out, int N,
+                    cudaStream_t stream) {
+  PT_BY_TEAM(launch_closest, team, sph, n_sph, box, n_box, o, d, t_min, t_max, t_out, idx_out,
+             n_out, m_out, N, stream)
+}
+
+cudaError_t any_hit(const float* sph, int n_sph, const float* sph_box, int n_sph_box,
+                    const float* tri, int n_tri, const float* tri_box, int n_tri_box, int team,
+                    const float* o, const float* d, const float* t_min, const float* t_max,
+                    bool* occ, int N, cudaStream_t stream) {
+  PT_BY_TEAM(launch_any_hit, team, sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
+             n_tri_box, o, d, t_min, t_max, occ, N, stream)
+}
+
+#undef PT_BY_TEAM
 
 }  // namespace
 
+// team: threads a ray (1, 2, 4, 8, 16 or 32); sph and tri 16-byte aligned;
+// n_box = 0: one cluster of every row.
 extern "C" int pt_sphere_closest(const float* sph, int n_sph, const float* box, int n_box,
-                                 const float* o, const float* d, const float* t_min,
+                                 int team, const float* o, const float* d, const float* t_min,
                                  const float* t_max, float* t_out, int* idx_out, float* n_out,
                                  int* m_out, int N, void* stream) {
   if (N <= 0) return 0;
-  int grid = (N + kThreads - 1) / kThreads;
-  sphere_closest_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sph, n_sph, box, n_box, o, d, t_min, t_max, t_out, idx_out, n_out, m_out, N);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(closest(sph, n_sph, box, n_box, team, o, d, t_min, t_max, t_out,
+                                  idx_out, n_out, m_out, N, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int pt_any_hit(const float* sph, int n_sph, const float* sph_box, int n_sph_box,
                           const float* tri, int n_tri, const float* tri_box, int n_tri_box,
-                          const float* o, const float* d, const float* t_min,
+                          int team, const float* o, const float* d, const float* t_min,
                           const float* t_max, bool* occ, int N, void* stream) {
   if (N <= 0) return 0;
-  int grid = (N + kThreads - 1) / kThreads;
-  any_hit_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box, n_tri_box, o, d, t_min, t_max, occ,
-      N);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(any_hit(sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
+                                  n_tri_box, team, o, d, t_min, t_max, occ, N,
+                                  static_cast<cudaStream_t>(stream)));
 }

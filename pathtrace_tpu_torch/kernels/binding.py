@@ -10,8 +10,14 @@ The pool's two kernels (``pt_fused_bounce``, ``pt_shadow_any_hit``) split
 each lane's sweep over ``split`` threads; :func:`sweep_split` picks it from
 the scene's row count and :func:`launch_shape` gives the block shape. The
 BVH kernels (``pt_bvh_closest``, ``pt_bvh_anyhit``) walk each ray with a
-team of ``team`` threads (:data:`BVH_TEAM`). Every split and every team
-gives the same bits and counts.
+team of ``team`` threads (:data:`BVH_TEAM`). The sphere pair of
+``csrc/intersect.cu`` (``pt_sphere_closest``, ``pt_any_hit``) walks each
+ray's clusters with a team too, chosen by the same rule as a split: the
+fewest threads of :data:`TEAMS` that leave each at most
+``ROWS_PER_THREAD[kernel]`` rows of one cluster's sweep (256 rows in the
+clustered mode, the table's rows in one tile, so one thread on the small
+tables; :func:`cluster_team`). Every split and every team gives the same
+bits and counts.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..models.scene import CLUSTER_SIZE
 from . import build
 
 _P = ctypes.c_void_p
@@ -34,13 +41,19 @@ _SPH_USE, _TRI_USE, _LGT_COLS = 16, 36, 72   # staged bytes a sphere, triangle, 
 
 
 # Rows a thread sweeps at most, by kernel, as measured on an H100 (PERF.md,
-# the time at each split):
+# the time at each split or team):
 # the vertex kernel's one-thread-per-lane shading sets a floor that larger
 # blocks (fewer resident at once) only raise, while the any hit gains down to
-# ~32 rows a thread.
-ROWS_PER_THREAD = {"fused_bounce": 128, "shadow_any_hit": 32}
+# ~32 rows a thread. The cluster walk of csrc/intersect.cu on the 1,940-sphere
+# field's 256-row clusters, 65,536 lanes: the closest hit is fastest at 8
+# threads (32 rows each; 0.097 ms against 0.105 at 16 and 0.107 at 4), the
+# any hit, which only votes, at 32 (8 rows each; 0.061 ms against 0.064 at
+# 16); 12 rows keeps one thread on the small one-tile tables (the Cornell
+# wave's 11 triangles).
+ROWS_PER_THREAD = {"fused_bounce": 128, "shadow_any_hit": 32,
+                   "sphere_closest": 32, "any_hit": 12}
 
-TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH walk can take
+TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH or cluster walk can take
 # Threads sharing one ray's walk in csrc/bvh.cu, by kernel: the fastest of
 # TEAMS in chip_smoke.py's times on the 65,536 config-4 lanes of an H100
 # (PERF.md): the closest hit 0.165 ms at 16 (0.175 at 8, 0.20 at 32), the
@@ -48,15 +61,27 @@ TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH walk can take
 BVH_TEAM = {"bvh_closest": 16, "bvh_anyhit": 32}
 
 
-def sweep_split(rows: int, kernel: str) -> int:
-    """Threads sharing one lane's sweep over ``rows`` sphere and triangle
-    rows (the tables' padded row counts): the fewest of :data:`SPLITS` that
-    leave each thread at most ``ROWS_PER_THREAD[kernel]`` rows (one for a
-    small scene, where a split only adds shuffles)."""
+def sweep_split(rows: int, kernel: str, choices=SPLITS) -> int:
+    """Threads sharing one sweep over ``rows`` rows (the pool's kernels: a
+    lane's sphere and triangle rows, the tables' padded row counts): the
+    fewest of ``choices`` that leave each thread at most
+    ``ROWS_PER_THREAD[kernel]`` rows (one for a small scene, where a split
+    only adds shuffles)."""
     split = 1
-    while split < SPLITS[-1] and rows > split * ROWS_PER_THREAD[kernel]:
+    while split < choices[-1] and rows > split * ROWS_PER_THREAD[kernel]:
         split *= 2
     return split
+
+
+def cluster_team(kernel: str, *tables) -> int:
+    """The team of :data:`TEAMS` that ``kernel`` (``"sphere_closest"`` or
+    ``"any_hit"``) takes on ``tables``, ``(rows, boxes)`` pairs of row
+    tables and their cluster boxes (None or no rows: one tile): the
+    :func:`sweep_split` of the longest sweep, a cluster's 256 rows or a
+    whole one-tile table."""
+    rows = max(min(t.shape[0], CLUSTER_SIZE) if b is not None and b.shape[0] else t.shape[0]
+               for t, b in tables)
+    return sweep_split(rows, kernel, TEAMS)
 
 
 def launch_shape(split: int) -> tuple[int, int]:
@@ -103,9 +128,9 @@ def library() -> ctypes.CDLL:
         lib.pt_fused_bounce.restype = _I
         lib.pt_shadow_any_hit.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _P]
         lib.pt_shadow_any_hit.restype = _I
-        lib.pt_sphere_closest.argtypes = [_P, _I, _P, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_sphere_closest.argtypes = [_P, _I, _P, _I, _I] + [_P] * 8 + [_I, _P]
         lib.pt_sphere_closest.restype = _I
-        lib.pt_any_hit.argtypes = [_P, _I] * 4 + [_P] * 5 + [_I, _P]
+        lib.pt_any_hit.argtypes = [_P, _I] * 4 + [_I] + [_P] * 5 + [_I, _P]
         lib.pt_any_hit.restype = _I
         lib.pt_bvh_closest.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 10 + [_I, _P]
         lib.pt_bvh_closest.restype = _I
@@ -182,25 +207,43 @@ def _boxes(box) -> tuple:
     return (None, 0) if box is None or box.shape[0] == 0 else (box.data_ptr(), box.shape[0])
 
 
-def launch_sphere_closest(sph, o, d, t_min, t_max, t, idx, n, m, box=None) -> None:
-    """``box``: ``Tables.sph_box`` for the clustered mode, else one tile."""
+def _team(team, default, *tables) -> int:
+    """``team`` (None: ``default``); raises on a team size the kernels lack,
+    or on a row table the float4 row loads cannot read."""
+    team = default if team is None else team
+    if team not in TEAMS:
+        raise ValueError(f"team {team} not in {TEAMS}")
+    for name, tab in tables:
+        if tab.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return team
+
+
+def launch_sphere_closest(sph, o, d, t_min, t_max, t, idx, n, m, box=None, team=None) -> None:
+    """``box``: ``Tables.sph_box`` for the clustered mode, else one tile;
+    ``team``: threads a ray (default :func:`cluster_team`)."""
+    team = _team(team, cluster_team("sphere_closest", (sph, box)), ("sph", sph))
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_sphere_closest(
-            sph.data_ptr(), sph.shape[0], *_boxes(box), o.data_ptr(), d.data_ptr(),
+            sph.data_ptr(), sph.shape[0], *_boxes(box), team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(), idx.data_ptr(),
             n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "sphere_closest")
 
 
-def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None) -> None:
-    """``sph_box``/``tri_box``: cluster boxes of 256 rows each, or one tile."""
+def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None,
+                   team=None) -> None:
+    """``sph_box``/``tri_box``: cluster boxes of 256 rows each, or one tile;
+    ``team``: threads a ray (default :func:`cluster_team`)."""
+    team = _team(team, cluster_team("any_hit", (sph, sph_box), (tri, tri_box)),
+                 ("sph", sph), ("tri", tri))
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_any_hit(
             sph.data_ptr(), sph.shape[0], *_boxes(sph_box), tri.data_ptr(), tri.shape[0],
-            *_boxes(tri_box),
+            *_boxes(tri_box), team,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             occ.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
@@ -211,12 +254,7 @@ def _bvh_team(tables, team, kernel: str) -> int:
     """Team size of a ``csrc/bvh.cu`` launch (None: :data:`BVH_TEAM`);
     raises on a team size the kernels lack, or on a table the float4 row
     loads cannot read."""
-    team = BVH_TEAM[kernel] if team is None else team
-    if team not in TEAMS:
-        raise ValueError(f"team {team} not in {TEAMS}")
-    if tables.tri.data_ptr() % 16:
-        raise ValueError("tables.tri must be 16-byte aligned")
-    return team
+    return _team(team, BVH_TEAM[kernel], ("tables.tri", tables.tri))
 
 
 def _counts(counts) -> tuple:

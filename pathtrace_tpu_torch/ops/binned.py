@@ -62,15 +62,16 @@ _TWIN_RAYS = 4096           # rays per step of the round twins
 
 def cluster_entries(o, d, t_min, t_max, boxes):
     """Conservative entry distance of each ray into each cluster box
-    (``boxes`` ``(C, 8)`` rows ``[min | max | 0 0]``): ``(N, C)``, +inf where
-    the ``[t_min, t_max]`` segment misses the box or the box is inverted."""
+    (``boxes`` ``(C, 8)`` rows ``[min | max | 0 0]``, or ``(N, C, 6)`` boxes
+    of each ray's own): ``(N, C)``, +inf where the ``[t_min, t_max]`` segment
+    misses the box or the box is inverted."""
     inv = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
-    lo, hi = boxes[:, 0:3], boxes[:, 3:6]
-    a = (lo[None, :, :] - o[:, None, :]) * inv[:, None, :]
-    b = (hi[None, :, :] - o[:, None, :]) * inv[:, None, :]
+    lo, hi = boxes[..., 0:3], boxes[..., 3:6]
+    a = (lo - o[:, None, :]) * inv[:, None, :]
+    b = (hi - o[:, None, :]) * inv[:, None, :]
     tn = torch.maximum(torch.minimum(a, b).amax(dim=-1), t_min[:, None])
     tf = torch.minimum(torch.maximum(a, b).amin(dim=-1), t_max[:, None])
-    valid = (lo[:, 0] <= hi[:, 0])[None, :]
+    valid = lo[..., 0] <= hi[..., 0]
     return torch.where((tn <= tf) & valid, tn, _INF)
 
 

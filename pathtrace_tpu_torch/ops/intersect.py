@@ -33,7 +33,10 @@ and on the two opt-in per-ray traversals that ``method="binned"`` and
 Past 512 sphere rows (the JAX ``sph_small`` gate) every route passes the
 sphere kernels the 256-row sphere cluster boxes (``Tables.sph_box``), and
 :func:`sphere_closest` and :func:`any_hit` run their clustered mode, as the
-JAX ``sphere_closest``/``any_hit`` do. A scene with <= 64 triangles and more
+JAX ``sphere_closest``/``any_hit`` do: a team of threads walks each ray's
+entered clusters nearest-first (``csrc/intersect.cu``);
+:func:`cluster_walk_reference` is that walk in plain torch, with its
+per-ray counts. A scene with <= 64 triangles and more
 than 512 spheres takes the flat route: the JAX package skips
 ``combined_closest_small`` there and runs the one-tile ``triangle_closest``
 beside the clustered spheres; the flat route's one padded 256-row cluster
@@ -97,6 +100,7 @@ _BOX_COLS = 8      # min, max, 2 zeros (sphere boxes: min, max, reach, least rad
 # routes, relative to 1 + their largest coordinate: slab-test rounding then
 # never culls a cluster that holds a hit the brute-force twin accepts.
 _BOX_MARGIN = 1e-4
+_ROOT_ERR = 2.0**-17   # csrc/intersect.cu kRootErr: the sphere root's error over L^2
 
 
 class Hit(NamedTuple):
@@ -484,13 +488,135 @@ def bvh_anyhit_reference(tables: Tables, o, d, t_min, t_max):
     return occ
 
 
+def sphere_cluster_entries(o, d, t_min, t_max, box):
+    """Entry of each ray's ``[t_min, t_max]`` into each sphere cluster box
+    (``Tables.sph_box`` rows) widened by the ray's root-error pad, in the op
+    order of ``csrc/intersect.cu :: sphere_entry``: ``(N, C)``, inf where the
+    segment misses the widened box (on a NaN range every box, where the
+    kernel's gate then visits nothing)."""
+    oo = o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1] + o[:, 2] * o[:, 2]
+    dd = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    gain = torch.sqrt(_ROOT_ERR + 8.0 * torch.abs(dd - 1.0))
+    pad = gain[:, None] * (torch.sqrt(oo)[:, None] + box[None, :, 6])
+    pad = torch.fmin(pad, pad * pad / (2.0 * box[None, :, 7]))[:, :, None]
+    wide = torch.cat([box[None, :, 0:3] - pad, box[None, :, 3:6] + pad], dim=2)
+    from .binned import cluster_entries
+
+    return cluster_entries(o, d, t_min, t_max, wide)
+
+
+def cluster_walk_reference(sph, o, d, t_min, t_max, box, tri=None, tri_box=None,
+                           anyhit: bool = False, chunk: int = 8192):
+    """The walk of ``csrc/intersect.cu`` step for step, vectorised over rays
+    in chunks of ``chunk``: each ray's entered 256-row clusters (``box``:
+    ``Tables.sph_box``; ``tri_box``: the flat route's triangle boxes; None
+    or no rows: the whole table as one cluster entered at ``t_min``) in
+    ascending (entry, id) order while the entry is ``<= min(best_t,
+    t_max)`` (``t_max`` for the any hit). Sphere entries are
+    :func:`sphere_cluster_entries`, triangle entries the plain slab
+    entries. A swept cluster gives its least ``(t, row)`` with ``t <=`` that
+    bound, which replaces the best on a smaller ``t`` or an equal ``t`` in a
+    lower row. The any hit walks the sphere clusters, then those of ``tri``,
+    stops at the first cluster with a hit and walks nothing on an empty or
+    NaN range.
+
+    Returns ``(t, row, outward normal, material, clusters visited, rows
+    tested)`` (the any hit: ``(occluded, clusters visited, rows tested)``),
+    the counts int32 ``(N,)``; rows tested are the rows of the clusters swept
+    (the any-hit kernel's vote may stop inside the last one). The hits equal
+    the brute-force twins'."""
+    tri = sph.new_zeros((0, _TRI_COLS)) if tri is None else tri
+    parts = [_cluster_chunk(sph, box, tri, tri_box, o[a:a + chunk], d[a:a + chunk],
+                            t_min[a:a + chunk], t_max[a:a + chunk], anyhit)
+             for a in range(0, max(t_min.shape[0], 1), chunk)]
+    res = tuple(torch.cat(x) for x in zip(*parts))
+    if anyhit:
+        return res
+    best_t, best_i, visited, tested = res
+    return (*_sphere_record(sph, o, d, best_t, best_i), visited, tested)
+
+
+def _cluster_chunk(sph, box, tri, tri_box, o, d, t_min, t_max, anyhit):
+    """:func:`cluster_walk_reference` on one chunk of rays. Each pass moves
+    every ray one cluster: it finds its next cluster (or stops), and the
+    rays that found one sweep it."""
+    from .binned import cluster_entries
+
+    n, dev = t_min.shape[0], t_min.device
+    best_t = torch.full((n,), _INF, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    visited = torch.zeros(n, dtype=torch.int32, device=dev)
+    tested = torch.zeros(n, dtype=torch.int32, device=dev)
+    # The any hit walks nothing on an empty or NaN range.
+    done = ~(t_max >= t_min) if anyhit else torch.zeros(n, dtype=torch.bool, device=dev)
+    phases = [(sph, box, True)] + ([(tri, tri_box, False)] if anyhit else [])
+    for rows, boxes, is_sph in phases:
+        m, cols = rows.shape
+        if m == 0:
+            continue
+        if boxes is not None and boxes.shape[0]:
+            size = SPH_CLUSTER_SIZE
+            entries = (sphere_cluster_entries if is_sph else cluster_entries)(
+                o, d, t_min, t_max, boxes)
+        else:                                   # one tile, entered at t_min
+            size, entries = m, t_min[:, None]
+        n_cl = -(-m // size)
+        fill = rows.new_full((n_cl * size - m, cols), math.nan if is_sph else 0.0)
+        table = torch.cat([rows, fill]).view(n_cl, size, cols)
+        last_e = torch.full((n,), -_INF, device=dev)
+        last_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        live = ~done
+        while bool(live.any()):
+            act = live.nonzero().squeeze(1)
+            bound = t_max if anyhit else torch.minimum(t_max, best_t)   # NaN t_max stays NaN
+            e, c = _successor(entries[act], last_e[act], last_c[act])
+            go = (e < _INF) & (e <= bound[act])
+            live[act[~go]] = False
+            last_e[act], last_c[act] = e, c
+            ray, cl = act[go], c[go]
+            if not ray.numel():
+                continue
+            visited[ray] += 1
+            tested[ray] += torch.clamp(m - cl * size, max=size).to(torch.int32)
+            k = ray.numel()
+            blk = table[cl].reshape(k * size, cols)
+            ro, rd, lo, hi = (x[ray].repeat_interleave(size, dim=0) for x in (o, d, t_min, bound))
+            o3, d3, lo, hi = ro.T[:, :, None], rd.T[:, :, None], lo[:, None], hi[:, None]
+            if is_sph:
+                t = _sphere_ts(blk, o3, d3, lo)
+                ok = (t >= lo) & (t <= hi)
+            else:
+                ok, t = _tri_hits(blk, o3, d3, hi, lo)
+            ts = torch.where(ok, t, _INF).view(k, size)
+            if anyhit:
+                hit = ray[(ts < _INF).any(dim=1)]
+                occ[hit] = True
+                done[hit] = True
+                live[hit] = False
+                continue
+            lt, arg = torch.min(ts, dim=1)                     # first minimum: the lower row
+            lr = cl * size + arg
+            bt, bi = best_t[ray], best_i[ray]
+            better = (lt < bt) | ((lt == bt) & (lr < bi) & (lt < _INF))
+            best_t[ray] = torch.where(better, lt, bt)
+            best_i[ray] = torch.where(better, lr, bi)
+    return (occ, visited, tested) if anyhit else (best_t, best_i, visited, tested)
+
+
 def sphere_closest_reference(sph, o, d, t_min, t_max):
     """Twin of ``sphere_closest``: ``(t, row, outward normal, material)``,
     the first row on equal ``t``; a miss is ``(inf, -1, 0, 0)``. The outward
     normal is ``(o + t d - c) / r`` with the table's ``1/r``."""
     best_t, arg = torch.min(_sph_ts(sph, o, d, t_min, t_max), dim=0)
+    return _sphere_record(sph, o, d, best_t, arg)
+
+
+def _sphere_record(sph, o, d, best_t, arg):
+    """``(t, row, outward normal, material)`` of the rows ``arg`` at
+    ``best_t`` (a miss where ``best_t`` is inf)."""
     hit = best_t < _INF
-    row = sph[arg]
+    row = sph[arg.clamp_min(0)]
     tt = torch.where(hit, best_t, 0.0)[:, None]
     normal = torch.where(hit[:, None], (o + tt * d - row[:, 0:3]) * row[:, 4:5], 0.0)
     idx = torch.where(hit, arg, -1).to(torch.int32)

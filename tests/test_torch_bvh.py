@@ -41,10 +41,11 @@ from pathtrace_tpu_torch.convert import scene_from_arrays, split_fields  # noqa:
 from pathtrace_tpu_torch.ops import intersect, shade  # noqa: E402
 from pathtrace_tpu_torch.ops.binned import cluster_entries  # noqa: E402
 
+from .teamutil import NONE, team_successor, team_sweep  # noqa: E402
+
 INF = float("inf")
 N = 1024
 TEAMS = (1, 2, 4, 8, 16, 32)
-NONE = 2**31 - 1         # csrc/bvh.cu kNone: no row, no box
 
 
 @pytest.fixture(scope="module")
@@ -159,62 +160,6 @@ def test_model_counts_equal_the_scalar_walk(mesh):
 
 
 # ---- The team's split sweep, successor search and masked combine ----
-
-def team_mask(lane, k):
-    """``csrc/geom.cuh :: team_mask`` for the warp lane ``lane``."""
-    return 0xFFFFFFFF if k >= 32 else ((1 << k) - 1) << (lane & ~(k - 1))
-
-
-def warp_group_min(vals, k):
-    """``group_min`` on a 32-lane warp: each lane's ``(t, id)``, the
-    butterfly of shuffles over xor offsets below k, each reading only lanes
-    in its team's mask. Returns every lane's result."""
-    vals = list(vals)
-    off = k // 2
-    while off > 0:
-        nxt = []
-        for lane, (t, c) in enumerate(vals):
-            src = lane ^ off
-            assert team_mask(lane, k) >> src & 1            # the shuffle stays in the team
-            ot, oc = vals[src]
-            nxt.append((ot, oc) if (ot < t or (ot == t and oc < c)) else (t, c))
-        vals = nxt
-        off //= 2
-    return vals
-
-
-def team_sweep(ts_lanes, base, k):
-    """The closest kernel's leaf sweep for the 32 / k teams of a warp, team
-    m sweeping the screened row values ``ts_lanes[m]`` (inf: no hit): thread
-    j keeps its strict first minimum of rows j, j + k, ... from (inf, NONE),
-    then ``group_min``. Returns every lane's ``(t, row)``."""
-    vals = []
-    for lane in range(32):
-        ts, j = ts_lanes[lane // k], lane % k
-        bt, br = INF, NONE
-        for r in range(j, len(ts), k):
-            if ts[r] < bt:
-                bt, br = ts[r], base + r
-        vals.append((bt, br))
-    return warp_group_min(vals, k)
-
-
-def team_successor(entries_lanes, last, k):
-    """``next_group``/``next_leaf`` for the teams of a warp: thread j scans
-    boxes j, j + k, ... for the least entered (entry, id) after its team's
-    ``last``, then ``group_min``."""
-    vals = []
-    for lane in range(32):
-        es, j = entries_lanes[lane // k], lane % k
-        le, lc = last[lane // k]
-        be, bc = INF, NONE
-        for c in range(j, len(es), k):
-            e = es[c]
-            if e < INF and (e > le or (e == le and c > lc)) and e < be:
-                be, bc = e, c
-        vals.append((be, bc))
-    return warp_group_min(vals, k)
-
 
 def _leaf_lanes(mesh, seed):
     """Screened t of the last real leaf's rows (86 triangles, 42 zero padding

@@ -11,15 +11,26 @@ carried over with ``scene_from_arrays``. The JAX side runs
 the JAX engines run their CPU default route (``bruteforce``). The port runs
 its kernels' plain twins on CPU tensors.
 
-Whole renders are pinned to seed 1. At a vertex on a sphere far from the
-origin the kernels' ``|c|^2 - r^2`` form can find the same sphere again just
-past ``t_min`` (t = 0.0014 to 0.0039 on 5 peek rays of the seed-3 wave); the
-``o - c`` form of the JAX CPU route does not, and the Pallas route in
-interpret mode rounds those knife edges otherwise (XLA contracts
-multiply-adds). Such a flip parts one path. Over seeds 0-7 of these 8x8
-frames (pool and wave, three integrators) seeds 0, 3 and 4 parted a path
-against the CPU route; seeds 1, 2, 5, 6 and 7 give equal counts and images
-on all six renders.
+Whole renders are pinned to seed 1 against the JAX CPU route and to seed 7
+against the JAX composed pool under ``method="pallas_interpret"``. At a
+vertex on a sphere far from the origin the kernels' ``|c|^2 - r^2`` form can
+find the same sphere again just past ``t_min`` (t = 0.0014 to 0.0039 on 5
+peek rays of the seed-3 wave); the ``o - c`` form of the JAX CPU route does
+not. Such a flip parts one path. Over seeds 0-7 of these 8x8 frames (pool
+and wave, three integrators) seeds 0, 3 and 4 parted a path against the CPU
+route; seeds 1, 2, 5, 6 and 7 give equal counts and images on all six
+renders. The interpreted Pallas kernels share the form, and the pool's
+counts equal theirs on seeds 0, 1, 2, 4, 6 and 7 for all three integrators;
+seeds 3 and 5 part at knife edges of the form's float32 rounding, which the
+jitted interpreted kernel rounds otherwise (XLA fuses and contracts the
+interpreted ops; its sqrt is not correctly rounded). Seed 3: the port and
+the JAX pool run without jit both re-hit a vertex's own sphere at t =
+0.00142 (the origin 1.3e-5 inside it) and trace 410 rays, where the jitted
+kernel finds the ground at t = 1.18 (414 rays). Seed 5: no hit differs on
+the port's rays, but the interpreted kernel's t on the same sphere differs
+from the port's by up to 1.6e-3; the shifted origins part a near-grazing ray
+at the fifth bounce step, and the port's pool fed the interpreted kernel's
+hit records traces the JAX pool's 416 rays exactly.
 
 Tolerances, and why (the bounds of ``tests/test_torch_intersect.py``):
 prim ids equal except on equal-``t`` ties across clusters, which the JAX
@@ -292,8 +303,10 @@ def test_sphere_pad_covers_the_root_error():
     assert (off[ok] <= pad[ok]).all(), (off[ok] / pad[ok]).max()
 
 
-def _render_both(jsc, jcam, **kw):
-    img, counters, iters = jax_pool.render_pool(jsc, jcam, **kw)
+def _render_both(jsc, jcam, jax_method=None, **kw):
+    """The JAX pool (``jax_method``: its ``method``, None its CPU default)
+    and the port's pool on the same frame."""
+    img, counters, iters = jax_pool.render_pool(jsc, jcam, method=jax_method, **kw)
     shade.LAUNCHES.clear()
     got = pool.render_pool(scene_from_arrays(*split_fields(jsc), device="cpu"),
                            camera_from_arrays(*split_fields(jcam), device="cpu"), **kw)
@@ -314,6 +327,22 @@ def test_pool_matches_jax_many_spheres_580(integrator):
     assert_images_match(timg.numpy(), img)
     if integrator == "mis":   # the counts measured for the JAX pool
         assert (pool.ray_count(tcounters), titers) == (414, 16)
+
+
+@pytest.mark.parametrize("integrator", ["mis", "nee", "brdf_only"])
+def test_pool_matches_jax_pallas_interpret_580(integrator):
+    """The same frame at seed 7 against the JAX composed pool under
+    ``method="pallas_interpret"``: its clustered kernels in interpret mode,
+    which share the kernels' ``|c|^2 - r^2`` sphere form. Equal rays, busy
+    slots and iterations."""
+    (img, counters, iters), (timg, tcounters, titers) = _render_both(
+        jax_scenes.many_spheres(n_per_side=12), jax_scenes.many_spheres_camera(8, 8),
+        width=8, height=8, spp=2, integrator=integrator, max_bounces=4, num_slots=64, seed=7,
+        jax_method="pallas_interpret")
+    assert pool.ray_count(tcounters) == jax_pool.ray_count(counters)
+    assert pool.busy_count(tcounters) == jax_pool.busy_count(counters)
+    assert titers == iters
+    assert_images_match(timg.numpy(), img)
 
 
 @pytest.mark.parametrize("integrator", ["mis", "nee", "brdf_only"])

@@ -1,6 +1,6 @@
 """Time a redesigned kernel pair of one checkout of the repository on the GPU.
 
-    python3 tools/time_kernels.py ROOT pool|bvh
+    python3 tools/time_kernels.py ROOT pool|bvh|cluster
 
 Imports ``chip_smoke`` and ``pathtrace_tpu_torch`` from the checkout at
 ROOT, builds its kernels, and times raw launches with CUDA events
@@ -14,16 +14,24 @@ values:
 - ``bvh``: ``bvh_closest`` and ``bvh_anyhit`` on the lanes of phase 3b
   (S = 65,536 camera and bounce rays of the 70k-triangle mesh scene, capped
   by the sphere hits, and their NEE shadow rays), at every team size
-  (``TEAMS``).
+  (``TEAMS``);
+- ``cluster``: the clustered ``sphere_closest`` and ``any_hit`` (sphere and
+  triangle boxes) on the lanes of phase 3e (camera and bounce rays of the
+  1,940-sphere field and their NEE shadow rays) at 16,384 and 65,536 lanes,
+  and the flat ``any_hit`` on the 65,536 shadow lanes of
+  ``mesh_scene(2000)`` with its triangle boxes, at every team size where
+  the checkout's launchers take ``team``; and the one-tile modes on the
+  lanes of phase 3b (3 spheres) at the host's team.
 
-Prints one JSON line: the card, ROOT, and the milliseconds (kernel pair per
-setting; per scene for ``pool``). To compare two versions on one card, run
-it in turns in one command (old, new, new, old), each checkout in its own
-process.
+Prints one JSON line: the card, ROOT, and the milliseconds (kernels per
+setting; per scene for ``pool``, per lane set for ``cluster``). To compare
+two versions on one card, run it in turns in one command (old, new, new,
+old), each checkout in its own process.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import sys
@@ -31,15 +39,14 @@ import sys
 import torch
 
 
-def pair_ms(cs, binding, knob, values, first, second):
-    """``{setting: (ms of first(**kw), ms of second(**kw))}`` at the host's
-    setting ("host", no keyword) and at each of ``binding.<values>`` as
-    ``knob=value``, where the checkout's binding has that table."""
+def pair_ms(cs, knob, values, *fns):
+    """``{setting: (ms of fn(**kw) for each of fns)}`` at the host's setting
+    ("host", no keyword) and at each of ``values`` as ``knob=value``."""
     times = {}
-    for value in (None,) + tuple(getattr(binding, values, None) or ()):
+    for value in (None,) + tuple(values):
         kw = {} if value is None else {knob: value}
-        times["host" if value is None else str(value)] = (
-            cs.cuda_ms(lambda: first(**kw)), cs.cuda_ms(lambda: second(**kw)))
+        times["host" if value is None else str(value)] = tuple(
+            cs.cuda_ms(lambda: fn(**kw)) for fn in fns)
     return times
 
 
@@ -66,7 +73,7 @@ def pool_ms(cs, binding, dev):
                       **shade.kernel_flags("mis", scene.has_tri_lights, scene.has_sph_lights,
                                            scene.has_oren_nayar, scene.has_pbr))
         ms[name] = pair_ms(
-            cs, binding, "split", "SPLITS",
+            cs, "split", getattr(binding, "SPLITS", ()),
             lambda **x: binding.launch_fused_bounce(tables, *batch, out, **launch, **x),
             lambda **x: binding.launch_shadow_any_hit(tables, so, sd, st, occ, eps=shade.EPS,
                                                       **x))
@@ -89,13 +96,55 @@ def bvh_ms(cs, binding, dev):
            torch.empty((S, 3), device=dev), torch.empty(S, dtype=torch.int32, device=dev))
     occ = torch.empty(S, dtype=torch.bool, device=dev)
     return pair_ms(
-        cs, binding, "team", "TEAMS",
+        cs, "team", getattr(binding, "TEAMS", ()),
         lambda **x: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out, **x),
         lambda **x: binding.launch_bvh_anyhit(tables, so, sd, lo, st, occ, **x))
 
 
+def cluster_ms(cs, binding, dev):
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+
+    def lanes(scene, camera):
+        tables = intersect.build_tables(scene)
+        (o, d), (so, sd, st) = cs.lane_rays(scene, camera, tables, cs.WAVE_S)
+        return tables, o, d, so, sd, st
+
+    S = cs.WAVE_S
+    lo = torch.full((S,), shade.EPS, device=dev)
+    hi = torch.full((S,), float("inf"), device=dev)
+    out = (torch.empty(S, device=dev), torch.empty(S, dtype=torch.int32, device=dev),
+           torch.empty((S, 3), device=dev), torch.empty(S, dtype=torch.int32, device=dev))
+    occ = torch.empty(S, dtype=torch.bool, device=dev)
+    teams = (binding.TEAMS if "team" in inspect.signature(binding.launch_sphere_closest).parameters
+             else ())
+    t, o, d, so, sd, st = lanes(cs.sphere_field(dev), scenes.many_spheres_camera(1920, 1080, dev))
+    tri = t.tri[:t.tri_rows]
+    ms = {}
+    for m in (cs.SLICE_S, S):
+        ms[str(m)] = pair_ms(
+            cs, "team", teams,
+            lambda **x: binding.launch_sphere_closest(t.sph, o[:m], d[:m], lo[:m], hi[:m],
+                                                      *(y[:m] for y in out), box=t.sph_box, **x),
+            lambda **x: binding.launch_any_hit(t.sph, tri, so[:m], sd[:m], lo[:m], st[:m],
+                                               occ[:m], sph_box=t.sph_box, tri_box=t.leaf, **x))
+    t, _, _, so, sd, st = lanes(scenes.mesh_scene(cs.FLAT_TRIS, device=dev),
+                                scenes.mesh_scene_camera(1920, 1080, dev))
+    tri = t.tri[:t.tri_rows]
+    ms[f"mesh_{cs.FLAT_TRIS}"] = pair_ms(
+        cs, "team", teams,
+        lambda **x: binding.launch_any_hit(t.sph, tri, so, sd, lo, st, occ, tri_box=t.leaf, **x))
+    t, o, d, so, sd, st = lanes(scenes.mesh_scene(device=dev),
+                                scenes.mesh_scene_camera(1920, 1080, dev))
+    ms["one_tile"] = pair_ms(   # phase 3b's config-4 lanes, 3 spheres, at the host's team
+        cs, "team", (),
+        lambda: binding.launch_sphere_closest(t.sph, o, d, lo, hi, *out),
+        lambda: binding.launch_any_hit(t.sph, t.tri[:0], so, sd, lo, st, occ))
+    return ms
+
+
 def main() -> int:
-    if len(sys.argv) != 3 or sys.argv[2] not in ("pool", "bvh"):
+    if len(sys.argv) != 3 or sys.argv[2] not in ("pool", "bvh", "cluster"):
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
@@ -108,7 +157,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     build.build()
-    ms = (pool_ms if sys.argv[2] == "pool" else bvh_ms)(cs, binding, dev)
+    ms = {"pool": pool_ms, "bvh": bvh_ms, "cluster": cluster_ms}[sys.argv[2]](cs, binding, dev)
     print(json.dumps({"card": cs.nvidia_smi_line(), "root": root, "pair": sys.argv[2],
                       "ms": ms}))
     return 0
