@@ -56,13 +56,20 @@ route for scenes of <= 64 triangles, the flat route for 64 < triangles <
 The opt-in per-ray mesh traversals (``method="binned"|"resident"``):
 
 3d. their four kernels against their twins on the card, bitwise, at the
-    65,536 lanes of phase 3b: the binned round kernels on the first round's
-    sorted waves; the binned drivers against the same drivers on the round
-    twins; both drivers and the resident kernels against the brute-force
-    twin on every lane; CUDA-event times, the drivers' rounds counted;
+    65,536 lanes of phase 3b: the binned round kernels at every team size
+    (1-32 threads a sorted ray) on every round's sorted wave of one call of
+    each binned driver (captured by wrapping ``binned.round_closest``/
+    ``round_anyhit``), on edge waves (sentinel keys, t_up NaN, -1, 0, inf,
+    t_min at the hit's t) and on the tie case (:func:`binned_tie_tables`);
+    the binned drivers against the same drivers on the round twins; both
+    drivers and the resident kernels against the brute-force twin on every
+    lane; CUDA-event times (the round pair at every team on the first
+    round's wave and summed over a driver call's waves), the drivers'
+    rounds counted;
 5d. config 4 at 1 spp through ``render_pool(method=m)`` for bvh, binned and
-    resident: the same rays, iterations and a bitwise-equal image; wall,
-    Mrays/s, launches per iteration and the device's busy share;
+    resident: the same rays and iterations (``METHOD_EXPECT``) and a
+    bitwise-equal image; wall, Mrays/s, launches and each hand-written
+    kernel's device ms per iteration and the device's busy share;
 4d. the wave engine on mesh_scene(2000), 32x32, 1 spp, under binned and
     resident, on the card against the CPU twins;
 6.  the CLI: ``python -m pathtrace_tpu_torch render --engine wave --device
@@ -102,8 +109,10 @@ its launches on its path and its roofline bound; the pool's two kernels with
 the host's split and their time at every split, the BVH pair with the host's
 team, its time at every team and its work a ray, ``bvh_closest_counters`` with its launches in
 phase 3b, the clustered modes with their time and bound at 16,384 lanes, the
-host's team, their time at every team and their work a ray) and the card's
-name and power limit;
+host's team, their time at every team and their work a ray, the binned round
+pair with the host's team, its time at every team on the first round's wave
+and summed over a driver call's waves, and the call's rounds and ray-rounds)
+and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -111,6 +120,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -193,6 +203,7 @@ METHODS = ("bvh", "binned", "resident")   # the per-ray traversals, config 4 at 
 METHOD_KERNELS = {"bvh": ("bvh_closest", "bvh_anyhit"),
                   "binned": ("binned_round_closest", "binned_round_anyhit"),
                   "resident": ("resident_closest", "resident_anyhit")}
+METHOD_EXPECT = (6838144, 88)   # config 4 at 1 spp: rays, iterations under every method
 METHOD_WAVE = dict(width=32, height=32, spp=1, integrator="mis", max_bounces=64, seed=0)
 FIELD_N = 22                # many_spheres(n_per_side=22): 1,940 spheres in 8 clusters
 CLUSTER_KERNELS = {
@@ -227,6 +238,7 @@ PEAK_HBM = 3.35e12
 # occluded one. So it is a least time, below what any traversal could take.
 TRI_OPS = 50
 SPH_OPS = 20
+SPIN_CYCLES = 40_000_000  # ~20 ms of the card's clock: queued_ms's launches queue behind it
 CLUSTER_ROWS = 256        # rows of a binned cluster
 RESIDENT_SHARED_BOXES = 1536   # csrc/resident.cu stages up to this many boxes
 
@@ -301,6 +313,27 @@ def cuda_ms(fn, runs: int = 20, calls: int = 10) -> float:
 
 
 # ---- tests/imgutil.py's image budget, copied (tests/ is not imported) ----
+def queued_ms(fn, runs: int = 10, calls: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` (many small kernels): as
+    :func:`cuda_ms`, but each run's launches queue behind a spin kernel of
+    ~20 ms (``torch.cuda._sleep``) enqueued before the start event, so the
+    kernels run back to back and the host's launch overhead between them is
+    not counted."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def assert_images_match(actual, desired, rtol=1e-3, atol=5e-3, max_outliers=3,
                         outlier_cap=2.0):
     a = np.asarray(actual).reshape(-1, 3)
@@ -884,12 +917,160 @@ def _bitwise(name, ref, got, nan_equal=False) -> float:
     return err
 
 
+BINNED_TIE_PAIRS = ((31, 32), (259, 387))   # (A, B) rows of the binned tie case
+BINNED_EDGE_S = 2048        # rays of an edge wave
+
+
+def binned_tie_tables(dev):
+    """Binned tables of two 256-row clusters in a given row order: each holds
+    a triangle A and its copy B in a higher row with another material
+    (:data:`BINNED_TIE_PAIRS`), in the plane z = 0, cluster 1's pair shifted
+    by 10 in x, so rays from z = 5 along -z (:data:`TIE_RAYS`) hit both at
+    t = 5. In cluster 0 a team of K >= 2 tests B (row 32, thread 0) on a
+    lower thread than A (row 31, thread K - 1); in cluster 1 one thread
+    tests both (rows 259 and 387) at every K. Every other row is a small
+    triangle at z = -5, x = 20. The twin's answer is A, the lower row.
+    Returns the tables and the rays ``(o, d, key)``, keyed to their pair's
+    cluster."""
+    from pathtrace_tpu_torch.ops import intersect
+
+    n = 2 * CLUSTER_ROWS
+    v0 = torch.tensor([20.0, 20.0, -5.0], device=dev).repeat(n, 1)
+    e1 = torch.tensor([0.1, 0.0, 0.0], device=dev).repeat(n, 1)
+    e2 = torch.tensor([0.0, 0.1, 0.0], device=dev).repeat(n, 1)
+    mat = torch.ones(n, device=dev)
+    for c, (a, b) in enumerate(BINNED_TIE_PAIRS):
+        for r in (a, b):
+            v0[r] = torch.tensor([10.0 * c - 1.0, -1.0, 0.0])
+            e1[r] = torch.tensor([2.0, 0.0, 0.0])
+            e2[r] = torch.tensor([0.0, 2.0, 0.0])
+        mat[b] = 2.0
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=1, keepdim=True)
+    tri = torch.cat([v0, e1, e2, nrm, mat[:, None], torch.zeros_like(v0)], dim=1).contiguous()
+    pts = torch.stack([v0, v0 + e1, v0 + e2]).view(3, 2, CLUSTER_ROWS, 3)
+    empty = tri.new_zeros((0, 8))
+    tables = intersect.Tables(tri=tri, leaf=intersect._widen(pts.amin(dim=(0, 2)),
+                                                             pts.amax(dim=(0, 2))),
+                              group=empty, sph=empty, sph_box=empty, tri_rows=n, n_groups=0,
+                              route="binned")
+    m = len(TIE_RAYS)
+    o = torch.tensor([[x + 10.0 * c, y, 5.0] for c in range(2) for x, y in TIE_RAYS],
+                     device=dev)
+    d = torch.tensor([[0.0, 0.0, -1.0]] * (2 * m), device=dev)
+    key = torch.tensor([0] * m + [1] * m, dtype=torch.int32, device=dev)
+    return tables, o, d, key
+
+
+def capture_rounds(driver, *args, **kw):
+    """``(result, waves)``: ``driver(*args, **kw)`` (a binned driver of
+    ``ops/binned.py`` on the kernels) and the inputs ``(o, d, t_min, t_up,
+    key)`` of every round kernel it called, in order, taken by wrapping
+    ``binned.round_closest``/``round_anyhit`` for the call."""
+    from pathtrace_tpu_torch.ops import binned
+
+    waves = []
+    rounds = binned.round_closest, binned.round_anyhit
+
+    def capture(round_fn):
+        def wrapped(tables, *wave):
+            waves.append(wave)      # fresh gathers: the driver never writes them again
+            return round_fn(tables, *wave)
+        return wrapped
+
+    binned.round_closest, binned.round_anyhit = (capture(f) for f in rounds)
+    try:
+        result = driver(*args, **kw)
+    finally:
+        binned.round_closest, binned.round_anyhit = rounds
+    return result, waves
+
+
+def binned_edge_wave(wave, t_hit, n_clusters, n=BINNED_EDGE_S):
+    """Edge rays of a sorted round wave ``(o, d, t_min, t_up, key)`` whose
+    twin gave ``t_hit``: ``n`` of its rays, evenly spaced in sorted order
+    (so keys change mid-warp), with, by ray index mod 16: t_up NaN (0), -1
+    (1), 0 (2), inf (4); the sentinel keys -1 (3), C (7) and C + 3 (11) and
+    the next cluster's key (5) mixed in; on hit rays t_min at the hit's t
+    (6), t_up at it (8), or both (9)."""
+    pick = torch.linspace(0, wave[4].shape[0] - 1, n, device=wave[4].device).long()
+    o, d, lo, hi, key = (x[pick].clone() for x in wave)
+    t = t_hit[pick]
+    j = torch.arange(n, device=key.device) % 16
+    hit = torch.isfinite(t)
+    for m, v in ((0, float("nan")), (1, -1.0), (2, 0.0), (4, float("inf"))):
+        hi[j == m] = v
+    for m, v in ((3, -1), (7, n_clusters), (11, n_clusters + 3)):
+        key[j == m] = v
+    key = torch.where(j == 5, (key + 1) % n_clusters, key).to(torch.int32)
+    lo = torch.where(hit & ((j == 6) | (j == 9)), t, lo)
+    hi = torch.where(hit & ((j == 8) | (j == 9)), t, torch.where(j == 6, float("inf"), hi))
+    return o, d, lo.contiguous(), hi.contiguous(), key.contiguous()
+
+
+def hold_binned_rounds(what, tb, closest_waves, anyhit_waves):
+    """Both round kernels through raw launches at every team size (1-32) on
+    each wave, bitwise equal to their twins, outputs scrubbed before each
+    launch. Returns the twins' results."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import binned
+
+    refs_c = [binned.round_closest_reference(tb, *w) for w in closest_waves]
+    refs_a = [binned.round_anyhit_reference(tb, *w) for w in anyhit_waves]
+    for team in binding.TEAMS:
+        for j, (w, ref) in enumerate(zip(closest_waves, refs_c)):
+            out = tuple(torch.full_like(x, float("nan") if x.dtype == torch.float32 else -7)
+                        for x in ref)
+            binding.launch_binned_round_closest(tb, *w, *out, team=team)
+            _bitwise(f"binned_round_closest, {what} wave {j}, team {team}", ref, out)
+        for j, (w, ref) in enumerate(zip(anyhit_waves, refs_a)):
+            occ = ~ref
+            binding.launch_binned_round_anyhit(tb, *w, occ, team=team)
+            _bitwise(f"binned_round_anyhit, {what} wave {j}, team {team}", ref, occ)
+    return refs_c, refs_a
+
+
+def binned_edge_cases(dev, tb, rc, ra, t_rc, t_ra):
+    """The round kernels at every team on the edge waves of the first
+    closest and any-hit rounds (:func:`binned_edge_wave`) and on the tie
+    case (:func:`binned_tie_tables`), where the lower row must win; the
+    closest driver on the tie tables against brute force."""
+    from pathtrace_tpu_torch.ops import binned, intersect, shade
+
+    n_clusters = tb.leaf.shape[0]
+    edges = [binned_edge_wave(rc, t_rc, n_clusters), binned_edge_wave(ra, t_ra, n_clusters)]
+    refs_c, _ = hold_binned_rounds("edge", tb, edges, edges)
+    tt, to, td, key = binned_tie_tables(dev)
+    m = to.shape[0]
+    tlo = torch.full((m,), shade.EPS, device=dev)
+    thi = torch.full((m,), float("inf"), device=dev)
+    tst = torch.tensor([5.0, 4.5] * (m // 2), device=dev)     # the hit at t_max, or short
+    (ref,), (occ,) = hold_binned_rounds("tie", tt, [(to, td, tlo, thi, key)],
+                                        [(to, td, tlo, tst, key)])
+    lower = torch.tensor([a for a, _ in BINNED_TIE_PAIRS], device=dev).repeat_interleave(m // 2)
+    if not ((ref[0] == 5.0).all() and torch.equal(ref[1], lower.to(torch.int32))
+            and (ref[3] == 1).all() and torch.equal(occ, tst == 5.0)):
+        raise AssertionError(f"binned tie case: twin gave {ref}, occlusion {occ}")
+    _bitwise("binned closest driver on the tie tables vs brute force",
+             intersect.triangle_closest_reference(tt, to, td, tlo, thi),
+             binned.triangle_closest_binned(tt, to, td, tlo, thi))
+    dead = sum(int(((w[4] < 0) | (w[4] >= n_clusters)).sum()) for w in edges)
+    hits = sum(int((r[1] >= 0).sum()) for r in refs_c)
+    log(f"[traversal-kernels] edge waves ({len(edges)} x {BINNED_EDGE_S} rays, {dead} sentinel "
+        f"keys, {hits} hits; t_up NaN, -1, 0, inf; t_min and t_up at the hit's t) and the tie "
+        f"case (rows {BINNED_TIE_PAIRS}): both round kernels bitwise equal to their twins at "
+        f"every team, the tie to the lower row")
+
+
 def check_traversal_kernels(dev, scene, lanes):
     """Phase 3d: the binned and resident kernels against their twins on the
-    card, bitwise, at the mesh lanes of phase 3b: the round kernels on the
-    first round's sorted waves; the binned drivers against the same drivers
-    on the round twins; both drivers and the resident kernels against the
-    brute-force twin on every lane."""
+    card, bitwise, at the mesh lanes of phase 3b: the round kernels at every
+    team size on every round's sorted wave of one call of each binned
+    driver (the first round's and every tail round's), on edge waves and on
+    the tie case; the binned drivers against the same drivers on the round
+    twins; both drivers and the resident kernels against the brute-force
+    twin on every lane. The round kernels timed at every team on the first
+    round's wave and summed over the driver call's waves."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.ops import binned, intersect
 
@@ -902,37 +1083,40 @@ def check_traversal_kernels(dev, scene, lanes):
     worst, ms, bounds = {}, {}, {}
     slow = dict(runs=3, calls=1)
 
-    def first_round(o_, d_, t_min, t_max):
-        """The first round's live rays sorted by cluster, as the drivers
-        build them (no hit yet, so the bound is ``t_max``)."""
-        st0, idmask, n_clusters = binned._initial_state(tb, o_, d_, t_min, t_max)
-        live = binned.live_rays(st0["kmin"], idmask, t_max)
-        perm, key = binned._sorted_wave(st0, live, int(live.sum()), idmask, n_clusters)
-        return tuple(x[perm].contiguous() for x in (o_, d_, t_min, t_max)) + (key,)
-
     def outs(n):
         return (torch.empty(n, device=dev), torch.empty(n, dtype=i32, device=dev),
                 torch.empty((n, 3), dtype=f32, device=dev), torch.empty(n, dtype=i32, device=dev))
 
-    # One round of each binned kernel.
-    rc = first_round(o, d, lo, hi_t)
-    ref_rc = binned.round_closest_reference(tb, *rc)
-    worst["binned_round_closest"] = _bitwise("binned_round_closest", ref_rc,
-                                             binned.round_closest(tb, *rc))
-    ra = first_round(so, sd, lo, st)
-    ref_ra = binned.round_anyhit_reference(tb, *ra)
-    worst["binned_round_anyhit"] = _bitwise("binned_round_anyhit", ref_ra,
-                                            binned.round_anyhit(tb, *ra))
-    # The whole binned drivers: on the kernels, on the round twins, brute force.
-    stats_c, stats_a = {}, {}
-    got_c = binned.triangle_closest_binned(tb, o, d, lo, hi_t, stats=stats_c)
+    # The whole binned drivers on the kernels (every round's wave captured),
+    # on the round twins, brute force.
+    stats = {"closest": {}, "anyhit": {}}
+    got_c, waves_c = capture_rounds(binned.triangle_closest_binned, tb, o, d, lo, hi_t,
+                                    stats=stats["closest"])
     _bitwise("binned closest driver vs its round twin",
              binned.triangle_closest_binned(tb, o, d, lo, hi_t, round_twin=True), got_c)
     _bitwise("binned closest driver vs brute force", ref_t, got_c)
-    got_a = binned.triangle_anyhit_binned(tb, so, sd, lo, st, stats=stats_a)
+    got_a, waves_a = capture_rounds(binned.triangle_anyhit_binned, tb, so, sd, lo, st,
+                                    stats=stats["anyhit"])
     _bitwise("binned any-hit driver vs its round twin",
              binned.triangle_anyhit_binned(tb, so, sd, lo, st, round_twin=True), got_a)
     _bitwise("binned any-hit driver vs brute force", ref_occ, got_a)
+    for k, waves in (("closest", waves_c), ("anyhit", waves_a)):
+        sizes = [w[4].shape[0] for w in waves]
+        if (len(sizes), sum(sizes)) != (stats[k]["rounds"], stats[k]["ray_rounds"]):
+            raise AssertionError(f"binned {k}: captured {len(sizes)} waves of {sum(sizes)} rays, "
+                                 f"the driver counted {stats[k]}")
+    # One round of each binned kernel through its wrapper (the host's team),
+    # then both raw at every team on every captured wave: the first round's
+    # wave (the drivers' first sorted wave, no hit yet) and every tail wave.
+    rc, ra = waves_c[0], waves_a[0]
+    refs_c, refs_a = hold_binned_rounds("driver call", tb, waves_c, waves_a)
+    ref_rc, ref_ra = refs_c[0], refs_a[0]
+    worst["binned_round_closest"] = _bitwise("binned_round_closest", ref_rc,
+                                             binned.round_closest(tb, *rc))
+    worst["binned_round_anyhit"] = _bitwise("binned_round_anyhit", ref_ra,
+                                            binned.round_anyhit(tb, *ra))
+    binned_edge_cases(dev, tb, rc, ra, ref_rc[0],
+                      binned.round_closest_reference(tb, *ra)[0])
     # The resident kernels against brute force.
     worst["resident_closest"] = _bitwise("resident_closest", ref_t,
                                          intersect.resident_closest(tr, o, d, lo, hi_t))
@@ -950,14 +1134,30 @@ def check_traversal_kernels(dev, scene, lanes):
              intersect.resident_anyhit(big, so, sd, lo, st))
     del big
 
-    out_c, occ_a = outs(rc[0].shape[0]), torch.empty(ra[0].shape[0], dtype=torch.bool, device=dev)
-    out, occ = outs(S), torch.empty(S, dtype=torch.bool, device=dev)
+    # The round kernels at every team: the first round's wave, and the sum
+    # over the driver call's waves (kernels only, into preallocated outputs).
+    outs_c = [outs(w[4].shape[0]) for w in waves_c]
+    occs_a = [torch.empty(w[4].shape[0], dtype=torch.bool, device=dev) for w in waves_a]
+
+    def launch_c(j, team):
+        binding.launch_binned_round_closest(tb, *waves_c[j], *outs_c[j], team=team)
+
+    def launch_a(j, team):
+        binding.launch_binned_round_anyhit(tb, *waves_a[j], occs_a[j], team=team)
+
+    by_team, call_by_team = {}, {}
+    for k, launch, waves in (("binned_round_closest", launch_c, waves_c),
+                             ("binned_round_anyhit", launch_a, waves_a)):
+        by_team[k] = {team: cuda_ms(lambda: launch(0, team)) for team in binding.TEAMS}
+        call_by_team[k] = {team: queued_ms(lambda: [launch(j, team) for j in range(len(waves))])
+                           for team in binding.TEAMS}
     ms["binned_round_closest"] = (
-        cuda_ms(lambda: binding.launch_binned_round_closest(tb, *rc, *out_c)),
+        by_team["binned_round_closest"][binding.BINNED_TEAM["binned_round_closest"]],
         cuda_ms(lambda: binned.round_closest_reference(tb, *rc), **slow))
     ms["binned_round_anyhit"] = (
-        cuda_ms(lambda: binding.launch_binned_round_anyhit(tb, *ra, occ_a)),
+        by_team["binned_round_anyhit"][binding.BINNED_TEAM["binned_round_anyhit"]],
         cuda_ms(lambda: binned.round_anyhit_reference(tb, *ra), **slow))
+    out, occ = outs(S), torch.empty(S, dtype=torch.bool, device=dev)
     ms["resident_closest"] = (
         cuda_ms(lambda: binding.launch_resident_closest(tr, o, d, lo, hi_t, *out)),
         cuda_ms(lambda: intersect.triangle_closest_reference(tr, o, d, lo, hi_t), **slow))
@@ -975,10 +1175,10 @@ def check_traversal_kernels(dev, scene, lanes):
     n_rc, n_ra = rc[0].shape[0], ra[0].shape[0]
     bounds = {
         "binned_round_closest": bound(
-            nbytes(*rc, *out_c) + cluster_bytes * torch.unique(rc[4]).numel(),
+            nbytes(*rc, *outs_c[0]) + cluster_bytes * torch.unique(rc[4]).numel(),
             n_rc * CLUSTER_ROWS * TRI_OPS),
         "binned_round_anyhit": bound(
-            nbytes(*ra, occ_a) + cluster_bytes * torch.unique(ra[4]).numel(),
+            nbytes(*ra, occs_a[0]) + cluster_bytes * torch.unique(ra[4]).numel(),
             TRI_OPS * (int((~ref_ra).sum()) * CLUSTER_ROWS + int(ref_ra.sum()))),
         "resident_closest": bound(
             nbytes(o, d, lo, hi_t, tr.tri, tr.leaf, *out),
@@ -987,20 +1187,29 @@ def check_traversal_kernels(dev, scene, lanes):
             nbytes(so, sd, lo, st, tr.tri, tr.leaf, occ),
             TRI_OPS * anyhit_tests(tr.leaf, intersect.LEAF, so, sd, lo, st, ref_occ)),
     }
+    extra = {}
+    for k, waves, name in (("binned_round_closest", waves_c, "closest"),
+                           ("binned_round_anyhit", waves_a, "anyhit")):
+        extra[k] = {"team": binding.BINNED_TEAM[k], "ms_by_team": by_team[k],
+                    "call_ms_by_team": call_by_team[k], "rounds": stats[name]["rounds"],
+                    "ray_rounds": stats[name]["ray_rounds"],
+                    "wave_sizes": [w[4].shape[0] for w in waves]}
     log(f"[traversal-kernels] {scene.num_tris} triangles: binned {tb.leaf.shape[0]} clusters "
         f"of 256 rows, resident {tr.leaf.shape[0]} boxes of 128 rows; S={S}. Bitwise equal to "
-        f"their twins: binned_round_closest on the first round's {n_rc} live rays, "
-        f"binned_round_anyhit on {n_ra}; the binned drivers (closest: {stats_c['rounds']} rounds, "
-        f"{stats_c['ray_rounds']} ray-rounds; any hit: {stats_a['rounds']} rounds, "
-        f"{stats_a['ray_rounds']} ray-rounds) equal the same drivers on the round twins and the "
-        f"brute-force twin on every lane; resident_closest and resident_anyhit equal brute force "
-        f"on every lane, with the boxes in shared memory and (padded to {pad + tr.leaf.shape[0]} "
-        f"boxes) in device memory")
+        f"their twins at teams {list(binding.TEAMS)}: binned_round_closest on all "
+        f"{len(waves_c)} waves of a closest driver call (first round {n_rc} rays), "
+        f"binned_round_anyhit on all {len(waves_a)} of an any-hit call (first {n_ra}); the "
+        f"binned drivers equal the same drivers on the round twins and the brute-force twin on "
+        f"every lane; resident_closest and resident_anyhit equal brute force on every lane, "
+        f"with the boxes in shared memory and (padded to {pad + tr.leaf.shape[0]} boxes) in "
+        f"device memory")
     log("[traversal-kernels] ms kernel vs twin: " + ", ".join(
         f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items())
         + f"; whole binned driver on the kernels: closest {drivers['closest']:.4f} ms, "
         f"any hit {drivers['anyhit']:.4f} ms; bounds: {json.dumps(bounds)}")
-    return worst, ms, bounds
+    log("[traversal-kernels] binned round pair by team (first round ms, driver call's sum "
+        "ms), waves: " + json.dumps(extra))
+    return worst, ms, bounds, extra
 
 
 def run_mesh_frame(dev):
@@ -1082,23 +1291,29 @@ def run_config4(scene, camera, smi: str):
     return launches
 
 
-def device_work(fn) -> tuple[float | None, int]:
-    """``(ms, ops)``: device time and the number of device operations
-    (kernels, copies, fills) over one call of ``fn``, from ``torch.profiler``
-    with CUDA activity only; ms is None when the profiler saw no device
-    time."""
+def device_work(fn) -> tuple[float | None, int, dict]:
+    """``(ms, ops, kernel_ms)``: device time and the number of device
+    operations (kernels, copies, fills) over one call of ``fn``, from
+    ``torch.profiler`` with CUDA activity only, and the device ms of each
+    hand-written kernel that ran (by its name, ``<name>_kernel`` in
+    ``csrc/``); ms is None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = {**KERNELS, **MESH_KERNELS, **WAVE_KERNELS, **TRAVERSAL_KERNELS}
+    pattern = re.compile(r"(?<!\w)(" + "|".join(names) + r")_kernel\b")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us, ops = 0.0, 0
+    us, ops, kernel_us = 0.0, 0, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         if t > 0:
             us += t
             ops += e.count
-    return (us / 1e3 if us > 0 else None), ops
+            match = pattern.search(e.key)
+            if match:
+                kernel_us[match[1]] = kernel_us.get(match[1], 0.0) + t
+    return (us / 1e3 if us > 0 else None), ops, {k: v / 1e3 for k, v in kernel_us.items()}
 
 
 def run_config4_methods(scene, camera, smi: str):
@@ -1106,10 +1321,10 @@ def run_config4_methods(scene, camera, smi: str):
     three per-ray traversals. Each equals brute force, so the frames must
     give the same rays, iterations and a bitwise-equal image. Each is timed
     twice, in turns (bvh, binned, resident, resident, binned, bvh: wall,
-    Mrays/s); its hand-written kernels' launches and all its device
-    operations (a third, profiled run) are counted per iteration, and its
-    device busy share is the profiler's device time over each unprofiled
-    wall."""
+    Mrays/s); its hand-written kernels' launches and device ms and all its
+    device operations (a third, profiled run) are counted per iteration, and
+    its device busy share is the profiler's device time over each unprofiled
+    wall. The rays and iterations must repeat ``METHOD_EXPECT``."""
     from pathtrace_tpu_torch.ops import shade
     from pathtrace_tpu_torch.pool import ray_count, render_pool
 
@@ -1138,8 +1353,12 @@ def run_config4_methods(scene, camera, smi: str):
                 f"config 4: {m} gave {rays} rays, {iters} iterations, checksum {checksum}; "
                 f"{first[0]} gave {first[2]}, {first[3]}, {first[4]} (or the images differ)")
     rays, iters = first[2], first[3]
+    if (rays, iters) != METHOD_EXPECT:
+        raise AssertionError(f"config 4 at 1 spp: {rays} rays, {iters} iterations; expected "
+                             f"{METHOD_EXPECT}")
     for m in METHODS:
-        dev_ms, dev_ops = device_work(lambda: render_pool(scene, camera, method=m, **run))
+        dev_ms, dev_ops, kernel_ms = device_work(
+            lambda: render_pool(scene, camera, method=m, **run))
         result = {
             "workload": f"mesh_scene {scene.num_tris} tris {run['width']}x{run['height']} 1spp "
                         f"MIS depth {run['max_bounces']} method {m}",
@@ -1148,6 +1367,7 @@ def run_config4_methods(scene, camera, smi: str):
             "device_ops_per_iter": dev_ops / iters,
             "kernel_launches_per_iter": {k: launches[m][k] / iters for k in sorted(launches[m])},
             "device_ms": dev_ms,
+            "kernel_device_ms_per_iter": {k: v / iters for k, v in sorted(kernel_ms.items())},
             "busy_share": [dev_ms / 1e3 / w for w in walls[m]] if dev_ms else None,
             "card": smi,
         }
@@ -1849,7 +2069,7 @@ def run_cluster_bench(dev, smi: str):
         _, _, iters1 = render_pool(scene, camera, **one)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        dev_ms, dev_ops = device_work(lambda: render_pool(scene, camera, **one))
+        dev_ms, dev_ops, _ = device_work(lambda: render_pool(scene, camera, **one))
         shade.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1942,7 +2162,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     mesh_worst, mesh_ms, mesh_bnd, lanes, mesh_extra, counter_launches = check_mesh_kernels(
         dev, mesh, mesh_cam)
-    trav_worst, trav_ms, trav_bnd = check_traversal_kernels(dev, mesh, lanes)
+    trav_worst, trav_ms, trav_bnd, trav_extra = check_traversal_kernels(dev, mesh, lanes)
     del lanes
     wave_worst, wave_ms, wave_bnd, flat = check_wave_kernels(dev)
     cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra = check_clustered_kernels(dev, flat)
@@ -1993,7 +2213,7 @@ def main() -> int:
         for k, (src, rep) in WAVE_KERNELS.items()
     ] + [
         entry(k, src, rep, method_launches[method_of[k]][k], trav_worst[k], trav_ms[k],
-              trav_bnd[k])
+              trav_bnd[k], **trav_extra.get(k, {}))
         for k, (src, rep) in TRAVERSAL_KERNELS.items()
     ] + [
         entry(k, src, rep, cluster_launches[k], cl_worst[k], cl_ms[k], cl_bnd[k],

@@ -114,7 +114,40 @@ __device__ __forceinline__ unsigned team_mask(int k) {
   return k >= 32 ? 0xffffffffu : ((1u << k) - 1u) << ((threadIdx.x & 31) & ~(k - 1));
 }
 
+// Returns fn<K>(...) for the team size `team` (K = 1, 2, 4, 8, 16 or 32),
+// else cudaErrorInvalidValue: the launch dispatch of the team kernels.
+#define PT_TEAM_LAUNCH(fn, team, ...)      \
+  switch (team) {                          \
+    case 1: return fn<1>(__VA_ARGS__);     \
+    case 2: return fn<2>(__VA_ARGS__);     \
+    case 4: return fn<4>(__VA_ARGS__);     \
+    case 8: return fn<8>(__VA_ARGS__);     \
+    case 16: return fn<16>(__VA_ARGS__);   \
+    case 32: return fn<32>(__VA_ARGS__);   \
+    default: return cudaErrorInvalidValue; \
+  }
+
 constexpr int kNone = 0x7fffffff;  // no row, no box: above every real id
+constexpr int kCheck = 4;          // rows a thread tests between two votes (vote)
+
+// Does any row r of [r0, r1) pass hit(r)? Thread `part` of the team of K
+// (`mask`: its team_mask) tests rows r0 + part, r0 + part + K, ..., and the
+// team votes every kCheck rows a thread; it stops at the first vote that
+// finds a hit and tests no row past r1. Every thread of the team must call
+// it.
+template <int K, typename Hit>
+__device__ __forceinline__ bool vote(int r0, int r1, int part, unsigned mask, Hit hit) {
+  for (int b = r0; b < r1; b += kCheck * K) {
+    bool mine = false;
+#pragma unroll
+    for (int c = 0; c < kCheck; ++c) {
+      const int r = b + c * K + part;
+      if (!mine && r < r1) mine = hit(r);
+    }
+    if (__any_sync(mask, mine)) return true;
+  }
+  return false;
+}
 
 // The team successor scan of a nearest-first walk: the entered box after
 // (*e, *c) in ascending (entry, id) order among boxes 0 .. n - 1, where

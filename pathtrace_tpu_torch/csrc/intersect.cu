@@ -47,9 +47,9 @@
 //   with a strict < and keeps the first cluster's row on equal t, so it can
 //   differ from this one on equal-t ties across clusters and nowhere else.)
 // - The any hit walks the sphere clusters, then the triangle clusters, in
-//   the same order under t_max, votes every kCheck rows a thread and stops at
-//   the first hit; an empty or NaN range occludes nothing. The order is for
-//   speed: any order gives the same boolean.
+//   the same order under t_max, votes every kCheck rows a thread (geom.cuh
+//   :: vote) and stops at the first hit; an empty or NaN range occludes
+//   nothing. The order is for speed: any order gives the same boolean.
 //
 // Cull safety of the sphere boxes. The f32 quadratic cancels for rays far
 // from the origin, so a root the twin accepts can lie off the sphere: its
@@ -106,7 +106,6 @@ constexpr int kSphCols = 8;   // center, k, 1/r, material, 2 zeros
 constexpr int kTriCols = 16;  // v0, e1, e2, normal, material, 3 zeros
 constexpr int kBoxCols = 8;   // min, max; sphere boxes: reach, least radius
 constexpr int kCluster = 256;
-constexpr int kCheck = 4;     // rows a thread tests between two votes of the any hit
 constexpr float kRootErr = 7.62939453125e-06f;  // 2^-17 = 128 u
 using pt::kNone;
 
@@ -159,22 +158,6 @@ __device__ __forceinline__ bool walk(int n_rows, int n_box, const Ray& ray, int 
   while (pt::next_box<K>(n, part, mask, enter, &e, &c) && e <= bound()) {
     const int r0 = c * size;
     if (sweep(r0, min(r0 + size, n_rows))) return true;
-  }
-  return false;
-}
-
-// Does any row r of [r0, r1) pass hit(r)? Thread `part` tests rows r0 +
-// part, r0 + part + K, ..., and the team votes every kCheck rows a thread.
-template <int K, typename Hit>
-__device__ __forceinline__ bool vote(int r0, int r1, int part, unsigned mask, Hit hit) {
-  for (int b = r0; b < r1; b += kCheck * K) {
-    bool mine = false;
-#pragma unroll
-    for (int c = 0; c < kCheck; ++c) {
-      const int r = b + c * K + part;
-      if (!mine && r < r1) mine = hit(r);
-    }
-    if (__any_sync(mask, mine)) return true;
   }
   return false;
 }
@@ -264,8 +247,8 @@ __global__ void __launch_bounds__(kThreads)
       return pt::hit_triangle(tri + static_cast<size_t>(r) * (kTriCols / 4), ray.o, ray.d,
                               ray.lo, ray.hi, &t);
     };
-    auto sph_sweep = [&](int r0, int r1) { return vote<K>(r0, r1, part, mask, sph_hit); };
-    auto tri_sweep = [&](int r0, int r1) { return vote<K>(r0, r1, part, mask, tri_hit); };
+    auto sph_sweep = [&](int r0, int r1) { return pt::vote<K>(r0, r1, part, mask, sph_hit); };
+    auto tri_sweep = [&](int r0, int r1) { return pt::vote<K>(r0, r1, part, mask, tri_hit); };
     hit = walk<K>(n_sph, n_sph_box, ray, part, mask, sph_entry, bound, sph_sweep) ||
           walk<K>(n_tri, n_tri_box, ray, part, mask, tri_entry, bound, tri_sweep);
   }
@@ -297,35 +280,21 @@ cudaError_t launch_any_hit(const float* sph, int n_sph, const float* sph_box, in
   return cudaGetLastError();
 }
 
-// The instance of `fn` for team size `team` (1-32).
-#define PT_BY_TEAM(fn, team, ...)              \
-  switch (team) {                              \
-    case 1: return fn<1>(__VA_ARGS__);         \
-    case 2: return fn<2>(__VA_ARGS__);         \
-    case 4: return fn<4>(__VA_ARGS__);         \
-    case 8: return fn<8>(__VA_ARGS__);         \
-    case 16: return fn<16>(__VA_ARGS__);       \
-    case 32: return fn<32>(__VA_ARGS__);       \
-    default: return cudaErrorInvalidValue;     \
-  }
-
 cudaError_t closest(const float* sph, int n_sph, const float* box, int n_box, int team,
                     const float* o, const float* d, const float* t_min, const float* t_max,
                     float* t_out, int* idx_out, float* n_out, int* m_out, int N,
                     cudaStream_t stream) {
-  PT_BY_TEAM(launch_closest, team, sph, n_sph, box, n_box, o, d, t_min, t_max, t_out, idx_out,
-             n_out, m_out, N, stream)
+  PT_TEAM_LAUNCH(launch_closest, team, sph, n_sph, box, n_box, o, d, t_min, t_max, t_out, idx_out,
+                 n_out, m_out, N, stream)
 }
 
 cudaError_t any_hit(const float* sph, int n_sph, const float* sph_box, int n_sph_box,
                     const float* tri, int n_tri, const float* tri_box, int n_tri_box, int team,
                     const float* o, const float* d, const float* t_min, const float* t_max,
                     bool* occ, int N, cudaStream_t stream) {
-  PT_BY_TEAM(launch_any_hit, team, sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
-             n_tri_box, o, d, t_min, t_max, occ, N, stream)
+  PT_TEAM_LAUNCH(launch_any_hit, team, sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
+                 n_tri_box, o, d, t_min, t_max, occ, N, stream)
 }
-
-#undef PT_BY_TEAM
 
 }  // namespace
 

@@ -10,7 +10,9 @@ The pool's two kernels (``pt_fused_bounce``, ``pt_shadow_any_hit``) split
 each lane's sweep over ``split`` threads; :func:`sweep_split` picks it from
 the scene's row count and :func:`launch_shape` gives the block shape. The
 BVH kernels (``pt_bvh_closest``, ``pt_bvh_anyhit``) walk each ray with a
-team of ``team`` threads (:data:`BVH_TEAM`). The sphere pair of
+team of ``team`` threads (:data:`BVH_TEAM`), and the binned round kernels
+(``pt_binned_round_closest``, ``pt_binned_round_anyhit``) split each sorted
+ray's cluster sweep over a team (:data:`BINNED_TEAM`). The sphere pair of
 ``csrc/intersect.cu`` (``pt_sphere_closest``, ``pt_any_hit``) walks each
 ray's clusters with a team too, chosen by the same rule as a split: the
 fewest threads of :data:`TEAMS` that leave each at most
@@ -59,6 +61,16 @@ TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH or cluster walk can take
 # (PERF.md): the closest hit 0.165 ms at 16 (0.175 at 8, 0.20 at 32), the
 # any hit, which only votes, 0.085 ms at 32 (0.097 at 16).
 BVH_TEAM = {"bvh_closest": 16, "bvh_anyhit": 32}
+# Threads sharing one sorted ray's 256-row cluster sweep in csrc/binned.cu,
+# by kernel: the fastest of TEAMS in the sum over all 21 (20) rounds of one
+# closest (any-hit) driver call on chip_smoke.py's 65,536 config-4 lanes of
+# an H100, kernels only (PERF.md): closest 0.302 ms at 16 (0.316 at 32,
+# 0.360 at 8), any hit 0.160 ms at 32 (0.197 at 16). Config 4's 1-spp
+# binned frame agrees (profiler, per iteration): closest 0.336 ms at 16 and
+# 0.333 at 32, any hit 0.184 at 32 and 0.223 at 16. The two ~55,000-ray
+# waves of a closest call are fastest at 2 (0.047 ms against 0.079 at 16),
+# the 19 tail waves of a few thousand rays or fewer at 16-32.
+BINNED_TEAM = {"binned_round_closest": 16, "binned_round_anyhit": 32}
 
 
 def sweep_split(rows: int, kernel: str, choices=SPLITS) -> int:
@@ -140,9 +152,9 @@ def library() -> ctypes.CDLL:
         lib.pt_combined_closest_small.restype = _I
         lib.pt_triangle_closest.argtypes = [_P, _P, _I] + [_P] * 8 + [_I, _P]
         lib.pt_triangle_closest.restype = _I
-        lib.pt_binned_round_closest.argtypes = [_P, _I] + [_P] * 9 + [_I, _P]
+        lib.pt_binned_round_closest.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _P]
         lib.pt_binned_round_closest.restype = _I
-        lib.pt_binned_round_anyhit.argtypes = [_P, _I] + [_P] * 6 + [_I, _P]
+        lib.pt_binned_round_anyhit.argtypes = [_P, _I, _I] + [_P] * 6 + [_I, _P]
         lib.pt_binned_round_anyhit.restype = _I
         lib.pt_resident_closest.argtypes = [_P, _P, _I] + [_P] * 8 + [_I, _P]
         lib.pt_resident_closest.restype = _I
@@ -320,24 +332,28 @@ def launch_triangle_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
     _raise_on(code, "triangle_closest")
 
 
-def launch_binned_round_closest(tables, o, d, t_min, t_up, key, t, idx, n, m) -> None:
+def launch_binned_round_closest(tables, o, d, t_min, t_up, key, t, idx, n, m,
+                                team=None) -> None:
     """``tables`` is an ``ops.intersect.Tables`` of the binned route; the
-    wave is sorted by ``key``."""
+    wave is sorted by ``key``; ``team``: threads a ray (default
+    :data:`BINNED_TEAM`)."""
+    team = _team(team, BINNED_TEAM["binned_round_closest"], ("tables.tri", tables.tri))
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_binned_round_closest(
-            tables.tri.data_ptr(), tables.leaf.shape[0], o.data_ptr(), d.data_ptr(),
+            tables.tri.data_ptr(), tables.leaf.shape[0], team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_up.data_ptr(), key.data_ptr(), t.data_ptr(), idx.data_ptr(),
             n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "binned_round_closest")
 
 
-def launch_binned_round_anyhit(tables, o, d, t_min, t_max, key, occ) -> None:
+def launch_binned_round_anyhit(tables, o, d, t_min, t_max, key, occ, team=None) -> None:
+    team = _team(team, BINNED_TEAM["binned_round_anyhit"], ("tables.tri", tables.tri))
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_binned_round_anyhit(
-            tables.tri.data_ptr(), tables.leaf.shape[0], o.data_ptr(), d.data_ptr(),
+            tables.tri.data_ptr(), tables.leaf.shape[0], team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), key.data_ptr(), occ.data_ptr(),
             t_min.shape[0], _stream(t_min.device),
         )

@@ -1,6 +1,6 @@
 """Time a redesigned kernel pair of one checkout of the repository on the GPU.
 
-    python3 tools/time_kernels.py ROOT pool|bvh|cluster
+    python3 tools/time_kernels.py ROOT pool|bvh|cluster|binned
 
 Imports ``chip_smoke`` and ``pathtrace_tpu_torch`` from the checkout at
 ROOT, builds its kernels, and times raw launches with CUDA events
@@ -21,10 +21,23 @@ values:
   and the flat ``any_hit`` on the 65,536 shadow lanes of
   ``mesh_scene(2000)`` with its triangle boxes, at every team size where
   the checkout's launchers take ``team``; and the one-tile modes on the
-  lanes of phase 3b (3 spheres) at the host's team.
+  lanes of phase 3b (3 spheres) at the host's team;
+- ``binned``: the binned round pair (``binned_round_closest``,
+  ``binned_round_anyhit``) on the waves of phase 3d: every round's sorted
+  wave of one call of each binned driver on the 65,536 lanes of phase 3b,
+  captured by this tree's ``chip_smoke.capture_rounds`` (``ops/binned.py``
+  is the same in the checkouts compared), timed on the first round's wave
+  alone and summed over the call's waves (one event pair around all of
+  them; ``chip_smoke.queued_ms`` of this tree, so the host's launch
+  overhead between the small tail waves is not counted), at every team size
+  where the checkout's launchers take ``team``; and config 4 at 1 spp under
+  ``method="binned"`` (phase 5d's frame), each hand-written kernel's device
+  ms an iteration from ``torch.profiler`` (``chip_smoke.device_work`` of
+  this tree), at the host's teams.
 
 Prints one JSON line: the card, ROOT, and the milliseconds (kernels per
-setting; per scene for ``pool``, per lane set for ``cluster``). To compare
+setting; per scene for ``pool``, per lane set for ``cluster``, per wave set
+for ``binned``, with its rounds and ray-rounds). To compare
 two versions on one card, run it in turns in one command (old, new, new,
 old), each checkout in its own process.
 """
@@ -35,18 +48,21 @@ import inspect
 import json
 import os
 import sys
+from pathlib import Path
 
 import torch
 
 
-def pair_ms(cs, knob, values, *fns):
+def pair_ms(cs, knob, values, *fns, timer=None):
     """``{setting: (ms of fn(**kw) for each of fns)}`` at the host's setting
-    ("host", no keyword) and at each of ``values`` as ``knob=value``."""
+    ("host", no keyword) and at each of ``values`` as ``knob=value``;
+    ``timer`` (default ``cs.cuda_ms``) times one function."""
+    timer = timer or cs.cuda_ms
     times = {}
     for value in (None,) + tuple(values):
         kw = {} if value is None else {knob: value}
         times["host" if value is None else str(value)] = tuple(
-            cs.cuda_ms(lambda: fn(**kw)) for fn in fns)
+            timer(lambda: fn(**kw)) for fn in fns)
     return times
 
 
@@ -143,8 +159,66 @@ def cluster_ms(cs, binding, dev):
     return ms
 
 
+def binned_ms(cs, binding, dev):
+    import importlib.util
+
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import binned, intersect, shade
+    from pathtrace_tpu_torch.pool import render_pool
+
+    here = importlib.util.spec_from_file_location(   # this tree's chip_smoke, whatever ROOT is
+        "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    capture = importlib.util.module_from_spec(here)
+    here.loader.exec_module(capture)
+    scene = scenes.mesh_scene(device=dev)
+    camera = scenes.mesh_scene_camera(1920, 1080, dev)
+    tables = intersect.build_tables(scene)
+    (o, d), (so, sd, st) = cs.lane_rays(scene, camera, tables, cs.MESH_S)
+    S = o.shape[0]
+    lo = torch.full((S,), shade.EPS, device=dev)
+    hi = torch.full((S,), float("inf"), device=dev)
+    hi_t = torch.minimum(hi, intersect.sphere_closest_reference(tables.sph, o, d, lo, hi)[0])
+    tb = intersect.build_tables(scene, "binned")
+    _, waves_c = capture.capture_rounds(binned.triangle_closest_binned, tb, o, d, lo, hi_t)
+    _, waves_a = capture.capture_rounds(binned.triangle_anyhit_binned, tb, so, sd, lo, st)
+    outs_c = [(torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty((n, 3), device=dev), torch.empty(n, dtype=torch.int32, device=dev))
+              for n in (w[4].shape[0] for w in waves_c)]
+    occs_a = [torch.empty(w[4].shape[0], dtype=torch.bool, device=dev) for w in waves_a]
+    teams = (binding.TEAMS if "team" in inspect.signature(
+        binding.launch_binned_round_closest).parameters else ())
+
+    def closest(j, **x):
+        binding.launch_binned_round_closest(tb, *waves_c[j], *outs_c[j], **x)
+
+    def anyhit(j, **x):
+        binding.launch_binned_round_anyhit(tb, *waves_a[j], occs_a[j], **x)
+
+    def frame():
+        """Phase 5d's binned frame: device ms, and each hand-written kernel's
+        device ms an iteration."""
+        res = []
+        dev_ms, _, kernel_ms = capture.device_work(lambda: res.append(
+            render_pool(scene, camera, method="binned", **dict(cs.CONFIG4, spp=1))))
+        iters = res[0][2]
+        return {"device_ms": dev_ms, "iters": iters,
+                "kernel_device_ms_per_iter": {k: v / iters for k, v in kernel_ms.items()}}
+
+    return {
+        "frame": frame(),
+        "first_round": pair_ms(cs, "team", teams, lambda **x: closest(0, **x),
+                               lambda **x: anyhit(0, **x)),
+        "driver_call": pair_ms(cs, "team", teams,
+                               lambda **x: [closest(j, **x) for j in range(len(waves_c))],
+                               lambda **x: [anyhit(j, **x) for j in range(len(waves_a))],
+                               timer=capture.queued_ms),
+        "rounds": (len(waves_c), len(waves_a)),
+        "ray_rounds": (sum(w[4].shape[0] for w in waves_c), sum(w[4].shape[0] for w in waves_a)),
+    }
+
+
 def main() -> int:
-    if len(sys.argv) != 3 or sys.argv[2] not in ("pool", "bvh", "cluster"):
+    if len(sys.argv) != 3 or sys.argv[2] not in ("pool", "bvh", "cluster", "binned"):
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
@@ -157,7 +231,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     build.build()
-    ms = {"pool": pool_ms, "bvh": bvh_ms, "cluster": cluster_ms}[sys.argv[2]](cs, binding, dev)
+    ms = {"pool": pool_ms, "bvh": bvh_ms, "cluster": cluster_ms,
+          "binned": binned_ms}[sys.argv[2]](cs, binding, dev)
     print(json.dumps({"card": cs.nvidia_smi_line(), "root": root, "pair": sys.argv[2],
                       "ms": ms}))
     return 0
