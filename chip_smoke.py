@@ -62,10 +62,17 @@ The opt-in per-ray mesh traversals (``method="binned"|"resident"``):
     ``round_anyhit``), on edge waves (sentinel keys, t_up NaN, -1, 0, inf,
     t_min at the hit's t) and on the tie case (:func:`binned_tie_tables`);
     the binned drivers against the same drivers on the round twins; both
-    drivers and the resident kernels against the brute-force twin on every
-    lane; CUDA-event times (the round pair at every team on the first
-    round's wave and summed over a driver call's waves), the drivers'
-    rounds counted;
+    drivers against the brute-force twin on every lane; the resident
+    kernels against brute force at every team size (1-32 threads a ray;
+    the closest hit with its cluster entries cached in shared memory where
+    they fit and recomputed) on the lanes, on edge lanes (t_max NaN, -1, 0,
+    t_min, inf; t_min and t_max at the hit's t), on tables padded to 1,544
+    boxes and on the tie case (:func:`tie_tables` on resident tables), with
+    ``resident_walk_reference`` against the twins; CUDA-event times (the
+    round pair at every team on the first round's wave and summed over a
+    driver call's waves, the resident pair at every team and mode), the
+    drivers' rounds counted, the walk's clusters and rows a ray against the
+    bound's tests;
 5d. config 4 at 1 spp through ``render_pool(method=m)`` for bvh, binned and
     resident: the same rays and iterations (``METHOD_EXPECT``) and a
     bitwise-equal image; wall, Mrays/s, launches and each hand-written
@@ -111,7 +118,9 @@ team, its time at every team and its work a ray, ``bvh_closest_counters`` with i
 phase 3b, the clustered modes with their time and bound at 16,384 lanes, the
 host's team, their time at every team and their work a ray, the binned round
 pair with the host's team, its time at every team on the first round's wave
-and summed over a driver call's waves, and the call's rounds and ray-rounds)
+and summed over a driver call's waves, and the call's rounds and ray-rounds,
+the resident pair with the host's team, its time at every team (the closest
+hit's also with its entries recomputed) and the walk's work a ray)
 and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -240,7 +249,7 @@ TRI_OPS = 50
 SPH_OPS = 20
 SPIN_CYCLES = 40_000_000  # ~20 ms of the card's clock: queued_ms's launches queue behind it
 CLUSTER_ROWS = 256        # rows of a binned cluster
-RESIDENT_SHARED_BOXES = 1536   # csrc/resident.cu stages up to this many boxes
+RESIDENT_PADDED_BOXES = 1544   # phase 3d's padded resident tables: no cached entries at team 16
 
 
 def log(msg: str) -> None:
@@ -613,16 +622,17 @@ def lane_rays(scene, camera, tables, S, bounces=4, seed=0):
             (gather(shadows, 0), gather(shadows, 1), gather(shadows, 2)))
 
 
-def tie_tables(dev, upper_leaf):
-    """BVH tables of triangles in a given row order (the scene builder would
+def tie_tables(dev, upper_leaf, route="bvh"):
+    """BVH tables (``route="resident"``: resident tables, a cluster a leaf)
+    of triangles in a given row order (the scene builder would
     reorder them): triangle A (row 0, leaf 0) and its copy B (the first row
     of ``upper_leaf``), both in the plane z = 0, where rays from z = 5 along
     -z (:data:`TIE_RAYS`) hit them at t = 5. Leaf 0 reaches up to z = 0, so
-    it is entered at t = 5; ``upper_leaf`` also holds a triangle at z = 1 off
-    the rays' path, so it is entered first, at t = 4. Every other row is a
-    small triangle at z = -5, x = 20. The brute-force answer is A, the lower
-    row: a walk must enter leaf 0 at an entry equal to its best t. Returns
-    the tables and B's row."""
+    it is entered at t = 5 (the boxes are not widened); ``upper_leaf`` also
+    holds a triangle at z = 1 off the rays' path, so it is entered first, at
+    t = 4. Every other row is a small triangle at z = -5, x = 20. The
+    brute-force answer is A, the lower row: a walk must enter leaf 0 at an
+    entry equal to its best t. Returns the tables and B's row."""
     from pathtrace_tpu_torch.ops import intersect
 
     n = (upper_leaf + 1) * intersect.LEAF
@@ -637,17 +647,33 @@ def tie_tables(dev, upper_leaf):
     v0[b + 1] = torch.tensor([10.0, 10.0, 1.0])        # lifts the upper leaf's box to z = 1
     nrm = torch.linalg.cross(e1, e2)
     nrm = nrm / torch.linalg.vector_norm(nrm, dim=1, keepdim=True)
-    leaf, group = intersect.bvh_aabbs(v0, e1, e2)
     tri = torch.cat([v0, e1, e2, nrm, torch.ones_like(v0[:, :1]), torch.zeros_like(v0)], dim=1)
-    tri = torch.cat([tri, tri.new_zeros((leaf.shape[0] * intersect.LEAF - n, 16))])
     empty = tri.new_zeros((0, 8))
+    if route == "resident":
+        leaf, group, n_groups = intersect.resident_boxes(v0, e1, e2), empty, 0
+    else:
+        leaf, group = intersect.bvh_aabbs(v0, e1, e2)
+        n_groups = leaf.shape[0] // intersect.GROUP
+    tri = torch.cat([tri, tri.new_zeros((leaf.shape[0] * intersect.LEAF - n, 16))])
     tables = intersect.Tables(tri=tri.contiguous(), leaf=leaf, group=group, sph=empty,
-                              sph_box=empty, tri_rows=n, n_groups=leaf.shape[0] // intersect.GROUP,
-                              route="bvh")
+                              sph_box=empty, tri_rows=n, n_groups=n_groups, route=route)
     return tables, b
 
 
 TIE_RAYS = ((-0.5, -0.5), (-0.2, 0.1), (0.3, -0.6), (-0.9, 0.8))   # (x, y) inside A and B
+
+
+def tie_rays(dev):
+    """The rays of :func:`tie_tables`: ``(o, d, t_min, t_max, shadow
+    t_max)``, from z = 5 along -z over :data:`TIE_RAYS`; shadow t_max 5 (the
+    hit lies at t_max) and 4.5 (no hit) in turn."""
+    from pathtrace_tpu_torch.ops import shade
+
+    m = len(TIE_RAYS)
+    return (torch.tensor([[x, y, 5.0] for x, y in TIE_RAYS], device=dev),
+            torch.tensor([[0.0, 0.0, -1.0]] * m, device=dev),
+            torch.full((m,), shade.EPS, device=dev), torch.full((m,), float("inf"), device=dev),
+            torch.tensor([5.0, 4.5] * (m // 2), device=dev))
 
 
 def sphere_tie_tables(dev, upper_cluster):
@@ -750,14 +776,9 @@ def bvh_edge_cases(dev, tables, o, d, so, sd, lo):
     e = (o[:n], d[:n], lo[:n], hi), (so[:n], sd[:n], lo[:n], st)
     hold_bvh_kernels("edge lanes", tables, (*e[0], intersect.bvh_closest_reference(tables, *e[0])),
                      (*e[1], intersect.bvh_anyhit_reference(tables, *e[1])))
+    to, td, tlo, thi, tst = tie_rays(dev)
     for upper in (1, 16):
         tt, b = tie_tables(dev, upper)
-        m = len(TIE_RAYS)
-        to = torch.tensor([[x, y, 5.0] for x, y in TIE_RAYS], device=dev)
-        td = torch.tensor([[0.0, 0.0, -1.0]] * m, device=dev)
-        tlo = torch.full((m,), shade.EPS, device=dev)
-        thi = torch.full((m,), float("inf"), device=dev)
-        tst = torch.tensor([5.0, 4.5] * (m // 2), device=dev)
         ref = intersect.bvh_closest_reference(tt, to, td, tlo, thi)
         if not ((ref[0] == 5.0).all() and (ref[1] == 0).all()):
             raise AssertionError(f"tie case (upper leaf {upper}): twin gave {ref[:2]}")
@@ -1062,15 +1083,103 @@ def binned_edge_cases(dev, tb, rc, ra, t_rc, t_ra):
         f"every team, the tie to the lower row")
 
 
+def hold_resident_kernels(what, tables, closest, shadow):
+    """The resident pair through raw launches at every team size, the
+    closest hit with its entries cached (where they fit) and recomputed:
+    bitwise equal to the brute-force twins (``closest`` = ``(o, d, t_min,
+    t_max, twin's 4-tuple)``, ``shadow`` = ``(o, d, t_min, t_max, twin's
+    occlusion)``), outputs scrubbed before each launch; the walk model
+    (``resident_walk_reference``) equal to the twins too. Returns the
+    model's closest and any-hit results."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import intersect
+
+    o, d, lo, hi, ref = closest
+    so, sd, slo, st, ref_occ = shadow
+    model = intersect.resident_walk_reference(tables, o, d, lo, hi)
+    _bitwise(f"{what}: the resident closest walk vs brute force", ref, model[:4])
+    a_model = intersect.resident_walk_reference(tables, so, sd, slo, st, anyhit=True)
+    _bitwise(f"{what}: the resident any-hit walk vs brute force", ref_occ, a_model[0])
+    n_boxes = tables.leaf.shape[0]
+    for team in binding.TEAMS:
+        for cached in (True, False):
+            if cached and not binding.resident_cached(n_boxes, team):
+                continue
+            out = tuple(torch.full_like(x, float("nan") if x.dtype == torch.float32 else -7)
+                        for x in ref)
+            binding.launch_resident_closest(tables, o, d, lo, hi, *out, team=team, cached=cached)
+            _bitwise(f"resident_closest, {what}, team {team}, cached {cached}", ref, out)
+        occ = ~ref_occ
+        binding.launch_resident_anyhit(tables, so, sd, slo, st, occ, team=team)
+        _bitwise(f"resident_anyhit, {what}, team {team}", ref_occ, occ)
+    return model, a_model
+
+
+def resident_edge_cases(dev, tr, closest, shadow, n=1024):
+    """The resident pair at every team and mode on edge lanes (``n`` of the
+    mesh lanes with t_max NaN, -1, 0, t_min itself and inf; on hit lanes
+    t_min, t_max or both at the hit's t), on the tables padded with
+    inverted boxes to :data:`RESIDENT_PADDED_BOXES` (so that at the host's
+    team the closest hit recomputes its entries, and caches them at 32),
+    and on the tie case (:func:`tie_tables` on resident tables, the upper
+    cluster next to cluster 0 and 16 clusters up), where the kernels must
+    return the lower row, with shadow t_max 5 (the hit lies at t_max) and
+    4.5 (no hit). ``closest`` and ``shadow`` are the lanes as
+    :func:`hold_resident_kernels` takes them."""
+    from pathtrace_tpu_torch.ops import intersect, shade
+
+    o, d, lo, hi_t, ref_t = closest
+    so, sd, _, st, _ = shadow
+    hi, sst, elo = hi_t[:n].clone(), st[:n].clone(), lo[:n].clone()
+    for k, v in enumerate((float("nan"), -1.0, 0.0, shade.EPS, float("inf"))):
+        hi[k::9] = v
+        sst[k::9] = v
+    j = torch.arange(n, device=dev) % 9
+    t = ref_t[0][:n]
+    hit = torch.isfinite(t)
+    elo = torch.where(hit & ((j == 5) | (j == 7)), t, elo)
+    hi = torch.where(hit & ((j == 6) | (j == 7)), t, hi)
+    e = (o[:n], d[:n], elo, hi), (so[:n], sd[:n], elo, sst)
+    hold_resident_kernels("edge lanes", tr, (*e[0], intersect.triangle_closest_reference(tr, *e[0])),
+                          (*e[1], intersect.bvh_anyhit_reference(tr, *e[1])))
+    # Padded with inverted boxes and zero rows: the same answers.
+    pad = RESIDENT_PADDED_BOXES - tr.leaf.shape[0]
+    inverted = torch.tensor([float("inf")] * 3 + [float("-inf")] * 3 + [0.0, 0.0], device=dev)
+    big = tr._replace(leaf=torch.cat([tr.leaf, inverted.expand(pad, 8)]).contiguous(),
+                      tri=torch.cat([tr.tri, tr.tri.new_zeros((pad * intersect.LEAF, 16))]))
+    hold_resident_kernels("padded tables", big, closest, shadow)
+    del big
+    to, td, tlo, thi, tst = tie_rays(dev)
+    for upper in (1, 16):
+        tt, _ = tie_tables(dev, upper, route="resident")
+        ref = intersect.triangle_closest_reference(tt, to, td, tlo, thi)
+        if not ((ref[0] == 5.0).all() and (ref[1] == 0).all()):
+            raise AssertionError(f"resident tie case (upper cluster {upper}): twin gave {ref[:2]}")
+        model, a_model = hold_resident_kernels(
+            f"tie case, upper cluster {upper}", tt, (to, td, tlo, thi, ref),
+            (to, td, tlo, tst, intersect.bvh_anyhit_reference(tt, to, td, tlo, tst)))
+        if not ((model[4] == 2).all() and torch.equal(a_model[0], tst == 5.0)):
+            raise AssertionError(f"resident tie case (upper cluster {upper}): clusters visited "
+                                 f"{model[4]}, occlusion {a_model[0]}")
+    log(f"[traversal-kernels] resident edge lanes ({n} lanes: t_max NaN, -1, 0, t_min, inf; "
+        f"t_min, t_max or both at the hit's t), the tables padded to {RESIDENT_PADDED_BOXES} "
+        f"boxes ({o.shape[0]} lanes) and the tie case (B at row 128 and at row 2048, entered first): "
+        f"both kernels bitwise equal to brute force at every team and mode, the walk model "
+        f"too, the tie to row 0 with both clusters visited")
+
+
 def check_traversal_kernels(dev, scene, lanes):
     """Phase 3d: the binned and resident kernels against their twins on the
     card, bitwise, at the mesh lanes of phase 3b: the round kernels at every
     team size on every round's sorted wave of one call of each binned
     driver (the first round's and every tail round's), on edge waves and on
     the tie case; the binned drivers against the same drivers on the round
-    twins; both drivers and the resident kernels against the brute-force
-    twin on every lane. The round kernels timed at every team on the first
-    round's wave and summed over the driver call's waves."""
+    twins; both drivers against the brute-force twin on every lane; the
+    resident kernels at every team and mode on the lanes, edge lanes,
+    padded tables and the tie case (:func:`hold_resident_kernels`). The
+    round kernels timed at every team on the first round's wave and summed
+    over the driver call's waves, the resident pair at every team and
+    mode."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.ops import binned, intersect
 
@@ -1117,22 +1226,16 @@ def check_traversal_kernels(dev, scene, lanes):
                                             binned.round_anyhit(tb, *ra))
     binned_edge_cases(dev, tb, rc, ra, ref_rc[0],
                       binned.round_closest_reference(tb, *ra)[0])
-    # The resident kernels against brute force.
+    # The resident kernels against brute force: through the wrappers (the
+    # host's team and mode), then raw at every team and mode on the lanes,
+    # edge lanes, padded tables and the tie case.
     worst["resident_closest"] = _bitwise("resident_closest", ref_t,
                                          intersect.resident_closest(tr, o, d, lo, hi_t))
     worst["resident_anyhit"] = _bitwise("resident_anyhit", ref_occ,
                                         intersect.resident_anyhit(tr, so, sd, lo, st))
-    # The same with more boxes than the kernels stage in shared memory, so
-    # they read them from device memory: padded with inverted boxes.
-    pad = RESIDENT_SHARED_BOXES + 8 - tr.leaf.shape[0]
-    inverted = torch.tensor([float("inf")] * 3 + [float("-inf")] * 3 + [0.0, 0.0], device=dev)
-    big = tr._replace(leaf=torch.cat([tr.leaf, inverted.expand(pad, 8)]).contiguous(),
-                      tri=torch.cat([tr.tri, tr.tri.new_zeros((pad * intersect.LEAF, 16))]))
-    _bitwise("resident_closest, boxes in device memory", ref_t,
-             intersect.resident_closest(big, o, d, lo, hi_t))
-    _bitwise("resident_anyhit, boxes in device memory", ref_occ,
-             intersect.resident_anyhit(big, so, sd, lo, st))
-    del big
+    r_lanes = (o, d, lo, hi_t, ref_t), (so, sd, lo, st, ref_occ)
+    r_model, r_a_model = hold_resident_kernels("config-4 lanes", tr, *r_lanes)
+    resident_edge_cases(dev, tr, *r_lanes)
 
     # The round kernels at every team: the first round's wave, and the sum
     # over the driver call's waves (kernels only, into preallocated outputs).
@@ -1158,6 +1261,19 @@ def check_traversal_kernels(dev, scene, lanes):
         by_team["binned_round_anyhit"][binding.BINNED_TEAM["binned_round_anyhit"]],
         cuda_ms(lambda: binned.round_anyhit_reference(tb, *ra), **slow))
     out, occ = outs(S), torch.empty(S, dtype=torch.bool, device=dev)
+    # The resident pair at every team (the closest hit in both modes where
+    # its entries fit in shared memory, else recomputed only).
+    r_by_team = {"resident_closest": {}, "resident_closest_recomputed": {},
+                 "resident_anyhit": {}}
+    for team in binding.TEAMS:
+        if binding.resident_cached(tr.leaf.shape[0], team):
+            r_by_team["resident_closest"][team] = cuda_ms(lambda: binding.launch_resident_closest(
+                tr, o, d, lo, hi_t, *out, team=team, cached=True))
+        r_by_team["resident_closest_recomputed"][team] = cuda_ms(
+            lambda: binding.launch_resident_closest(tr, o, d, lo, hi_t, *out, team=team,
+                                                    cached=False))
+        r_by_team["resident_anyhit"][team] = cuda_ms(
+            lambda: binding.launch_resident_anyhit(tr, so, sd, lo, st, occ, team=team))
     ms["resident_closest"] = (
         cuda_ms(lambda: binding.launch_resident_closest(tr, o, d, lo, hi_t, *out)),
         cuda_ms(lambda: intersect.triangle_closest_reference(tr, o, d, lo, hi_t), **slow))
@@ -1171,6 +1287,8 @@ def check_traversal_kernels(dev, scene, lanes):
                           calls=1),
     }
 
+    need_c = closest_tests(tr.leaf, intersect.LEAF, o, d, lo, hi_t, ref_t[0])
+    need_a = anyhit_tests(tr.leaf, intersect.LEAF, so, sd, lo, st, ref_occ)
     cluster_bytes = CLUSTER_ROWS * tb.tri.shape[1] * 4
     n_rc, n_ra = rc[0].shape[0], ra[0].shape[0]
     bounds = {
@@ -1181,13 +1299,18 @@ def check_traversal_kernels(dev, scene, lanes):
             nbytes(*ra, occs_a[0]) + cluster_bytes * torch.unique(ra[4]).numel(),
             TRI_OPS * (int((~ref_ra).sum()) * CLUSTER_ROWS + int(ref_ra.sum()))),
         "resident_closest": bound(
-            nbytes(o, d, lo, hi_t, tr.tri, tr.leaf, *out),
-            TRI_OPS * closest_tests(tr.leaf, intersect.LEAF, o, d, lo, hi_t, ref_t[0])),
+            nbytes(o, d, lo, hi_t, tr.tri, tr.leaf, *out), TRI_OPS * need_c),
         "resident_anyhit": bound(
-            nbytes(so, sd, lo, st, tr.tri, tr.leaf, occ),
-            TRI_OPS * anyhit_tests(tr.leaf, intersect.LEAF, so, sd, lo, st, ref_occ)),
+            nbytes(so, sd, lo, st, tr.tri, tr.leaf, occ), TRI_OPS * need_a),
     }
     extra = {}
+    for k, model, need in (("resident_closest", r_model, need_c),
+                           ("resident_anyhit", r_a_model, need_a)):
+        extra[k] = {"team": binding.RESIDENT_TEAM[k], "ms_by_team": r_by_team[k],
+                    "per_ray": {"clusters": model[-2].double().mean().item(),
+                                "tests": model[-1].double().mean().item(),
+                                "bound_tests": need / S}}
+    extra["resident_closest"]["ms_by_team_recomputed"] = r_by_team["resident_closest_recomputed"]
     for k, waves, name in (("binned_round_closest", waves_c, "closest"),
                            ("binned_round_anyhit", waves_a, "anyhit")):
         extra[k] = {"team": binding.BINNED_TEAM[k], "ms_by_team": by_team[k],
@@ -1200,15 +1323,21 @@ def check_traversal_kernels(dev, scene, lanes):
         f"{len(waves_c)} waves of a closest driver call (first round {n_rc} rays), "
         f"binned_round_anyhit on all {len(waves_a)} of an any-hit call (first {n_ra}); the "
         f"binned drivers equal the same drivers on the round twins and the brute-force twin on "
-        f"every lane; resident_closest and resident_anyhit equal brute force on every lane, "
-        f"with the boxes in shared memory and (padded to {pad + tr.leaf.shape[0]} boxes) in "
-        f"device memory")
+        f"every lane; resident_closest (entries cached where they fit, and recomputed) and "
+        f"resident_anyhit equal brute force at every team on every lane, on edge lanes, on the "
+        f"tables padded to {RESIDENT_PADDED_BOXES} boxes and on the tie case")
     log("[traversal-kernels] ms kernel vs twin: " + ", ".join(
         f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in ms.items())
         + f"; whole binned driver on the kernels: closest {drivers['closest']:.4f} ms, "
         f"any hit {drivers['anyhit']:.4f} ms; bounds: {json.dumps(bounds)}")
     log("[traversal-kernels] binned round pair by team (first round ms, driver call's sum "
-        "ms), waves: " + json.dumps(extra))
+        "ms), waves: " + json.dumps({k: v for k, v in extra.items() if "binned" in k}))
+    log(f"[traversal-kernels] resident pair by team (ms; the walk model's clusters and rows "
+        f"tested a ray against the bound's tests): "
+        f"{json.dumps({k: v for k, v in extra.items() if 'resident' in k})}; host team "
+        f"{binding.RESIDENT_TEAM['resident_closest']} (closest, entries cached: "
+        f"{binding.resident_cached(tr.leaf.shape[0], binding.RESIDENT_TEAM['resident_closest'])}"
+        f"), {binding.RESIDENT_TEAM['resident_anyhit']} (any hit)")
     return worst, ms, bounds, extra
 
 

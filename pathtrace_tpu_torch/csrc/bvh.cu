@@ -84,23 +84,7 @@ constexpr int kLeaf = 128;
 constexpr int kGroup = 16;
 constexpr int kCheck = 4;     // rows a thread tests between two votes of the any hit
 using pt::kNone;
-
-struct Ray {
-  pt::V3 o, d, inv;
-  float t_min, t_max;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
-                                        const float* __restrict__ t_min,
-                                        const float* __restrict__ t_max, int i) {
-  Ray r;
-  r.o = pt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
-  r.d = pt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  r.inv = pt::v3(pt::safe_inv(r.d.x), pt::safe_inv(r.d.y), pt::safe_inv(r.d.z));
-  r.t_min = t_min[i];
-  r.t_max = t_max[i];
-  return r;
-}
+using pt::Ray;
 
 __host__ __device__ constexpr int leaves_per_thread(int k) { return (kGroup + k - 1) / k; }
 
@@ -179,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;  // the whole team leaves together
   const unsigned mask = pt::team_mask(K);
-  const Ray ray = load_ray(o, d, t_min, t_max, i);
+  const Ray ray = pt::load_ray(o, d, t_min, t_max, i);
   float best_t = INFINITY;
   int best_i = -1;
   int n_visited = 0, n_swept = 0;
@@ -239,7 +223,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;
   const unsigned mask = pt::team_mask(K);
-  const Ray ray = load_ray(o, d, t_min, t_max, i);
+  const Ray ray = pt::load_ray(o, d, t_min, t_max, i);
   bool hit = false;
   int n_visited = 0, n_swept = 0;
   if (ray.t_max >= ray.t_min) {  // else an empty range (also NaN): nothing to hit

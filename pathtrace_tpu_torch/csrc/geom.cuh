@@ -224,4 +224,24 @@ __device__ __forceinline__ float box_entry(const float* __restrict__ box, V3 o, 
   return tn <= tf ? tn : INFINITY;
 }
 
+// A ray of the mesh walks: origin, direction, the direction's reciprocal
+// (safe_inv, for box_entry) and the range [t_min, t_max].
+struct Ray {
+  V3 o, d, inv;
+  float t_min, t_max;
+};
+
+// Ray i of (N, 3) origins and directions and (N,) ranges.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
+                                        const float* __restrict__ t_min,
+                                        const float* __restrict__ t_max, int i) {
+  Ray r;
+  r.o = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
+  r.d = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  r.inv = v3(safe_inv(r.d.x), safe_inv(r.d.y), safe_inv(r.d.z));
+  r.t_min = t_min[i];
+  r.t_max = t_max[i];
+  return r;
+}
+
 }  // namespace pt

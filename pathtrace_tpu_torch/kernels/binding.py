@@ -12,7 +12,11 @@ the scene's row count and :func:`launch_shape` gives the block shape. The
 BVH kernels (``pt_bvh_closest``, ``pt_bvh_anyhit``) walk each ray with a
 team of ``team`` threads (:data:`BVH_TEAM`), and the binned round kernels
 (``pt_binned_round_closest``, ``pt_binned_round_anyhit``) split each sorted
-ray's cluster sweep over a team (:data:`BINNED_TEAM`). The sphere pair of
+ray's cluster sweep over a team (:data:`BINNED_TEAM`), and the resident
+kernels (``pt_resident_closest``, ``pt_resident_anyhit``) walk each ray's
+128-row clusters with a team (:data:`RESIDENT_TEAM`; the closest hit keeps
+each ray's cluster entries in shared memory where they fit,
+:func:`resident_cached`). The sphere pair of
 ``csrc/intersect.cu`` (``pt_sphere_closest``, ``pt_any_hit``) walks each
 ray's clusters with a team too, chosen by the same rule as a split: the
 fewest threads of :data:`TEAMS` that leave each at most
@@ -71,6 +75,14 @@ BVH_TEAM = {"bvh_closest": 16, "bvh_anyhit": 32}
 # waves of a closest call are fastest at 2 (0.047 ms against 0.079 at 16),
 # the 19 tail waves of a few thousand rays or fewer at 16-32.
 BINNED_TEAM = {"binned_round_closest": 16, "binned_round_anyhit": 32}
+# Threads sharing one ray's walk of the resident route's 128-row clusters in
+# csrc/resident.cu, by kernel: the fastest of TEAMS in tools/time_kernels.py's
+# times on the 65,536 config-4 lanes of an H100 (PERF.md): the closest hit,
+# its entries cached, 0.256 ms at 16 (0.284 at 8, 0.354 at 32); the any hit,
+# in id order, 0.107 ms at 32 (0.119 at 16). Config 4's 1-spp resident frame
+# agrees (profiler, per iteration): closest 0.266 ms at 16 (0.312 at 8, 0.367
+# at 32), any hit 0.150 at 32 and 0.148 at 16.
+RESIDENT_TEAM = {"resident_closest": 16, "resident_anyhit": 32}
 
 
 def sweep_split(rows: int, kernel: str, choices=SPLITS) -> int:
@@ -156,9 +168,9 @@ def library() -> ctypes.CDLL:
         lib.pt_binned_round_closest.restype = _I
         lib.pt_binned_round_anyhit.argtypes = [_P, _I, _I] + [_P] * 6 + [_I, _P]
         lib.pt_binned_round_anyhit.restype = _I
-        lib.pt_resident_closest.argtypes = [_P, _P, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_resident_closest.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
         lib.pt_resident_closest.restype = _I
-        lib.pt_resident_anyhit.argtypes = [_P, _P, _I] + [_P] * 5 + [_I, _P]
+        lib.pt_resident_anyhit.argtypes = [_P, _P, _I, _I] + [_P] * 5 + [_I, _P]
         lib.pt_resident_anyhit.restype = _I
         _lib = lib
     return _lib
@@ -360,23 +372,45 @@ def launch_binned_round_anyhit(tables, o, d, t_min, t_max, key, occ, team=None) 
     _raise_on(code, "binned_round_anyhit")
 
 
-def launch_resident_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
-    """``tables`` is an ``ops.intersect.Tables`` of the resident route."""
+def resident_cached(n_boxes: int, team: int) -> bool:
+    """Do the cluster entries of a block's rays fit in shared memory (the
+    closest kernel's cached mode, ``csrc/resident.cu``)? 128 threads a
+    block, ``ceil(n_boxes / team)`` floats each, at most
+    :data:`SHARED_LIMIT`: at K = 16, up to 1,536 clusters."""
+    return 128 * (-(-n_boxes // team)) * 4 <= SHARED_LIMIT
+
+
+def launch_resident_closest(tables, o, d, t_min, t_max, t, idx, n, m, team=None,
+                            cached=None) -> None:
+    """``tables`` is an ``ops.intersect.Tables`` of the resident route;
+    ``team``: threads a ray (default :data:`RESIDENT_TEAM`); ``cached``: keep
+    each ray's cluster entries in shared memory (default: where they fit,
+    :func:`resident_cached`; raises where they do not)."""
+    team = _team(team, RESIDENT_TEAM["resident_closest"], ("tables.tri", tables.tri))
+    n_boxes = tables.leaf.shape[0]
+    fits = resident_cached(n_boxes, team)
+    cached = fits if cached is None else bool(cached)
+    if cached and not fits:
+        raise ValueError(f"the entries of {n_boxes} clusters at team {team} do not fit in "
+                         f"{SHARED_LIMIT} bytes of shared memory")
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_resident_closest(
-            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0],
+            tables.tri.data_ptr(), tables.leaf.data_ptr(), n_boxes, team, int(cached),
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(),
             idx.data_ptr(), n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "resident_closest")
 
 
-def launch_resident_anyhit(tables, o, d, t_min, t_max, occ) -> None:
+def launch_resident_anyhit(tables, o, d, t_min, t_max, occ, team=None) -> None:
+    """As :func:`launch_resident_closest`; the any hit walks the clusters in
+    id order and caches nothing."""
+    team = _team(team, RESIDENT_TEAM["resident_anyhit"], ("tables.tri", tables.tri))
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_resident_anyhit(
-            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0],
+            tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0], team,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), occ.data_ptr(),
             t_min.shape[0], _stream(t_min.device),
         )

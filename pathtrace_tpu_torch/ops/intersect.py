@@ -28,7 +28,10 @@ and on the two opt-in per-ray traversals that ``method="binned"`` and
   kernels ``csrc/binned.cu`` replace ``binned_intersect._run_round_*``);
 * **resident**: :func:`sphere_closest`, then :func:`resident_closest`
   (``csrc/resident.cu``, replacing ``resident_intersect``'s kernels): one
-  launch walks each ray's 128-row clusters nearest-first.
+  launch walks each ray's 128-row clusters nearest-first with a team of
+  threads (its any hit sweeps them in id order);
+  :func:`resident_walk_reference` is that walk in plain torch, with its
+  per-ray counts.
 
 Past 512 sphere rows (the JAX ``sph_small`` gate) every route passes the
 sphere kernels the 256-row sphere cluster boxes (``Tables.sph_box``), and
@@ -353,6 +356,12 @@ def triangle_closest_reference(tables: Tables, o, d, t_min, t_max):
         better = t_c < best_t
         best_i = torch.where(better, arg + c, best_i)
         best_t = torch.where(better, t_c, best_t)
+    return _tri_record(tables, best_t, best_i)
+
+
+def _tri_record(tables: Tables, best_t, best_i):
+    """``(t, row, outward normal, material)`` of the triangle rows ``best_i``
+    at ``best_t`` (a miss where ``best_i`` is -1)."""
     hit = best_i >= 0
     row = tables.tri[best_i.clamp_min(0)]
     normal = torch.where(hit[:, None], row[:, 9:12], 0.0)
@@ -395,11 +404,7 @@ def bvh_traversal_reference(tables: Tables, o, d, t_min, t_max, anyhit: bool = F
     if anyhit:
         return res
     best_t, best_i, visited, swept = res
-    hit = best_i >= 0
-    row = tables.tri[best_i.clamp_min(0)]
-    normal = torch.where(hit[:, None], row[:, 9:12], 0.0)
-    mat = torch.where(hit, row[:, 12].to(torch.int32), 0)
-    return best_t, best_i.to(torch.int32), normal, mat, visited, swept
+    return (*_tri_record(tables, best_t, best_i), visited, swept)
 
 
 def _walk_chunk(tables, rows, groups, o, d, t_min, t_max, anyhit):
@@ -525,21 +530,57 @@ def cluster_walk_reference(sph, o, d, t_min, t_max, box, tri=None, tri_box=None,
     the counts int32 ``(N,)``; rows tested are the rows of the clusters swept
     (the any-hit kernel's vote may stop inside the last one). The hits equal
     the brute-force twins'."""
-    tri = sph.new_zeros((0, _TRI_COLS)) if tri is None else tri
-    parts = [_cluster_chunk(sph, box, tri, tri_box, o[a:a + chunk], d[a:a + chunk],
-                            t_min[a:a + chunk], t_max[a:a + chunk], anyhit)
-             for a in range(0, max(t_min.shape[0], 1), chunk)]
-    res = tuple(torch.cat(x) for x in zip(*parts))
+    phases = [(sph, box, SPH_CLUSTER_SIZE)]
+    if anyhit and tri is not None:
+        phases.append((tri, tri_box, SPH_CLUSTER_SIZE))
+    res = _walk_chunks(phases, o, d, t_min, t_max, anyhit, False, chunk)
     if anyhit:
         return res
     best_t, best_i, visited, tested = res
     return (*_sphere_record(sph, o, d, best_t, best_i), visited, tested)
 
 
-def _cluster_chunk(sph, box, tri, tri_box, o, d, t_min, t_max, anyhit):
-    """:func:`cluster_walk_reference` on one chunk of rays. Each pass moves
-    every ray one cluster: it finds its next cluster (or stops), and the
-    rays that found one sweep it."""
+def resident_walk_reference(tables: Tables, o, d, t_min, t_max, anyhit: bool = False,
+                            chunk: int = 8192):
+    """The walks of ``csrc/resident.cu`` step for step, vectorised over rays
+    in chunks of ``chunk``, on the resident route's 128-row clusters (the
+    plain slab entries into ``[t_min, t_max]``). The closest hit visits
+    each ray's entered clusters in ascending (entry, id) order while the
+    entry is ``<= min(best_t, t_max)``; a swept cluster gives its least
+    ``(t, row)`` with ``t <=`` that bound, which replaces the best on a
+    smaller ``t`` or an equal ``t`` in a lower row. The any hit sweeps the
+    entered clusters in ascending id, stops at the first with a hit and
+    walks nothing on an empty or NaN range.
+
+    Returns ``(t, row, outward normal, material, clusters visited, rows
+    tested)`` (the any hit: ``(occluded, clusters visited, rows tested)``),
+    the counts int32 ``(N,)``; rows tested are the rows of the clusters swept
+    (the any-hit kernel's vote may stop inside the last one). The hits equal
+    the brute-force twins'."""
+    res = _walk_chunks([(tables.tri, tables.leaf, LEAF)], o, d, t_min, t_max, anyhit, anyhit,
+                       chunk)
+    if anyhit:
+        return res
+    best_t, best_i, visited, tested = res
+    return (*_tri_record(tables, best_t, best_i), visited, tested)
+
+
+def _walk_chunks(phases, o, d, t_min, t_max, anyhit, id_order, chunk):
+    """:func:`_cluster_chunk` over the rays in chunks of ``chunk``, joined."""
+    parts = [_cluster_chunk(phases, o[a:a + chunk], d[a:a + chunk], t_min[a:a + chunk],
+                            t_max[a:a + chunk], anyhit, id_order)
+             for a in range(0, max(t_min.shape[0], 1), chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _cluster_chunk(phases, o, d, t_min, t_max, anyhit, id_order):
+    """The cluster walks on one chunk of rays, over ``phases``, ``(rows,
+    boxes, cluster size)`` tables walked one after the other (sphere rows
+    have 8 columns, triangle rows 16; boxes None or no rows: the whole table
+    as one cluster entered at ``t_min``). Each pass moves every ray one
+    cluster: it finds its next cluster (or stops), and the rays that found
+    one sweep it. ``id_order``: the entered clusters in ascending id, with
+    no gate (an entered box's entry lies in ``[t_min, t_max]``)."""
     from .binned import cluster_entries
 
     n, dev = t_min.shape[0], t_min.device
@@ -550,17 +591,19 @@ def _cluster_chunk(sph, box, tri, tri_box, o, d, t_min, t_max, anyhit):
     tested = torch.zeros(n, dtype=torch.int32, device=dev)
     # The any hit walks nothing on an empty or NaN range.
     done = ~(t_max >= t_min) if anyhit else torch.zeros(n, dtype=torch.bool, device=dev)
-    phases = [(sph, box, True)] + ([(tri, tri_box, False)] if anyhit else [])
-    for rows, boxes, is_sph in phases:
+    for rows, boxes, size in phases:
         m, cols = rows.shape
+        is_sph = cols == _SPH_COLS
         if m == 0:
             continue
         if boxes is not None and boxes.shape[0]:
-            size = SPH_CLUSTER_SIZE
             entries = (sphere_cluster_entries if is_sph else cluster_entries)(
                 o, d, t_min, t_max, boxes)
         else:                                   # one tile, entered at t_min
             size, entries = m, t_min[:, None]
+        if id_order:
+            ids = torch.arange(entries.shape[1], device=dev, dtype=entries.dtype)
+            entries = torch.where(entries < _INF, ids, _INF)
         n_cl = -(-m // size)
         fill = rows.new_full((n_cl * size - m, cols), math.nan if is_sph else 0.0)
         table = torch.cat([rows, fill]).view(n_cl, size, cols)
@@ -571,7 +614,7 @@ def _cluster_chunk(sph, box, tri, tri_box, o, d, t_min, t_max, anyhit):
             act = live.nonzero().squeeze(1)
             bound = t_max if anyhit else torch.minimum(t_max, best_t)   # NaN t_max stays NaN
             e, c = _successor(entries[act], last_e[act], last_c[act])
-            go = (e < _INF) & (e <= bound[act])
+            go = (e < _INF) & ((e <= bound[act]) | id_order)
             live[act[~go]] = False
             last_e[act], last_c[act] = e, c
             ray, cl = act[go], c[go]
@@ -836,9 +879,9 @@ def resident_closest(tables: Tables, o, d, t_min, t_max):
 
 
 def resident_anyhit(tables: Tables, o, d, t_min, t_max):
-    """Occlusion by any triangle in ``[t_min, t_max]`` by the same traversal,
-    stopping at the first hit: bool ``(N,)``. Counterpart of
-    ``resident_intersect.triangle_anyhit_resident``."""
+    """Occlusion by any triangle in ``[t_min, t_max]`` over the same
+    clusters, swept in id order up to the first hit: bool ``(N,)``.
+    Counterpart of ``resident_intersect.triangle_anyhit_resident``."""
     n, kind = _check_rays(o, d, t_min, t_max)
     _check_route(tables, "resident", t_min.device)
     if kind == "cpu":

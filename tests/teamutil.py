@@ -1,6 +1,8 @@
 """Pure-Python models of a team of k threads sharing one ray on a 32-lane
-warp (``csrc/geom.cuh`` ``team_mask``, ``group_min``, ``next_box``; the
-sweeps of ``csrc/bvh.cu`` and ``csrc/intersect.cu``), for the CPU tests: a
+warp (``csrc/geom.cuh`` ``team_mask``, ``group_min``, ``next_box``,
+``vote``; the sweeps of ``csrc/bvh.cu``, ``csrc/intersect.cu`` and
+``csrc/binned.cu``; the id-order walk of ``csrc/resident.cu``'s any hit),
+for the CPU tests: a
 CUDA kernel cannot run here, so its combine rules are held against the
 twins' ``torch.min``/``any`` through these."""
 
@@ -89,3 +91,39 @@ def team_vote(hits_lanes, k, check=CHECK):
                 break
         out.append((found, tested))
     return out
+
+
+def team_ballot(preds, k):
+    """``(__ballot_sync(mask, pred) & mask) >> first lane`` on a 32-lane warp
+    (``preds[lane]``): each lane's team's bits, bit j its thread j's."""
+    ballot = sum(1 << lane for lane in range(32) if preds[lane])
+    return [(ballot & team_mask(lane, k)) >> (lane & ~(k - 1)) for lane in range(32)]
+
+
+def team_in_order(entered_lanes, hits_lanes, k, check=CHECK):
+    """``csrc/resident.cu``'s any hit for the 32 / k teams of a warp, team m
+    over the boxes ``entered_lanes[m]`` (True: entered) and the rows of each
+    box, ``hits_lanes[m][box]`` (True: the row is hit): boxes base .. base +
+    k - 1 at a time, thread j testing box base + j, the team's ballot gives
+    the entered ones, each swept in ascending id by the vote
+    (:func:`team_vote`) up to the first hit. The lanes of a team that has
+    finished vote True into the ballot (they are outside every other team's
+    mask). Returns per team ``(hit, boxes swept, rows tested)``."""
+    teams = 32 // k
+    state = [[False, 0, 0] for _ in range(teams)]
+    for base in range(0, max(len(e) for e in entered_lanes), k):
+        preds = []
+        for lane in range(32):
+            m, c = lane // k, base + lane % k
+            preds.append(state[m][0] or (c < len(entered_lanes[m]) and entered_lanes[m][c]))
+        bits = team_ballot(preds, k)
+        for m in range(teams):
+            b = bits[m * k]
+            assert all(x == b for x in bits[m * k:(m + 1) * k])     # the team agrees
+            while b and not state[m][0]:
+                j = (b & -b).bit_length() - 1                       # __ffs - 1
+                b &= b - 1
+                hit, tested = team_vote([hits_lanes[m][base + j]] + [[]] * (teams - 1), k,
+                                        check)[0]
+                state[m] = [hit, state[m][1] + 1, state[m][2] + tested]
+    return [tuple(s) for s in state]

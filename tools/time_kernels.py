@@ -1,6 +1,7 @@
 """Time a redesigned kernel pair of one checkout of the repository on the GPU.
 
     python3 tools/time_kernels.py ROOT pool|bvh|cluster|binned
+    python3 tools/time_kernels.py ROOT resident [NAME=V,V,... ...]
 
 Imports ``chip_smoke`` and ``pathtrace_tpu_torch`` from the checkout at
 ROOT, builds its kernels, and times raw launches with CUDA events
@@ -33,11 +34,21 @@ values:
   where the checkout's launchers take ``team``; and config 4 at 1 spp under
   ``method="binned"`` (phase 5d's frame), each hand-written kernel's device
   ms an iteration from ``torch.profiler`` (``chip_smoke.device_work`` of
-  this tree), at the host's teams.
+  this tree), at the host's teams;
+- ``resident``: ``resident_closest`` and ``resident_anyhit`` on the lanes
+  of phase 3b (as ``bvh``, on the resident route's tables), at every team
+  size where the checkout's launchers take ``team``, and at each
+  combination of the values ``NAME=V,V,...`` gives the other integer
+  keywords the checkout's launchers take (a launch that refuses a setting
+  counts as null; a keyword a launcher lacks is left out); and config 4 at
+  1 spp under ``method="resident"`` as for ``binned``, at the host's teams
+  and, where the checkout has ``RESIDENT_TEAM``, with both kernels at each
+  team of ``frame=K,K,...``.
 
 Prints one JSON line: the card, ROOT, and the milliseconds (kernels per
 setting; per scene for ``pool``, per lane set for ``cluster``, per wave set
-for ``binned``, with its rounds and ray-rounds). To compare
+for ``binned``, with its rounds and ray-rounds; per team and setting for
+``resident``). To compare
 two versions on one card, run it in turns in one command (old, new, new,
 old), each checkout in its own process.
 """
@@ -160,16 +171,10 @@ def cluster_ms(cs, binding, dev):
 
 
 def binned_ms(cs, binding, dev):
-    import importlib.util
-
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import binned, intersect, shade
-    from pathtrace_tpu_torch.pool import render_pool
 
-    here = importlib.util.spec_from_file_location(   # this tree's chip_smoke, whatever ROOT is
-        "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    capture = importlib.util.module_from_spec(here)
-    here.loader.exec_module(capture)
+    capture = _this_tree_smoke()
     scene = scenes.mesh_scene(device=dev)
     camera = scenes.mesh_scene_camera(1920, 1080, dev)
     tables = intersect.build_tables(scene)
@@ -194,18 +199,8 @@ def binned_ms(cs, binding, dev):
     def anyhit(j, **x):
         binding.launch_binned_round_anyhit(tb, *waves_a[j], occs_a[j], **x)
 
-    def frame():
-        """Phase 5d's binned frame: device ms, and each hand-written kernel's
-        device ms an iteration."""
-        res = []
-        dev_ms, _, kernel_ms = capture.device_work(lambda: res.append(
-            render_pool(scene, camera, method="binned", **dict(cs.CONFIG4, spp=1))))
-        iters = res[0][2]
-        return {"device_ms": dev_ms, "iters": iters,
-                "kernel_device_ms_per_iter": {k: v / iters for k, v in kernel_ms.items()}}
-
     return {
-        "frame": frame(),
+        "frame": _frame(capture, cs, scene, camera, "binned"),
         "first_round": pair_ms(cs, "team", teams, lambda **x: closest(0, **x),
                                lambda **x: anyhit(0, **x)),
         "driver_call": pair_ms(cs, "team", teams,
@@ -217,8 +212,92 @@ def binned_ms(cs, binding, dev):
     }
 
 
+def resident_ms(cs, binding, dev, knobs):
+    import itertools
+
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+
+    here = _this_tree_smoke()
+    scene = scenes.mesh_scene(device=dev)
+    camera = scenes.mesh_scene_camera(1920, 1080, dev)
+    (o, d), (so, sd, st) = cs.lane_rays(scene, camera, intersect.build_tables(scene), cs.MESH_S)
+    S = o.shape[0]
+    lo = torch.full((S,), shade.EPS, device=dev)
+    hi = torch.full((S,), float("inf"), device=dev)
+    tr = intersect.build_tables(scene, "resident")
+    hi_t = torch.minimum(hi, intersect.sphere_closest_reference(tr.sph, o, d, lo, hi)[0])
+    out = (torch.empty(S, device=dev), torch.empty(S, dtype=torch.int32, device=dev),
+           torch.empty((S, 3), device=dev), torch.empty(S, dtype=torch.int32, device=dev))
+    occ = torch.empty(S, dtype=torch.bool, device=dev)
+    launch = {"resident_closest": lambda **x: binding.launch_resident_closest(
+                  tr, o, d, lo, hi_t, *out, **x),
+              "resident_anyhit": lambda **x: binding.launch_resident_anyhit(
+                  tr, so, sd, lo, st, occ, **x)}
+    frame_teams = knobs.pop("frame", ())
+    ms = {}
+    for name, fn in launch.items():
+        takes = inspect.signature(getattr(binding, "launch_" + name)).parameters
+        names = [k for k in ("team", *knobs) if k in takes]
+        values = [binding.TEAMS if k == "team" else knobs[k] for k in names]
+        ms[name] = {"host": cs.cuda_ms(fn)}
+        for combo in itertools.product(*values):
+            kw = dict(zip(names, combo))
+            try:
+                fn(**kw)
+            except (ValueError, RuntimeError):
+                ms[name][json.dumps(kw)] = None      # a setting the launcher refuses
+                continue
+            ms[name][json.dumps(kw)] = cs.cuda_ms(lambda: fn(**kw))
+    frames = {"host": _frame(here, cs, scene, camera, "resident")}
+    if hasattr(binding, "RESIDENT_TEAM"):
+        host = dict(binding.RESIDENT_TEAM)
+        for team in frame_teams:
+            binding.RESIDENT_TEAM.update({k: team for k in host})
+            try:
+                frames[str(team)] = _frame(here, cs, scene, camera, "resident")
+            finally:
+                binding.RESIDENT_TEAM.update(host)
+    return {"lanes": ms, "frame": frames}
+
+
+def _this_tree_smoke():
+    """This tree's ``chip_smoke`` module, whatever ROOT is."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _frame(here, cs, scene, camera, method):
+    """Config 4 at 1 spp under ``method`` (phase 5d's frame): device ms, and
+    each hand-written kernel's device ms an iteration."""
+    from pathtrace_tpu_torch.pool import render_pool
+
+    res = []
+    dev_ms, _, kernel_ms = here.device_work(lambda: res.append(
+        render_pool(scene, camera, method=method, **dict(cs.CONFIG4, spp=1))))
+    iters = res[0][2]
+    return {"device_ms": dev_ms, "iters": iters,
+            "kernel_device_ms_per_iter": {k: v / iters for k, v in kernel_ms.items()}}
+
+
+def _knobs(args):
+    """``{name: (int, ...)}`` from ``NAME=V,V,...`` arguments."""
+    knobs = {}
+    for arg in args:
+        name, _, vals = arg.partition("=")
+        knobs[name] = tuple(int(v) for v in vals.split(","))
+    return knobs
+
+
 def main() -> int:
-    if len(sys.argv) != 3 or sys.argv[2] not in ("pool", "bvh", "cluster", "binned"):
+    pairs = ("pool", "bvh", "cluster", "binned", "resident")
+    if len(sys.argv) < 3 or sys.argv[2] not in pairs or (
+            len(sys.argv) > 3 and sys.argv[2] != "resident"):
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
@@ -231,8 +310,11 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     build.build()
-    ms = {"pool": pool_ms, "bvh": bvh_ms, "cluster": cluster_ms,
-          "binned": binned_ms}[sys.argv[2]](cs, binding, dev)
+    if sys.argv[2] == "resident":
+        ms = resident_ms(cs, binding, dev, _knobs(sys.argv[3:]))
+    else:
+        ms = {"pool": pool_ms, "bvh": bvh_ms, "cluster": cluster_ms,
+              "binned": binned_ms}[sys.argv[2]](cs, binding, dev)
     print(json.dumps({"card": cs.nvidia_smi_line(), "root": root, "pair": sys.argv[2],
                       "ms": ms}))
     return 0
