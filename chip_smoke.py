@@ -40,11 +40,15 @@ The wave engine (``render.render`` -> ``integrators.trace_wave``; the small
 route for scenes of <= 64 triangles, the flat route for 64 < triangles <
 4096):
 
-3c. its two new kernels against their twins on the card, bitwise, at
+3c. its two closest-hit kernels against their twins on the card, bitwise,
+    through the wrappers and at every team size (1-32 threads a ray), at
     S = 65536 lanes (camera rays and bounce rays): ``combined_closest_small``
     on Cornell and many_spheres, ``triangle_closest`` on mesh_scene(2000)
-    (1982 triangles), and ``any_hit`` with the small and flat triangle tables
-    on the lanes' NEE shadow rays;
+    (1982 triangles), also on 1,024 edge lanes of each (t_max NaN, -1, 0,
+    t_min, inf; t_min, t_max or both at the hit's t) and on tie cases
+    (:func:`small_tie_tables`, :func:`tie_tables` on flat tables), every
+    team timed; and ``any_hit`` with the small and flat triangle tables on
+    the lanes' NEE shadow rays;
 5c. the reference workload: Cornell 400x400, MIS, 64 bounces, 16 spp, seed
     0, through ``render.render``, timed, its channel means held to within 3%
     of the 8192-spp golden image (``tests/golden/``);
@@ -97,7 +101,9 @@ lanes of ``fused_bounce``:
     field; grazing rays) and on the cross-cluster tie
     (:func:`sphere_tie_tables`), with ``cluster_walk_reference`` against
     the twins; every team timed at both lane counts, the walk's clusters
-    and rows a ray against the bound's rows; ``fused_bounce`` with its
+    and rows a ray against the bound's rows; ``triangle_closest`` on the
+    field's 2 triangles at every team on the first 16,384 lanes, timed;
+    ``fused_bounce`` with its
     ON/PBR lanes and ``shadow_any_hit`` against their twins, bitwise, at
     every split, at S = 16,384 lanes of the ON/PBR scene;
 4e. GPU against the CPU twins: the sphere field through the composed pool
@@ -120,7 +126,10 @@ host's team, their time at every team and their work a ray, the binned round
 pair with the host's team, its time at every team on the first round's wave
 and summed over a driver call's waves, and the call's rounds and ray-rounds,
 the resident pair with the host's team, its time at every team (the closest
-hit's also with its entries recomputed) and the walk's work a ray)
+hit's also with its entries recomputed) and the walk's work a ray, the
+wave pair with the host's team and its time at every team, many_spheres'
+time and bound beside Cornell's, and the field's 16,384 lanes' and frame's
+for ``triangle_closest``)
 and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -141,6 +150,7 @@ import torch
 
 SLICE_S = 16384
 EDGE_S = 4096               # lanes of the edge scene (phase 3)
+EDGE_N = 1024               # edge lanes of each scene of phase 3c
 CORNELL = dict(width=128, height=128, spp=1, integrator="mis", max_bounces=16,
                num_slots=4096, seed=0)
 BENCH = dict(width=1920, height=1080, spp=16, integrator="mis", max_bounces=32,
@@ -623,20 +633,23 @@ def lane_rays(scene, camera, tables, S, bounces=4, seed=0):
 
 
 def tie_tables(dev, upper_leaf, route="bvh"):
-    """BVH tables (``route="resident"``: resident tables, a cluster a leaf)
-    of triangles in a given row order (the scene builder would
-    reorder them): triangle A (row 0, leaf 0) and its copy B (the first row
-    of ``upper_leaf``), both in the plane z = 0, where rays from z = 5 along
-    -z (:data:`TIE_RAYS`) hit them at t = 5. Leaf 0 reaches up to z = 0, so
-    it is entered at t = 5 (the boxes are not widened); ``upper_leaf`` also
-    holds a triangle at z = 1 off the rays' path, so it is entered first, at
-    t = 4. Every other row is a small triangle at z = -5, x = 20. The
-    brute-force answer is A, the lower row: a walk must enter leaf 0 at an
-    entry equal to its best t. Returns the tables and B's row."""
+    """BVH tables (``route="resident"``: resident tables, a cluster a leaf;
+    ``route="flat"``: flat tables, 256-row clusters, the upper one cut to
+    two real rows and zero padding) of triangles in a given row order (the
+    scene builder would reorder them): triangle A (row 0, leaf 0) and its
+    copy B (the first row of ``upper_leaf``), both in the plane z = 0, where
+    rays from z = 5 along -z (:data:`TIE_RAYS`) hit them at t = 5. Leaf 0
+    reaches up to z = 0, so it is entered at t = 5 (the boxes are not
+    widened); ``upper_leaf`` also holds a triangle at z = 1 off the rays'
+    path, so it is entered first, at t = 4. Every other row is a small
+    triangle at z = -5, x = 20. The brute-force answer is A, the lower row:
+    a walk must enter leaf 0 at an entry equal to its best t. Returns the
+    tables and B's row."""
     from pathtrace_tpu_torch.ops import intersect
 
-    n = (upper_leaf + 1) * intersect.LEAF
-    b = upper_leaf * intersect.LEAF
+    size = CLUSTER_ROWS if route == "flat" else intersect.LEAF
+    b = upper_leaf * size
+    n = b + 2 if route == "flat" else b + size
     v0 = torch.tensor([20.0, 20.0, -5.0], device=dev).repeat(n, 1)
     e1 = torch.tensor([0.1, 0.0, 0.0], device=dev).repeat(n, 1)
     e2 = torch.tensor([0.0, 0.1, 0.0], device=dev).repeat(n, 1)
@@ -651,10 +664,18 @@ def tie_tables(dev, upper_leaf, route="bvh"):
     empty = tri.new_zeros((0, 8))
     if route == "resident":
         leaf, group, n_groups = intersect.resident_boxes(v0, e1, e2), empty, 0
+    elif route == "flat":
+        pad = b + size - n                             # inverted: padding rows add nothing
+        lo = torch.minimum(torch.minimum(v0, v0 + e1), v0 + e2)
+        hi = torch.maximum(torch.maximum(v0, v0 + e1), v0 + e2)
+        lo = torch.cat([lo, lo.new_full((pad, 3), float("inf"))]).view(-1, size, 3).amin(dim=1)
+        hi = torch.cat([hi, hi.new_full((pad, 3), float("-inf"))]).view(-1, size, 3).amax(dim=1)
+        leaf = torch.cat([lo, hi, lo.new_zeros((lo.shape[0], 2))], dim=1).contiguous()
+        group, n_groups = empty, 0
     else:
         leaf, group = intersect.bvh_aabbs(v0, e1, e2)
         n_groups = leaf.shape[0] // intersect.GROUP
-    tri = torch.cat([tri, tri.new_zeros((leaf.shape[0] * intersect.LEAF - n, 16))])
+    tri = torch.cat([tri, tri.new_zeros((leaf.shape[0] * size - n, 16))])
     tables = intersect.Tables(tri=tri.contiguous(), leaf=leaf, group=group, sph=empty,
                               sph_box=empty, tri_rows=n, n_groups=n_groups, route=route)
     return tables, b
@@ -712,6 +733,55 @@ def sphere_tie_tables(dev, upper_cluster):
 
 
 SPHERE_TIE_RAYS = ((0.0, 0.0), (0.3, -0.2), (-0.5, 0.4), (0.1, 0.6))   # (x, y) over A and B
+
+
+def small_tie_tables(dev):
+    """Small-route tables of 12 triangles and 40 spheres in a given row
+    order, for rays from z = 5 along -z over :data:`SMALL_TIE_RAYS`. The
+    first four rays hit :func:`tie_tables`' triangle A (row 7) and its copy
+    (row 10), and each a unit sphere centred 1 below its (x, y) (rows 3, 12,
+    25, 33), all at t = 5 exactly (the coordinates are binary fractions, so
+    both tests round to 5): the triangle A must win, since a sphere wins only
+    when strictly nearer and equal t in two triangles goes to the lower row.
+    The last two pass beside the triangles and hit the unit sphere at (3, 0,
+    -1) and its copy (rows 5 and 30) at equal t: the lower row must win.
+    Every other row is a small triangle or sphere off the rays' paths.
+    Returns the tables and the expected ``(t, global prim id)`` of each
+    ray (t None: any)."""
+    from pathtrace_tpu_torch.ops import intersect
+
+    n_tri, n_sph = 12, 40
+    v0 = torch.tensor([20.0, 20.0, -5.0], device=dev).repeat(n_tri, 1)
+    e1 = torch.tensor([0.1, 0.0, 0.0], device=dev).repeat(n_tri, 1)
+    e2 = torch.tensor([0.0, 0.1, 0.0], device=dev).repeat(n_tri, 1)
+    for r in (7, 10):                                  # A and its copy
+        v0[r] = torch.tensor([-1.0, -1.0, 0.0])
+        e1[r] = torch.tensor([2.0, 0.0, 0.0])
+        e2[r] = torch.tensor([0.0, 2.0, 0.0])
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=1, keepdim=True)
+    mat = torch.arange(n_tri, device=dev, dtype=torch.float32)[:, None]
+    tri = torch.cat([v0, e1, e2, nrm, mat, torch.zeros_like(v0)], dim=1)
+    center = torch.tensor([20.0, 20.0, -5.0], device=dev).repeat(n_sph, 1)
+    radius = torch.full((n_sph,), 0.1, device=dev)
+    rows = (3, 12, 25, 33, 5, 30)
+    for r, (x, y) in zip(rows, SMALL_TIE_RAYS[:4] + ((3.0, 0.0), (3.0, 0.0))):
+        center[r] = torch.tensor([x, y, -1.0])
+        radius[r] = 1.0
+    c2 = center * center
+    k = c2[:, 0] + c2[:, 1] + c2[:, 2] - radius * radius
+    sph = torch.cat([center, k[:, None], (1.0 / radius)[:, None],
+                     torch.arange(n_sph, device=dev, dtype=torch.float32)[:, None] + 100.0,
+                     center.new_zeros((n_sph, 2))], dim=1)
+    empty = tri.new_zeros((0, 8))
+    tables = intersect.Tables(tri=tri.contiguous(), leaf=empty, group=empty,
+                              sph=sph.contiguous(), sph_box=empty, tri_rows=n_tri, n_groups=0,
+                              route="small")
+    return tables, [(5.0, 7)] * 4 + [(5.0, n_tri + 5), (None, n_tri + 5)]
+
+
+SMALL_TIE_RAYS = ((-0.5, -0.5), (0.25, -0.75), (-0.75, 0.5), (-0.25, 0.0),   # over A
+                  (3.0, 0.0), (3.0, 0.5))                                     # beside it
 
 
 def hold_bvh_kernels(what, tables, closest, shadow):
@@ -1126,19 +1196,14 @@ def resident_edge_cases(dev, tr, closest, shadow, n=1024):
     return the lower row, with shadow t_max 5 (the hit lies at t_max) and
     4.5 (no hit). ``closest`` and ``shadow`` are the lanes as
     :func:`hold_resident_kernels` takes them."""
-    from pathtrace_tpu_torch.ops import intersect, shade
+    from pathtrace_tpu_torch.ops import intersect
 
     o, d, lo, hi_t, ref_t = closest
     so, sd, _, st, _ = shadow
-    hi, sst, elo = hi_t[:n].clone(), st[:n].clone(), lo[:n].clone()
-    for k, v in enumerate((float("nan"), -1.0, 0.0, shade.EPS, float("inf"))):
-        hi[k::9] = v
+    elo, hi = edge_ranges(lo, hi_t, ref_t[0], n)
+    sst = st[:n].clone()
+    for k, v in enumerate(edge_t_max()):
         sst[k::9] = v
-    j = torch.arange(n, device=dev) % 9
-    t = ref_t[0][:n]
-    hit = torch.isfinite(t)
-    elo = torch.where(hit & ((j == 5) | (j == 7)), t, elo)
-    hi = torch.where(hit & ((j == 6) | (j == 7)), t, hi)
     e = (o[:n], d[:n], elo, hi), (so[:n], sd[:n], elo, sst)
     hold_resident_kernels("edge lanes", tr, (*e[0], intersect.triangle_closest_reference(tr, *e[0])),
                           (*e[1], intersect.bvh_anyhit_reference(tr, *e[1])))
@@ -1616,12 +1681,78 @@ def run_bench(dev, smi: str):
     return launches
 
 
+def edge_t_max() -> tuple:
+    """The edge lanes' t_max, one a lane in turn: NaN, -1, 0 (below t_min),
+    t_min itself and inf."""
+    from pathtrace_tpu_torch.ops import shade
+
+    return float("nan"), -1.0, 0.0, shade.EPS, float("inf")
+
+
+def edge_ranges(lo, hi, t_hit, n):
+    """The first ``n`` lanes' ``(t_min, t_max)`` made edge cases, in turn:
+    the t_max of :func:`edge_t_max`, and on hit lanes (``t_hit``: the twin's
+    t, inf on a miss) t_min, t_max or both at the hit's t."""
+    elo, ehi = lo[:n].clone(), hi[:n].clone()
+    for k, v in enumerate(edge_t_max()):
+        ehi[k::9] = v
+    j = torch.arange(n, device=lo.device) % 9
+    t = t_hit[:n]
+    hit = torch.isfinite(t)
+    elo = torch.where(hit & ((j == 5) | (j == 7)), t, elo)
+    ehi = torch.where(hit & ((j == 6) | (j == 7)), t, ehi)
+    return elo, ehi
+
+
+def hold_wave_kernel(kernel, what, tables, o, d, lo, hi):
+    """``kernel`` (``"combined_closest_small"`` or ``"triangle_closest"``)
+    through raw launches at every team size (1-32 threads a ray), bitwise
+    equal to its brute-force twin, outputs scrubbed before each launch.
+    Returns the twin's answer."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import intersect
+
+    ref = getattr(intersect, kernel + "_reference")(tables, o, d, lo, hi)
+    launch = getattr(binding, "launch_" + kernel)
+    for team in binding.TEAMS:
+        out = tuple(torch.full_like(x, float("nan") if x.dtype == torch.float32 else -7)
+                    for x in ref)
+        launch(tables, o, d, lo, hi, *out, team=team)
+        _bitwise(f"{kernel}, {what}, team {team}", ref, out)
+    return ref
+
+
+def team_times(kernel, tables, o, d, lo, hi):
+    """``{team: ms}`` of raw launches of ``kernel`` at every team size."""
+    from pathtrace_tpu_torch.kernels import binding
+
+    launch = getattr(binding, "launch_" + kernel)
+    out = (torch.empty_like(lo), torch.empty(lo.shape, dtype=torch.int32, device=lo.device),
+           torch.empty_like(o), torch.empty(lo.shape, dtype=torch.int32, device=lo.device))
+    return {team: cuda_ms(lambda: launch(tables, o, d, lo, hi, *out, team=team))
+            for team in binding.TEAMS}
+
+
+def real_rows(tables):
+    """The real triangle rows of each of the flat route's 256-row clusters."""
+    n = tables.leaf.shape[0]
+    return torch.clamp(tables.tri_rows - CLUSTER_ROWS * torch.arange(n, device=tables.tri.device),
+                       0, CLUSTER_ROWS)
+
+
 def check_wave_kernels(dev):
-    """Phase 3c: the wave engine's two new kernels, and ``any_hit`` with the
-    small and flat triangle tables, against their twins on the card. The
-    expected result is bitwise agreement: any lane that differs fails.
-    Returns the worst errors, times and bounds, and the flat route's tables
-    and shadow lanes ``(tables, o, d, t_max)``."""
+    """Phase 3c: the wave engine's two closest-hit kernels, and ``any_hit``
+    with the small and flat triangle tables, against their twins on the
+    card. The expected result is bitwise agreement: any lane that differs
+    fails. ``combined_closest_small`` (Cornell, many_spheres) and
+    ``triangle_closest`` (``mesh_scene(2000)``, capped by the sphere hits as
+    ``intersect`` caps it) through their wrappers and at every team size
+    (:func:`hold_wave_kernel`) on the 65,536 lanes and on 1,024
+    edge lanes (:func:`edge_ranges`) of each scene, and on their tie cases
+    (:func:`small_tie_tables`; :func:`tie_tables` on flat tables, B in the
+    next cluster and in cluster 7); every team timed. Returns the worst
+    errors, times, bounds, the kernels' teams and times by team, and the
+    flat route's tables and shadow lanes ``(tables, o, d, t_max)``."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import intersect, shade
@@ -1630,7 +1761,7 @@ def check_wave_kernels(dev):
     lo = torch.full((S,), shade.EPS, device=dev)
     hi = torch.full((S,), float("inf"), device=dev)
     worst = {"combined_closest_small": 0.0, "triangle_closest": 0.0, "any_hit": 0.0}
-    ms, bounds, flat = {}, {}, None
+    ms, bounds, extra, flat = {}, {}, {}, None
     f32, i32 = torch.float32, torch.int32
     out = (torch.empty(S, device=dev), torch.empty(S, dtype=i32, device=dev),
            torch.empty((S, 3), dtype=f32, device=dev), torch.empty(S, dtype=i32, device=dev))
@@ -1656,50 +1787,72 @@ def check_wave_kernels(dev):
         tables = intersect.build_tables(scene)
         (o, d), (so, sd, st) = lane_rays(scene, camera, tables, S)
         tri = tables.tri[:tables.tri_rows]
-        if tables.route == "small":
-            kname = "combined_closest_small"
-            ref = intersect.combined_closest_small_reference(tables, o, d, lo, hi)
-            hits = same(kname, ref, intersect.combined_closest_small(tables, o, d, lo, hi))
-            k_ms = cuda_ms(lambda: binding.launch_combined_closest_small(
-                tables, o, d, lo, hi, *out))
-            p_ms = cuda_ms(lambda: intersect.combined_closest_small_reference(
-                tables, o, d, lo, hi))
-        else:
-            kname = "triangle_closest"
-            hi_t = torch.minimum(hi, intersect.sphere_closest_reference(
-                tables.sph, o, d, lo, hi)[0])                # as intersect() caps it
-            ref = intersect.triangle_closest_reference(tables, o, d, lo, hi_t)
-            hits = same(kname, ref, intersect.triangle_closest(tables, o, d, lo, hi_t))
-            k_ms = cuda_ms(lambda: binding.launch_triangle_closest(
-                tables, o, d, lo, hi_t, *out))
-            p_ms = cuda_ms(lambda: intersect.triangle_closest_reference(
-                tables, o, d, lo, hi_t), **slow)
-        tri_box = tables.leaf if tables.route == "flat" else None   # as occluded() passes it
-        if tables.route == "flat":
+        small = tables.route == "small"
+        kname = "combined_closest_small" if small else "triangle_closest"
+        hi_k = hi if small else torch.minimum(hi, intersect.sphere_closest_reference(
+            tables.sph, o, d, lo, hi)[0])                # as intersect() caps it
+        ref = hold_wave_kernel(kname, f"{name}, {S} lanes", tables, o, d, lo, hi_k)
+        hits = same(kname, ref, getattr(intersect, kname)(tables, o, d, lo, hi_k))
+        hold_wave_kernel(kname, f"{name}, edge lanes", tables, o[:EDGE_N], d[:EDGE_N],
+                         *edge_ranges(lo, hi_k, ref[0], EDGE_N))
+        by_team = team_times(kname, tables, o, d, lo, hi_k)
+        team = binding.small_team(tables) if small else binding.flat_team(tables)
+        k_ms = by_team[team]
+        q_ms = queued_ms(lambda: getattr(binding, "launch_" + kname)(tables, o, d, lo, hi_k, *out))
+        p_ms = cuda_ms(lambda: getattr(intersect, kname + "_reference")(tables, o, d, lo, hi_k),
+                       **({} if small else slow))
+        extra.setdefault(kname, {"team": team, "ms_by_team": by_team, "queued_ms": q_ms})
+        tri_box = None if small else tables.leaf              # as occluded() passes it
+        if not small:
             flat = (tables, so, sd, st)
         blocked = same_occ(intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
                            intersect.any_hit(tables.sph, tri, so, sd, lo, st, tri_box=tri_box))
         a_ms = cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ_k,
                                                       tri_box=tri_box))
         a_p = cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
-                      **(slow if tables.route == "flat" else {}))
+                      **({} if small else slow))
         ms[name] = {kname: (k_ms, p_ms), "any_hit": (a_ms, a_p)}
-        if tables.route == "small":     # no cull: every row for every lane
+        if small:     # no cull: every row for every lane
             bounds[name] = {kname: bound(
                 nbytes(o, d, lo, hi, tables.tri, tables.sph, *out),
                 S * (tables.tri_rows * TRI_OPS + tables.sph.shape[0] * SPH_OPS))}
-        else:
+        else:         # the real rows of every cluster entered before the hit
             bounds[name] = {kname: bound(
-                nbytes(o, d, lo, hi_t, tables.tri, tables.leaf, *out),
-                TRI_OPS * closest_tests(tables.leaf, tables.tri.shape[0] // tables.leaf.shape[0],
-                                        o, d, lo, hi_t, ref[0]))}
+                nbytes(o, d, lo, hi_k, tri, tables.leaf, *out),
+                TRI_OPS * closest_tests(tables.leaf, real_rows(tables), o, d, lo, hi_k, ref[0]))}
+        if name == "many_spheres":
+            extra[kname].update(ms_many_spheres=k_ms, plain_ms_many_spheres=p_ms,
+                                bound_ms_many_spheres=bounds[name][kname]["bound_ms"],
+                                ms_by_team_many_spheres=by_team,
+                                queued_ms_many_spheres=q_ms)
         log(f"[wave-kernels] {name} ({tables.route} route, {tables.tri_rows} triangle rows, "
             f"{tables.sph.shape[0]} spheres) S={S}: {kname} equals its twin bitwise on every "
-            f"lane ({hits} hits), {k_ms:.4f} ms vs twin {p_ms:.4f} ms; any_hit equals its twin "
-            f"({blocked} blocked of {int((st >= shade.EPS).sum())} queries), {a_ms:.4f} ms vs "
-            f"twin {a_p:.4f} ms")
-    log(f"[wave-kernels] worst abs error: {worst}; bounds: {json.dumps(bounds)}")
-    return worst, ms, bounds, flat
+            f"lane ({hits} hits) through the wrapper (team {team}) and at every team, also "
+            f"on {EDGE_N} edge lanes; {k_ms:.4f} ms ({q_ms:.4f} queued) vs twin {p_ms:.4f} ms; "
+            f"by team "
+            f"{json.dumps(by_team)}; any_hit equals its twin ({blocked} blocked of "
+            f"{int((st >= shade.EPS).sum())} queries), {a_ms:.4f} ms vs twin {a_p:.4f} ms")
+
+    tables, want = small_tie_tables(dev)
+    m = len(SMALL_TIE_RAYS)
+    to = torch.tensor([[x, y, 5.0] for x, y in SMALL_TIE_RAYS], device=dev)
+    td = torch.tensor([[0.0, 0.0, -1.0]] * m, device=dev)
+    ref = hold_wave_kernel("combined_closest_small", "tie case", tables, to, td, lo[:m], hi[:m])
+    if [int(p) for p in ref[1]] != [p for _, p in want] or any(
+            w is not None and float(t) != w for (w, _), t in zip(want, ref[0])):
+        raise AssertionError(f"small tie case: twin gave {ref[:2]}, expected {want}")
+    to, td, tlo, thi, _ = tie_rays(dev)
+    for upper in (1, 7):
+        tables, b = tie_tables(dev, upper, route="flat")
+        ref = hold_wave_kernel("triangle_closest", f"tie case, B at row {b}", tables, to, td,
+                               tlo, thi)
+        if not ((ref[0] == 5.0).all() and (ref[1] == 0).all()):
+            raise AssertionError(f"flat tie case (B at row {b}): twin gave {ref[:2]}")
+    log(f"[wave-kernels] tie cases at every team: combined_closest_small gives the "
+        f"triangle on a triangle/sphere equal t and the lower row of two equal spheres or "
+        f"triangles; triangle_closest gives row 0 with B (rows 256, 1792) in a cluster entered "
+        f"first; worst abs error: {worst}; bounds: {json.dumps(bounds)}")
+    return worst, ms, bounds, extra, flat
 
 
 def run_wave_cornell(dev, smi: str):
@@ -2035,11 +2188,18 @@ def check_clustered_kernels(dev, flat):
     ms["any_hit_clustered"] = (
         by_team[S][host["any_hit_clustered"]][1],
         cuda_ms(lambda: intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st), **slow))
-    # The field frame's third kernel, on its 2 triangles (one padded cluster),
-    # capped by the sphere hits as intersect() caps it: for the ranking.
-    hi_t = torch.minimum(hi, ref_s[0])
-    tri_ms = cuda_ms(lambda: binding.launch_triangle_closest(
-        tables, o[:n], d[:n], lo[:n], hi_t[:n], *(x[:n] for x in out)))
+    # The field frame's third kernel, on its 2 triangles (one cluster, 2 real
+    # rows), capped by the sphere hits as intersect() caps it, at the 16,384
+    # lanes its pool frame runs: bitwise at every team, timed at every team.
+    fl = (o[:n], d[:n], lo[:n], torch.minimum(hi, ref_s[0])[:n])
+    ref_t = hold_wave_kernel("triangle_closest", f"field, first {n} lanes", tables, *fl)
+    tri_by_team = team_times("triangle_closest", tables, *fl)
+    tri_team = binding.flat_team(tables)
+    tri_ms = tri_by_team[tri_team]
+    tri_q = queued_ms(lambda: binding.launch_triangle_closest(tables, *fl,
+                                                              *(x[:n] for x in out)))
+    tri_bound = bound(nbytes(*fl, tri, tables.leaf, *(x[:n] for x in out)),
+                      TRI_OPS * closest_tests(tables.leaf, real_rows(tables), *fl, ref_t[0]))
     focc = torch.empty_like(f_occ)
     flat_by_team = {team: cuda_ms(lambda: binding.launch_any_hit(
         ft.sph, ftri, fo, fd, flo, fst, focc, sph_box=ft.sph_box, tri_box=ft.leaf, team=team))
@@ -2094,9 +2254,17 @@ def check_clustered_kernels(dev, flat):
         + "; bounds " + json.dumps(bounds) + f"; on the first {n} lanes: " + json.dumps(at_slice))
     log("[cluster-kernels] (closest, any hit) ms by team: " + json.dumps(by_team)
         + f"; flat any hit by team {json.dumps(flat_by_team)}; triangle_closest on the "
-        f"field's first {n} lanes {tri_ms:.4f} ms; host team "
+        f"field's first {n} lanes ({int((ref_t[1] >= 0).sum())} hits) bitwise equal to its twin "
+        f"at every team, {tri_ms:.4f} ms ({tri_q:.4f} queued) at team {tri_team}, by team {json.dumps(tri_by_team)}, "
+        f"bound {json.dumps(tri_bound)}; host team "
         + json.dumps({k: v["team"] for k, v in extra.items()}) + "; per ray "
         + json.dumps({k: v["per_ray"] for k, v in extra.items()}))
+
+    extra["triangle_closest"] = {"team_16384": tri_team, "ms_16384": tri_ms,
+                                 "queued_ms_16384": tri_q,
+                                 "bound_ms_16384": tri_bound["bound_ms"],
+                                 "bound_by_16384": tri_bound["bound_by"],
+                                 "ms_by_team_16384": tri_by_team}
 
     scene = on_pbr_scene(dev)
     camera = scenes.default_spheres_camera(1920, 1080, dev)
@@ -2179,16 +2347,18 @@ def run_cluster_bench(dev, smi: str):
     warm-up gives the wall that the profiler's device time over the same
     1-spp frame is divided by (busy share), and the device operations an
     iteration; the 4-spp frame gives wall, Mrays/s, rays, iterations and the
-    checksum. Returns the launches of each frame's kernels."""
+    checksum. Returns the launches of both frames' kernels, and those of the
+    sphere field's frame alone."""
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import shade
     from pathtrace_tpu_torch.pool import busy_count, ray_count, render_pool
 
     W, H = CLUSTER_FRAME["width"], CLUSTER_FRAME["height"]
     all_launches = {}
+    field_launches = {}
     for name, build, cam_fn, want in (
         (f"many_spheres(n_per_side={FIELD_N})", sphere_field, scenes.many_spheres_camera,
-         ("sphere_closest_clustered", "any_hit_clustered")),
+         ("sphere_closest_clustered", "any_hit_clustered", "triangle_closest")),
         ("on_pbr", on_pbr_scene, scenes.default_spheres_camera, ("fused_bounce_on_pbr",)),
     ):
         scene, camera = build(dev), cam_fn(W, H, dev)
@@ -2230,7 +2400,8 @@ def run_cluster_bench(dev, smi: str):
         }
         log("[cluster-bench] " + json.dumps(result))
         all_launches.update(launches)
-    return all_launches
+        field_launches = field_launches or launches
+    return all_launches, field_launches
 
 
 def run_cli():
@@ -2293,7 +2464,7 @@ def main() -> int:
         dev, mesh, mesh_cam)
     trav_worst, trav_ms, trav_bnd, trav_extra = check_traversal_kernels(dev, mesh, lanes)
     del lanes
-    wave_worst, wave_ms, wave_bnd, flat = check_wave_kernels(dev)
+    wave_worst, wave_ms, wave_bnd, wave_extra, flat = check_wave_kernels(dev)
     cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra = check_clustered_kernels(dev, flat)
     del flat
     run_cornell(dev)
@@ -2305,7 +2476,7 @@ def main() -> int:
     flat_launches = run_wave_gpu_vs_cpu(dev)
     run_wave_methods(dev)
     run_cluster_frames(dev)
-    cluster_launches = run_cluster_bench(dev, smi)
+    cluster_launches, field_launches = run_cluster_bench(dev, smi)
     run_cli()
 
     def entry(name, src, rep, n_launches, err, times, bnd, **extra):
@@ -2338,7 +2509,8 @@ def main() -> int:
         for k, (src, rep) in COUNTER_KERNELS.items()
     ] + [
         entry(k, src, rep, cases[k][1][k], wave_worst[k], wave_ms[cases[k][0]][k],
-              wave_bnd[cases[k][0]][k])
+              wave_bnd[cases[k][0]][k], **wave_extra[k],
+              **({"launches_16384": field_launches[k], **cl_extra[k]} if k in cl_extra else {}))
         for k, (src, rep) in WAVE_KERNELS.items()
     ] + [
         entry(k, src, rep, method_launches[method_of[k]][k], trav_worst[k], trav_ms[k],

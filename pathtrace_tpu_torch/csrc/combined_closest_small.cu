@@ -1,4 +1,5 @@
-// Closest hit over the spheres AND the triangles of a small scene in one pass.
+// Closest hit over the spheres AND the triangles of a small scene in one pass,
+// each ray's sweep split over a team of threads.
 //
 // Replaces pathtrace_tpu/ops/pallas_intersect.py :: _combined_small_kernel
 // (wrapper combined_closest_small): the wave engine's closest-hit route for
@@ -16,11 +17,38 @@
 // (inf, -1, 0, 0). Sphere padding rows carry k = NaN and fail every compare;
 // triangle padding rows are zero and fail the |a| >= 1e-8 reject.
 //
-// What bounds it on the H100: per-ray ALU work, ~40 flops per triangle and
-// ~15 per sphere over every row (up to 64 + 512). The tables (<= 64 x 16 +
-// 512 x 8 floats, <= 20 KB) are staged in shared memory once per block, and
-// every thread of a warp reads the same row at the same time (a broadcast).
-// One thread per ray.
+// A team of K threads (1, 2, 4, 8, 16 or 32, aligned in a warp) shares one
+// ray, as fused_bounce.cu's split does: thread j tests triangle rows j, j+K,
+// ..., keeps its strict first minimum of (t, row), and the team combines
+// them as a lexicographic (t, row) min (geom.cuh :: group_min), so every
+// thread holds tri_t and tri_r; then every thread caps its sphere rows j,
+// j+K, ... at min(t_max, tri_t) and the team combines them the same way.
+// The merge keeps the strict sph_t < tri_t rule (equal t goes to the
+// triangle), and one thread writes the winner's outputs. So the answer
+// equals the twin whatever K.
+//
+// Both tables (<= 64 x 16 + 512 x 8 floats, <= 20 KB, 16-byte aligned) are
+// staged in shared memory once per block as float4 copies; a triangle row is
+// then three float4 reads and a sphere's center and k one, and the threads
+// of a team read neighbouring rows. A block holds 128 rays, 128 K threads
+// (up to 1,024: 64 rays at K = 16, 32 at K = 32), so the staging is paid
+// once per 128 rays whatever K. Against blocks of 128 threads (128 / K rays,
+// K times the blocks and the staging) it measured the same at K = 1 and
+// 3-5% faster on many_spheres' 65,536 lanes at the host's K (NVIDIA H100
+// 80GB HBM3, 700 W, tools/time_kernels.py flat, two runs: K = 4, 0.0421 and
+// 0.0411 ms against 0.0441 and 0.0433; K = 2, 0.0433 and 0.0429 against
+// 0.0453 and 0.0445).
+//
+// What bounds it on the H100: per-ray ALU work, ~50 flops per triangle and
+// ~20 per sphere over every row, and latency: one thread per ray (the design
+// before this one) gave 65,536 rays 2,048 warps, each a serial chain over
+// every row (12 triangles and a sphere on Cornell, 490 rows on
+// many_spheres). Split, a sphere test is still ~20 instructions without
+// multiply-adds plus its shared load, so many_spheres' 32M tests take
+// ~0.025 ms of instruction throughput at best. The host takes K from the
+// tables' rows (kernels/binding.py :: small_team, from the times at every
+// team in PERF.md): 4 on many_spheres, 1 on Cornell, whose launch costs
+// more than its 13 rows.
 //
 // TPU workarounds not carried over: the (3, N) lane-major ray layout with
 // 1024-lane ray tiles and their padding, the 8-row table padding, and the
@@ -33,56 +61,70 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kRays = 128;    // rays a block (fewer past 1,024 threads)
 constexpr int kSphCols = 8;   // center, k, 1/r, material, 2 zeros
 constexpr int kTriCols = 16;  // v0, e1, e2, normal, material, 3 zeros
+using pt::kNone;
 
-__global__ void __launch_bounds__(kThreads)
-    combined_closest_small_kernel(const float* __restrict__ sph, int n_sph,
-                                  const float* __restrict__ tri, int n_tri, int num_tris,
+// Threads of a block at K threads a ray: 128 rays, at most 1,024 threads.
+template <int K>
+__host__ __device__ constexpr int block_threads() {
+  return kRays * K < 1024 ? kRays * K : 1024;
+}
+
+template <int K>
+__global__ void __launch_bounds__(block_threads<K>())
+    combined_closest_small_kernel(const float4* __restrict__ sph, int n_sph,
+                                  const float4* __restrict__ tri, int n_tri, int num_tris,
                                   const float* __restrict__ o, const float* __restrict__ d,
                                   const float* __restrict__ t_min,
                                   const float* __restrict__ t_max, float* __restrict__ t_out,
                                   int* __restrict__ prim_out, float* __restrict__ n_out,
                                   int* __restrict__ m_out, int N) {
-  extern __shared__ float smem[];
-  float* s_tri = smem;
-  float* s_sph = s_tri + n_tri * kTriCols;
-  for (int k = threadIdx.x; k < n_tri * kTriCols; k += blockDim.x) s_tri[k] = tri[k];
-  for (int k = threadIdx.x; k < n_sph * kSphCols; k += blockDim.x) s_sph[k] = sph[k];
+  constexpr int kBlock = block_threads<K>();
+  extern __shared__ float4 smem4[];
+  float4* s_tri = smem4;
+  float4* s_sph = s_tri + n_tri * (kTriCols / 4);
+  for (int k = threadIdx.x; k < n_tri * (kTriCols / 4); k += kBlock) s_tri[k] = tri[k];
+  for (int k = threadIdx.x; k < n_sph * (kSphCols / 4); k += kBlock) s_sph[k] = sph[k];
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
+  const int part = threadIdx.x & (K - 1);
+  const int i = blockIdx.x * (kBlock / K) + threadIdx.x / K;
+  if (i >= N) return;  // the whole team leaves together
+  const unsigned mask = pt::team_mask(K);
   const pt::V3 o3 = pt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
   const pt::V3 d3 = pt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
   const float lo = t_min[i], hi = t_max[i];
 
   float tri_t = INFINITY;
-  int tri_r = -1;
-  for (int r = 0; r < n_tri; ++r) {
+  int tri_r = kNone;
+  for (int r = part; r < n_tri; r += K) {
     float t;
-    if (pt::hit_triangle(s_tri + r * kTriCols, o3, d3, lo, hi, &t) && t < tri_t) {
-      tri_t = t;
+    if (pt::hit_triangle(s_tri + r * (kTriCols / 4), o3, d3, lo, hi, &t) && t < tri_t) {
+      tri_t = t;  // strict: a thread's first minimum in row order
       tri_r = r;
     }
   }
+  pt::group_min(&tri_t, &tri_r, K, mask);
 
   const float sph_hi = pt::clamp_max(hi, tri_t);
   const float od = pt::dot3(o3, d3);
   const float oo = pt::dot3(o3, o3);
   float sph_t = INFINITY;
-  int sph_r = -1;
-  for (int r = 0; r < n_sph; ++r) {
-    float t_c = pt::sphere_root(s_sph + r * kSphCols, o3, d3, od, oo, lo);
+  int sph_r = kNone;
+  for (int r = part; r < n_sph; r += K) {
+    const float t_c = pt::sphere_root(s_sph[r * (kSphCols / 4)], o3, d3, od, oo, lo);
     if (t_c >= lo && t_c <= sph_hi && t_c < sph_t) {
       sph_t = t_c;
       sph_r = r;
     }
   }
+  pt::group_min(&sph_t, &sph_r, K, mask);
+  if (part != 0) return;
 
   if (sph_t < tri_t) {  // strictly nearer: ties go to the triangle
-    const float* row = s_sph + sph_r * kSphCols;
+    const float* row = reinterpret_cast<const float*>(s_sph + sph_r * (kSphCols / 4));
     const float ir = row[4];
     t_out[i] = sph_t;
     prim_out[i] = num_tris + sph_r;
@@ -90,8 +132,8 @@ __global__ void __launch_bounds__(kThreads)
     n_out[3 * i + 1] = (o3.y + sph_t * d3.y - row[1]) * ir;
     n_out[3 * i + 2] = (o3.z + sph_t * d3.z - row[2]) * ir;
     m_out[i] = static_cast<int>(row[5]);
-  } else if (tri_r >= 0) {
-    const float* row = s_tri + tri_r * kTriCols;
+  } else if (tri_r != kNone) {
+    const float* row = reinterpret_cast<const float*>(s_tri + tri_r * (kTriCols / 4));
     t_out[i] = tri_t;
     prim_out[i] = tri_r;
     n_out[3 * i] = row[9];
@@ -108,18 +150,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int K>
+cudaError_t launch(const float* sph, int n_sph, const float* tri, int n_tri, int num_tris,
+                   const float* o, const float* d, const float* t_min, const float* t_max,
+                   float* t_out, int* prim_out, float* n_out, int* m_out, int N,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (static_cast<size_t>(n_tri) * kTriCols +
+                                       static_cast<size_t>(n_sph) * kSphCols);
+  constexpr int rays = block_threads<K>() / K;
+  combined_closest_small_kernel<K><<<(N + rays - 1) / rays, block_threads<K>(), smem, stream>>>(
+      reinterpret_cast<const float4*>(sph), n_sph, reinterpret_cast<const float4*>(tri), n_tri,
+      num_tris, o, d, t_min, t_max, t_out, prim_out, n_out, m_out, N);
+  return cudaGetLastError();
+}
+
+cudaError_t closest(const float* sph, int n_sph, const float* tri, int n_tri, int num_tris,
+                    int team, const float* o, const float* d, const float* t_min,
+                    const float* t_max, float* t_out, int* prim_out, float* n_out, int* m_out,
+                    int N, cudaStream_t stream) {
+  PT_TEAM_LAUNCH(launch, team, sph, n_sph, tri, n_tri, num_tris, o, d, t_min, t_max, t_out,
+                 prim_out, n_out, m_out, N, stream)
+}
+
 }  // namespace
 
+// team: threads a ray (1, 2, 4, 8, 16 or 32); sph and tri 16-byte aligned.
 extern "C" int pt_combined_closest_small(const float* sph, int n_sph, const float* tri,
-                                         int n_tri, int num_tris, const float* o, const float* d,
-                                         const float* t_min, const float* t_max, float* t_out,
-                                         int* prim_out, float* n_out, int* m_out, int N,
-                                         void* stream) {
+                                         int n_tri, int num_tris, int team, const float* o,
+                                         const float* d, const float* t_min, const float* t_max,
+                                         float* t_out, int* prim_out, float* n_out, int* m_out,
+                                         int N, void* stream) {
   if (N <= 0) return 0;
-  size_t smem = sizeof(float) * (static_cast<size_t>(n_tri) * kTriCols +
-                                 static_cast<size_t>(n_sph) * kSphCols);
-  int grid = (N + kThreads - 1) / kThreads;
-  combined_closest_small_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      sph, n_sph, tri, n_tri, num_tris, o, d, t_min, t_max, t_out, prim_out, n_out, m_out, N);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(closest(sph, n_sph, tri, n_tri, num_tris, team, o, d, t_min, t_max,
+                                  t_out, prim_out, n_out, m_out, N,
+                                  static_cast<cudaStream_t>(stream)));
 }

@@ -1,38 +1,64 @@
-// Closest triangle hit over 256-row clusters: the flat route.
+// Closest triangle hit over 256-row clusters: the flat route, walked by a
+// team of threads per ray.
 //
 // Replaces pathtrace_tpu/ops/pallas_intersect.py :: _triangle_kernel (wrapper
-// triangle_closest) on the route resolve_auto picks for 64 < triangles < 4096
-// (the wave engine and the pool's composed branch alike). Plain-torch twin:
-// ops/intersect.py :: triangle_closest_reference (brute force over every row).
+// triangle_closest) on the route resolve_auto picks for 64 < triangles < 4096,
+// and beside more than 512 spheres for fewer triangles (the wave engine and
+// the pool's composed branch alike). Plain-torch twin: ops/intersect.py ::
+// triangle_closest_reference (brute force over every real row).
 //
 // The table is the scene's triangle rows in their build order, zero-padded to
-// whole clusters of 256 rows (padding rows fail the |a| >= 1e-8 reject), with
-// one AABB row per cluster (Scene.tri_cluster_min/max, widened outward by a
-// small margin in ops/intersect.py :: build_tables so that slab-test rounding
-// never drops a cluster holding a hit the twin accepts; clusters with no rows
-// carry inverted boxes and are never entered). The wrapper builds both.
+// whole clusters of 256 rows, 16 floats a row, 16-byte aligned (a row is
+// three float4 loads), with one AABB row per cluster (Scene.tri_cluster_min/
+// max, widened outward by a small margin in ops/intersect.py :: build_tables
+// so that slab-test rounding never drops a cluster holding a hit the twin
+// accepts; clusters with no rows carry inverted boxes and are never entered).
+// The wrapper builds both and passes n_rows, the scene's real rows: a
+// cluster's sweep ends there, so the padding rows (which would fail the
+// |a| >= 1e-8 reject anyway) are never tested. On the sphere field the route
+// pads 2 ground triangles to one cluster: the design before this one tested
+// all 256 rows for each ray.
 //
-// One thread per ray. A thread visits the clusters in row order, skips a
-// cluster whose slab range misses [t_min, min(t_max, best_t)], and runs
-// Moller-Trumbore (csrc/geom.cuh :: hit_triangle: 1e-8 parallel reject,
-// inclusive barycentric bounds, closed range) over the rest. Rows are visited
-// in increasing order and only a strictly nearer hit replaces the best, so
-// equal t goes to the lower row and the kernel equals its brute-force twin
-// exactly. The TPU kernel visits clusters nearest-first with a strict <, so it
-// may differ from this one on equal-t ties across clusters (shared mesh
-// edges) and nowhere else.
+// A team of K threads (1, 2, 4, 8, 16 or 32, aligned in a warp; 128 threads
+// a block, so 128 / K rays) shares one ray; every decision is taken on a
+// team-reduced value, and every shuffle names the team's own lanes
+// (geom.cuh :: team_mask), as in intersect.cu and resident.cu.
+// - Clusters, nearest-first: each round the team finds the entered cluster
+//   that follows the last visited one in ascending (entry, id) order
+//   (geom.cuh :: next_box: thread j scans clusters j, j+K, ..., then
+//   group_min), the entry being the slab entry into the widened box over
+//   [t_min, t_max] (geom.cuh :: box_entry), and stops when there is none or
+//   its entry is above min(best_t, t_max). The gate is <=, not <: out of row
+//   order, a cluster entered exactly at the current best t may hold an
+//   equal-t hit in a lower row, which the brute-force twin returns.
+// - The sweep, split: thread j tests the cluster's real rows j, j+K, ...
+//   (Moller-Trumbore, geom.cuh :: hit_triangle: 1e-8 parallel reject,
+//   inclusive barycentric bounds, closed [t_min, bound]), keeps its strict
+//   first minimum of (t, row), and the team combines them as a
+//   lexicographic (t, row) min (group_min); the ray's best takes it on a
+//   smaller t or an equal t in a lower row. The bound tightens after each
+//   cluster. So the answer equals the twin whatever K. (The JAX kernel
+//   visits clusters nearest-first with a strict < and keeps the first
+//   cluster's row on equal t, so it can differ from this one on equal-t ties
+//   across clusters, shared mesh edges, and nowhere else.)
 //
-// What bounds it on the H100: per-ray ALU work, ~40 flops per triangle test
-// times the rows of the clusters a ray enters (~16 slab flops per cluster),
-// with divergent control flow across a warp. The table (<= 4096 rows x 64 B
-// = 256 KB) stays in device memory and L2; threads of a warp that enter the
-// same cluster read the same rows.
+// What bounds it on the H100: per-ray ALU work with divergent control flow,
+// ~50 flops a triangle test times the real rows of the clusters a ray enters
+// before its hit, plus ~24 a slab test per cluster and scan. One thread per
+// ray in row order (the design before this one) ran the union of its warp's
+// rays' clusters, far ones before the near one capped best_t, with 2,048
+// warps on mesh_scene(2000)'s 65,536 rays. The host takes K from the longest
+// cluster's real rows (kernels/binding.py :: flat_team, from the times at
+// every team in PERF.md): one thread on the field's 2 rows. The table (<=
+// 4096 rows x 64 B = 256 KB) and its boxes stay in L1/L2. No TMA or wgmma:
+// the work is per-ray branching, not a product.
 //
 // TPU workarounds not carried over: the per-cluster HBM->VMEM DMA with its
-// double buffer and semaphores, the per-tile cluster prepass into key rows
-// with extract-min/clear-key front-to-back order, the one-hot bf16x3 MXU
-// winner select (_select_winner), the 128-lane table padding and the 1024-
-// lane ray tiles.
+// double buffer and semaphores, the sweep of every cluster as one whole
+// 256-row tile (one vector operation on the TPU, zero padding rows
+// included), the per-tile cluster prepass into key rows with extract-min/
+// clear-key front-to-back order, the one-hot bf16x3 MXU winner select
+// (_select_winner), the 128-lane table padding and the 1024-lane ray tiles.
 
 #include <cuda_runtime.h>
 
@@ -44,44 +70,62 @@ constexpr int kThreads = 128;
 constexpr int kTriCols = 16;  // v0, e1, e2, normal, material, 3 zeros
 constexpr int kBoxCols = 8;   // min, max, 2 zeros
 constexpr int kCluster = 256;
+using pt::kNone;
+using pt::Ray;
 
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-    triangle_closest_kernel(const float* __restrict__ tri, const float* __restrict__ box,
-                            int n_clusters, const float* __restrict__ o,
+    triangle_closest_kernel(const float4* __restrict__ tri, const float* __restrict__ box,
+                            int n_clusters, int n_rows, const float* __restrict__ o,
                             const float* __restrict__ d, const float* __restrict__ t_min,
                             const float* __restrict__ t_max, float* __restrict__ t_out,
                             int* __restrict__ idx_out, float* __restrict__ n_out,
                             int* __restrict__ m_out, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const pt::V3 o3 = pt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
-  const pt::V3 d3 = pt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  const pt::V3 inv = pt::v3(pt::safe_inv(d3.x), pt::safe_inv(d3.y), pt::safe_inv(d3.z));
-  const float lo = t_min[i], hi = t_max[i];
+  const int part = threadIdx.x & (K - 1);
+  const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
+  if (i >= N) return;  // the whole team leaves together
+  const unsigned mask = pt::team_mask(K);
+  const Ray ray = pt::load_ray(o, d, t_min, t_max, i);
+  auto entry = [&](int c) {
+    return pt::box_entry(box + c * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max);
+  };
   float best_t = INFINITY;
-  int best_i = -1;
-  for (int c = 0; c < n_clusters; ++c) {
-    float bound = pt::clamp_max(hi, best_t);  // NaN t_max propagates, as in the twin
-    if (!(pt::box_entry(box + c * kBoxCols, o3, inv, lo, bound) < INFINITY)) continue;
-    const float* row = tri + static_cast<size_t>(c) * kCluster * kTriCols;
-    for (int r = c * kCluster; r < (c + 1) * kCluster; ++r, row += kTriCols) {
+  int best_i = kNone;
+  float e = -INFINITY;
+  int c = -1;
+  // NaN t_max stays NaN under clamp_max, so nothing passes the gate.
+  while (pt::next_box<K>(n_clusters, part, mask, entry, &e, &c) &&
+         e <= pt::clamp_max(ray.t_max, best_t)) {
+    const float cap = pt::clamp_max(ray.t_max, best_t);
+    const int r1 = min((c + 1) * kCluster, n_rows);
+    float lt = INFINITY;
+    int lr = kNone;
+    for (int r = c * kCluster + part; r < r1; r += K) {
       float t;
-      if (pt::hit_triangle(row, o3, d3, lo, bound, &t) && t < best_t) {
-        best_t = t;
-        best_i = r;
-        bound = pt::clamp_max(hi, best_t);
+      if (pt::hit_triangle(tri + static_cast<size_t>(r) * (kTriCols / 4), ray.o, ray.d,
+                           ray.t_min, cap, &t) &&
+          t < lt) {
+        lt = t;  // strict: a thread's first minimum in row order
+        lr = r;
       }
     }
+    pt::group_min(&lt, &lr, K, mask);
+    if (lt < best_t || (lt == best_t && lr < best_i)) {
+      best_t = lt;
+      best_i = lr;
+    }
   }
+  if (part != 0) return;
   t_out[i] = best_t;
-  idx_out[i] = best_i;
-  if (best_i >= 0) {
-    const float* row = tri + static_cast<size_t>(best_i) * kTriCols;
+  if (best_i != kNone) {
+    const float* row = reinterpret_cast<const float*>(tri) + static_cast<size_t>(best_i) * kTriCols;
+    idx_out[i] = best_i;
     n_out[3 * i] = row[9];
     n_out[3 * i + 1] = row[10];
     n_out[3 * i + 2] = row[11];
     m_out[i] = static_cast<int>(row[12]);
   } else {
+    idx_out[i] = -1;
     n_out[3 * i] = 0.0f;
     n_out[3 * i + 1] = 0.0f;
     n_out[3 * i + 2] = 0.0f;
@@ -89,15 +133,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int K>
+cudaError_t launch(const float* tri, const float* box, int n_clusters, int n_rows,
+                   const float* o, const float* d, const float* t_min, const float* t_max,
+                   float* t_out, int* idx_out, float* n_out, int* m_out, int N,
+                   cudaStream_t stream) {
+  const int grid = (N + kThreads / K - 1) / (kThreads / K);
+  triangle_closest_kernel<K><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(tri), box, n_clusters, n_rows, o, d, t_min, t_max, t_out,
+      idx_out, n_out, m_out, N);
+  return cudaGetLastError();
+}
+
+cudaError_t closest(const float* tri, const float* box, int n_clusters, int n_rows, int team,
+                    const float* o, const float* d, const float* t_min, const float* t_max,
+                    float* t_out, int* idx_out, float* n_out, int* m_out, int N,
+                    cudaStream_t stream) {
+  PT_TEAM_LAUNCH(launch, team, tri, box, n_clusters, n_rows, o, d, t_min, t_max, t_out, idx_out,
+                 n_out, m_out, N, stream)
+}
+
 }  // namespace
 
+// n_rows: the table's real rows (<= n_clusters * 256); team: threads a ray
+// (1, 2, 4, 8, 16 or 32); tri 16-byte aligned.
 extern "C" int pt_triangle_closest(const float* tri, const float* box, int n_clusters,
-                                   const float* o, const float* d, const float* t_min,
-                                   const float* t_max, float* t_out, int* idx_out, float* n_out,
-                                   int* m_out, int N, void* stream) {
+                                   int n_rows, int team, const float* o, const float* d,
+                                   const float* t_min, const float* t_max, float* t_out,
+                                   int* idx_out, float* n_out, int* m_out, int N, void* stream) {
   if (N <= 0) return 0;
-  int grid = (N + kThreads - 1) / kThreads;
-  triangle_closest_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tri, box, n_clusters, o, d, t_min, t_max, t_out, idx_out, n_out, m_out, N);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(closest(tri, box, n_clusters, n_rows, team, o, d, t_min, t_max, t_out,
+                                  idx_out, n_out, m_out, N, static_cast<cudaStream_t>(stream)));
 }

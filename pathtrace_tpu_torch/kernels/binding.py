@@ -22,8 +22,12 @@ ray's clusters with a team too, chosen by the same rule as a split: the
 fewest threads of :data:`TEAMS` that leave each at most
 ``ROWS_PER_THREAD[kernel]`` rows of one cluster's sweep (256 rows in the
 clustered mode, the table's rows in one tile, so one thread on the small
-tables; :func:`cluster_team`). Every split and every team gives the same
-bits and counts.
+tables; :func:`cluster_team`). The flat route's ``pt_triangle_closest``
+walks each ray's 256-row clusters nearest-first with a team too, its sweep
+stopped at the table's real rows (:func:`flat_team`, from the longest
+cluster's real rows), and ``pt_combined_closest_small`` splits each ray's
+triangle and sphere sweeps over a team (:func:`small_team`). Every split
+and every team gives the same bits and counts.
 """
 
 from __future__ import annotations
@@ -55,9 +59,17 @@ _SPH_USE, _TRI_USE, _LGT_COLS = 16, 36, 72   # staged bytes a sphere, triangle, 
 # threads (32 rows each; 0.097 ms against 0.105 at 16 and 0.107 at 4), the
 # any hit, which only votes, at 32 (8 rows each; 0.061 ms against 0.064 at
 # 16); 12 rows keeps one thread on the small one-tile tables (the Cornell
-# wave's 11 triangles).
+# wave's 11 triangles). Device times, launches queued (tools/time_kernels.py
+# flat): the flat walk of csrc/triangle_closest.cu on mesh_scene(2000)'s
+# 256-row clusters, 65,536 lanes, is fastest at 8 threads (32 rows each;
+# 0.191 ms against 0.196 at 16 and 0.207 at 4), on the sphere field's 2 rows
+# at 1 (0.0046 ms against 0.0049 at 2); the split of
+# csrc/combined_closest_small.cu on many_spheres' 490 rows at 4 (0.040 ms
+# against 0.042 at 2 and 0.044 at 8), on Cornell's 13 rows at 1 (0.0069 ms
+# against 0.0074 at 2).
 ROWS_PER_THREAD = {"fused_bounce": 128, "shadow_any_hit": 32,
-                   "sphere_closest": 32, "any_hit": 12}
+                   "sphere_closest": 32, "any_hit": 12,
+                   "triangle_closest": 32, "combined_closest_small": 128}
 
 TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH or cluster walk can take
 # Threads sharing one ray's walk in csrc/bvh.cu, by kernel: the fastest of
@@ -98,14 +110,30 @@ def sweep_split(rows: int, kernel: str, choices=SPLITS) -> int:
 
 
 def cluster_team(kernel: str, *tables) -> int:
-    """The team of :data:`TEAMS` that ``kernel`` (``"sphere_closest"`` or
-    ``"any_hit"``) takes on ``tables``, ``(rows, boxes)`` pairs of row
-    tables and their cluster boxes (None or no rows: one tile): the
-    :func:`sweep_split` of the longest sweep, a cluster's 256 rows or a
-    whole one-tile table."""
+    """The team of :data:`TEAMS` that ``kernel`` (``"sphere_closest"``,
+    ``"any_hit"`` or ``"triangle_closest"``) takes on ``tables``, ``(rows,
+    boxes)`` pairs of row tables and their cluster boxes (None or no rows:
+    one tile): the :func:`sweep_split` of the longest sweep, at most a
+    cluster's 256 rows or a whole one-tile table."""
     rows = max(min(t.shape[0], CLUSTER_SIZE) if b is not None and b.shape[0] else t.shape[0]
                for t, b in tables)
     return sweep_split(rows, kernel, TEAMS)
+
+
+def flat_team(tables) -> int:
+    """The team of :data:`TEAMS` that ``triangle_closest`` takes on the flat
+    route's ``tables``: the :func:`cluster_team` of its real rows, so the
+    :func:`sweep_split` of ``min(tri_rows, 256)`` (one thread on the sphere
+    field's 2 ground triangles)."""
+    return cluster_team("triangle_closest", (tables.tri[:tables.tri_rows], tables.leaf))
+
+
+def small_team(tables) -> int:
+    """The team of :data:`TEAMS` that ``combined_closest_small`` takes on the
+    small route's ``tables``: the :func:`sweep_split` of its triangle and
+    sphere rows."""
+    return sweep_split(tables.tri.shape[0] + tables.sph.shape[0], "combined_closest_small",
+                       TEAMS)
 
 
 def launch_shape(split: int) -> tuple[int, int]:
@@ -160,9 +188,9 @@ def library() -> ctypes.CDLL:
         lib.pt_bvh_closest.restype = _I
         lib.pt_bvh_anyhit.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I, _P]
         lib.pt_bvh_anyhit.restype = _I
-        lib.pt_combined_closest_small.argtypes = [_P, _I, _P, _I, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_combined_closest_small.argtypes = [_P, _I, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
         lib.pt_combined_closest_small.restype = _I
-        lib.pt_triangle_closest.argtypes = [_P, _P, _I] + [_P] * 8 + [_I, _P]
+        lib.pt_triangle_closest.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
         lib.pt_triangle_closest.restype = _I
         lib.pt_binned_round_closest.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _P]
         lib.pt_binned_round_closest.restype = _I
@@ -319,27 +347,35 @@ def launch_bvh_anyhit(tables, o, d, t_min, t_max, occ, counts=None, team=None) -
     _raise_on(code, "bvh_anyhit")
 
 
-def launch_combined_closest_small(tables, o, d, t_min, t_max, t, prim, n, m) -> None:
-    """``tables`` is an ``ops.intersect.Tables`` of the small route."""
+def launch_combined_closest_small(tables, o, d, t_min, t_max, t, prim, n, m,
+                                  team=None) -> None:
+    """``tables`` is an ``ops.intersect.Tables`` of the small route; ``team``:
+    threads a ray (default :func:`small_team`)."""
+    team = _team(team, small_team(tables), ("tables.tri", tables.tri),
+                 ("tables.sph", tables.sph))
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_combined_closest_small(
             tables.sph.data_ptr(), tables.sph.shape[0], tables.tri.data_ptr(),
-            tables.tri.shape[0], tables.tri_rows, o.data_ptr(), d.data_ptr(),
+            tables.tri.shape[0], tables.tri_rows, team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(), prim.data_ptr(), n.data_ptr(),
             m.data_ptr(), t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "combined_closest_small")
 
 
-def launch_triangle_closest(tables, o, d, t_min, t_max, t, idx, n, m) -> None:
-    """``tables`` is an ``ops.intersect.Tables`` of the flat route."""
+def launch_triangle_closest(tables, o, d, t_min, t_max, t, idx, n, m, team=None) -> None:
+    """``tables`` is an ``ops.intersect.Tables`` of the flat route; the sweep
+    stops at its ``tri_rows`` real rows; ``team``: threads a ray (default
+    :func:`flat_team`)."""
+    team = _team(team, flat_team(tables), ("tables.tri", tables.tri))
     lib = library()
     with torch.cuda.device(t_min.device):
         code = lib.pt_triangle_closest(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0],
-            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(),
-            idx.data_ptr(), n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
+            tables.tri_rows, team, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), t.data_ptr(), idx.data_ptr(), n.data_ptr(), m.data_ptr(),
+            t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "triangle_closest")
 

@@ -5,13 +5,15 @@ Counterpart of ``pathtrace_tpu/ops/intersect.py`` on the three routes that
 ``resolve_auto`` picks by default (:func:`resolve_route`):
 
 * **small** (<= 64 triangle rows and <= 512 sphere rows): one fused closest
-  hit, :func:`combined_closest_small` (``csrc/combined_closest_small.cu``),
-  replacing ``pallas_intersect.combined_closest_small``;
+  hit, :func:`combined_closest_small` (``csrc/combined_closest_small.cu``,
+  each ray's sweep split over a team of threads), replacing
+  ``pallas_intersect.combined_closest_small``;
 * **flat** (64 < triangles < 4096, or fewer triangles beside more than 512
   spheres): :func:`sphere_closest`, then :func:`triangle_closest`
   (``csrc/triangle_closest.cu``, replacing
-  ``pallas_intersect.triangle_closest``) over 256-row clusters, capped by
-  the sphere hits;
+  ``pallas_intersect.triangle_closest``) over 256-row clusters, walked
+  nearest-first by a team of threads a ray up to the table's real rows,
+  capped by the sphere hits;
 * **bvh** (>= 4096 triangles): :func:`sphere_closest`, then
   :func:`bvh_closest` (``csrc/bvh.cu``, replacing
   ``bvh_intersect.triangle_closest_bvh``, with its ``counters=True`` mode)
@@ -42,8 +44,8 @@ entered clusters nearest-first (``csrc/intersect.cu``);
 per-ray counts. A scene with <= 64 triangles and more
 than 512 spheres takes the flat route: the JAX package skips
 ``combined_closest_small`` there and runs the one-tile ``triangle_closest``
-beside the clustered spheres; the flat route's one padded 256-row cluster
-gives the same answers.
+beside the clustered spheres; the flat route's one padded 256-row cluster,
+swept up to its real rows, gives the same answers.
 
 Shadow rays go through :func:`any_hit` (``csrc/intersect.cu``, replacing
 ``pallas_intersect.any_hit``) over the spheres and every triangle row on the

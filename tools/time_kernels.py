@@ -1,7 +1,7 @@
 """Time a redesigned kernel pair of one checkout of the repository on the GPU.
 
     python3 tools/time_kernels.py ROOT pool|bvh|cluster|binned
-    python3 tools/time_kernels.py ROOT resident [NAME=V,V,... ...]
+    python3 tools/time_kernels.py ROOT resident|flat [NAME=V,V,... ...]
 
 Imports ``chip_smoke`` and ``pathtrace_tpu_torch`` from the checkout at
 ROOT, builds its kernels, and times raw launches with CUDA events
@@ -43,12 +43,24 @@ values:
   counts as null; a keyword a launcher lacks is left out); and config 4 at
   1 spp under ``method="resident"`` as for ``binned``, at the host's teams
   and, where the checkout has ``RESIDENT_TEAM``, with both kernels at each
-  team of ``frame=K,K,...``.
+  team of ``frame=K,K,...``;
+- ``flat``: ``combined_closest_small`` on phase 3c's 65,536 lanes of
+  Cornell and many_spheres, ``triangle_closest`` on its 65,536 lanes of
+  ``mesh_scene(2000)`` and on the first 16,384 lanes of the 1,940-sphere
+  field (capped by the sphere hits as ``intersect`` caps them), at the
+  host's team and at every team size where the checkout's launchers take
+  ``team``, each combined with the values of ``NAME=V,V,...`` (as for
+  ``resident``), timed both as for the other pairs and with the launches
+  queued behind a spin kernel (``chip_smoke.queued_ms`` of this tree: the
+  kernels alone, which on these small launches the host's launch gaps
+  hide); and the field's 1-spp pool frame (phase 5e's frame at 1
+  spp), its device ms and each hand-written kernel's device ms an
+  iteration (``chip_smoke.device_work`` of this tree).
 
 Prints one JSON line: the card, ROOT, and the milliseconds (kernels per
-setting; per scene for ``pool``, per lane set for ``cluster``, per wave set
-for ``binned``, with its rounds and ray-rounds; per team and setting for
-``resident``). To compare
+setting; per scene for ``pool``, per lane set for ``cluster`` and ``flat``,
+per wave set for ``binned``, with its rounds and ray-rounds; per team and
+setting for ``resident``). To compare
 two versions on one card, run it in turns in one command (old, new, new,
 old), each checkout in its own process.
 """
@@ -212,9 +224,92 @@ def binned_ms(cs, binding, dev):
     }
 
 
-def resident_ms(cs, binding, dev, knobs):
+def knob_ms(cs, binding, name, fn, knobs, timer=None):
+    """``{"host": ms, setting: ms}`` of ``fn(**kw)``, the raw launches of
+    ``binding.launch_<name>``: at the host's setting, and at every team
+    (where that launcher takes ``team``) combined with each value of the
+    other keywords of ``knobs`` it takes (``{name: (int, ...)}``; a setting
+    the launcher refuses counts as null, a keyword it lacks is left out);
+    ``timer`` (default ``cs.cuda_ms``) times one function."""
     import itertools
 
+    timer = timer or cs.cuda_ms
+
+    takes = inspect.signature(getattr(binding, "launch_" + name)).parameters
+    names = [k for k in ("team", *knobs) if k in takes]
+    values = [binding.TEAMS if k == "team" else knobs[k] for k in names]
+    ms = {"host": timer(fn)}
+    for combo in (itertools.product(*values) if names else ()):
+        kw = dict(zip(names, combo))
+        try:
+            fn(**kw)
+        except (ValueError, RuntimeError):
+            ms[json.dumps(kw)] = None      # a setting the launcher refuses
+            continue
+        ms[json.dumps(kw)] = timer(lambda: fn(**kw))
+    return ms
+
+
+def flat_ms(cs, binding, dev, knobs):
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+    from pathtrace_tpu_torch.pool import render_pool
+
+    here = _this_tree_smoke()
+    S = cs.WAVE_S
+    out = (torch.empty(S, device=dev), torch.empty(S, dtype=torch.int32, device=dev),
+           torch.empty((S, 3), device=dev), torch.empty(S, dtype=torch.int32, device=dev))
+
+    def lane_ms(scene, camera, m):
+        """The scene's kernel on the first ``m`` of phase 3c's lanes: CUDA
+        events around back-to-back launches (``events``) and launches queued
+        behind a spin kernel (``queued``: the kernel alone, no host launch
+        gaps)."""
+        tables = intersect.build_tables(scene)
+        (o, d), _ = cs.lane_rays(scene, camera, tables, S)
+        o, d, res = o[:m], d[:m], tuple(x[:m] for x in out)
+        lo = torch.full((m,), shade.EPS, device=dev)
+        hi = torch.full((m,), float("inf"), device=dev)
+        if tables.route == "small":
+            name = "combined_closest_small"
+        else:
+            name = "triangle_closest"
+            hi = torch.minimum(hi, intersect.sphere_closest_reference(
+                tables.sph, o, d, lo, hi)[0])
+        launch = getattr(binding, "launch_" + name)
+
+        def fn(**x):
+            launch(tables, o, d, lo, hi, *res, **x)
+
+        return name, {"events": knob_ms(cs, binding, name, fn, knobs),
+                      "queued": knob_ms(cs, binding, name, fn, knobs, timer=here.queued_ms)}
+
+    ms = {}
+    for name, scene, camera, m in (
+        ("cornell", scenes.cornell_box(dev), scenes.cornell_camera(400, 400, dev), S),
+        ("many_spheres", scenes.many_spheres(device=dev),
+         scenes.many_spheres_camera(1920, 1080, dev), S),
+        (f"mesh_{cs.FLAT_TRIS}", scenes.mesh_scene(cs.FLAT_TRIS, device=dev),
+         scenes.mesh_scene_camera(1920, 1080, dev), S),
+        ("field", cs.sphere_field(dev), scenes.many_spheres_camera(1920, 1080, dev), cs.SLICE_S),
+    ):
+        kernel, times = lane_ms(scene, camera, m)
+        ms[f"{kernel} {name} {m}"] = times
+    # The field's 1-spp pool frame (phase 5e's at 1 spp): device ms, and each
+    # hand-written kernel's device ms an iteration.
+    scene, res = cs.sphere_field(dev), []
+    camera = scenes.many_spheres_camera(cs.CLUSTER_FRAME["width"], cs.CLUSTER_FRAME["height"], dev)
+    one = dict(cs.CLUSTER_FRAME, spp=1)
+    render_pool(scene, camera, **one)                # warm-up
+    dev_ms, _, kernel_ms = here.device_work(lambda: res.append(render_pool(scene, camera, **one)))
+    iters = res[0][2]
+    ms["field_frame_1spp"] = {"device_ms": dev_ms, "iters": iters,
+                              "kernel_device_ms_per_iter": {k: v / iters
+                                                            for k, v in kernel_ms.items()}}
+    return ms
+
+
+def resident_ms(cs, binding, dev, knobs):
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import intersect, shade
 
@@ -235,20 +330,7 @@ def resident_ms(cs, binding, dev, knobs):
               "resident_anyhit": lambda **x: binding.launch_resident_anyhit(
                   tr, so, sd, lo, st, occ, **x)}
     frame_teams = knobs.pop("frame", ())
-    ms = {}
-    for name, fn in launch.items():
-        takes = inspect.signature(getattr(binding, "launch_" + name)).parameters
-        names = [k for k in ("team", *knobs) if k in takes]
-        values = [binding.TEAMS if k == "team" else knobs[k] for k in names]
-        ms[name] = {"host": cs.cuda_ms(fn)}
-        for combo in itertools.product(*values):
-            kw = dict(zip(names, combo))
-            try:
-                fn(**kw)
-            except (ValueError, RuntimeError):
-                ms[name][json.dumps(kw)] = None      # a setting the launcher refuses
-                continue
-            ms[name][json.dumps(kw)] = cs.cuda_ms(lambda: fn(**kw))
+    ms = {name: knob_ms(cs, binding, name, fn, knobs) for name, fn in launch.items()}
     frames = {"host": _frame(here, cs, scene, camera, "resident")}
     if hasattr(binding, "RESIDENT_TEAM"):
         host = dict(binding.RESIDENT_TEAM)
@@ -295,9 +377,9 @@ def _knobs(args):
 
 
 def main() -> int:
-    pairs = ("pool", "bvh", "cluster", "binned", "resident")
+    pairs = ("pool", "bvh", "cluster", "binned", "resident", "flat")
     if len(sys.argv) < 3 or sys.argv[2] not in pairs or (
-            len(sys.argv) > 3 and sys.argv[2] != "resident"):
+            len(sys.argv) > 3 and sys.argv[2] not in ("resident", "flat")):
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
@@ -310,8 +392,9 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     build.build()
-    if sys.argv[2] == "resident":
-        ms = resident_ms(cs, binding, dev, _knobs(sys.argv[3:]))
+    if sys.argv[2] in ("resident", "flat"):
+        fn = resident_ms if sys.argv[2] == "resident" else flat_ms
+        ms = fn(cs, binding, dev, _knobs(sys.argv[3:]))
     else:
         ms = {"pool": pool_ms, "bvh": bvh_ms, "cluster": cluster_ms,
               "binned": binned_ms}[sys.argv[2]](cs, binding, dev)
