@@ -16,10 +16,13 @@ its last line):
    of -1, NaN and inf);
 4. the Cornell frame of the JAX package's compile-check entry point
    (128x128, 1 spp, MIS, 16 bounces, 4096 slots, seed 0) on the card, checked
-   against the same frame rendered on the CPU with the twins;
-5. the benchmark workload: many-spheres at 1920x1080, 16 spp, MIS, 32
-   bounces, 16384 slots, timed, with launch counts of both kernels; its
-   rays, iterations and checksum must repeat ``BENCH_EXPECT``.
+   against the same frame rendered on the CPU with the twins, and rendered
+   again through ``profiler.profiled_render`` (its ``RenderStats`` printed;
+   the same counts and image);
+5. the benchmark workload through ``pathtrace_tpu_torch.bench``:
+   many-spheres at 1920x1080, 16 spp, MIS, 32 bounces, 16384 slots, timed,
+   with launch counts of both kernels; the bench's JSON line is printed, and
+   its rays, iterations and checksum must repeat ``BENCH_EXPECT``.
 
 The mesh path (scenes with >= 4096 triangles, the pool's composed branch):
 
@@ -85,7 +88,9 @@ The opt-in per-ray mesh traversals (``method="binned"|"resident"``):
     resident, on the card against the CPU twins;
 6.  the CLI: ``python -m pathtrace_tpu_torch render --engine wave --device
     cuda`` (Cornell), ``render --scene mesh --method resident --engine
-    pool`` and the pool on a 1,940-sphere field in subprocesses write PNGs.
+    pool`` and the pool on a 1,940-sphere field in subprocesses write PNGs;
+    ``python -m pathtrace_tpu_torch bench --small`` prints exactly one JSON
+    line with the root ``bench.py``'s keys.
 
 The clustered sphere modes (scenes past 512 spheres) and the Oren-Nayar/PBR
 lanes of ``fused_bounce``:
@@ -116,6 +121,17 @@ lanes of ``fused_bounce``:
     repeat ``CLUSTER_EXPECT``), device operations an iteration and the busy
     share (profiler over a 1-spp run).
 
+Parity against the C++ oracle (``csrc/oracle.cpp`` through
+``pathtrace_tpu_torch.oracle``):
+
+7.  ``tests/test_parity.py``'s five cases at its sizes, seeds and
+    tolerances (48x48: a diffuse Cornell under BRDF-only and MIS, NEE with a
+    sphere light, the glass Cornell box under MIS, Oren-Nayar walls under
+    MIS), the port's wave engine on the card against the oracle on the
+    host; the pixel (79, 176) anchor of the 400x400 Cornell box, 2,048
+    samples against the oracle's window; and the golden image's window
+    ``[240:244, 190:198]`` re-rendered bitwise at 8,192 spp.
+
 The next-to-last lines are the kernels' JSON record (sixteen entries: the
 twelve kernels and the four further modes, each with its time, its twin's,
 its launches on its path and its roofline bound; the pool's two kernels with
@@ -138,7 +154,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -153,10 +168,10 @@ EDGE_S = 4096               # lanes of the edge scene (phase 3)
 EDGE_N = 1024               # edge lanes of each scene of phase 3c
 CORNELL = dict(width=128, height=128, spp=1, integrator="mis", max_bounces=16,
                num_slots=4096, seed=0)
-BENCH = dict(width=1920, height=1080, spp=16, integrator="mis", max_bounces=32,
-             num_slots=16384, seed=0)
-BENCH_BUDGET_S = 120.0
-REFERENCE_CHECKSUM = 29173072.0   # the JAX package's image sum for this frame
+BENCH_BUDGET_S = 120.0      # the bench frame (bench.FRAME) halves its spp past this
+BENCH_EXTRA_KEYS = {"platform", "spp_per_sec", "total_rays", "pool_iterations", "occupancy",
+                    "wall_s", "image_checksum"}   # the root bench.py's "extra"
+REFERENCE_CHECKSUM = 29173072.0   # the JAX package's image sum for the bench frame
 # The port's own counts for this frame at 16 spp, repeated exactly by every
 # version of the kernels since they were first run (rays, iterations, image
 # sum to two decimals): any split of the sweeps must give them again.
@@ -202,6 +217,19 @@ WAVE_CORNELL = dict(width=400, height=400, spp=16, integrator="mis", max_bounces
 WAVE_BUDGET_S = 240.0       # the 16-spp render halves its spp (down to 8) past this
 GOLDEN = "tests/golden/oracle_cornell_400_mis_8192.npz"
 GOLDEN_MEAN_RTOL = 0.03
+GOLDEN_SIZE, GOLDEN_SPP = 400, 8192
+GOLDEN_WINDOW = (190, 240, 8, 4)   # (x0, y0, width, height) re-rendered bitwise
+PIXEL_ANCHOR, PIXEL_ANCHOR_SPP = (79, 176), 2048
+PARITY_SIZE = 48
+# tests/test_parity.py's cases: (scene, integrator, port spp, oracle spp,
+# channel-mean bound, RMSE bound); the port renders with seed 5, the oracle 11.
+PARITY_CASES = (
+    ("diffuse", "brdf_only", 192, 1024, 0.012, 0.18),
+    ("diffuse", "mis", 192, 1024, 0.012, 0.18),
+    ("sphere_light", "nee", 192, 1024, 0.015, 0.2),
+    ("cornell", "mis", 192, 768, 0.02, 0.5),
+    ("oren_nayar", "mis", 128, 512, 0.015, 0.2),
+)
 WAVE_CHECKS = (             # (scene, width, height, spp) rendered on the card and the CPU
     ("cornell", 64, 64, 2),
     ("mesh_2000", 32, 32, 1),
@@ -1486,28 +1514,11 @@ def run_config4(scene, camera, smi: str):
 
 
 def device_work(fn) -> tuple[float | None, int, dict]:
-    """``(ms, ops, kernel_ms)``: device time and the number of device
-    operations (kernels, copies, fills) over one call of ``fn``, from
-    ``torch.profiler`` with CUDA activity only, and the device ms of each
-    hand-written kernel that ran (by its name, ``<name>_kernel`` in
-    ``csrc/``); ms is None when the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """``profiler.device_work`` over one call of ``fn``, with the names of
+    every hand-written kernel: ``(ms, ops, kernel_ms)``."""
+    from pathtrace_tpu_torch.profiler import device_work as work
 
-    names = {**KERNELS, **MESH_KERNELS, **WAVE_KERNELS, **TRAVERSAL_KERNELS}
-    pattern = re.compile(r"(?<!\w)(" + "|".join(names) + r")_kernel\b")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    us, ops, kernel_us = 0.0, 0, {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        if t > 0:
-            us += t
-            ops += e.count
-            match = pattern.search(e.key)
-            if match:
-                kernel_us[match[1]] = kernel_us.get(match[1], 0.0) + t
-    return (us / 1e3 if us > 0 else None), ops, {k: v / 1e3 for k, v in kernel_us.items()}
+    return work(fn, {**KERNELS, **MESH_KERNELS, **WAVE_KERNELS, **TRAVERSAL_KERNELS})
 
 
 def run_config4_methods(scene, camera, smi: str):
@@ -1606,6 +1617,7 @@ def run_cornell(dev):
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import shade
     from pathtrace_tpu_torch.pool import ray_count, render_pool
+    from pathtrace_tpu_torch.profiler import profiled_render
 
     shade.LAUNCHES.clear()
     W, H = CORNELL["width"], CORNELL["height"]
@@ -1627,54 +1639,50 @@ def run_cornell(dev):
     log(f"[cornell] {W}x{H} 1spp MIS: GPU rays {rays}, iters {iters}; CPU rays "
         f"{rays_cpu}, iters {iters_cpu}; max pixel diff "
         f"{np.abs(img - img_cpu.numpy()).max():.4g}; launches {launches}")
+    # The same frame through the profiler: the same counts and image.
+    state, stats = profiled_render(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev),
+                                   **CORNELL)
+    if ((stats.traced_rays, stats.pool_iterations, stats.platform) != (rays, iters, "cuda")
+            or state.num_samples != CORNELL["spp"]
+            or not np.array_equal(state.image_sum.reshape(-1, 3).cpu().numpy(), img)):
+        raise AssertionError(f"cornell profiled_render {stats} differs from render_pool's "
+                             f"{rays} rays, {iters} iterations (or its image does)")
+    log("[cornell] profiled_render: " + stats.to_json())
 
 
 def run_bench(dev, smi: str):
-    """Phase 5: many-spheres at the benchmark's size, timed."""
-    from pathtrace_tpu_torch.models import scenes
+    """Phase 5: many-spheres at the benchmark's size through
+    ``pathtrace_tpu_torch.bench``, timed; prints the bench's JSON line."""
+    from pathtrace_tpu_torch import bench
     from pathtrace_tpu_torch.ops import shade
-    from pathtrace_tpu_torch.pool import busy_count, ray_count, render_pool
 
-    scene = scenes.many_spheres(device=dev)
-    camera = scenes.many_spheres_camera(BENCH["width"], BENCH["height"], dev)
-    warm = dict(BENCH, spp=1)
-    t0 = time.perf_counter()
-    render_pool(scene, camera, **warm)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    spp = BENCH["spp"]
+    scene, camera, frame = bench.setup(dev.type)
+    warm_s = bench.warm_up(scene, camera, frame)
+    spp = frame["spp"]
     while spp > 1 and warm_s * spp > BENCH_BUDGET_S:
         spp //= 2
-    run = dict(BENCH, spp=spp)
 
     shade.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    img, counters, iters = render_pool(scene, camera, **run)
-    checksum = float(img.double().sum().item())     # forces completion
-    wall = time.perf_counter() - t0
+    record = bench.timed(scene, camera, dict(frame, spp=spp))
     launches = dict(shade.LAUNCHES)
-    if not torch.isfinite(img).all():
-        raise AssertionError("many_spheres image not finite")
+    print(json.dumps(record), flush=True)
+    extra = record["extra"]
+    rays, iters, checksum = extra["total_rays"], extra["pool_iterations"], extra["image_checksum"]
+    if not np.isfinite(checksum):
+        raise AssertionError(f"many_spheres image not finite: checksum {checksum}")
     for k in KERNELS:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"{k} was not launched on the main path: {launches}")
     if launches["fused_bounce"] != iters:
         raise AssertionError(f"fused_bounce launches {launches} != iters {iters}")
-    rays = ray_count(counters)
-    if spp == BENCH["spp"] and (rays, iters, round(checksum, 2)) != BENCH_EXPECT:
+    if spp == frame["spp"] and (rays, iters, checksum) != BENCH_EXPECT:
         raise AssertionError(f"many_spheres: {rays} rays, {iters} iterations, checksum "
                              f"{checksum}; expected {BENCH_EXPECT}")
-    slots = min(run["num_slots"], run["width"] * run["height"])
     result = {
-        "workload": f"many_spheres {run['width']}x{run['height']} {spp}spp MIS",
-        "spp": spp, "spp_note": "" if spp == BENCH["spp"] else
-        f"reduced from {BENCH['spp']}: the 1-spp warm-up took {warm_s:.2f} s",
-        "total_rays": rays, "iters": iters,
-        "occupancy": busy_count(counters) / max(iters * slots, 1),
-        "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
-        "image_checksum": checksum,
+        "spp": spp, "spp_note": "" if spp == frame["spp"] else
+        f"reduced from {frame['spp']}: the 1-spp warm-up took {warm_s:.2f} s",
         "checksum_rel_diff_vs_jax_tpu": (checksum - REFERENCE_CHECKSUM) / REFERENCE_CHECKSUM
-        if spp == BENCH["spp"] else None,
+        if spp == frame["spp"] else None,
         "warmup_1spp_s": warm_s, "card": smi,
     }
     log("[bench] " + json.dumps(result))
@@ -2404,6 +2412,122 @@ def run_cluster_bench(dev, smi: str):
     return all_launches, field_launches
 
 
+def parity_scene(name: str, builder, M):
+    """A parity scene of ``tests/test_parity.py``, built with ``builder`` (a
+    ``SceneBuilder`` of either package) from the materials of ``M`` (that
+    package's ``models.materials``), so both packages build it from one
+    recipe: ``"diffuse"`` (its ``cornell_diffuse``: Lambert walls, a
+    triangle light, a grey sphere), ``"sphere_light"`` (its
+    ``cornell_sphere_light``: the walls lit by an emissive sphere) or
+    ``"oren_nayar"`` (its Oren-Nayar walls and sphere)."""
+    s, d, ls = 1.0, -2.0, 0.3
+    if name == "oren_nayar":
+        rough, grey = M.OrenNayar((0.7, 0.4, 0.3), 0.5), M.OrenNayar((0.6, 0.6, 0.6), 0.8)
+        walls = (rough, rough, grey, grey, grey)
+    else:
+        walls = (M.Lambertian((0.8, 0.1, 0.1)), M.Lambertian((0.1, 0.8, 0.1)),
+                 M.Lambertian((0.2, 0.2, 0.8)), M.Lambertian((0.2, 0.8, 0.8)),
+                 M.Lambertian((0.8, 0.8, 0.8)))
+    left, right, back, floor, ceiling = walls
+    b = builder
+    b.add_triangle((-s, -s, d - s), (-s, s, d - s), (-s, s, d + s), left)
+    b.add_triangle((-s, -s, d - s), (-s, s, d + s), (-s, -s, d + s), left)
+    b.add_triangle((s, -s, d - s), (s, s, d + s), (s, s, d - s), right)
+    b.add_triangle((s, -s, d - s), (s, -s, d + s), (s, s, d + s), right)
+    b.add_triangle((-s, -s, d - s), (s, -s, d - s), (s, s, d - s), back)
+    b.add_triangle((-s, -s, d - s), (s, s, d - s), (-s, s, d - s), back)
+    b.add_triangle((-s, -s, d - s), (s, -s, d + s), (s, -s, d - s), floor)
+    b.add_triangle((-s, -s, d - s), (-s, -s, d + s), (s, -s, d + s), floor)
+    b.add_triangle((-s, s, d - s), (s, s, d - s), (s, s, d + s), ceiling)
+    b.add_triangle((-s, s, d - s), (s, s, d + s), (-s, s, d + s), ceiling)
+    if name == "sphere_light":
+        b.add_sphere((0.0, s - 0.21, d), 0.2, M.Emissive((36.0, 36.0, 36.0)))
+    else:
+        light = M.Emissive((15.0, 15.0, 15.0))
+        b.add_triangle((-ls, s - 0.01, d - ls), (ls, s - 0.01, d - ls), (ls, s - 0.01, d + ls),
+                       light)
+        b.add_triangle((-ls, s - 0.01, d - ls), (ls, s - 0.01, d + ls), (-ls, s - 0.01, d + ls),
+                       light)
+    if name == "oren_nayar":
+        b.add_sphere((0.4, -0.6, d), 0.4, M.OrenNayar((0.5, 0.5, 0.7), 0.3))
+    else:
+        b.add_sphere((0.4, -0.6, d), 0.4, M.Lambertian((0.6, 0.6, 0.6)))
+    return b.build()
+
+
+def parity_stats(img, ref) -> tuple[np.ndarray, float]:
+    """``(|channel-mean difference|, RMSE)`` of two ``(H, W, 3)`` images, as
+    ``tests/test_parity.py`` compares a render with the oracle."""
+    img, ref = np.asarray(img, np.float64), np.asarray(ref, np.float64)
+    return (np.abs(img.mean(axis=(0, 1)) - ref.mean(axis=(0, 1))),
+            float(np.sqrt(((img - ref) ** 2).mean())))
+
+
+def run_parity(dev, smi: str):
+    """Phase 7: parity against the C++ oracle (``csrc/oracle.cpp``), on the
+    card: ``tests/test_parity.py``'s five cases at their own sizes, seeds and
+    tolerances through the port's ``render`` on the card against
+    ``oracle.render_oracle`` on the host; the pixel (79, 176) anchor (2,048
+    samples through ``debug.render_pixel_samples`` against
+    ``render_oracle_window``, with the blue-wall shape check); and the
+    golden window, bitwise through the port's bridge."""
+    from pathtrace_tpu_torch import oracle
+    from pathtrace_tpu_torch.debug import render_pixel_samples
+    from pathtrace_tpu_torch.models import materials, scenes
+    from pathtrace_tpu_torch.models.scene import SceneBuilder
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.render import RenderConfig, render
+
+    t0 = time.perf_counter()
+    oracle.build()
+    log(f"[parity] oracle built in {time.perf_counter() - t0:.2f} s")
+    W = PARITY_SIZE
+    shade.LAUNCHES.clear()
+    for name, integrator, spp, oracle_spp, mean_tol, rmse_tol in PARITY_CASES:
+        t0 = time.perf_counter()
+        scene = (scenes.cornell_box(dev) if name == "cornell" else
+                 parity_scene(name, SceneBuilder(dev), materials))
+        camera = scenes.cornell_camera(W, W, dev)
+        state = render(scene, camera, RenderConfig(
+            width=W, height=W, spp=spp, integrator=integrator,
+            samples_per_batch=min(spp, 32), seed=5))
+        img = state.image.cpu().numpy()
+        port_s = time.perf_counter() - t0
+        ref = oracle.render_oracle(scene, camera, W, W, oracle_spp, integrator, seed=11)
+        mean_diff, rmse = parity_stats(img, ref)
+        log("[parity] " + json.dumps({
+            "case": f"{name} {integrator}", "size": f"{W}x{W}", "spp": spp,
+            "oracle_spp": oracle_spp, "mean_abs_diff": mean_diff.tolist(),
+            "mean_tol": mean_tol, "rmse": rmse, "rmse_tol": rmse_tol, "port_s": port_s,
+            "oracle_s": time.perf_counter() - t0 - port_s}))
+        if not np.isfinite(img).all() or (mean_diff >= mean_tol).any() or rmse >= rmse_tol:
+            raise AssertionError(f"parity {name} {integrator}: mean diff {mean_diff} (bound "
+                                 f"{mean_tol}), RMSE {rmse} (bound {rmse_tol})")
+    launches = dict(shade.LAUNCHES)
+    if set(launches) != {"combined_closest_small", "any_hit"}:
+        raise AssertionError(f"parity renders launched {launches}")
+
+    G = GOLDEN_SIZE
+    scene, camera = scenes.cornell_box(dev), scenes.cornell_camera(G, G, dev)
+    x, y = PIXEL_ANCHOR
+    ours = render_pixel_samples(scene, camera, x, y, width=G, height=G, spp=PIXEL_ANCHOR_SPP,
+                                integrator="mis", max_bounces=64, seed=0).mean(axis=0)
+    ref = oracle.render_oracle_window(scene, camera, G, G, x, y, 1, 1, PIXEL_ANCHOR_SPP,
+                                      integrator="mis", seed=0)[0, 0]
+    log(f"[parity] pixel {PIXEL_ANCHOR} at {PIXEL_ANCHOR_SPP} spp: port {ours.tolist()}, "
+        f"oracle {ref.tolist()}")
+    if not (ref[2] > 2.5 * ref[0] and ref[2] > 2.5 * ref[1]):
+        raise AssertionError(f"pixel {PIXEL_ANCHOR}: the oracle's {ref} is not the blue wall")
+    np.testing.assert_allclose(ours, ref, atol=0.02, rtol=0.12)
+
+    x0, y0, w, h = GOLDEN_WINDOW
+    win = oracle.render_oracle_window(scene, camera, G, G, x0, y0, w, h, GOLDEN_SPP,
+                                      integrator="mis", seed=0)
+    np.testing.assert_array_equal(win, np.load(GOLDEN)["image"][y0:y0 + h, x0:x0 + w])
+    log(f"[parity] golden window [{y0}:{y0 + h}, {x0}:{x0 + w}] at {GOLDEN_SPP} spp: "
+        f"bitwise equal; card {smi}")
+
+
 def run_cli():
     """Phase 6: the port's CLI renders a wave frame, and a mesh pool frame
     under ``--method resident``, on the card."""
@@ -2435,6 +2559,19 @@ def run_cli():
                     raise AssertionError(f"CLI {args}: output is not a PNG")
         log(f"[cli] render {' '.join(args)} --device cuda: exit 0, PNG written "
             f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pathtrace_tpu_torch", "bench", "--small"],
+                       capture_output=True, text=True, timeout=300)
+    lines = r.stdout.splitlines()
+    if r.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"CLI bench --small exited {r.returncode} with {len(lines)} "
+                             f"lines: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    if (set(line) != {"metric", "value", "unit", "vs_baseline", "extra"}
+            or set(line["extra"]) != BENCH_EXTRA_KEYS or line["vs_baseline"] is not None
+            or line["extra"]["platform"] != "cuda"):
+        raise AssertionError(f"CLI bench --small printed {lines[0]}")
+    log(f"[cli] bench --small: {lines[0]} ({time.perf_counter() - t0:.1f} s)")
 
 
 def main() -> int:
@@ -2454,30 +2591,41 @@ def main() -> int:
 
     from pathtrace_tpu_torch.models import scenes
 
-    worst, ms, bnd = check_kernels(dev)
+    start = time.perf_counter()
+
+    def phase(name, fn, *args):
+        """Run one phase and log the seconds since the build."""
+        out = fn(*args)
+        log(f"[time] phase {name} done at {time.perf_counter() - start:.1f} s")
+        return out
+
+    worst, ms, bnd = phase("3", check_kernels, dev)
     t0 = time.perf_counter()
     mesh = scenes.mesh_scene(device=dev)
     mesh_cam = scenes.mesh_scene_camera(CONFIG4["width"], CONFIG4["height"], dev)
     log(f"[mesh] mesh_scene: {mesh.num_tris} triangles built in "
         f"{time.perf_counter() - t0:.2f} s")
-    mesh_worst, mesh_ms, mesh_bnd, lanes, mesh_extra, counter_launches = check_mesh_kernels(
-        dev, mesh, mesh_cam)
-    trav_worst, trav_ms, trav_bnd, trav_extra = check_traversal_kernels(dev, mesh, lanes)
+    mesh_worst, mesh_ms, mesh_bnd, lanes, mesh_extra, counter_launches = phase(
+        "3b", check_mesh_kernels, dev, mesh, mesh_cam)
+    trav_worst, trav_ms, trav_bnd, trav_extra = phase(
+        "3d", check_traversal_kernels, dev, mesh, lanes)
     del lanes
-    wave_worst, wave_ms, wave_bnd, wave_extra, flat = check_wave_kernels(dev)
-    cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra = check_clustered_kernels(dev, flat)
+    wave_worst, wave_ms, wave_bnd, wave_extra, flat = phase("3c", check_wave_kernels, dev)
+    cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra = phase(
+        "3e", check_clustered_kernels, dev, flat)
     del flat
-    run_cornell(dev)
-    run_mesh_frame(dev)
-    launches = run_bench(dev, smi)
-    mesh_launches = run_config4(mesh, mesh_cam, smi)
-    method_launches = run_config4_methods(mesh, mesh_cam, smi)
-    wave_launches = run_wave_cornell(dev, smi)
-    flat_launches = run_wave_gpu_vs_cpu(dev)
-    run_wave_methods(dev)
-    run_cluster_frames(dev)
-    cluster_launches, field_launches = run_cluster_bench(dev, smi)
-    run_cli()
+    phase("4", run_cornell, dev)
+    phase("4b", run_mesh_frame, dev)
+    launches = phase("5", run_bench, dev, smi)
+    mesh_launches = phase("5b", run_config4, mesh, mesh_cam, smi)
+    method_launches = phase("5d", run_config4_methods, mesh, mesh_cam, smi)
+    wave_launches = phase("5c", run_wave_cornell, dev, smi)
+    flat_launches = phase("4c", run_wave_gpu_vs_cpu, dev)
+    phase("4d", run_wave_methods, dev)
+    phase("4e", run_cluster_frames, dev)
+    cluster_launches, field_launches = phase("5e", run_cluster_bench, dev, smi)
+    phase("6", run_cli)
+    phase("7", run_parity, dev, smi)
 
     def entry(name, src, rep, n_launches, err, times, bnd, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -11,6 +11,8 @@ defaults:
 
     python -m pathtrace_tpu_torch debug-pixel --scene cornell --x 200 --y 150 --spp 64
 
+    python -m pathtrace_tpu_torch bench     # one JSON line (bench.py)
+
 ``--device cuda`` (the default) renders on the GPU through the CUDA kernels
 and fails when there is none; ``--device cpu`` runs the kernels' plain twins,
 and only when asked. ``--method`` picks the intersection traversal of every
@@ -19,8 +21,8 @@ JAX CLI's process default does: ``auto``, ``pallas``, ``bruteforce``,
 ``bvh``, ``binned``, ``resident``. ``bruteforce`` takes the route of
 ``pallas`` (every route gives the brute-force hit), and the pool runs it on
 its composed branch, as the JAX pool does. Not ported yet, each exiting with
-status 2 and a message naming its ROADMAP item: ``--dtype f64``, the
-multi-process flags and ``bench``.
+status 2 and a message naming its ROADMAP item: ``--dtype f64`` and the
+multi-process flags.
 """
 
 from __future__ import annotations
@@ -151,8 +153,11 @@ def cmd_animate(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise Unported("bench: the port has no benchmark run yet (ROADMAP Queue 1, item 1); "
-                   "python3 chip_smoke.py times the port's frames on a GPU")
+    from .bench import run
+
+    _device(args)   # no card and no --device cpu: exit 2, nothing falls back
+    print(json.dumps(run(args.device, args.small)))
+    return 0
 
 
 def cmd_debug_pixel(args) -> int:
@@ -225,7 +230,12 @@ def main(argv=None) -> int:
     a.add_argument("--out-dir", default="frames")
     a.set_defaults(fn=cmd_animate, scene="mesh", width=640, height=360, spp=16)
 
-    b = sub.add_parser("bench", help="run the throughput benchmark (not ported yet)")
+    b = sub.add_parser("bench", help="run the throughput benchmark (one JSON line)")
+    b.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda: the CUDA kernels on a GPU; cpu: their plain twins, "
+                        "on the small frame")
+    b.add_argument("--small", action="store_true",
+                   help="the small frame (128x128, 1 spp, 4096 slots) on the GPU")
     b.set_defaults(fn=cmd_bench)
 
     d = sub.add_parser("debug-pixel", help="replay every sample of one pixel")

@@ -223,10 +223,9 @@ def test_cli_renders_resumes_and_replays(tmp_path):
 @pytest.mark.parametrize("args,item", [
     (["render", "--dtype", "f64"], "Queue 1, item 4"),
     (["--num-processes", "2", "render"], "Queue 1, item 5"),
-    (["bench"], "Queue 1, item 1"),
 ])
 def test_cli_unported_flags_exit_nonzero(args, item):
-    r = _cli(*args, "--device", "cpu") if args[-1] != "bench" else _cli(*args)
+    r = _cli(*args, "--device", "cpu")
     assert r.returncode == 2 and f"ROADMAP {item}" in r.stderr, r.stderr[-2000:]
 
 
