@@ -121,6 +121,24 @@ lanes of ``fused_bounce``:
     repeat ``CLUSTER_EXPECT``), device operations an iteration and the busy
     share (profiler over a 1-spp run).
 
+Float64, the reference's native precision (the fused pool and the small
+route; every scene widened from float32 by ``render.cast_floats``):
+
+3f. the float64 instances of ``fused_bounce`` and ``shadow_any_hit``
+    against their float64 twins, bitwise, at every split, on 16,384 lanes of
+    many_spheres and of the ON/PBR scene and on the edge lanes; of
+    ``combined_closest_small`` and the one-tile ``any_hit`` at every team on
+    phase 3c's 65,536 wave-Cornell lanes, 1,024 edge lanes and the small tie
+    case; each timed against its bound at the FP64 peak;
+8.  float64 frames: the Cornell 128x128 pool frame and a 64x64, 2-spp wave
+    Cornell frame on the card against the CPU twins (equal rays and
+    iterations); many_spheres at 1920x1080, 4 spp, 32 bounces, 16,384 slots,
+    timed in float64, then in float32; the Cornell box at 400x400,
+    256 spp, 64 bounces, 160,000 slots, its full-resolution RMSE against the
+    golden within 1.15x the noise floor and each channel's mean bias within
+    1e-3; ``render --dtype f64`` and ``bench --small --dtype f64`` through
+    the CLI. Each frame launches only the float64 kernels of its path.
+
 Parity against the C++ oracle (``csrc/oracle.cpp`` through
 ``pathtrace_tpu_torch.oracle``):
 
@@ -132,8 +150,9 @@ Parity against the C++ oracle (``csrc/oracle.cpp`` through
     samples against the oracle's window; and the golden image's window
     ``[240:244, 190:198]`` re-rendered bitwise at 8,192 spp.
 
-The next-to-last lines are the kernels' JSON record (sixteen entries: the
-twelve kernels and the four further modes, each with its time, its twin's,
+The next-to-last lines are the kernels' JSON record (twenty entries: the
+twelve kernels, the four further modes and the four float64 instances
+(``*_f64``, bound at the FP64 peak), each with its time, its twin's,
 its launches on its path and its roofline bound; the pool's two kernels with
 the host's split and their time at every split, the BVH pair with the host's
 team, its time at every team and its work a ray, ``bvh_closest_counters`` with its launches in
@@ -273,10 +292,33 @@ CLUSTER_FRAME = dict(width=1920, height=1080, spp=4, integrator="mis", max_bounc
 # first run: every team and split must give them again.
 CLUSTER_EXPECT = {f"many_spheres(n_per_side={FIELD_N})": (30369475, 1328, 6769461.23),
                   "on_pbr": (21056179, 936, 2927024.11)}
-# Roofline of one H100 SXM (NVIDIA's data sheet): float32 outside the tensor
-# cores and HBM bandwidth, at the full 700 W power limit.
+# Roofline of one H100 SXM (NVIDIA's data sheet): float32 and float64
+# outside the tensor cores and HBM bandwidth, at the full 700 W power limit.
 PEAK_FP32 = 67e12
+PEAK_FP64 = 33.5e12
 PEAK_HBM = 3.35e12
+# Float64 (phases 3f and 8): the four kernels with a float64 instance.
+F64_KERNELS = {
+    "fused_bounce_f64": ("pathtrace_tpu_torch/csrc/fused_bounce.cu",
+                         "pathtrace_tpu/ops/pallas_shade.py:537"),
+    "shadow_any_hit_f64": ("pathtrace_tpu_torch/csrc/shadow_any_hit.cu",
+                           "pathtrace_tpu/ops/pallas_shade.py:1587"),
+    "combined_closest_small_f64": ("pathtrace_tpu_torch/csrc/combined_closest_small.cu",
+                                   "pathtrace_tpu/ops/pallas_intersect.py:957"),
+    "any_hit_f64": ("pathtrace_tpu_torch/csrc/intersect.cu",
+                    "pathtrace_tpu/ops/pallas_intersect.py:679"),
+}
+F64_WAVE = dict(width=64, height=64, spp=2, integrator="mis", max_bounces=64, seed=0)
+F64_FRAME = dict(width=1920, height=1080, spp=4, integrator="mis", max_bounces=32,
+                 num_slots=16384, seed=0)
+F64_GOLDEN = dict(width=400, height=400, spp=256, integrator="mis", max_bounces=64,
+                  num_slots=160000, seed=0)
+# The golden's per-sample sigma (tools/parity_anchor.py): a render at spp
+# samples is held to 1.15x the noise floor sigma * sqrt(1/spp + 1/8192), and
+# each channel's mean to 1e-3 of the golden's.
+GOLDEN_SIGMA = 0.4846
+F64_RMSE_OVER_FLOOR = 1.15
+F64_MEAN_BIAS = 1e-3
 # Float32 operations of one ray-primitive test (csrc/geom.cuh): hit_triangle
 # ~50 (two cross products, three dot products, a division, compares),
 # sphere_root ~20. A bound counts only the tests the inputs need: for a
@@ -298,11 +340,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: int) -> dict:
+def bound(n_bytes: int, n_ops: int, peak: float = PEAK_FP32) -> dict:
     """The least time of a kernel: the larger of its bytes (each input read
     once, each output written once) over HBM bandwidth and its float32
-    operations over the FP32 peak."""
-    t_bytes, t_ops = n_bytes / PEAK_HBM * 1e3, n_ops / PEAK_FP32 * 1e3
+    operations over the FP32 peak (``peak``: PEAK_FP64 for float64 ones)."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM * 1e3, n_ops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
             "operations", "bytes": n_bytes, "ops": n_ops}
 
@@ -397,7 +439,8 @@ def assert_images_match(actual, desired, rtol=1e-3, atol=5e-3, max_outliers=3,
 
 def camera_lanes(camera, S, seed, dev):
     """S lanes at bounce 0 on pixels spread over the image: ``(lane, keys,
-    bounce, u, o, d)`` with the uniforms ``(9, S)`` and camera rays ``(3, S)``."""
+    bounce, u, o, d)`` with the uniforms ``(9, S)`` and camera rays ``(3, S)``,
+    in the camera's dtype."""
     from pathtrace_tpu_torch.utils import rng
 
     W, H = camera.width, camera.height
@@ -405,7 +448,7 @@ def camera_lanes(camera, S, seed, dev):
     pixel = (lane * 7919) % (W * H)
     keys = rng.pixel_sample_keys(rng.base_key(seed, dev), pixel, torch.zeros_like(pixel))
     bounce = torch.zeros(S, dtype=torch.int32, device=dev)
-    u = rng.per_slot_uniforms(keys, bounce.long())
+    u = rng.per_slot_uniforms(keys, bounce.long(), camera.origin.dtype)
     jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
     o, d = camera.generate_rays(pixel % W, (H - 1) - pixel // W, jitter)
     return lane, keys, bounce, u, o.contiguous(), d
@@ -419,9 +462,10 @@ def lane_states(scene, camera, tables, S, bounces=4, seed=0):
 
     dev = scene.device
     lane, keys, bounce, u, o, d = camera_lanes(camera, S, seed, dev)
+    f = o.dtype
     state = [torch.ones(S, dtype=torch.bool, device=dev), bounce, o, d,
-             torch.ones(S, device=dev), torch.ones(S, device=dev),
-             torch.ones((3, S), device=dev), u]
+             torch.ones(S, dtype=f, device=dev), torch.ones(S, dtype=f, device=dev),
+             torch.ones((3, S), dtype=f, device=dev), u]
     kw = bounce_kwargs(scene, "mis", 16)
     states = []
     for _ in range(bounces):
@@ -429,7 +473,7 @@ def lane_states(scene, camera, tables, S, bounces=4, seed=0):
         res = shade.fused_bounce_reference(tables, *state, **kw)
         b = torch.where(res.live, state[1] + 1, state[1])
         state = [res.live, b, res.next_o, res.next_d, res.next_eta, res.next_pdf,
-                 res.next_prefix, rng.per_slot_uniforms(keys, b.long())]
+                 res.next_prefix, rng.per_slot_uniforms(keys, b.long(), f)]
     pick = lane % bounces
     batch = []
     for k in range(8):
@@ -510,18 +554,21 @@ def edge_scene(dev):
     return b.build(), sph, tri
 
 
-def edge_lanes(dev, S=EDGE_S, seed=0):
+def edge_lanes(dev, S=EDGE_S, seed=0, dtype=torch.float32):
     """Lane states aimed at the edge scene: a third at the repeated spheres'
     centers, a third at the repeated triangles' centroids (each from a
     random point 20 away, jittered), a third pointing away from everything
     (all-miss lanes); random depths, 10% not busy; the shadow rays' t_max
     with some lanes set to NaN and to inf. Returns the scene's tables, the
     batch, the bounce kwargs and a count of the lanes whose nearest sphere or
-    triangle t is shared by two rows."""
+    triangle t is shared by two rows. ``dtype``: the lanes' and the scene's
+    (float64: the float32 scene widened)."""
     from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.render import cast_floats
     from pathtrace_tpu_torch.utils import rng as prng
 
     scene, sph, tri = edge_scene(dev)
+    scene = cast_floats(scene, dtype)
     tables = shade.build_tables(scene)
     g = np.random.default_rng(seed)
     dup_c = np.array([sph[a][0] for a in (2, 4, 5, 6)])
@@ -534,13 +581,13 @@ def edge_lanes(dev, S=EDGE_S, seed=0):
     o = tgt + 20.0 * dirs
     d = np.where((k == 2)[:, None], dirs, -dirs)            # away from the scene, or at it
 
-    def t(a, dt=torch.float32):
+    def t(a, dt=dtype):
         return torch.tensor(a, dtype=dt, device=dev)
 
     lane = torch.arange(S, dtype=torch.int64, device=dev)
     bounce = t(g.integers(0, 6, S), torch.int32)
     keys = prng.pixel_sample_keys(prng.base_key(seed, dev), lane, torch.zeros_like(lane))
-    u = prng.per_slot_uniforms(keys, bounce.long())
+    u = prng.per_slot_uniforms(keys, bounce.long(), dtype)
     batch = [t(g.random(S) < 0.9, torch.bool), bounce, t(o.T.copy()), t(d.T.copy()),
              t(g.uniform(0.6, 1.5, S)), t(g.uniform(0.1, 3.0, S)), t(g.uniform(0, 1, (3, S))), u]
     batch = [x.contiguous() for x in batch]
@@ -637,9 +684,10 @@ def lane_rays(scene, camera, tables, S, bounces=4, seed=0):
 
     dev = scene.device
     lane, keys, bounce, u, o, d = camera_lanes(camera, S, seed, dev)
+    f = o.dtype
     busy = torch.ones(S, dtype=torch.bool, device=dev)
-    eta, pdf = torch.ones(S, device=dev), torch.ones(S, device=dev)
-    prefix = torch.ones((3, S), device=dev)
+    eta, pdf = torch.ones(S, dtype=f, device=dev), torch.ones(S, dtype=f, device=dev)
+    prefix = torch.ones((3, S), dtype=f, device=dev)
     rays, shadows = [], []
     for _ in range(bounces):
         res = pool.composed_bounce(scene, tables, busy, bounce, o, d, eta, pdf, prefix, u,
@@ -649,7 +697,7 @@ def lane_rays(scene, camera, tables, S, bounces=4, seed=0):
         bounce = torch.where(res.live, bounce + 1, bounce)
         busy, o, d = res.live, res.next_o, res.next_d
         eta, pdf, prefix = res.next_eta, res.next_pdf, res.next_prefix
-        u = rng.per_slot_uniforms(keys, bounce.long())
+        u = rng.per_slot_uniforms(keys, bounce.long(), f)
     pick = lane % bounces
 
     def gather(states, k):
@@ -763,7 +811,7 @@ def sphere_tie_tables(dev, upper_cluster):
 SPHERE_TIE_RAYS = ((0.0, 0.0), (0.3, -0.2), (-0.5, 0.4), (0.1, 0.6))   # (x, y) over A and B
 
 
-def small_tie_tables(dev):
+def small_tie_tables(dev, dtype=torch.float32):
     """Small-route tables of 12 triangles and 40 spheres in a given row
     order, for rays from z = 5 along -z over :data:`SMALL_TIE_RAYS`. The
     first four rays hit :func:`tie_tables`' triangle A (row 7) and its copy
@@ -774,8 +822,8 @@ def small_tie_tables(dev):
     The last two pass beside the triangles and hit the unit sphere at (3, 0,
     -1) and its copy (rows 5 and 30) at equal t: the lower row must win.
     Every other row is a small triangle or sphere off the rays' paths.
-    Returns the tables and the expected ``(t, global prim id)`` of each
-    ray (t None: any)."""
+    Returns the tables (in ``dtype``) and the expected ``(t, global prim
+    id)`` of each ray (t None: any)."""
     from pathtrace_tpu_torch.ops import intersect
 
     n_tri, n_sph = 12, 40
@@ -801,6 +849,7 @@ def small_tie_tables(dev):
     sph = torch.cat([center, k[:, None], (1.0 / radius)[:, None],
                      torch.arange(n_sph, device=dev, dtype=torch.float32)[:, None] + 100.0,
                      center.new_zeros((n_sph, 2))], dim=1)
+    tri, sph = tri.to(dtype), sph.to(dtype)
     empty = tri.new_zeros((0, 8))
     tables = intersect.Tables(tri=tri.contiguous(), leaf=empty, group=empty,
                               sph=sph.contiguous(), sph_box=empty, tri_rows=n_tri, n_groups=0,
@@ -1021,8 +1070,9 @@ def _bitwise(name, ref, got, nan_equal=False) -> float:
     ref, got = (ref, got) if isinstance(ref, tuple) else ((ref,), (got,))
     err = 0.0
     for a, b in zip(ref, got):
-        if a.dtype == torch.float32:
-            bad = a.view(torch.int32) != b.view(torch.int32)
+        if a.is_floating_point():
+            bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+            bad = a.view(bits) != b.view(bits)
             if nan_equal:
                 bad &= ~(a.isnan() & b.isnan())
             live = torch.isfinite(a)
@@ -1723,7 +1773,7 @@ def hold_wave_kernel(kernel, what, tables, o, d, lo, hi):
     ref = getattr(intersect, kernel + "_reference")(tables, o, d, lo, hi)
     launch = getattr(binding, "launch_" + kernel)
     for team in binding.TEAMS:
-        out = tuple(torch.full_like(x, float("nan") if x.dtype == torch.float32 else -7)
+        out = tuple(torch.full_like(x, float("nan") if x.is_floating_point() else -7)
                     for x in ref)
         launch(tables, o, d, lo, hi, *out, team=team)
         _bitwise(f"{kernel}, {what}, team {team}", ref, out)
@@ -2574,6 +2624,302 @@ def run_cli():
     log(f"[cli] bench --small: {lines[0]} ({time.perf_counter() - t0:.1f} s)")
 
 
+def check_f64_kernels(dev):
+    """Phase 3f: the float64 instances of the four kernels against their
+    float64 twins on the card, bitwise. ``fused_bounce`` and
+    ``shadow_any_hit`` at every split on S = 16,384 real lane states of
+    many_spheres and of the ON/PBR scene and on the edge lanes (repeated
+    rows, misses, t_max NaN and inf); ``combined_closest_small`` and
+    ``any_hit`` (one tile) at every team on phase 3c's 65,536 wave-Cornell
+    lanes, on 1,024 edge lanes (t_max NaN, -1, 0, t_min, inf; t_min and t_max
+    at the hit) and on the small tie case. Scenes are the float32 ones
+    widened (``render.cast_floats``). Returns the worst errors, the times
+    (kernel at the host's split or team, twin), the bounds (FP64 peak) and
+    the times at every split or team."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+    from pathtrace_tpu_torch.render import cast_floats
+
+    f64 = torch.float64
+    worst = dict.fromkeys(F64_KERNELS, 0.0)
+    ms, bounds, extra = {}, {}, {}
+    for name, scene, camera in (
+        ("many_spheres", scenes.many_spheres(device=dev),
+         scenes.many_spheres_camera(1920, 1080, dev)),
+        ("on_pbr", on_pbr_scene(dev), scenes.default_spheres_camera(1920, 1080, dev)),
+    ):
+        scene, camera = cast_floats(scene, f64), cast_floats(camera, f64)
+        tables = shade.build_tables(scene)
+        batch = lane_states(scene, camera, tables, SLICE_S)
+        if batch[2].dtype != f64 or batch[7].dtype != f64:
+            raise AssertionError(f"{name}: lanes in {batch[2].dtype}, uniforms {batch[7].dtype}")
+        kw = bounce_kwargs(scene, "mis", 16)
+        ref, occ_ref, ms_split, err = hold_pool_kernels(f"{name} f64", tables, batch, kw)
+        worst["fused_bounce_f64"] = max(worst["fused_bounce_f64"], err)
+        rows = tables.sph.shape[0] + tables.tri.shape[0]
+        split = tuple(binding.sweep_split(rows, k) for k in KERNELS)
+        so, sd, st = ref.next_o, ref.shadow_d, ref.shadow_tmax
+        twin = (cuda_ms(lambda: shade.fused_bounce_reference(tables, *batch, **kw)),
+                cuda_ms(lambda: shade.shadow_any_hit_reference(tables, so, sd, st)))
+        log(f"[f64-kernels] {name} S={SLICE_S} float64 ({rows} rows, host split {split}): "
+            f"fused_bounce and shadow_any_hit ({int(occ_ref.sum())} blocked) bitwise equal to "
+            f"their float64 twins on every lane at splits {list(binding.SPLITS)}; ms "
+            f"(fused_bounce, shadow_any_hit) by split {json.dumps(ms_split)}; twins {twin}")
+        if name != "many_spheres":
+            continue
+        n_tri, n_sph = scene.tri_v0.shape[0], scene.sph_center.shape[0]
+        row_ops = n_tri * TRI_OPS + n_sph * SPH_OPS
+        query = st >= shade.EPS
+        for which, k in enumerate(("fused_bounce_f64", "shadow_any_hit_f64")):
+            ms[k] = (ms_split[split[which]][which], twin[which])
+            extra[k] = {"split": split[which],
+                        "ms_by_split": {t: v[which] for t, v in ms_split.items()}}
+        bounds["fused_bounce_f64"] = bound(nbytes(*batch, *tables, *ref),
+                                           int(batch[0].sum()) * row_ops, PEAK_FP64)
+        bounds["shadow_any_hit_f64"] = bound(
+            nbytes(so, sd, st, occ_ref, *tables),
+            int((query & ~occ_ref).sum()) * row_ops + int((query & occ_ref).sum()) * SPH_OPS,
+            PEAK_FP64)
+
+    scene, tables, batch, ties = edge_lanes(dev, dtype=f64)
+    kw = bounce_kwargs(scene, "mis", 16)
+    ref = shade.fused_bounce_reference(tables, *batch, **kw)
+    _, occ_ref, _, err = hold_pool_kernels("edge lanes f64", tables, batch, kw,
+                                           shadow=edge_shadow(ref))
+    worst["fused_bounce_f64"] = max(worst["fused_bounce_f64"], err)
+    if ties == 0:
+        raise AssertionError("f64 edge lanes: no tied lanes")
+    log(f"[f64-kernels] edge lanes S={EDGE_S} float64: both kernels bitwise equal to their "
+        f"twins at every split; {ties} lanes' nearest t shared by two rows, "
+        f"{int(occ_ref.sum())} blocked shadow rays")
+
+    # The wave engine's pair on the small route.
+    S = WAVE_S
+    scene = cast_floats(scenes.cornell_box(dev), f64)
+    camera = cast_floats(scenes.cornell_camera(400, 400, dev), f64)
+    tables = intersect.build_tables(scene)
+    (o, d), (so, sd, st) = lane_rays(scene, camera, tables, S)
+    lo = torch.full((S,), shade.EPS, dtype=f64, device=dev)
+    hi = torch.full((S,), float("inf"), dtype=f64, device=dev)
+    if o.dtype != f64 or st.dtype != f64 or tables.route != "small":
+        raise AssertionError(f"wave lanes in {o.dtype}/{st.dtype} on {tables.route}")
+    k = "combined_closest_small"
+    ref = hold_wave_kernel(k, f"cornell f64, {S} lanes", tables, o, d, lo, hi)
+    worst[k + "_f64"] = max(worst[k + "_f64"],
+                            _bitwise(k + " f64", ref, intersect.combined_closest_small(
+                                tables, o, d, lo, hi)))
+    hold_wave_kernel(k, "cornell f64, edge lanes", tables, o[:EDGE_N], d[:EDGE_N],
+                     *edge_ranges(lo, hi, ref[0], EDGE_N))
+    m = len(SMALL_TIE_RAYS)
+    tie, want = small_tie_tables(dev, f64)
+    to = torch.tensor([[x, y, 5.0] for x, y in SMALL_TIE_RAYS], dtype=f64, device=dev)
+    td = torch.tensor([[0.0, 0.0, -1.0]] * m, dtype=f64, device=dev)
+    tref = hold_wave_kernel(k, "tie case f64", tie, to, td, lo[:m], hi[:m])
+    if [int(p) for p in tref[1]] != [p for _, p in want]:
+        raise AssertionError(f"small tie case f64: twin gave {tref[:2]}, expected {want}")
+    by_team = team_times(k, tables, o, d, lo, hi)
+    team = binding.small_team(tables)
+    out = (torch.empty_like(lo), torch.empty(S, dtype=torch.int32, device=dev),
+           torch.empty_like(o), torch.empty(S, dtype=torch.int32, device=dev))
+    q_ms = queued_ms(lambda: binding.launch_combined_closest_small(tables, o, d, lo, hi, *out))
+    ms[k + "_f64"] = (by_team[team],
+                      cuda_ms(lambda: intersect.combined_closest_small_reference(
+                          tables, o, d, lo, hi)))
+    extra[k + "_f64"] = {"team": team, "ms_by_team": by_team, "queued_ms": q_ms}
+    bounds[k + "_f64"] = bound(nbytes(o, d, lo, hi, tables.tri, tables.sph, *out),
+                               S * (tables.tri_rows * TRI_OPS + tables.sph.shape[0] * SPH_OPS),
+                               PEAK_FP64)
+
+    tri = tables.tri[:tables.tri_rows]
+    occ_ref = intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st)
+    worst["any_hit_f64"] = _bitwise("any_hit f64", occ_ref,
+                                    intersect.any_hit(tables.sph, tri, so, sd, lo, st))
+    occ = torch.empty_like(occ_ref)
+    elo, ehi = edge_ranges(lo, st, torch.where(occ_ref, st, float("inf")), EDGE_N)
+    eref = intersect.any_hit_reference(tables.sph, tri, so[:EDGE_N], sd[:EDGE_N], elo, ehi)
+    a_team = {}
+    for t in binding.TEAMS:
+        occ.fill_(True)
+        binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ, team=t)
+        _bitwise(f"any_hit f64 team {t}", occ_ref, occ)
+        eocc = torch.ones_like(eref)
+        binding.launch_any_hit(tables.sph, tri, so[:EDGE_N], sd[:EDGE_N], elo, ehi, eocc,
+                               team=t)
+        _bitwise(f"any_hit f64 edge lanes, team {t}", eref, eocc)
+        a_team[t] = cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st,
+                                                           occ, team=t))
+    a_host = binding.cluster_team("any_hit", (tables.sph, None), (tri, None))
+    ms["any_hit_f64"] = (a_team[a_host], cuda_ms(lambda: intersect.any_hit_reference(
+        tables.sph, tri, so, sd, lo, st)))
+    extra["any_hit_f64"] = {"team": a_host, "ms_by_team": a_team,
+                            "queued_ms": queued_ms(lambda: binding.launch_any_hit(
+                                tables.sph, tri, so, sd, lo, st, occ))}
+    query = st >= lo
+    row_ops = tables.tri_rows * TRI_OPS + tables.sph.shape[0] * SPH_OPS
+    bounds["any_hit_f64"] = bound(nbytes(so, sd, lo, st, tri, tables.sph, occ_ref),
+                                  int((query & ~occ_ref).sum()) * row_ops
+                                  + int((query & occ_ref).sum()) * SPH_OPS, PEAK_FP64)
+    log(f"[f64-kernels] cornell wave S={S} float64: combined_closest_small ({int((ref[1] >= 0).sum())} "
+        f"hits) bitwise equal to its twin through the wrapper (team {team}) and at every team, "
+        f"on {EDGE_N} edge lanes and the tie case; {by_team[team]:.4f} ms ({q_ms:.4f} queued), "
+        f"by team {json.dumps(by_team)}; any_hit ({int(occ_ref.sum())} blocked) bitwise at "
+        f"every team and on {EDGE_N} edge lanes, by team {json.dumps(a_team)}; worst abs "
+        f"error {worst}; bounds {json.dumps(bounds)}")
+    return worst, ms, bounds, extra
+
+
+def golden_rmse(img, spp: int) -> dict:
+    """``img`` (H*W, 3) mean radiance against the golden image: the
+    full-resolution RMSE, each channel's mean bias, and the noise floor
+    ``GOLDEN_SIGMA * sqrt(1/spp + 1/8192)``."""
+    golden = np.load(GOLDEN)["image"].reshape(-1, 3)
+    diff = np.asarray(img, np.float64) - golden
+    return {"rmse": float(np.sqrt((diff ** 2).mean())),
+            "mean_bias_rgb": diff.mean(axis=0).tolist(),
+            "floor": GOLDEN_SIGMA * float(np.sqrt(1.0 / spp + 1.0 / GOLDEN_SPP))}
+
+
+def run_f64_frames(dev, smi: str):
+    """Phase 8: float64 through the main paths on the card. The Cornell
+    128x128 pool frame (phase 4's) and the 64x64 wave Cornell frame against
+    the same renders on the CPU twins (equal rays and iterations, images
+    within the imgutil budget); many_spheres at 1920x1080, 4 spp, 32
+    bounces, 16,384 slots, timed, then the same frame in float32; the
+    Cornell box at 400x400, 256 spp, 64 bounces, 160,000 slots against the
+    golden (full-resolution RMSE within 1.15x the noise floor, each
+    channel's mean bias within 1e-3); and ``render --dtype f64`` and ``bench
+    --small --dtype f64`` through the CLI. Every launch counter is zeroed
+    before a frame and read after it: the pool frames must launch only the
+    float64 ``fused_bounce`` and ``shadow_any_hit``, the wave frame only the
+    float64 ``combined_closest_small`` and ``any_hit``. Returns the
+    launches of the timed 1080p frame and of the wave frame."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import busy_count, ray_count, render_pool
+    from pathtrace_tpu_torch.render import RenderConfig, render
+
+    f64 = torch.float64
+    pool_set = {"fused_bounce_f64", "shadow_any_hit_f64"}
+
+    W, H = CORNELL["width"], CORNELL["height"]
+    shade.LAUNCHES.clear()
+    img, counters, iters = render_pool(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev),
+                                       dtype=f64, **CORNELL)
+    launches = dict(shade.LAUNCHES)
+    img = img.cpu().numpy()
+    t0 = time.perf_counter()
+    img_cpu, counters_cpu, iters_cpu = render_pool(
+        scenes.cornell_box("cpu"), scenes.cornell_camera(W, H, "cpu"), dtype=f64, **CORNELL)
+    cpu_s = time.perf_counter() - t0
+    rays, rays_cpu = ray_count(counters), ray_count(counters_cpu)
+    if img.dtype != np.float64 or not np.isfinite(img).all():
+        raise AssertionError(f"f64 cornell image {img.dtype} not finite")
+    if (rays, iters) != (rays_cpu, iters_cpu):
+        raise AssertionError(f"f64 cornell: GPU {rays} rays {iters} iters, CPU {rays_cpu} "
+                             f"rays {iters_cpu} iters")
+    if set(launches) != pool_set or launches["fused_bounce_f64"] != iters:
+        raise AssertionError(f"f64 cornell launched {launches} for {iters} iterations")
+    assert_images_match(img, img_cpu.numpy())
+    log(f"[f64-cornell] {W}x{H} 1spp MIS depth {CORNELL['max_bounces']} float64 pool: rays "
+        f"{rays}, iters {iters} on the card and the CPU twins (CPU {cpu_s:.1f} s); max pixel "
+        f"diff {np.abs(img - img_cpu.numpy()).max():.4g}; launches {launches}")
+
+    W, H = F64_WAVE["width"], F64_WAVE["height"]
+    cfg = RenderConfig(dtype=f64, **F64_WAVE)
+    shade.LAUNCHES.clear()
+    gpu = render(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev), cfg)
+    wave_img = gpu.image.cpu().numpy()
+    wave_launches = dict(shade.LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = render(scenes.cornell_box("cpu"), scenes.cornell_camera(W, H, "cpu"), cfg)
+    cpu_s = time.perf_counter() - t0
+    if gpu.image_sum.dtype != f64 or gpu.ray_queries != cpu.ray_queries:
+        raise AssertionError(f"f64 wave: {gpu.image_sum.dtype}, rays GPU {gpu.ray_queries} vs "
+                             f"CPU {cpu.ray_queries}")
+    if set(wave_launches) != {"combined_closest_small_f64", "any_hit_f64"}:
+        raise AssertionError(f"f64 wave launched {wave_launches}")
+    assert_images_match(wave_img, cpu.image.numpy())
+    log(f"[f64-wave] cornell {W}x{H} {F64_WAVE['spp']}spp MIS float64 wave engine: rays "
+        f"{gpu.ray_queries} on both (CPU {cpu_s:.1f} s); max pixel diff "
+        f"{np.abs(wave_img - cpu.image.numpy()).max():.4g}; launches {wave_launches}")
+
+    W, H = F64_FRAME["width"], F64_FRAME["height"]
+    scene, camera = scenes.many_spheres(device=dev), scenes.many_spheres_camera(W, H, dev)
+    frames, frame_launches = {}, {}
+    for dtype in (f64, torch.float32):
+        tag = "f64" if dtype == f64 else "f32"
+        shade.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, counters, iters = render_pool(scene, camera, dtype=dtype, **F64_FRAME)
+        checksum = float(img.double().sum().item())       # forces completion
+        wall = time.perf_counter() - t0
+        launches = dict(shade.LAUNCHES)
+        want = pool_set if dtype == f64 else set(KERNELS)
+        if set(launches) != want or not np.isfinite(checksum) or img.dtype != dtype:
+            raise AssertionError(f"1080p {tag}: {img.dtype}, launches {launches}, checksum "
+                                 f"{checksum}")
+        rays = ray_count(counters)
+        frames[tag] = {"total_rays": rays, "iters": iters, "image_checksum": checksum,
+                       "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
+                       "occupancy": busy_count(counters) / (iters * F64_FRAME["num_slots"])}
+        frame_launches[tag] = launches
+    result = {"workload": f"many_spheres {W}x{H} {F64_FRAME['spp']}spp MIS depth "
+                          f"{F64_FRAME['max_bounces']}, pool {F64_FRAME['num_slots']} slots",
+              "f64": frames["f64"], "f32": frames["f32"],
+              "wall_ratio_f64_over_f32": frames["f64"]["wall_s"] / frames["f32"]["wall_s"],
+              "checksum_rel_diff_f64_vs_f32": (frames["f64"]["image_checksum"]
+                                               - frames["f32"]["image_checksum"])
+              / frames["f32"]["image_checksum"],
+              "launches_f64": frame_launches["f64"], "card": smi}
+    log("[f64-frame] " + json.dumps(result))
+
+    W, H, spp = F64_GOLDEN["width"], F64_GOLDEN["height"], F64_GOLDEN["spp"]
+    shade.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, counters, iters = render_pool(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev),
+                                       dtype=f64, **F64_GOLDEN)
+    mean = (img / spp).cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = dict(shade.LAUNCHES)
+    gold = golden_rmse(mean, spp)
+    bound_rmse = F64_RMSE_OVER_FLOOR * gold["floor"]
+    gold.update(workload=f"cornell {W}x{H} {spp}spp MIS depth {F64_GOLDEN['max_bounces']} "
+                         f"float64 pool, {F64_GOLDEN['num_slots']} slots",
+                rmse_bound=bound_rmse, rays=ray_count(counters), iters=iters, wall_s=wall,
+                launches=launches, card=smi)
+    log("[f64-golden] " + json.dumps(gold))
+    if set(launches) != pool_set or not np.isfinite(mean).all():
+        raise AssertionError(f"f64 golden frame launched {launches}")
+    if gold["rmse"] > bound_rmse or max(abs(b) for b in gold["mean_bias_rgb"]) > F64_MEAN_BIAS:
+        raise AssertionError(f"f64 golden frame: RMSE {gold['rmse']} (bound {bound_rmse}), "
+                             f"bias {gold['mean_bias_rgb']} (bound {F64_MEAN_BIAS})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = os.path.join(tmp, "img.npy")
+        render_args = ["render", "--scene", "cornell", "--engine", "pool", "--width", "64",
+                       "--height", "64", "--spp", "2", "--dtype", "f64", "--device", "cuda",
+                       "--out", os.path.join(tmp, "o.png"), "--npy", npy]
+        # Both commands in one process (one start-up): render prints nothing
+        # to stdout, so its only line is the bench's.
+        entry = ("import sys; from pathtrace_tpu_torch import cli; "
+                 f"sys.exit(cli.main({render_args!r}) or cli.main("
+                 "['bench', '--small', '--dtype', 'f64']))")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", entry], capture_output=True, text=True,
+                           timeout=300)
+        lines = r.stdout.splitlines()
+        if (r.returncode != 0 or np.load(npy).dtype != np.float64 or len(lines) != 1
+                or json.loads(lines[0])["extra"].get("dtype") != "f64"):
+            raise AssertionError(f"CLI render / bench --small --dtype f64 exited "
+                                 f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    log(f"[f64-cli] render --dtype f64 --device cuda wrote a float64 image; bench --small "
+        f"--dtype f64: {lines[0]} ({time.perf_counter() - t0:.1f} s)")
+    return frame_launches["f64"], wave_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2614,6 +2960,7 @@ def main() -> int:
     cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra = phase(
         "3e", check_clustered_kernels, dev, flat)
     del flat
+    f64_worst, f64_ms, f64_bnd, f64_extra = phase("3f", check_f64_kernels, dev)
     phase("4", run_cornell, dev)
     phase("4b", run_mesh_frame, dev)
     launches = phase("5", run_bench, dev, smi)
@@ -2624,6 +2971,7 @@ def main() -> int:
     phase("4d", run_wave_methods, dev)
     phase("4e", run_cluster_frames, dev)
     cluster_launches, field_launches = phase("5e", run_cluster_bench, dev, smi)
+    f64_pool_launches, f64_wave_launches = phase("8", run_f64_frames, dev, smi)
     phase("6", run_cli)
     phase("7", run_parity, dev, smi)
 
@@ -2672,6 +3020,10 @@ def main() -> int:
         split_entry("fused_bounce_on_pbr", *CLUSTER_KERNELS["fused_bounce_on_pbr"],
                     cluster_launches["fused_bounce_on_pbr"], cl_worst["fused_bounce_on_pbr"],
                     cl_ms["fused_bounce_on_pbr"], 0, cl_bnd["fused_bounce_on_pbr"])
+    ] + [
+        entry(k, src, rep, {**f64_pool_launches, **f64_wave_launches}[k], f64_worst[k],
+              f64_ms[k], f64_bnd[k], **f64_extra[k])
+        for k, (src, rep) in F64_KERNELS.items()
     ]}
     print(json.dumps(record))
     print(smi)

@@ -19,6 +19,9 @@ builds the CUDA kernels and pays for the first launches; torch compiles
 nothing per shape, so one sample is enough warm-up. The timed frame ends
 with a host transfer of the image sum (``image_checksum``, a float64 sum).
 
+``--dtype f64`` renders the same frame in float64 (``render_pool(dtype=
+torch.float64)``) and adds ``"dtype": "f64"`` to the line's ``extra``.
+
 The device is the card unless the caller asks for the CPU (``--device
 cpu``, where the kernels' plain twins run the JAX bench's small frame:
 128x128, 1 spp, 4,096 slots); ``--small`` renders that frame on the card.
@@ -42,16 +45,19 @@ FRAME = dict(width=1920, height=1080, spp=16, integrator="mis", max_bounces=32,
 SMALL_FRAME = dict(FRAME, width=128, height=128, spp=1, num_slots=4096)
 
 
-def setup(device: str = "cuda", small: bool = False):
+def setup(device: str = "cuda", small: bool = False, dtype=None):
     """``(scene, camera, frame)`` of the bench on ``device``: the full frame
-    on the card, the small one on the CPU or with ``small``. Raises
+    on the card, the small one on the CPU or with ``small``; a ``dtype``
+    (None: the scene's float32) goes into the frame as ``render_pool``'s. Raises
     ``RuntimeError`` when ``device`` is ``"cuda"`` and there is no card."""
     from .models import scenes
 
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench: no CUDA device is available (--device cpu renders "
                            "the small frame on the kernels' plain twins)")
-    frame = SMALL_FRAME if small or device == "cpu" else FRAME
+    frame = dict(SMALL_FRAME if small or device == "cpu" else FRAME)
+    if dtype is not None:
+        frame["dtype"] = dtype
     scene = scenes.many_spheres(device=device)
     camera = scenes.many_spheres_camera(frame["width"], frame["height"], device=device)
     return scene, camera, frame
@@ -83,7 +89,7 @@ def timed(scene, camera, frame: dict) -> dict:
     nrays = ray_count(rays)
     mrays = nrays / dt / 1e6
     slots = min(frame["num_slots"], width * height)
-    return {
+    record = {
         "metric": "Mrays/sec/chip (many-sphere %dx%d @%dspp MIS)" % (width, height, spp),
         "value": round(mrays, 2),
         "unit": "Mrays/s",
@@ -98,11 +104,14 @@ def timed(scene, camera, frame: dict) -> dict:
             "image_checksum": round(total, 2),
         },
     }
+    if frame.get("dtype") == torch.float64:
+        record["extra"]["dtype"] = "f64"
+    return record
 
 
-def run(device: str = "cuda", small: bool = False) -> dict:
+def run(device: str = "cuda", small: bool = False, dtype=None) -> dict:
     """Warm up, then render the bench frame once, timed; returns the JSON
     record."""
-    scene, camera, frame = setup(device, small)
+    scene, camera, frame = setup(device, small, dtype)
     warm_up(scene, camera, frame)
     return timed(scene, camera, frame)

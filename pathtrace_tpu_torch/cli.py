@@ -20,8 +20,11 @@ engine (``render --engine pool|wave``, ``animate``, ``debug-pixel``), as the
 JAX CLI's process default does: ``auto``, ``pallas``, ``bruteforce``,
 ``bvh``, ``binned``, ``resident``. ``bruteforce`` takes the route of
 ``pallas`` (every route gives the brute-force hit), and the pool runs it on
-its composed branch, as the JAX pool does. Not ported yet, each exiting with
-status 2 and a message naming its ROADMAP item: ``--dtype f64`` and the
+its composed branch, as the JAX pool does. ``--dtype f64`` renders in the
+reference's native precision (every command, ``bench`` too) on the fused
+pool and the small intersection route; a scene whose route has no float64
+kernels yet exits with status 2 naming ROADMAP Queue 1, item 4b. Not ported
+yet, exiting with status 2 and a message naming its ROADMAP item: the
 multi-process flags.
 """
 
@@ -64,12 +67,19 @@ def _build(args, device):
     return scene, camera
 
 
+def _dtype(args):
+    """``torch.float64`` for ``--dtype f64``, else None (the scene's float32)."""
+    import torch
+
+    return torch.float64 if args.dtype == "f64" else None
+
+
 def _config(args, **kw):
     from .render import RenderConfig
 
     return RenderConfig(width=args.width, height=args.height, spp=args.spp,
                         integrator=args.integrator, max_bounces=args.max_bounces,
-                        seed=args.seed, method=args.method, **kw)
+                        seed=args.seed, method=args.method, dtype=_dtype(args), **kw)
 
 
 def cmd_render(args) -> int:
@@ -102,7 +112,7 @@ def cmd_render(args) -> int:
                 scene, camera, width=args.width, height=args.height, spp=n,
                 integrator=args.integrator, max_bounces=args.max_bounces,
                 num_slots=args.pool_slots, seed=args.seed, sample_offset=done,
-                method=args.method)
+                dtype=_dtype(args), method=args.method)
             image_sum = img if image_sum is None else image_sum + img
             done += n
             state = RenderState(image_sum.reshape(args.height, args.width, 3), done)
@@ -156,15 +166,18 @@ def cmd_bench(args) -> int:
     from .bench import run
 
     _device(args)   # no card and no --device cpu: exit 2, nothing falls back
-    print(json.dumps(run(args.device, args.small)))
+    print(json.dumps(run(args.device, args.small, _dtype(args))))
     return 0
 
 
 def cmd_debug_pixel(args) -> int:
     from .debug import replay_pixel
+    from .render import cast_floats
 
     device = _device(args)
     scene, camera = _build(args, device)
+    if _dtype(args) is not None:
+        scene, camera = cast_floats(scene, _dtype(args)), cast_floats(camera, _dtype(args))
     report = replay_pixel(
         scene, camera, args.x, args.y,
         width=args.width, height=args.height, spp=args.spp,
@@ -194,7 +207,8 @@ def main(argv=None) -> int:
         sp.add_argument("--max-bounces", type=int, default=64)
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--dtype", choices=["f32", "f64"], default="f32",
-                        help="estimator precision; f64 is not ported yet")
+                        help="estimator precision; f64 is the reference's native "
+                             "precision (the fused pool and the small route)")
         sp.add_argument("--method",
                         choices=["auto", "pallas", "binned", "resident", "bvh", "bruteforce"],
                         default="auto",
@@ -236,6 +250,8 @@ def main(argv=None) -> int:
                         "on the small frame")
     b.add_argument("--small", action="store_true",
                    help="the small frame (128x128, 1 spp, 4096 slots) on the GPU")
+    b.add_argument("--dtype", choices=["f32", "f64"], default="f32",
+                   help="estimator precision of the bench frame")
     b.set_defaults(fn=cmd_bench)
 
     d = sub.add_parser("debug-pixel", help="replay every sample of one pixel")
@@ -249,9 +265,6 @@ def main(argv=None) -> int:
     try:
         if args.coordinator or args.num_processes or os.environ.get("PT_COORDINATOR"):
             raise Unported("multi-process runs are not ported yet (ROADMAP Queue 1, item 5)")
-        if getattr(args, "dtype", "f32") == "f64":
-            raise Unported("--dtype f64: the port renders in float32 only "
-                           "(ROADMAP Queue 1, item 4)")
         return args.fn(args)
     except (Unported, NotImplementedError) as e:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)

@@ -50,6 +50,11 @@
 // team in PERF.md): 4 on many_spheres, 1 on Cornell, whose launch costs
 // more than its 13 rows.
 //
+// Float64: the kernel is a template on the float type as well as the team;
+// the float64 instance (pt_combined_closest_small_f64) is the same code in
+// double, its tables staged as pairs of 16-byte halves (<= 40 KB, under the
+// 48 KB a block takes without an opt-in), at half the FP32 rate.
+//
 // TPU workarounds not carried over: the (3, N) lane-major ray layout with
 // 1024-lane ray tiles and their padding, the 8-row table padding, and the
 // one-hot bf16x3 MXU winner select (_select_winner): the winner's row is a
@@ -72,19 +77,18 @@ __host__ __device__ constexpr int block_threads() {
   return kRays * K < 1024 ? kRays * K : 1024;
 }
 
-template <int K>
+template <int K, typename F>
 __global__ void __launch_bounds__(block_threads<K>())
-    combined_closest_small_kernel(const float4* __restrict__ sph, int n_sph,
-                                  const float4* __restrict__ tri, int n_tri, int num_tris,
-                                  const float* __restrict__ o, const float* __restrict__ d,
-                                  const float* __restrict__ t_min,
-                                  const float* __restrict__ t_max, float* __restrict__ t_out,
-                                  int* __restrict__ prim_out, float* __restrict__ n_out,
-                                  int* __restrict__ m_out, int N) {
+    combined_closest_small_kernel(const pt::Q4<F>* __restrict__ sph, int n_sph,
+                                  const pt::Q4<F>* __restrict__ tri, int n_tri, int num_tris,
+                                  const F* __restrict__ o, const F* __restrict__ d,
+                                  const F* __restrict__ t_min, const F* __restrict__ t_max,
+                                  F* __restrict__ t_out, int* __restrict__ prim_out,
+                                  F* __restrict__ n_out, int* __restrict__ m_out, int N) {
   constexpr int kBlock = block_threads<K>();
   extern __shared__ float4 smem4[];
-  float4* s_tri = smem4;
-  float4* s_sph = s_tri + n_tri * (kTriCols / 4);
+  pt::Q4<F>* s_tri = reinterpret_cast<pt::Q4<F>*>(smem4);
+  pt::Q4<F>* s_sph = s_tri + n_tri * (kTriCols / 4);
   for (int k = threadIdx.x; k < n_tri * (kTriCols / 4); k += kBlock) s_tri[k] = tri[k];
   for (int k = threadIdx.x; k < n_sph * (kSphCols / 4); k += kBlock) s_sph[k] = sph[k];
   __syncthreads();
@@ -93,14 +97,14 @@ __global__ void __launch_bounds__(block_threads<K>())
   const int i = blockIdx.x * (kBlock / K) + threadIdx.x / K;
   if (i >= N) return;  // the whole team leaves together
   const unsigned mask = pt::team_mask(K);
-  const pt::V3 o3 = pt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
-  const pt::V3 d3 = pt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  const float lo = t_min[i], hi = t_max[i];
+  const pt::Vec3<F> o3 = pt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
+  const pt::Vec3<F> d3 = pt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  const F lo = t_min[i], hi = t_max[i];
 
-  float tri_t = INFINITY;
+  F tri_t = INFINITY;
   int tri_r = kNone;
   for (int r = part; r < n_tri; r += K) {
-    float t;
+    F t;
     if (pt::hit_triangle(s_tri + r * (kTriCols / 4), o3, d3, lo, hi, &t) && t < tri_t) {
       tri_t = t;  // strict: a thread's first minimum in row order
       tri_r = r;
@@ -108,13 +112,13 @@ __global__ void __launch_bounds__(block_threads<K>())
   }
   pt::group_min(&tri_t, &tri_r, K, mask);
 
-  const float sph_hi = pt::clamp_max(hi, tri_t);
-  const float od = pt::dot3(o3, d3);
-  const float oo = pt::dot3(o3, o3);
-  float sph_t = INFINITY;
+  const F sph_hi = pt::clamp_max(hi, tri_t);
+  const F od = pt::dot3(o3, d3);
+  const F oo = pt::dot3(o3, o3);
+  F sph_t = INFINITY;
   int sph_r = kNone;
   for (int r = part; r < n_sph; r += K) {
-    const float t_c = pt::sphere_root(s_sph[r * (kSphCols / 4)], o3, d3, od, oo, lo);
+    const F t_c = pt::sphere_root(s_sph[r * (kSphCols / 4)], o3, d3, od, oo, lo);
     if (t_c >= lo && t_c <= sph_hi && t_c < sph_t) {
       sph_t = t_c;
       sph_r = r;
@@ -124,8 +128,8 @@ __global__ void __launch_bounds__(block_threads<K>())
   if (part != 0) return;
 
   if (sph_t < tri_t) {  // strictly nearer: ties go to the triangle
-    const float* row = reinterpret_cast<const float*>(s_sph + sph_r * (kSphCols / 4));
-    const float ir = row[4];
+    const F* row = reinterpret_cast<const F*>(s_sph + sph_r * (kSphCols / 4));
+    const F ir = row[4];
     t_out[i] = sph_t;
     prim_out[i] = num_tris + sph_r;
     n_out[3 * i] = (o3.x + sph_t * d3.x - row[0]) * ir;
@@ -133,7 +137,7 @@ __global__ void __launch_bounds__(block_threads<K>())
     n_out[3 * i + 2] = (o3.z + sph_t * d3.z - row[2]) * ir;
     m_out[i] = static_cast<int>(row[5]);
   } else if (tri_r != kNone) {
-    const float* row = reinterpret_cast<const float*>(s_tri + tri_r * (kTriCols / 4));
+    const F* row = reinterpret_cast<const F*>(s_tri + tri_r * (kTriCols / 4));
     t_out[i] = tri_t;
     prim_out[i] = tri_r;
     n_out[3 * i] = row[9];
@@ -143,31 +147,33 @@ __global__ void __launch_bounds__(block_threads<K>())
   } else {
     t_out[i] = INFINITY;
     prim_out[i] = -1;
-    n_out[3 * i] = 0.0f;
-    n_out[3 * i + 1] = 0.0f;
-    n_out[3 * i + 2] = 0.0f;
+    n_out[3 * i] = F(0);
+    n_out[3 * i + 1] = F(0);
+    n_out[3 * i + 2] = F(0);
     m_out[i] = 0;
   }
 }
 
-template <int K>
-cudaError_t launch(const float* sph, int n_sph, const float* tri, int n_tri, int num_tris,
-                   const float* o, const float* d, const float* t_min, const float* t_max,
-                   float* t_out, int* prim_out, float* n_out, int* m_out, int N,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(n_tri) * kTriCols +
-                                       static_cast<size_t>(n_sph) * kSphCols);
+template <int K, typename F>
+cudaError_t launch(const F* sph, int n_sph, const F* tri, int n_tri, int num_tris, const F* o,
+                   const F* d, const F* t_min, const F* t_max, F* t_out, int* prim_out,
+                   F* n_out, int* m_out, int N, cudaStream_t stream) {
+  const size_t smem = sizeof(F) * (static_cast<size_t>(n_tri) * kTriCols +
+                                   static_cast<size_t>(n_sph) * kSphCols);
   constexpr int rays = block_threads<K>() / K;
-  combined_closest_small_kernel<K><<<(N + rays - 1) / rays, block_threads<K>(), smem, stream>>>(
-      reinterpret_cast<const float4*>(sph), n_sph, reinterpret_cast<const float4*>(tri), n_tri,
-      num_tris, o, d, t_min, t_max, t_out, prim_out, n_out, m_out, N);
+  combined_closest_small_kernel<K, F>
+      <<<(N + rays - 1) / rays, block_threads<K>(), smem, stream>>>(
+          reinterpret_cast<const pt::Q4<F>*>(sph), n_sph,
+          reinterpret_cast<const pt::Q4<F>*>(tri), n_tri, num_tris, o, d, t_min, t_max, t_out,
+          prim_out, n_out, m_out, N);
   return cudaGetLastError();
 }
 
-cudaError_t closest(const float* sph, int n_sph, const float* tri, int n_tri, int num_tris,
-                    int team, const float* o, const float* d, const float* t_min,
-                    const float* t_max, float* t_out, int* prim_out, float* n_out, int* m_out,
-                    int N, cudaStream_t stream) {
+template <typename F>
+cudaError_t closest(const F* sph, int n_sph, const F* tri, int n_tri, int num_tris, int team,
+                    const F* o, const F* d, const F* t_min, const F* t_max, F* t_out,
+                    int* prim_out, F* n_out, int* m_out, int N, cudaStream_t stream) {
+  if (N <= 0) return cudaSuccess;
   PT_TEAM_LAUNCH(launch, team, sph, n_sph, tri, n_tri, num_tris, o, d, t_min, t_max, t_out,
                  prim_out, n_out, m_out, N, stream)
 }
@@ -175,12 +181,23 @@ cudaError_t closest(const float* sph, int n_sph, const float* tri, int n_tri, in
 }  // namespace
 
 // team: threads a ray (1, 2, 4, 8, 16 or 32); sph and tri 16-byte aligned.
+// The float32 and float64 instances.
 extern "C" int pt_combined_closest_small(const float* sph, int n_sph, const float* tri,
                                          int n_tri, int num_tris, int team, const float* o,
                                          const float* d, const float* t_min, const float* t_max,
                                          float* t_out, int* prim_out, float* n_out, int* m_out,
                                          int N, void* stream) {
-  if (N <= 0) return 0;
+  return static_cast<int>(closest(sph, n_sph, tri, n_tri, num_tris, team, o, d, t_min, t_max,
+                                  t_out, prim_out, n_out, m_out, N,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int pt_combined_closest_small_f64(const double* sph, int n_sph, const double* tri,
+                                             int n_tri, int num_tris, int team,
+                                             const double* o, const double* d,
+                                             const double* t_min, const double* t_max,
+                                             double* t_out, int* prim_out, double* n_out,
+                                             int* m_out, int N, void* stream) {
   return static_cast<int>(closest(sph, n_sph, tri, n_tri, num_tris, team, o, d, t_min, t_max,
                                   t_out, prim_out, n_out, m_out, N,
                                   static_cast<cudaStream_t>(stream)));

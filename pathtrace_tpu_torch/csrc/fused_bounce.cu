@@ -52,10 +52,18 @@
 //
 // Rounding: built with -fmad=false and without fast math, the arithmetic
 // matches the twin operation for operation (IEEE division and sqrt), except
-// cosf/sinf/atan2f, which are the same CUDA math functions torch's own
-// kernels call on the card.
+// cos/sin/atan2, which are the same CUDA math functions torch's own kernels
+// call on the card.
 // NaN sphere padding rows (k = NaN) rely on NaN failing every compare,
 // which fast math would break.
+//
+// Float64, the reference's precision: the kernel and its helpers are
+// templates on the float type F; pt_fused_bounce_f64 is the same code in
+// double (the JAX kernel's VPU form, which the JAX pool runs for float64
+// scenes), with the double libdevice sqrt/cos/sin/atan2, constants rounded
+// from double into F and eps passed as a double. The staged rows, the light
+// table and the lane winners' t take twice the bytes (<= ~33 KB a block at
+// the size caps); the H100 runs FP64 at half its FP32 rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,248 +86,247 @@ constexpr int kLcIsTri = 0, kLcP = 1, kLcRad = 4, kLcE1 = 4, kLcE2 = 7, kLcN = 1
 constexpr int kKindEmissive = 1, kKindMirror = 2, kKindOrenNayar = 3, kKindPbr = 4;
 constexpr int kRrMinDepth = 4, kRrMaxDepth = 50;
 
-// Inexact constants are rounded from double, as the twin's Python floats are.
-constexpr float kF_1em12 = static_cast<float>(1e-12);
-constexpr float kF_1em20 = static_cast<float>(1e-20);
-constexpr float kF_1em38 = static_cast<float>(1e-38);
-constexpr float kF_0p99 = static_cast<float>(0.99);
-constexpr float kF_0p999 = static_cast<float>(0.999);
-constexpr float kF_0p2126 = static_cast<float>(0.2126);
-constexpr float kF_0p7152 = static_cast<float>(0.7152);
-constexpr float kF_0p0722 = static_cast<float>(0.0722);
-constexpr float kF_1em6 = static_cast<float>(1e-6);
-constexpr float kF_0p33 = static_cast<float>(0.33);
-constexpr float kF_0p45 = static_cast<float>(0.45);
-constexpr float kF_0p09 = static_cast<float>(0.09);
-constexpr float kF_0p04 = static_cast<float>(0.04);
 
+template <typename F>
 struct Params {
   const bool* busy;
   const int* bounce;
-  const float* o;
-  const float* d;
-  const float* eta;
-  const float* pdf_prev;
-  const float* prefix;
-  const float* u;
-  const float* sph;
-  const float* tri;
-  const float* lgt;
-  float* rad;
-  float* next_o;
-  float* next_d;
-  float* next_eta;
-  float* next_pdf;
-  float* next_prefix;
+  const F* o;
+  const F* d;
+  const F* eta;
+  const F* pdf_prev;
+  const F* prefix;
+  const F* u;
+  const F* sph;
+  const F* tri;
+  const F* lgt;
+  F* rad;
+  F* next_o;
+  F* next_d;
+  F* next_eta;
+  F* next_pdf;
+  F* next_prefix;
   bool* live;
   bool* shade;
-  float* nee_gain;
-  float* shadow_d;
-  float* shadow_tmax;
+  F* nee_gain;
+  F* shadow_d;
+  F* shadow_tmax;
   int S, n_sph, n_tri, n_lgt;
   int split, lanes;  // threads sharing a lane's sweep; lanes a block
   int num_tris, num_lights, max_bounces;
   int use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr;
-  float eps;
+  F eps;
 };
 
+template <typename F>
 struct Mat {
   int kind;
-  V3 col, emi;
-  float rough, metal, ior;
+  Vec3<F> col, emi;
+  F rough, metal, ior;
 };
 
-__device__ __forceinline__ void tangent_frame(V3 n, V3* t, V3* b) {
-  bool ny_big = fabsf(n.y) > kF_0p999;
-  V3 up = v3(ny_big ? 1.0f : 0.0f, ny_big ? 0.0f : 1.0f, 0.0f);
+template <typename F>
+__device__ __forceinline__ void tangent_frame(Vec3<F> n, Vec3<F>* t, Vec3<F>* b) {
+  bool ny_big = abs_(n.y) > F(0.999);
+  Vec3<F> up = v3(ny_big ? F(1) : F(0), ny_big ? F(0) : F(1), F(0));
   *t = normalize3(cross3(up, n));
   *b = cross3(n, *t);
 }
 
-__device__ __forceinline__ float ggx_d(float alpha2, float n_dot_h) {
-  float c = clamp_max(fabsf(n_dot_h), 1.0f);
-  float denom = alpha2 * c * c + (1.0f - c) * (1.0f + c);
-  return alpha2 / (kPiF * denom * denom);
+template <typename F>
+__device__ __forceinline__ F ggx_d(F alpha2, F n_dot_h) {
+  F c = clamp_max(abs_(n_dot_h), F(1));
+  F denom = alpha2 * c * c + (F(1) - c) * (F(1) + c);
+  return alpha2 / (F(kPi) * denom * denom);
 }
 
-__device__ __forceinline__ float smith_g1(float alpha2, float cos_theta) {
-  float term = sqrtf(alpha2 + (1.0f - alpha2) * cos_theta * cos_theta);
-  float g = 2.0f * cos_theta / (cos_theta + term);
-  return cos_theta > 0.0f ? g : 0.0f;
+template <typename F>
+__device__ __forceinline__ F smith_g1(F alpha2, F cos_theta) {
+  F term = sqrt_(alpha2 + (F(1) - alpha2) * cos_theta * cos_theta);
+  F g = F(2) * cos_theta / (cos_theta + term);
+  return cos_theta > F(0) ? g : F(0);
 }
 
-__device__ __forceinline__ float smith_lambda(float alpha2, float c) {
-  float num = sqrtf(alpha2 + (1.0f - alpha2) * c * c);
-  return (num - c) / (2.0f * c);
+template <typename F>
+__device__ __forceinline__ F smith_lambda(F alpha2, F c) {
+  F num = sqrt_(alpha2 + (F(1) - alpha2) * c * c);
+  return (num - c) / (F(2) * c);
 }
 
-__device__ __forceinline__ float smith_g2(float alpha2, float cos_i, float cos_o) {
-  float g = 1.0f / (1.0f + smith_lambda(alpha2, cos_i) + smith_lambda(alpha2, cos_o));
-  return (cos_i > 0.0f && cos_o > 0.0f) ? g : 0.0f;
+template <typename F>
+__device__ __forceinline__ F smith_g2(F alpha2, F cos_i, F cos_o) {
+  F g = F(1) / (F(1) + smith_lambda(alpha2, cos_i) + smith_lambda(alpha2, cos_o));
+  return (cos_i > F(0) && cos_o > F(0)) ? g : F(0);
 }
 
-__device__ __forceinline__ float pow5(float x) {
-  float x2 = x * x;
+template <typename F>
+__device__ __forceinline__ F pow5(F x) {
+  F x2 = x * x;
   return x2 * x2 * x;
 }
 
-__device__ __forceinline__ V3 fresnel3(V3 color, float metallic, float ior, float cos_theta) {
-  float r = (1.0f - ior) / (1.0f + ior);
-  float f0d = r * r;
-  float p5 = pow5(1.0f - cos_theta);
-  float f0x = f0d * (1.0f - metallic) + color.x * metallic;
-  float f0y = f0d * (1.0f - metallic) + color.y * metallic;
-  float f0z = f0d * (1.0f - metallic) + color.z * metallic;
-  return v3(f0x + (1.0f - f0x) * p5, f0y + (1.0f - f0y) * p5, f0z + (1.0f - f0z) * p5);
+template <typename F>
+__device__ __forceinline__ Vec3<F> fresnel3(Vec3<F> color, F metallic, F ior, F cos_theta) {
+  F r = (F(1) - ior) / (F(1) + ior);
+  F f0d = r * r;
+  F p5 = pow5(F(1) - cos_theta);
+  F f0x = f0d * (F(1) - metallic) + color.x * metallic;
+  F f0y = f0d * (F(1) - metallic) + color.y * metallic;
+  F f0z = f0d * (F(1) - metallic) + color.z * metallic;
+  return v3(f0x + (F(1) - f0x) * p5, f0y + (F(1) - f0y) * p5, f0z + (F(1) - f0z) * p5);
 }
 
 // GGX mirror bsdf and pdf toward o (reflection or transmission).
-__device__ void eval_mirror(const Mat& m, V3 i, V3 o, V3 normal, float eta, V3* bsdf,
-                            float* pdf) {
-  float alpha = m.rough * m.rough;
-  float alpha2 = alpha * alpha;
-  float i_dot_n = dot3(i, normal);
-  float o_dot_n = dot3(o, normal);
-  bool is_reflection = i_dot_n * o_dot_n > 0.0f;
+template <typename F>
+__device__ void eval_mirror(const Mat<F>& m, Vec3<F> i, Vec3<F> o, Vec3<F> normal, F eta,
+                            Vec3<F>* bsdf, F* pdf) {
+  F alpha = m.rough * m.rough;
+  F alpha2 = alpha * alpha;
+  F i_dot_n = dot3(i, normal);
+  F o_dot_n = dot3(o, normal);
+  bool is_reflection = i_dot_n * o_dot_n > F(0);
 
-  V3 h_r = normalize3(add3(i, o));
-  float n_h_r = dot3(normal, h_r);
-  float d_r = ggx_d(alpha2, n_h_r);
-  float i_n_r = clamp_min(i_dot_n, 0.0f);
-  float o_n_r = clamp_min(o_dot_n, 0.0f);
-  float g_r = smith_g2(alpha2, i_n_r, o_n_r);
-  float cos_f = clamp_min(dot3(i, h_r), 0.0f);
-  V3 f_r = fresnel3(m.col, m.metal, m.ior, cos_f);
-  float spec = d_r * g_r / (4.0f * i_n_r * o_n_r);
-  V3 brdf = scale3(f_r, spec);
-  float i_h_r = fabsf(dot3(i, h_r));
-  float pdf_r = d_r * fabsf(n_h_r) / (4.0f * i_h_r);
+  Vec3<F> h_r = normalize3(add3(i, o));
+  F n_h_r = dot3(normal, h_r);
+  F d_r = ggx_d(alpha2, n_h_r);
+  F i_n_r = clamp_min(i_dot_n, F(0));
+  F o_n_r = clamp_min(o_dot_n, F(0));
+  F g_r = smith_g2(alpha2, i_n_r, o_n_r);
+  F cos_f = clamp_min(dot3(i, h_r), F(0));
+  Vec3<F> f_r = fresnel3(m.col, m.metal, m.ior, cos_f);
+  F spec = d_r * g_r / (F(4) * i_n_r * o_n_r);
+  Vec3<F> brdf = scale3(f_r, spec);
+  F i_h_r = abs_(dot3(i, h_r));
+  F pdf_r = d_r * abs_(n_h_r) / (F(4) * i_h_r);
 
-  V3 h_t = neg3(normalize3(add3(scale3(i, eta), o)));
-  float n_h_t = dot3(normal, h_t);
-  float d_t = ggx_d(alpha2, n_h_t);
-  float i_n_t = fabsf(i_dot_n);
-  float o_n_t = fabsf(o_dot_n);
-  float g_t = smith_g2(alpha2, i_n_t, o_n_t);
-  float i_h_t = dot3(i, h_t);
-  float o_h_t = dot3(o, h_t);
-  float denom_t = eta * i_h_t + o_h_t;
-  V3 f_t = fresnel3(m.col, m.metal, m.ior, fabsf(i_h_t));
-  float tt = d_t * g_t * fabsf(i_h_t) * fabsf(o_h_t) / (i_n_t * o_n_t * denom_t * denom_t);
-  V3 btdf = v3((1.0f - f_t.x) * tt, (1.0f - f_t.y) * tt, (1.0f - f_t.z) * tt);
-  float jac_t = fabsf(o_h_t) / (denom_t * denom_t);
-  float pdf_t = d_t * fabsf(n_h_t) * jac_t;
+  Vec3<F> h_t = neg3(normalize3(add3(scale3(i, eta), o)));
+  F n_h_t = dot3(normal, h_t);
+  F d_t = ggx_d(alpha2, n_h_t);
+  F i_n_t = abs_(i_dot_n);
+  F o_n_t = abs_(o_dot_n);
+  F g_t = smith_g2(alpha2, i_n_t, o_n_t);
+  F i_h_t = dot3(i, h_t);
+  F o_h_t = dot3(o, h_t);
+  F denom_t = eta * i_h_t + o_h_t;
+  Vec3<F> f_t = fresnel3(m.col, m.metal, m.ior, abs_(i_h_t));
+  F tt = d_t * g_t * abs_(i_h_t) * abs_(o_h_t) / (i_n_t * o_n_t * denom_t * denom_t);
+  Vec3<F> btdf = v3((F(1) - f_t.x) * tt, (F(1) - f_t.y) * tt, (F(1) - f_t.z) * tt);
+  F jac_t = abs_(o_h_t) / (denom_t * denom_t);
+  F pdf_t = d_t * abs_(n_h_t) * jac_t;
 
-  V3 b = is_reflection ? brdf : btdf;
-  float p = is_reflection ? pdf_r : pdf_t;
-  if (m.metal > kF_0p99 && !is_reflection) {
-    float z = 0.0f * p;
+  Vec3<F> b = is_reflection ? brdf : btdf;
+  F p = is_reflection ? pdf_r : pdf_t;
+  if (m.metal > F(0.99) && !is_reflection) {
+    F z = F(0) * p;
     b = v3(z, z, z);
-    p = 1.0f;
+    p = F(1);
   }
   *bsdf = b;
   *pdf = p;
 }
 
 // Heitz VNDF half-vector sample.
-__device__ V3 sample_vndf(V3 view, V3 normal, float rough, float r1, float r2) {
-  float alpha = rough * rough;
-  V3 tangent, bitangent;
+template <typename F>
+__device__ Vec3<F> sample_vndf(Vec3<F> view, Vec3<F> normal, F rough, F r1, F r2) {
+  F alpha = rough * rough;
+  Vec3<F> tangent, bitangent;
   tangent_frame(normal, &tangent, &bitangent);
-  V3 vh = normalize3(v3(alpha * dot3(view, tangent), alpha * dot3(view, bitangent),
+  Vec3<F> vh = normalize3(v3(alpha * dot3(view, tangent), alpha * dot3(view, bitangent),
                         dot3(view, normal)));
-  float lensq = vh.x * vh.x + vh.y * vh.y;
-  float inv = 1.0f / sqrtf(clamp_min(lensq, kF_1em38));
-  bool has = lensq > 0.0f;
-  V3 t1 = v3(has ? -vh.y * inv : 1.0f, has ? vh.x * inv : 0.0f, 0.0f);
-  V3 t2 = cross3(vh, t1);
+  F lensq = vh.x * vh.x + vh.y * vh.y;
+  F inv = F(1) / sqrt_(clamp_min(lensq, F(1e-38)));
+  bool has = lensq > F(0);
+  Vec3<F> t1 = v3(has ? -vh.y * inv : F(1), has ? vh.x * inv : F(0), F(0));
+  Vec3<F> t2 = cross3(vh, t1);
 
-  float r = sqrtf(r1);
-  float phi = kTwoPiF * r2;
-  float t1c = r * cosf(phi);
-  float t2c = r * sinf(phi);
-  float s = 0.5f * (1.0f + vh.z);
-  t2c = (1.0f - s) * sqrtf(clamp_min(1.0f - t1c * t1c, 0.0f)) + s * t2c;
+  F r = sqrt_(r1);
+  F phi = F(2.0 * kPi) * r2;
+  F t1c = r * cos_(phi);
+  F t2c = r * sin_(phi);
+  F s = F(0.5) * (F(1) + vh.z);
+  t2c = (F(1) - s) * sqrt_(clamp_min(F(1) - t1c * t1c, F(0))) + s * t2c;
 
-  float z = sqrtf(clamp_min(1.0f - t1c * t1c - t2c * t2c, 0.0f));
-  V3 nh = add3(add3(scale3(t1, t1c), scale3(t2, t2c)), scale3(vh, z));
-  V3 ne = normalize3(v3(alpha * nh.x, alpha * nh.y, clamp_min(nh.z, 0.0f)));
+  F z = sqrt_(clamp_min(F(1) - t1c * t1c - t2c * t2c, F(0)));
+  Vec3<F> nh = add3(add3(scale3(t1, t1c), scale3(t2, t2c)), scale3(vh, z));
+  Vec3<F> ne = normalize3(v3(alpha * nh.x, alpha * nh.y, clamp_min(nh.z, F(0))));
   return normalize3(
       add3(add3(scale3(tangent, ne.x), scale3(bitangent, ne.y)), scale3(normal, ne.z)));
 }
 
-__device__ V3 cosine_hemisphere(V3 normal, float r1, float r2) {
-  float phi = kTwoPiF * r1;
-  float cos_theta = sqrtf(r2);
-  float sin_theta = sqrtf(1.0f - cos_theta * cos_theta);
-  float x = sin_theta * cosf(phi);
-  float y = sin_theta * sinf(phi);
-  V3 tangent, bitangent;
+template <typename F>
+__device__ Vec3<F> cosine_hemisphere(Vec3<F> normal, F r1, F r2) {
+  F phi = F(2.0 * kPi) * r1;
+  F cos_theta = sqrt_(r2);
+  F sin_theta = sqrt_(F(1) - cos_theta * cos_theta);
+  F x = sin_theta * cos_(phi);
+  F y = sin_theta * sin_(phi);
+  Vec3<F> tangent, bitangent;
   tangent_frame(normal, &tangent, &bitangent);
   return normalize3(add3(add3(scale3(tangent, x), scale3(bitangent, y)),
                          scale3(normal, cos_theta)));
 }
 
 // GGX mirror sample: VNDF half vector, Fresnel coin, both branches.
-__device__ void sample_mirror(const Mat& m, V3 i, V3 normal, float eta, float r1, float r2,
-                              float u_coin, V3* o_out, V3* bsdf_out, float* pdf_out,
-                              float* cos_out) {
-  float alpha = m.rough * m.rough;
-  float alpha2 = alpha * alpha;
-  float i_dot_n = dot3(i, normal);
+template <typename F>
+__device__ void sample_mirror(const Mat<F>& m, Vec3<F> i, Vec3<F> normal, F eta, F r1, F r2,
+                              F u_coin, Vec3<F>* o_out, Vec3<F>* bsdf_out, F* pdf_out,
+                              F* cos_out) {
+  F alpha = m.rough * m.rough;
+  F alpha2 = alpha * alpha;
+  F i_dot_n = dot3(i, normal);
 
-  V3 h = sample_vndf(i, normal, m.rough, r1, r2);
-  float i_h = dot3(i, h);
-  bool fail = i_h <= 0.0f;
+  Vec3<F> h = sample_vndf(i, normal, m.rough, r1, r2);
+  F i_h = dot3(i, h);
+  bool fail = i_h <= F(0);
 
-  V3 fres = fresnel3(m.col, m.metal, m.ior, i_h);
-  float sin2_i = (1.0f - i_h) * (1.0f + i_h);
-  float cos2_t = 1.0f - (eta * eta) * sin2_i;
-  bool total_reflection = cos2_t < 0.0f;
+  Vec3<F> fres = fresnel3(m.col, m.metal, m.ior, i_h);
+  F sin2_i = (F(1) - i_h) * (F(1) + i_h);
+  F cos2_t = F(1) - (eta * eta) * sin2_i;
+  bool total_reflection = cos2_t < F(0);
 
-  bool force_reflect = total_reflection || (m.metal > kF_0p99);
-  float rr_f = force_reflect ? 1.0f : fres.x;
-  if (force_reflect) fres = v3(1.0f, 1.0f, 1.0f);
+  bool force_reflect = total_reflection || (m.metal > F(0.99));
+  F rr_f = force_reflect ? F(1) : fres.x;
+  if (force_reflect) fres = v3(F(1), F(1), F(1));
   bool is_reflect = u_coin < rr_f;
 
-  float n_h = dot3(normal, h);
-  float d = ggx_d(alpha2, n_h);
+  F n_h = dot3(normal, h);
+  F d = ggx_d(alpha2, n_h);
 
-  V3 o_r = normalize3(sub3(scale3(h, 2.0f * i_h), i));
-  float o_n_r = clamp_min(dot3(normal, o_r), 0.0f);
-  float i_n_r = clamp_min(i_dot_n, 0.0f);
-  float g_r = smith_g2(alpha2, i_n_r, o_n_r);
-  float spec = d * g_r / (4.0f * i_n_r * o_n_r * rr_f);
-  V3 brdf = scale3(fres, spec);
-  float pdf_vndf_r = smith_g1(alpha2, i_n_r) * d * clamp_min(i_h, 0.0f) / i_n_r;
-  float pdf_r = pdf_vndf_r / (4.0f * fabsf(i_h));
+  Vec3<F> o_r = normalize3(sub3(scale3(h, F(2) * i_h), i));
+  F o_n_r = clamp_min(dot3(normal, o_r), F(0));
+  F i_n_r = clamp_min(i_dot_n, F(0));
+  F g_r = smith_g2(alpha2, i_n_r, o_n_r);
+  F spec = d * g_r / (F(4) * i_n_r * o_n_r * rr_f);
+  Vec3<F> brdf = scale3(fres, spec);
+  F pdf_vndf_r = smith_g1(alpha2, i_n_r) * d * clamp_min(i_h, F(0)) / i_n_r;
+  F pdf_r = pdf_vndf_r / (F(4) * abs_(i_h));
 
-  float cos_t = sqrtf(clamp_min(cos2_t, 0.0f));
-  V3 o_t = normalize3(sub3(scale3(h, eta * i_h - cos_t), scale3(i, eta)));
-  float o_h_t = dot3(o_t, h);
-  float o_n_t = fabsf(dot3(normal, o_t));
-  float i_n_t = fabsf(i_dot_n);
-  float denom_t = eta * i_h + o_h_t;
-  float g_t = smith_g2(alpha2, i_n_t, o_n_t);
-  float tt = d * g_t * fabsf(i_h) * fabsf(o_h_t) /
-             (i_n_t * o_n_t * denom_t * denom_t * (1.0f - rr_f));
-  V3 btdf = v3((1.0f - fres.x) * tt, (1.0f - fres.y) * tt, (1.0f - fres.z) * tt);
-  float jac = fabsf(o_h_t) / (denom_t * denom_t);
-  float pdf_vndf_t = smith_g1(alpha2, i_n_t) * d * clamp_min(i_h, 0.0f) / i_n_t;
-  float pdf_t = pdf_vndf_t * jac;
+  F cos_t = sqrt_(clamp_min(cos2_t, F(0)));
+  Vec3<F> o_t = normalize3(sub3(scale3(h, eta * i_h - cos_t), scale3(i, eta)));
+  F o_h_t = dot3(o_t, h);
+  F o_n_t = abs_(dot3(normal, o_t));
+  F i_n_t = abs_(i_dot_n);
+  F denom_t = eta * i_h + o_h_t;
+  F g_t = smith_g2(alpha2, i_n_t, o_n_t);
+  F tt = d * g_t * abs_(i_h) * abs_(o_h_t) /
+             (i_n_t * o_n_t * denom_t * denom_t * (F(1) - rr_f));
+  Vec3<F> btdf = v3((F(1) - fres.x) * tt, (F(1) - fres.y) * tt, (F(1) - fres.z) * tt);
+  F jac = abs_(o_h_t) / (denom_t * denom_t);
+  F pdf_vndf_t = smith_g1(alpha2, i_n_t) * d * clamp_min(i_h, F(0)) / i_n_t;
+  F pdf_t = pdf_vndf_t * jac;
 
-  V3 o = is_reflect ? o_r : o_t;
-  V3 bsdf = is_reflect ? brdf : btdf;
-  float pdf = is_reflect ? pdf_r : pdf_t;
-  float cs = is_reflect ? o_n_r : o_n_t;
+  Vec3<F> o = is_reflect ? o_r : o_t;
+  Vec3<F> bsdf = is_reflect ? brdf : btdf;
+  F pdf = is_reflect ? pdf_r : pdf_t;
+  F cs = is_reflect ? o_n_r : o_n_t;
 
-  bool bad = fail || !finite3(bsdf) || !finite1(pdf) || (pdf <= 0.0f);
+  bool bad = fail || !finite3(bsdf) || !finite1(pdf) || (pdf <= F(0));
   if (bad) {
-    float z = 0.0f * pdf;
+    F z = F(0) * pdf;
     o = normal;
     bsdf = v3(z, z, z);
-    pdf = 1.0f;
-    cs = 0.0f;
+    pdf = F(1);
+    cs = F(0);
   }
   *o_out = o;
   *bsdf_out = bsdf;
@@ -328,73 +335,76 @@ __device__ void sample_mirror(const Mat& m, V3 i, V3 normal, float eta, float r1
 }
 
 // Oren-Nayar bsdf and pdf toward o (pallas_shade.py :: _eval_oren_nayar3).
-__device__ void eval_oren_nayar(V3 color, float rough, V3 i, V3 o, V3 normal, V3* bsdf,
-                                float* pdf) {
-  float sigma2 = rough * rough;
-  float a = 1.0f - 0.5f * sigma2 / (sigma2 + kF_0p33);
-  float b = kF_0p45 * sigma2 / (sigma2 + kF_0p09);
+template <typename F>
+__device__ void eval_oren_nayar(Vec3<F> color, F rough, Vec3<F> i, Vec3<F> o, Vec3<F> normal,
+                                Vec3<F>* bsdf, F* pdf) {
+  F sigma2 = rough * rough;
+  F a = F(1) - F(0.5) * sigma2 / (sigma2 + F(0.33));
+  F b = F(0.45) * sigma2 / (sigma2 + F(0.09));
 
-  float cos_i = clamp_min(dot3(i, normal), 0.0f);
-  float cos_o = clamp_min(dot3(o, normal), 0.0f);
-  float sin_i = sqrtf(clamp_min(1.0f - cos_i * cos_i, 0.0f));
-  float sin_o = sqrtf(clamp_min(1.0f - cos_o * cos_o, 0.0f));
+  F cos_i = clamp_min(dot3(i, normal), F(0));
+  F cos_o = clamp_min(dot3(o, normal), F(0));
+  F sin_i = sqrt_(clamp_min(F(1) - cos_i * cos_i, F(0)));
+  F sin_o = sqrt_(clamp_min(F(1) - cos_o * cos_o, F(0)));
 
-  V3 tangent, bitangent;
+  Vec3<F> tangent, bitangent;
   tangent_frame(normal, &tangent, &bitangent);
-  float phi_i = atan2f(dot3(i, bitangent), dot3(i, tangent));
-  float phi_o = atan2f(dot3(o, bitangent), dot3(o, tangent));
-  float cos_phi_diff = clamp_min(cosf(phi_i - phi_o), 0.0f);
+  F phi_i = atan2_(dot3(i, bitangent), dot3(i, tangent));
+  F phi_o = atan2_(dot3(o, bitangent), dot3(o, tangent));
+  F cos_phi_diff = clamp_min(cos_(phi_i - phi_o), F(0));
 
   // alpha = the larger angle, beta = the smaller, by the cosine comparison.
   bool i_steeper = cos_i > cos_o;
-  float tan_beta = i_steeper ? (cos_i > kF_1em6 ? sin_i / clamp_min(cos_i, kF_1em6) : 0.0f)
-                             : (cos_o > kF_1em6 ? sin_o / clamp_min(cos_o, kF_1em6) : 0.0f);
-  float sin_alpha = i_steeper ? sin_o : sin_i;
+  F tan_beta = i_steeper ? (cos_i > F(1e-6) ? sin_i / clamp_min(cos_i, F(1e-6)) : F(0))
+                             : (cos_o > F(1e-6) ? sin_o / clamp_min(cos_o, F(1e-6)) : F(0));
+  F sin_alpha = i_steeper ? sin_o : sin_i;
 
-  float term = (a + b * cos_phi_diff * sin_alpha * tan_beta) / kPiF;
+  F term = (a + b * cos_phi_diff * sin_alpha * tan_beta) / F(kPi);
   *bsdf = scale3(color, term);
-  *pdf = cos_o / kPiF;
+  *pdf = cos_o / F(kPi);
 }
 
 // PBR bsdf and pdf toward o: GGX specular reflection plus Oren-Nayar diffuse
 // scaled by kd, the pdf a Fresnel-weighted blend (pallas_shade.py ::
 // _eval_pbr3).
-__device__ void eval_pbr(const Mat& m, V3 i, V3 o, V3 normal, V3* bsdf, float* pdf) {
-  float alpha = m.rough * m.rough;
-  float alpha2 = alpha * alpha;
+template <typename F>
+__device__ void eval_pbr(const Mat<F>& m, Vec3<F> i, Vec3<F> o, Vec3<F> normal, Vec3<F>* bsdf,
+                         F* pdf) {
+  F alpha = m.rough * m.rough;
+  F alpha2 = alpha * alpha;
 
-  V3 h = normalize3(add3(i, o));
-  float n_h = dot3(normal, h);
-  float d_ggx = ggx_d(alpha2, n_h);
-  float cos_i = clamp_min(dot3(i, normal), 0.0f);
-  float cos_o = clamp_min(dot3(o, normal), 0.0f);
-  float g2 = smith_g2(alpha2, cos_i, cos_o);
-  float cos_f = clamp_min(dot3(i, h), 0.0f);
-  V3 f = fresnel3(m.col, m.metal, m.ior, cos_f);
-  V3 spec_brdf = scale3(f, d_ggx * g2 / (4.0f * cos_i * cos_o));
-  float spec_pdf = d_ggx * fabsf(n_h) / (4.0f * fabsf(dot3(i, h)));
+  Vec3<F> h = normalize3(add3(i, o));
+  F n_h = dot3(normal, h);
+  F d_ggx = ggx_d(alpha2, n_h);
+  F cos_i = clamp_min(dot3(i, normal), F(0));
+  F cos_o = clamp_min(dot3(o, normal), F(0));
+  F g2 = smith_g2(alpha2, cos_i, cos_o);
+  F cos_f = clamp_min(dot3(i, h), F(0));
+  Vec3<F> f = fresnel3(m.col, m.metal, m.ior, cos_f);
+  Vec3<F> spec_brdf = scale3(f, d_ggx * g2 / (F(4) * cos_i * cos_o));
+  F spec_pdf = d_ggx * abs_(n_h) / (F(4) * abs_(dot3(i, h)));
 
   // Diffuse: Oren-Nayar x kd; metals do not diffuse.
-  V3 diff_raw;
-  float diff_pdf;
+  Vec3<F> diff_raw;
+  F diff_pdf;
   eval_oren_nayar(m.col, m.rough, i, o, normal, &diff_raw, &diff_pdf);
-  bool not_metal = m.metal < 1.0f;
-  float one_m = 1.0f - m.metal;
-  V3 diff_brdf = not_metal ? v3(diff_raw.x * (1.0f - f.x) * one_m,
-                                diff_raw.y * (1.0f - f.y) * one_m,
-                                diff_raw.z * (1.0f - f.z) * one_m)
-                           : v3(0.0f, 0.0f, 0.0f);
+  bool not_metal = m.metal < F(1);
+  F one_m = F(1) - m.metal;
+  Vec3<F> diff_brdf = not_metal ? v3(diff_raw.x * (F(1) - f.x) * one_m,
+                                diff_raw.y * (F(1) - f.y) * one_m,
+                                diff_raw.z * (F(1) - f.z) * one_m)
+                           : v3(F(0), F(0), F(0));
 
-  V3 b = add3(spec_brdf, diff_brdf);
-  float f_avg = (f.x + f.y + f.z) / 3.0f;
-  float sw = f_avg;
-  float dw = (1.0f - f_avg) * one_m;
-  float tw = sw + dw;
-  float p = tw > kF_1em6 ? (sw * spec_pdf + dw * diff_pdf) / clamp_min(tw, kF_1em6) : spec_pdf;
-  if (cos_o <= 0.0f || !finite3(b) || !finite1(p)) {
-    float z = 0.0f * p;
+  Vec3<F> b = add3(spec_brdf, diff_brdf);
+  F f_avg = (f.x + f.y + f.z) / F(3);
+  F sw = f_avg;
+  F dw = (F(1) - f_avg) * one_m;
+  F tw = sw + dw;
+  F p = tw > F(1e-6) ? (sw * spec_pdf + dw * diff_pdf) / clamp_min(tw, F(1e-6)) : spec_pdf;
+  if (cos_o <= F(0) || !finite3(b) || !finite1(p)) {
+    F z = F(0) * p;
     b = v3(z, z, z);
-    p = 1.0f;
+    p = F(1);
   }
   *bsdf = b;
   *pdf = p;
@@ -403,33 +413,35 @@ __device__ void eval_pbr(const Mat& m, V3 i, V3 o, V3 normal, V3* bsdf, float* p
 // PBR sample: a coin weighted by the approximate Fresnel picks the GGX VNDF
 // reflection or the shared cosine sample d_diff, evaluated there
 // (pallas_shade.py :: _sample_pbr3).
-__device__ void sample_pbr(const Mat& m, V3 i, V3 normal, float r1, float r2, float u_coin,
-                           V3 d_diff, V3* o_out, V3* bsdf_out, float* pdf_out, float* cos_out) {
-  float cos_i = clamp_min(dot3(i, normal), 0.0f);
-  float mean_c = (m.col.x + m.col.y + m.col.z) / 3.0f;
-  float f0s = m.metal > 0.5f ? mean_c : kF_0p04;
-  float f_approx = f0s + (1.0f - f0s) * pow5(1.0f - cos_i);
-  float sw = f_approx;
-  float dw = (1.0f - f_approx) * (1.0f - m.metal);
-  float tw = sw + dw;
-  float p_spec = tw > kF_1em6 ? sw / clamp_min(tw, kF_1em6) : 1.0f;
+template <typename F>
+__device__ void sample_pbr(const Mat<F>& m, Vec3<F> i, Vec3<F> normal, F r1, F r2, F u_coin,
+                           Vec3<F> d_diff, Vec3<F>* o_out, Vec3<F>* bsdf_out, F* pdf_out,
+                           F* cos_out) {
+  F cos_i = clamp_min(dot3(i, normal), F(0));
+  F mean_c = (m.col.x + m.col.y + m.col.z) / F(3);
+  F f0s = m.metal > F(0.5) ? mean_c : F(0.04);
+  F f_approx = f0s + (F(1) - f0s) * pow5(F(1) - cos_i);
+  F sw = f_approx;
+  F dw = (F(1) - f_approx) * (F(1) - m.metal);
+  F tw = sw + dw;
+  F p_spec = tw > F(1e-6) ? sw / clamp_min(tw, F(1e-6)) : F(1);
   bool use_spec = u_coin < p_spec;
 
-  V3 h = sample_vndf(i, normal, m.rough, r1, r2);
-  V3 o_spec = normalize3(sub3(scale3(h, 2.0f * dot3(i, h)), i));
+  Vec3<F> h = sample_vndf(i, normal, m.rough, r1, r2);
+  Vec3<F> o_spec = normalize3(sub3(scale3(h, F(2) * dot3(i, h)), i));
 
-  V3 o = use_spec ? o_spec : d_diff;
-  V3 bsdf;
-  float pdf;
+  Vec3<F> o = use_spec ? o_spec : d_diff;
+  Vec3<F> bsdf;
+  F pdf;
   eval_pbr(m, i, o, normal, &bsdf, &pdf);
-  float cs = clamp_min(dot3(o, normal), 0.0f);
+  F cs = clamp_min(dot3(o, normal), F(0));
 
-  if (!finite3(bsdf) || !finite1(pdf) || pdf <= 0.0f) {
-    float z = 0.0f * pdf;
+  if (!finite3(bsdf) || !finite1(pdf) || pdf <= F(0)) {
+    F z = F(0) * pdf;
     o = normal;
     bsdf = v3(z, z, z);
-    pdf = 1.0f;
-    cs = 0.0f;
+    pdf = F(1);
+    cs = F(0);
   }
   *o_out = o;
   *bsdf_out = bsdf;
@@ -437,30 +449,32 @@ __device__ void sample_pbr(const Mat& m, V3 i, V3 normal, float r1, float r2, fl
   *cos_out = cs;
 }
 
-__device__ __forceinline__ Mat mat_row(const float* row, bool hit) {
+template <typename F>
+__device__ __forceinline__ Mat<F> mat_row(const F* row, bool hit) {
   // Material columns: kind | color(3) | emission(3) | roughness | metallic | ior.
-  Mat m;
-  m.kind = static_cast<int>(hit ? row[0] : 0.0f);
-  m.col = hit ? v3(row[1], row[2], row[3]) : v3(0.0f, 0.0f, 0.0f);
-  m.emi = hit ? v3(row[4], row[5], row[6]) : v3(0.0f, 0.0f, 0.0f);
-  m.rough = hit ? row[7] : 0.0f;
-  m.metal = hit ? row[8] : 0.0f;
-  m.ior = hit ? row[9] : 0.0f;
+  Mat<F> m;
+  m.kind = static_cast<int>(hit ? row[0] : F(0));
+  m.col = hit ? v3(row[1], row[2], row[3]) : v3(F(0), F(0), F(0));
+  m.emi = hit ? v3(row[4], row[5], row[6]) : v3(F(0), F(0), F(0));
+  m.rough = hit ? row[7] : F(0);
+  m.metal = hit ? row[8] : F(0);
+  m.ior = hit ? row[9] : F(0);
   return m;
 }
 
-__global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
+template <typename F>
+__global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) {
   extern __shared__ float4 smem4[];
-  float4* s_sph = smem4;                                      // cx, cy, cz, k
-  float* s_tri = reinterpret_cast<float*>(s_sph + p.n_sph);   // v0, e1, e2
-  float* s_lgt = s_tri + p.n_tri * kTriUse;
-  float* s_tri_t = s_lgt + p.n_lgt * kLgtCols;                // per lane of the block
-  float* s_sph_t = s_tri_t + p.lanes;
+  Q4<F>* s_sph = reinterpret_cast<Q4<F>*>(smem4);             // cx, cy, cz, k
+  F* s_tri = reinterpret_cast<F*>(s_sph + p.n_sph);   // v0, e1, e2
+  F* s_lgt = s_tri + p.n_tri * kTriUse;
+  F* s_tri_t = s_lgt + p.n_lgt * kLgtCols;                // per lane of the block
+  F* s_sph_t = s_tri_t + p.lanes;
   int* s_tri_arg = reinterpret_cast<int*>(s_sph_t + p.lanes);
   int* s_sph_arg = s_tri_arg + p.lanes;
   for (int k = threadIdx.x; k < p.n_sph; k += blockDim.x) {
-    const float* row = p.sph + k * kSphCols;
-    s_sph[k] = make_float4(row[0], row[1], row[2], row[3]);
+    const F* row = p.sph + k * kSphCols;
+    s_sph[k] = q4(row[0], row[1], row[2], row[3]);
   }
   for (int k = threadIdx.x; k < p.n_tri * kTriUse; k += blockDim.x)
     s_tri[k] = p.tri[(k / kTriUse) * kTriCols + k % kTriUse];
@@ -468,8 +482,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
   __syncthreads();
 
   const int S = p.S;
-  const float eps = p.eps;
-  const float inf = INFINITY;
+  const F eps = p.eps;
+  const F inf = INFINITY;
 
   // ---- 1. Closest hit, split: thread `part` of the lane's group tests rows
   // part, part + T, ...; lanes past S sweep lane S - 1 and write nothing, so
@@ -480,15 +494,15 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
     const int local = threadIdx.x / T;
     const int lane = blockIdx.x * p.lanes + local;
     const int il = lane < S ? lane : S - 1;
-    const V3 o3 = v3(p.o[il], p.o[S + il], p.o[2 * S + il]);
-    const V3 d3 = v3(p.d[il], p.d[S + il], p.d[2 * S + il]);
+    const Vec3<F> o3 = v3(p.o[il], p.o[S + il], p.o[2 * S + il]);
+    const Vec3<F> d3 = v3(p.d[il], p.d[S + il], p.d[2 * S + il]);
 
     // Triangles (Moller-Trumbore).
-    float tri_t = inf;
+    F tri_t = inf;
     int tri_arg = 0;
     for (int r = part; r < p.n_tri; r += T) {
-      float t;
-      float ts = hit_triangle(s_tri + r * kTriUse, o3, d3, eps, inf, &t) ? t : inf;
+      F t;
+      F ts = hit_triangle(s_tri + r * kTriUse, o3, d3, eps, inf, &t) ? t : inf;
       if (ts < tri_t) {  // strict: the first minimum wins, like argmin
         tri_t = ts;
         tri_arg = r;
@@ -497,14 +511,14 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
     group_min(&tri_t, &tri_arg, T, 0xffffffffu);
 
     // Spheres, against t <= the triangles' best.
-    const float od = dot3(o3, d3);
-    const float oo = dot3(o3, o3);
-    float sph_t = inf;
+    const F od = dot3(o3, d3);
+    const F oo = dot3(o3, o3);
+    F sph_t = inf;
     int sph_arg = 0;
 #pragma unroll 4
     for (int r = part; r < p.n_sph; r += T) {
-      float t_c = sphere_root(s_sph[r], o3, d3, od, oo, eps);
-      float tss = (t_c >= eps && t_c <= tri_t) ? t_c : inf;
+      F t_c = sphere_root(s_sph[r], o3, d3, od, oo, eps);
+      F tss = (t_c >= eps && t_c <= tri_t) ? t_c : inf;
       if (tss < sph_t) {
         sph_t = tss;
         sph_arg = r;
@@ -524,92 +538,92 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
   if (threadIdx.x >= p.lanes) return;
   const int i = blockIdx.x * p.lanes + threadIdx.x;
   if (i >= S) return;
-  const float tri_t = s_tri_t[threadIdx.x];
+  const F tri_t = s_tri_t[threadIdx.x];
   const int tri_arg = s_tri_arg[threadIdx.x];
-  const float sph_t = s_sph_t[threadIdx.x];
+  const F sph_t = s_sph_t[threadIdx.x];
   const int sph_arg = s_sph_arg[threadIdx.x];
 
   const bool busy = p.busy[i];
   const int bounce = p.bounce[i];
-  const V3 o3 = v3(p.o[i], p.o[S + i], p.o[2 * S + i]);
-  const V3 d3 = v3(p.d[i], p.d[S + i], p.d[2 * S + i]);
-  const float eta_in = p.eta[i];
-  const float pdf_prev = p.pdf_prev[i];
-  const V3 pfx = v3(p.prefix[i], p.prefix[S + i], p.prefix[2 * S + i]);
-  const float ox = o3.x, oy = o3.y, oz = o3.z;
-  const float dx = d3.x, dy = d3.y, dz = d3.z;
+  const Vec3<F> o3 = v3(p.o[i], p.o[S + i], p.o[2 * S + i]);
+  const Vec3<F> d3 = v3(p.d[i], p.d[S + i], p.d[2 * S + i]);
+  const F eta_in = p.eta[i];
+  const F pdf_prev = p.pdf_prev[i];
+  const Vec3<F> pfx = v3(p.prefix[i], p.prefix[S + i], p.prefix[2 * S + i]);
+  const F ox = o3.x, oy = o3.y, oz = o3.z;
+  const F dx = d3.x, dy = d3.y, dz = d3.z;
 
   const bool tri_hit = tri_t < inf;
   const bool sph_hit = sph_t < tri_t;  // a triangle wins a tie
 
-  const float* trow = p.tri + tri_arg * kTriCols;
-  const float* srow = p.sph + sph_arg * kSphCols;
-  const float best_t = sph_hit ? sph_t : tri_t;
+  const F* trow = p.tri + tri_arg * kTriCols;
+  const F* srow = p.sph + sph_arg * kSphCols;
+  const F best_t = sph_hit ? sph_t : tri_t;
   const bool hit_valid = sph_hit || tri_hit;
-  const float tt0 = hit_valid ? best_t : 0.0f;
-  const V3 point = v3(ox + tt0 * dx, oy + tt0 * dy, oz + tt0 * dz);
-  V3 outward;
+  const F tt0 = hit_valid ? best_t : F(0);
+  const Vec3<F> point = v3(ox + tt0 * dx, oy + tt0 * dy, oz + tt0 * dz);
+  Vec3<F> outward;
   if (sph_hit) {
-    float sir = srow[kScInvR];
+    F sir = srow[kScInvR];
     outward = v3((point.x - srow[0]) * sir, (point.y - srow[1]) * sir, (point.z - srow[2]) * sir);
   } else {
-    outward = tri_hit ? v3(trow[kTcN], trow[kTcN + 1], trow[kTcN + 2]) : v3(0.0f, 0.0f, 0.0f);
+    outward = tri_hit ? v3(trow[kTcN], trow[kTcN + 1], trow[kTcN + 2]) : v3(F(0), F(0), F(0));
   }
   const int prim = sph_hit ? p.num_tris + sph_arg : (tri_hit ? tri_arg : -1);
-  const Mat m = sph_hit ? mat_row(srow + kScKind, true) : mat_row(trow + kTcKind, tri_hit);
+  const Mat<F> m = sph_hit ? mat_row(srow + kScKind, true) : mat_row(trow + kTcKind, tri_hit);
   const int kind = m.kind;
 
-  const bool front_face = dot3(d3, outward) < 0.0f;
-  const V3 normal = front_face ? outward : neg3(outward);
+  const bool front_face = dot3(d3, outward) < F(0);
+  const Vec3<F> normal = front_face ? outward : neg3(outward);
 
   // ---- 2. Emissive terminal rules ----
-  const bool emis = hit_valid && kind == kKindEmissive && dot3(m.emi, m.emi) > 0.0f;
-  V3 emis_gain;
+  const bool emis = hit_valid && kind == kKindEmissive && dot3(m.emi, m.emi) > F(0);
+  Vec3<F> emis_gain;
   if (!(p.use_mis || p.use_nee)) {  // brdf_only: lights visible at any depth
     emis_gain = m.emi;
   } else {
-    float w_bsdf = 0.0f;
+    F w_bsdf = F(0);
     if (p.use_mis && p.num_lights > 0) {
       // The hit primitive's light row (single light: row 0).
-      const float* lrow = s_lgt;
+      const F* lrow = s_lgt;
       bool lhas = true;
       if (p.num_lights != 1) {
         lhas = false;
         for (int r = 0; r < p.n_lgt; ++r) {
-          if (s_lgt[r * kLgtCols + kLcPrim] == static_cast<float>(prim)) {
+          if (s_lgt[r * kLgtCols + kLcPrim] == static_cast<F>(prim)) {
             lrow = s_lgt + r * kLgtCols;
             lhas = true;
             break;
           }
         }
       }
-      float lsel[kLcEmi];
-      for (int k = 0; k < kLcEmi; ++k) lsel[k] = lhas ? lrow[k] : 0.0f;
-      const bool l_is_tri = lsel[kLcIsTri] > 0.5f;
-      const V3 lpv = v3(lsel[kLcP], lsel[kLcP + 1], lsel[kLcP + 2]);
-      const float l_rad = lsel[kLcRad];
-      const V3 l_n = v3(lsel[kLcN], lsel[kLcN + 1], lsel[kLcN + 2]);
-      const float l_area = lsel[kLcArea];
-      float pdf_tri = 0.0f, pdf_sph = 0.0f;
+      F lsel[kLcEmi];
+      for (int k = 0; k < kLcEmi; ++k) lsel[k] = lhas ? lrow[k] : F(0);
+      const bool l_is_tri = lsel[kLcIsTri] > F(0.5);
+      const Vec3<F> lpv = v3(lsel[kLcP], lsel[kLcP + 1], lsel[kLcP + 2]);
+      const F l_rad = lsel[kLcRad];
+      const Vec3<F> l_n = v3(lsel[kLcN], lsel[kLcN + 1], lsel[kLcN + 2]);
+      const F l_area = lsel[kLcArea];
+      F pdf_tri = F(0), pdf_sph = F(0);
       if (p.has_tri_l) {
-        V3 to_l = sub3(point, o3);
-        float dist_l = sqrtf(dot3(to_l, to_l));
-        float safe_dl = dist_l > 0.0f ? dist_l : 1.0f;
-        V3 ldir_l = v3(to_l.x / safe_dl, to_l.y / safe_dl, to_l.z / safe_dl);
-        float cos_light = fabsf(dot3(l_n, neg3(ldir_l)));
-        float pdf_area = 1.0f / clamp_min(l_area, kF_1em20);
-        pdf_tri = cos_light > kF_1em8 ? pdf_area * (dist_l * dist_l) / clamp_min(cos_light, kF_1em8)
-                                    : kF_1em8;
+        Vec3<F> to_l = sub3(point, o3);
+        F dist_l = sqrt_(dot3(to_l, to_l));
+        F safe_dl = dist_l > F(0) ? dist_l : F(1);
+        Vec3<F> ldir_l = v3(to_l.x / safe_dl, to_l.y / safe_dl, to_l.z / safe_dl);
+        F cos_light = abs_(dot3(l_n, neg3(ldir_l)));
+        F pdf_area = F(1) / clamp_min(l_area, F(1e-20));
+        pdf_tri = cos_light > F(1e-8) ? pdf_area * (dist_l * dist_l) / clamp_min(cos_light, F(1e-8))
+                                    : F(1e-8);
       }
       if (p.has_sph_l) {
-        V3 to_c = sub3(lpv, o3);
-        float dist_sq = dot3(to_c, to_c);
-        float sin2_max = (l_rad * l_rad) / (dist_sq > 0.0f ? dist_sq : 1.0f);
-        float cos_max = sqrtf(clamp_min(1.0f - sin2_max, 0.0f));
-        float solid = kTwoPiF * (1.0f - cos_max);
-        pdf_sph = 1.0f / clamp_min(solid, kF_1em12);
+        Vec3<F> to_c = sub3(lpv, o3);
+        F dist_sq = dot3(to_c, to_c);
+        F sin2_max = (l_rad * l_rad) / (dist_sq > F(0) ? dist_sq : F(1));
+        F cos_max = sqrt_(clamp_min(F(1) - sin2_max, F(0)));
+        F solid = F(2.0 * kPi) * (F(1) - cos_max);
+        pdf_sph = F(1) / clamp_min(solid, F(1e-12));
       }
-      float pdf_shape;
+      F pdf_shape;
       if (p.has_tri_l && p.has_sph_l) {
         pdf_shape = l_is_tri ? pdf_tri : pdf_sph;
       } else {
@@ -620,74 +634,74 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
     }
     emis_gain = bounce == 0 ? m.emi : scale3(m.emi, w_bsdf);
   }
-  const float zero = 0.0f * ox;
-  const V3 zero3 = v3(zero, zero, zero);
-  V3 rad = (busy && emis) ? forz3(mul3(pfx, emis_gain)) : zero3;
+  const F zero = F(0) * ox;
+  const Vec3<F> zero3 = v3(zero, zero, zero);
+  Vec3<F> rad = (busy && emis) ? forz3(mul3(pfx, emis_gain)) : zero3;
 
   const bool shade = busy && hit_valid && !emis && bounce < p.max_bounces;
-  const V3 i3 = neg3(d3);
-  float u[7];
+  const Vec3<F> i3 = neg3(d3);
+  F u[7];
   for (int k = 0; k < 7; ++k) u[k] = p.u[k * S + i];
 
   // ---- 3. NEE: light pick, sample and BSDF evaluation ----
-  V3 direct, sdir;
-  float stmax;
+  Vec3<F> direct, sdir;
+  F stmax;
   if (p.use_nee && p.num_lights > 0) {
-    const float* prow = s_lgt;
+    const F* prow = s_lgt;
     if (p.num_lights != 1) {
-      int lidx = static_cast<int>(u[0] * static_cast<float>(p.num_lights));
+      int lidx = static_cast<int>(u[0] * static_cast<F>(p.num_lights));
       lidx = lidx > p.num_lights - 1 ? p.num_lights - 1 : lidx;
       prow = s_lgt + lidx * kLgtCols;
     }
-    const bool p_is_tri = prow[kLcIsTri] > 0.5f;
-    const V3 p_p = v3(prow[kLcP], prow[kLcP + 1], prow[kLcP + 2]);
-    const float p_rad = prow[kLcRad];
-    const V3 p_e1 = v3(prow[kLcE1], prow[kLcE1 + 1], prow[kLcE1 + 2]);
-    const V3 p_e2 = v3(prow[kLcE2], prow[kLcE2 + 1], prow[kLcE2 + 2]);
-    const V3 p_n = v3(prow[kLcN], prow[kLcN + 1], prow[kLcN + 2]);
-    const float p_area = prow[kLcArea];
-    const V3 p_emi = v3(prow[kLcEmi], prow[kLcEmi + 1], prow[kLcEmi + 2]);
+    const bool p_is_tri = prow[kLcIsTri] > F(0.5);
+    const Vec3<F> p_p = v3(prow[kLcP], prow[kLcP + 1], prow[kLcP + 2]);
+    const F p_rad = prow[kLcRad];
+    const Vec3<F> p_e1 = v3(prow[kLcE1], prow[kLcE1 + 1], prow[kLcE1 + 2]);
+    const Vec3<F> p_e2 = v3(prow[kLcE2], prow[kLcE2 + 1], prow[kLcE2 + 2]);
+    const Vec3<F> p_n = v3(prow[kLcN], prow[kLcN + 1], prow[kLcN + 2]);
+    const F p_area = prow[kLcArea];
+    const Vec3<F> p_emi = v3(prow[kLcEmi], prow[kLcEmi + 1], prow[kLcEmi + 2]);
 
-    V3 lp_tri = zero3, lp_sph = zero3;
-    float pdf_sph = 0.0f;
+    Vec3<F> lp_tri = zero3, lp_sph = zero3;
+    F pdf_sph = F(0);
     if (p.has_tri_l) {
       // Triangle: sqrt-warp area sample.
-      float sqrt_r1 = sqrtf(u[1]);
-      float wu = 1.0f - sqrt_r1;
-      float wv = u[2] * sqrt_r1;
+      F sqrt_r1 = sqrt_(u[1]);
+      F wu = F(1) - sqrt_r1;
+      F wv = u[2] * sqrt_r1;
       lp_tri = add3(add3(p_p, scale3(p_e1, wu)), scale3(p_e2, wv));
     }
     if (p.has_sph_l) {
       // Sphere: uniform cone direction, re-intersected.
-      V3 to_c = sub3(p_p, point);
-      float dist_sq = dot3(to_c, to_c);
-      float rad_sq = p_rad * p_rad;
-      float sin2_max = rad_sq / (dist_sq > 0.0f ? dist_sq : 1.0f);
-      float cos_max = sqrtf(clamp_min(1.0f - sin2_max, 0.0f));
-      float solid = kTwoPiF * (1.0f - cos_max);
-      pdf_sph = 1.0f / clamp_min(solid, kF_1em12);
-      float cth = 1.0f - u[1] + u[1] * cos_max;
-      float sth = sqrtf(clamp_min(1.0f - cth * cth, 0.0f));
-      float phi = kTwoPiF * u[2];
-      float ln_c = sqrtf(dist_sq);
-      bool pos_c = ln_c > 0.0f;
-      float safe_c = pos_c ? ln_c : 1.0f;
-      V3 wdir = pos_c ? v3(to_c.x / safe_c, to_c.y / safe_c, to_c.z / safe_c) : to_c;
-      bool wy_big = fabsf(wdir.y) > kF_0p999;
-      V3 upv = v3(wy_big ? 1.0f : 0.0f, wy_big ? 0.0f : 1.0f, 0.0f);
-      V3 uax = normalize3(cross3(upv, wdir));
-      V3 vax = cross3(wdir, uax);
-      V3 cone = normalize3(add3(add3(scale3(uax, sth * cosf(phi)), scale3(vax, sth * sinf(phi))),
-                                scale3(wdir, cth)));
-      V3 ocv = neg3(to_c);
-      float a_q = dot3(cone, cone);
-      float hb_q = dot3(ocv, cone);
-      float c_q = dist_sq - rad_sq;
-      float disc_q = hb_q * hb_q - a_q * c_q;
-      float t_q = (-hb_q - sqrtf(clamp_min(disc_q, 0.0f))) / a_q;
+      Vec3<F> to_c = sub3(p_p, point);
+      F dist_sq = dot3(to_c, to_c);
+      F rad_sq = p_rad * p_rad;
+      F sin2_max = rad_sq / (dist_sq > F(0) ? dist_sq : F(1));
+      F cos_max = sqrt_(clamp_min(F(1) - sin2_max, F(0)));
+      F solid = F(2.0 * kPi) * (F(1) - cos_max);
+      pdf_sph = F(1) / clamp_min(solid, F(1e-12));
+      F cth = F(1) - u[1] + u[1] * cos_max;
+      F sth = sqrt_(clamp_min(F(1) - cth * cth, F(0)));
+      F phi = F(2.0 * kPi) * u[2];
+      F ln_c = sqrt_(dist_sq);
+      bool pos_c = ln_c > F(0);
+      F safe_c = pos_c ? ln_c : F(1);
+      Vec3<F> wdir = pos_c ? v3(to_c.x / safe_c, to_c.y / safe_c, to_c.z / safe_c) : to_c;
+      bool wy_big = abs_(wdir.y) > F(0.999);
+      Vec3<F> upv = v3(wy_big ? F(1) : F(0), wy_big ? F(0) : F(1), F(0));
+      Vec3<F> uax = normalize3(cross3(upv, wdir));
+      Vec3<F> vax = cross3(wdir, uax);
+      Vec3<F> cone = normalize3(add3(
+          add3(scale3(uax, sth * cos_(phi)), scale3(vax, sth * sin_(phi))), scale3(wdir, cth)));
+      Vec3<F> ocv = neg3(to_c);
+      F a_q = dot3(cone, cone);
+      F hb_q = dot3(ocv, cone);
+      F c_q = dist_sq - rad_sq;
+      F disc_q = hb_q * hb_q - a_q * c_q;
+      F t_q = (-hb_q - sqrt_(clamp_min(disc_q, F(0)))) / a_q;
       lp_sph = add3(point, scale3(cone, t_q));
     }
-    V3 lpoint, lnorm;
+    Vec3<F> lpoint, lnorm;
     if (p.has_tri_l && p.has_sph_l) {
       lpoint = p_is_tri ? lp_tri : lp_sph;
       lnorm = p_is_tri ? p_n : normalize3(sub3(lp_sph, p_p));
@@ -699,28 +713,29 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
       lnorm = normalize3(sub3(lp_sph, p_p));
     }
 
-    V3 to_light = sub3(lpoint, point);
-    float ldist = sqrtf(dot3(to_light, to_light));
-    float safe_ld = ldist > 0.0f ? ldist : 1.0f;
-    V3 ldir = v3(to_light.x / safe_ld, to_light.y / safe_ld, to_light.z / safe_ld);
+    Vec3<F> to_light = sub3(lpoint, point);
+    F ldist = sqrt_(dot3(to_light, to_light));
+    F safe_ld = ldist > F(0) ? ldist : F(1);
+    Vec3<F> ldir = v3(to_light.x / safe_ld, to_light.y / safe_ld, to_light.z / safe_ld);
 
-    float pdf_tri = 0.0f;
+    F pdf_tri = F(0);
     if (p.has_tri_l) {
-      float cos_li = fabsf(dot3(lnorm, neg3(ldir)));
-      float pdf_area = 1.0f / clamp_min(p_area, kF_1em20);
-      pdf_tri = cos_li > kF_1em8 ? pdf_area * (ldist * ldist) / clamp_min(cos_li, kF_1em8) : kF_1em8;
+      F cos_li = abs_(dot3(lnorm, neg3(ldir)));
+      F pdf_area = F(1) / clamp_min(p_area, F(1e-20));
+      pdf_tri = cos_li > F(1e-8) ? pdf_area * (ldist * ldist) / clamp_min(cos_li, F(1e-8))
+                                 : F(1e-8);
     }
-    float ls_pdf;
+    F ls_pdf;
     if (p.has_tri_l && p.has_sph_l) {
-      ls_pdf = (p_is_tri ? pdf_tri : pdf_sph) / static_cast<float>(p.num_lights);
+      ls_pdf = (p_is_tri ? pdf_tri : pdf_sph) / static_cast<F>(p.num_lights);
     } else {
-      ls_pdf = (p.has_tri_l ? pdf_tri : pdf_sph) / static_cast<float>(p.num_lights);
+      ls_pdf = (p.has_tri_l ? pdf_tri : pdf_sph) / static_cast<F>(p.num_lights);
     }
 
-    float ldir_n = dot3(ldir, normal);
-    float cos_l = fabsf(ldir_n);
-    V3 bsdf_l = scale3(m.col, kInvPiF);
-    float pdf_l = clamp_min(ldir_n, 0.0f) * kInvPiF;
+    F ldir_n = dot3(ldir, normal);
+    F cos_l = abs_(ldir_n);
+    Vec3<F> bsdf_l = scale3(m.col, F(1.0 / kPi));
+    F pdf_l = clamp_min(ldir_n, F(0)) * F(1.0 / kPi);
     if (kind == kKindMirror) {
       eval_mirror(m, i3, ldir, normal, eta_in, &bsdf_l, &pdf_l);
     } else if (p.has_on && kind == kKindOrenNayar) {
@@ -730,27 +745,27 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
     }
     if (kind == kKindEmissive) {
       bsdf_l = zero3;
-      pdf_l = 1.0f;
+      pdf_l = F(1);
     }
-    float w_nee = p.use_mis ? ls_pdf / (ls_pdf + pdf_l) : 1.0f;
-    float cscale = cos_l / ls_pdf;
+    F w_nee = p.use_mis ? ls_pdf / (ls_pdf + pdf_l) : F(1);
+    F cscale = cos_l / ls_pdf;
     direct = forz3(v3(w_nee * bsdf_l.x * p_emi.x * cscale, w_nee * bsdf_l.y * p_emi.y * cscale,
                       w_nee * bsdf_l.z * p_emi.z * cscale));
     sdir = ldir;
-    stmax = shade ? ldist - eps : -1.0f;
+    stmax = shade ? ldist - eps : -F(1);
   } else {
     direct = zero3;
-    sdir = v3(zero + 1.0f, zero + 1.0f, zero + 1.0f);
-    stmax = zero - 1.0f;
+    sdir = v3(zero + F(1), zero + F(1), zero + F(1));
+    stmax = zero - F(1);
   }
 
   // ---- 4. BSDF sample, Russian roulette, next state ----
-  const float eta_s = front_face ? 1.0f / m.ior : m.ior;
-  const V3 d_diff = cosine_hemisphere(normal, u[3], u[4]);
-  V3 o_dir = d_diff;
-  V3 bsdf_s = scale3(m.col, kInvPiF);
-  float pdf_s = clamp_min(dot3(d_diff, normal), 0.0f) * kInvPiF;
-  float cos_s = clamp_min(dot3(d_diff, normal), 0.0f);
+  const F eta_s = front_face ? F(1) / m.ior : m.ior;
+  const Vec3<F> d_diff = cosine_hemisphere(normal, u[3], u[4]);
+  Vec3<F> o_dir = d_diff;
+  Vec3<F> bsdf_s = scale3(m.col, F(1.0 / kPi));
+  F pdf_s = clamp_min(dot3(d_diff, normal), F(0)) * F(1.0 / kPi);
+  F cos_s = clamp_min(dot3(d_diff, normal), F(0));
   if (kind == kKindMirror) {
     sample_mirror(m, i3, normal, eta_s, u[3], u[4], u[5], &o_dir, &bsdf_s, &pdf_s, &cos_s);
   } else if (p.has_on && kind == kKindOrenNayar) {
@@ -762,27 +777,27 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
   if (kind == kKindEmissive) {
     o_dir = normal;
     bsdf_s = zero3;
-    pdf_s = 1.0f;
-    cos_s = 0.0f;
+    pdf_s = F(1);
+    cos_s = F(0);
   }
 
-  const float fscale = cos_s / pdf_s;
-  const V3 next_tp = mul3(pfx, scale3(bsdf_s, fscale));
-  const V3 tpz = forz3(next_tp);
-  const float lum = clamp_max(kF_0p2126 * tpz.x + kF_0p7152 * tpz.y + kF_0p0722 * tpz.z, 1.0f);
+  const F fscale = cos_s / pdf_s;
+  const Vec3<F> next_tp = mul3(pfx, scale3(bsdf_s, fscale));
+  const Vec3<F> tpz = forz3(next_tp);
+  const F lum = clamp_max(F(0.2126) * tpz.x + F(0.7152) * tpz.y + F(0.0722) * tpz.z, F(1));
   const int kk = bounce - kRrMinDepth > 0 ? bounce - kRrMinDepth : 0;
-  const float decay = ldexpf(1.0f, -kk);  // exact 2^-k
-  const float rr = bounce < kRrMinDepth ? 1.0f : (bounce >= kRrMaxDepth ? lum * decay : lum);
+  const F decay = ldexp_(F(1), -kk);  // exact 2^-k
+  const F rr = bounce < kRrMinDepth ? F(1) : (bounce >= kRrMaxDepth ? lum * decay : lum);
   const bool live = shade && (u[6] < rr);
 
   // Split mode: export prefix * direct; the caller applies visibility and
   // `live` (NEE counts only for RR survivors).
-  const V3 dout = forz3(mul3(pfx, direct));
-  const V3 new_pfx = forz3(v3(next_tp.x / rr, next_tp.y / rr, next_tp.z / rr));
+  const Vec3<F> dout = forz3(mul3(pfx, direct));
+  const Vec3<F> new_pfx = forz3(v3(next_tp.x / rr, next_tp.y / rr, next_tp.z / rr));
 
-  const V3 no = live ? point : o3;
-  const V3 nd = live ? o_dir : d3;
-  const V3 np = live ? new_pfx : pfx;
+  const Vec3<F> no = live ? point : o3;
+  const Vec3<F> nd = live ? o_dir : d3;
+  const Vec3<F> np = live ? new_pfx : pfx;
   p.rad[i] = rad.x;
   p.rad[S + i] = rad.y;
   p.rad[2 * S + i] = rad.z;
@@ -805,12 +820,46 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params p) {
   p.shadow_d[i] = sdir.x;
   p.shadow_d[S + i] = sdir.y;
   p.shadow_d[2 * S + i] = sdir.z;
-  p.shadow_tmax[i] = live ? stmax : -1.0f;
+  p.shadow_tmax[i] = live ? stmax : -F(1);
+}
+
+
+// kernels/binding.py :: shared_bytes mirrors this carve-up.
+template <typename F>
+int launch(const bool* busy, const int* bounce, const F* o, const F* d, const F* eta,
+           const F* pdf_prev, const F* prefix, const F* u, const F* sph, int n_sph, const F* tri,
+           int n_tri, const F* lgt, int n_lgt, F* rad, F* next_o, F* next_d, F* next_eta,
+           F* next_pdf, F* next_prefix, bool* live, bool* shade, F* nee_gain, F* shadow_d,
+           F* shadow_tmax, int S, int num_tris, int num_lights, int max_bounces, int use_mis,
+           int use_nee, int has_tri_l, int has_sph_l, int has_on, int has_pbr, F eps, int split,
+           int lanes, void* stream) {
+  if (S <= 0) return 0;
+  // split: a power of two up to 16; lanes: whole warps.
+  if (split < 1 || split > 16 || (split & (split - 1)) != 0 || lanes < 32 || lanes % 32 != 0 ||
+      lanes * split > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params<F> p{busy,      bounce,     o,          d,         eta,      pdf_prev,   prefix,
+              u,         sph,        tri,        lgt,       rad,      next_o,     next_d,
+              next_eta,  next_pdf,   next_prefix, live,     shade,    nee_gain,   shadow_d,
+              shadow_tmax, S,        n_sph,      n_tri,     n_lgt,    split,      lanes,
+              num_tris,  num_lights, max_bounces, use_mis,  use_nee,  has_tri_l,  has_sph_l,
+              has_on,    has_pbr,    eps};
+  // The sweep's sphere rows (Q4), triangle columns and light table, then the
+  // group winners' t (F) and rows (int) of each lane.
+  size_t smem = sizeof(Q4<F>) * static_cast<size_t>(n_sph) +
+                sizeof(F) * (static_cast<size_t>(n_tri) * kTriUse +
+                             static_cast<size_t>(n_lgt) * kLgtCols +
+                             static_cast<size_t>(lanes) * 2) +
+                sizeof(int) * static_cast<size_t>(lanes) * 2;
+  int grid = (S + lanes - 1) / lanes;
+  fused_bounce_kernel<F><<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace pt
 
+// The float32 and float64 instances; eps comes in the instance's type.
 extern "C" int pt_fused_bounce(
     const bool* busy, const int* bounce, const float* o, const float* d, const float* eta,
     const float* pdf_prev, const float* prefix, const float* u, const float* sph, int n_sph,
@@ -819,23 +868,24 @@ extern "C" int pt_fused_bounce(
     bool* shade, float* nee_gain, float* shadow_d, float* shadow_tmax, int S, int num_tris,
     int num_lights, int max_bounces, int use_mis, int use_nee, int has_tri_l, int has_sph_l,
     int has_on, int has_pbr, float eps, int split, int lanes, void* stream) {
-  if (S <= 0) return 0;
-  // split: a power of two up to 16; lanes: whole warps.
-  if (split < 1 || split > 16 || (split & (split - 1)) != 0 || lanes < 32 || lanes % 32 != 0 ||
-      lanes * split > pt::kMaxThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  pt::Params p{busy,      bounce,     o,          d,         eta,      pdf_prev,   prefix,
-               u,         sph,        tri,        lgt,       rad,      next_o,     next_d,
-               next_eta,  next_pdf,   next_prefix, live,     shade,    nee_gain,   shadow_d,
-               shadow_tmax, S,        n_sph,      n_tri,     n_lgt,    split,      lanes,
-               num_tris,  num_lights, max_bounces, use_mis,  use_nee,  has_tri_l,  has_sph_l,
-               has_on,    has_pbr,    eps};
-  // kernels/binding.py :: shared_bytes mirrors this carve-up.
-  size_t smem = sizeof(float4) * static_cast<size_t>(n_sph) +
-                sizeof(float) * (static_cast<size_t>(n_tri) * pt::kTriUse +
-                                 static_cast<size_t>(n_lgt) * pt::kLgtCols +
-                                 static_cast<size_t>(lanes) * 4);
-  int grid = (S + lanes - 1) / lanes;
-  pt::fused_bounce_kernel<<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return pt::launch(busy, bounce, o, d, eta, pdf_prev, prefix, u, sph, n_sph, tri, n_tri, lgt,
+                    n_lgt, rad, next_o, next_d, next_eta, next_pdf, next_prefix, live, shade,
+                    nee_gain, shadow_d, shadow_tmax, S, num_tris, num_lights, max_bounces,
+                    use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr, eps, split, lanes,
+                    stream);
+}
+
+extern "C" int pt_fused_bounce_f64(
+    const bool* busy, const int* bounce, const double* o, const double* d, const double* eta,
+    const double* pdf_prev, const double* prefix, const double* u, const double* sph, int n_sph,
+    const double* tri, int n_tri, const double* lgt, int n_lgt, double* rad, double* next_o,
+    double* next_d, double* next_eta, double* next_pdf, double* next_prefix, bool* live,
+    bool* shade, double* nee_gain, double* shadow_d, double* shadow_tmax, int S, int num_tris,
+    int num_lights, int max_bounces, int use_mis, int use_nee, int has_tri_l, int has_sph_l,
+    int has_on, int has_pbr, double eps, int split, int lanes, void* stream) {
+  return pt::launch(busy, bounce, o, d, eta, pdf_prev, prefix, u, sph, n_sph, tri, n_tri, lgt,
+                    n_lgt, rad, next_o, next_d, next_eta, next_pdf, next_prefix, live, shade,
+                    nee_gain, shadow_d, shadow_tmax, S, num_tris, num_lights, max_bounces,
+                    use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr, eps, split, lanes,
+                    stream);
 }

@@ -3,7 +3,8 @@
 // Every helper keeps the operation order of the plain-torch twins in
 // ops/shade.py (sums left to right, no reassociation); the library is
 // built with -fmad=false, so no multiply-add is contracted either, and a
-// kernel and its twin round alike everywhere except in cosf/sinf.
+// kernel and its twin round alike everywhere except in cos/sin/atan2, which
+// are the CUDA math library's on both sides on the card.
 // Max/min follow torch.clamp_min/clamp_max: a NaN operand propagates
 // (fmaxf/fminf would drop it and turn a NaN the twin screens out later into
 // a finite value).
@@ -13,82 +14,166 @@
 
 namespace pt {
 
+// The helpers are templates on the float type F (float or double): the
+// float32 kernels instantiate them with float, and their arithmetic is the
+// plain float code it was; the float64 instances use the double forms of the
+// same operations. Inexact constants are rounded from double into F (F(x)),
+// as the twins' Python floats are rounded into the tensors' dtype.
+
 constexpr double kPi = 3.14159265358979323846;
-constexpr float kPiF = static_cast<float>(kPi);
-constexpr float kTwoPiF = static_cast<float>(2.0 * kPi);
-constexpr float kInvPiF = static_cast<float>(1.0 / kPi);
-// Inexact constants are rounded from double, as the twin's Python floats are.
-constexpr float kF_1em8 = static_cast<float>(1e-8);
 
-struct V3 {
-  float x, y, z;
+template <typename F>
+struct Vec3 {
+  F x, y, z;
 };
+using V3 = Vec3<float>;
 
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+// Four F read or staged as one: a float4, or two 16-byte halves of doubles.
+struct __align__(16) Double4 {
+  double x, y, z, w;
+};
+template <typename F>
+struct QuadOf;
+template <>
+struct QuadOf<float> {
+  using type = float4;
+};
+template <>
+struct QuadOf<double> {
+  using type = Double4;
+};
+template <typename F>
+using Q4 = typename QuadOf<F>::type;
 
-__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-
-__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
-  return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+template <typename F>
+__device__ __forceinline__ Q4<F> q4(F x, F y, F z, F w) {
+  return Q4<F>{x, y, z, w};
 }
 
-__device__ __forceinline__ V3 add3(V3 a, V3 b) { return V3{a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 sub3(V3 a, V3 b) { return V3{a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 scale3(V3 a, float s) { return V3{a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ V3 neg3(V3 a) { return V3{-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 mul3(V3 a, V3 b) { return V3{a.x * b.x, a.y * b.y, a.z * b.z}; }
+// The math functions by type: the f forms in float, the libdevice double
+// forms in double (both correctly rounded sqrt; cos/sin/atan2 are the CUDA
+// math library's, as torch's own kernels call them on the card).
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ float cos_(float x) { return cosf(x); }
+__device__ __forceinline__ double cos_(double x) { return cos(x); }
+__device__ __forceinline__ float sin_(float x) { return sinf(x); }
+__device__ __forceinline__ double sin_(double x) { return sin(x); }
+__device__ __forceinline__ float atan2_(float y, float x) { return atan2f(y, x); }
+__device__ __forceinline__ double atan2_(double y, double x) { return atan2(y, x); }
+__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_(double x) { return fabs(x); }
+__device__ __forceinline__ float ldexp_(float x, int k) { return ldexpf(x, k); }
+__device__ __forceinline__ double ldexp_(double x, int k) { return ldexp(x, k); }
+
+template <typename F>
+__device__ __forceinline__ Vec3<F> v3(F x, F y, F z) {
+  return Vec3<F>{x, y, z};
+}
+
+template <typename F>
+__device__ __forceinline__ F dot3(Vec3<F> a, Vec3<F> b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+
+template <typename F>
+__device__ __forceinline__ Vec3<F> cross3(Vec3<F> a, Vec3<F> b) {
+  return Vec3<F>{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+template <typename F>
+__device__ __forceinline__ Vec3<F> add3(Vec3<F> a, Vec3<F> b) {
+  return Vec3<F>{a.x + b.x, a.y + b.y, a.z + b.z};
+}
+template <typename F>
+__device__ __forceinline__ Vec3<F> sub3(Vec3<F> a, Vec3<F> b) {
+  return Vec3<F>{a.x - b.x, a.y - b.y, a.z - b.z};
+}
+template <typename F>
+__device__ __forceinline__ Vec3<F> scale3(Vec3<F> a, F s) {
+  return Vec3<F>{a.x * s, a.y * s, a.z * s};
+}
+template <typename F>
+__device__ __forceinline__ Vec3<F> neg3(Vec3<F> a) {
+  return Vec3<F>{-a.x, -a.y, -a.z};
+}
+template <typename F>
+__device__ __forceinline__ Vec3<F> mul3(Vec3<F> a, Vec3<F> b) {
+  return Vec3<F>{a.x * b.x, a.y * b.y, a.z * b.z};
+}
 
 // Components divided by the length; zero vectors pass through unchanged.
-__device__ __forceinline__ V3 normalize3(V3 a) {
-  float ln = sqrtf(dot3(a, a));
-  bool pos = ln > 0.0f;
-  float safe = pos ? ln : 1.0f;
-  return pos ? V3{a.x / safe, a.y / safe, a.z / safe} : a;
+template <typename F>
+__device__ __forceinline__ Vec3<F> normalize3(Vec3<F> a) {
+  F ln = sqrt_(dot3(a, a));
+  bool pos = ln > F(0);
+  F safe = pos ? ln : F(1);
+  return pos ? Vec3<F>{a.x / safe, a.y / safe, a.z / safe} : a;
 }
 
-__device__ __forceinline__ bool finite1(float x) { return isfinite(x); }
-__device__ __forceinline__ bool finite3(V3 a) { return finite1(a.x) && finite1(a.y) && finite1(a.z); }
-__device__ __forceinline__ float forz(float x) { return finite1(x) ? x : 0.0f; }
-__device__ __forceinline__ V3 forz3(V3 a) { return V3{forz(a.x), forz(a.y), forz(a.z)}; }
+template <typename F>
+__device__ __forceinline__ bool finite1(F x) {
+  return isfinite(x);
+}
+template <typename F>
+__device__ __forceinline__ bool finite3(Vec3<F> a) {
+  return finite1(a.x) && finite1(a.y) && finite1(a.z);
+}
+template <typename F>
+__device__ __forceinline__ F forz(F x) {
+  return finite1(x) ? x : F(0);
+}
+template <typename F>
+__device__ __forceinline__ Vec3<F> forz3(Vec3<F> a) {
+  return Vec3<F>{forz(a.x), forz(a.y), forz(a.z)};
+}
 
-__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
-__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
+template <typename F>
+__device__ __forceinline__ F clamp_min(F x, F lo) {
+  return x < lo ? lo : x;
+}
+template <typename F>
+__device__ __forceinline__ F clamp_max(F x, F hi) {
+  return x > hi ? hi : x;
+}
 
 // Moller-Trumbore against one triangle given as v0, e1, e2. Sets *t_out and
 // returns whether it is a hit with t in [eps, t_max] (twin:
 // ops/shade.py::_tri_hits).
-__device__ __forceinline__ bool hit_triangle(float v0x, float v0y, float v0z, float e1x,
-                                             float e1y, float e1z, float e2x, float e2y,
-                                             float e2z, V3 o, V3 d, float eps, float t_max,
-                                             float* t_out) {
-  float hx = d.y * e2z - d.z * e2y;
-  float hy = d.z * e2x - d.x * e2z;
-  float hz = d.x * e2y - d.y * e2x;
-  float a = e1x * hx + e1y * hy + e1z * hz;
-  float f = 1.0f / a;
-  float sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
-  float uu = f * (sx * hx + sy * hy + sz * hz);
-  float qx = sy * e1z - sz * e1y;
-  float qy = sz * e1x - sx * e1z;
-  float qz = sx * e1y - sy * e1x;
-  float vv = f * (d.x * qx + d.y * qy + d.z * qz);
-  float t = f * (e2x * qx + e2y * qy + e2z * qz);
+template <typename F>
+__device__ __forceinline__ bool hit_triangle(F v0x, F v0y, F v0z, F e1x, F e1y, F e1z, F e2x,
+                                             F e2y, F e2z, Vec3<F> o, Vec3<F> d, F eps, F t_max,
+                                             F* t_out) {
+  F hx = d.y * e2z - d.z * e2y;
+  F hy = d.z * e2x - d.x * e2z;
+  F hz = d.x * e2y - d.y * e2x;
+  F a = e1x * hx + e1y * hy + e1z * hz;
+  F f = F(1) / a;
+  F sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
+  F uu = f * (sx * hx + sy * hy + sz * hz);
+  F qx = sy * e1z - sz * e1y;
+  F qy = sz * e1x - sx * e1z;
+  F qz = sx * e1y - sy * e1x;
+  F vv = f * (d.x * qx + d.y * qy + d.z * qz);
+  F t = f * (e2x * qx + e2y * qy + e2z * qz);
   *t_out = t;
-  return fabsf(a) >= kF_1em8 && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+  return abs_(a) >= F(1e-8) && uu >= F(0) && uu <= F(1) && vv >= F(0) && uu + vv <= F(1) &&
          t >= eps && t <= t_max;
 }
 
-// The same on a table row holding v0, e1, e2 in its first nine floats.
-__device__ __forceinline__ bool hit_triangle(const float* row, V3 o, V3 d, float eps, float t_max,
-                                             float* t_out) {
+// The same on a table row holding v0, e1, e2 in its first nine values.
+template <typename F>
+__device__ __forceinline__ bool hit_triangle(const F* row, Vec3<F> o, Vec3<F> d, F eps, F t_max,
+                                             F* t_out) {
   return hit_triangle(row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7], row[8], o,
                       d, eps, t_max, t_out);
 }
 
-// The same on a 16-float row aligned to 16 bytes, read as three float4 loads.
-__device__ __forceinline__ bool hit_triangle(const float4* row, V3 o, V3 d, float eps,
-                                             float t_max, float* t_out) {
-  const float4 a = row[0], b = row[1], c = row[2];
+// The same on a 16-value row aligned to 16 bytes, read as three Q4 loads.
+template <typename F>
+__device__ __forceinline__ bool hit_triangle(const Q4<F>* row, Vec3<F> o, Vec3<F> d, F eps,
+                                             F t_max, F* t_out) {
+  const Q4<F> a = row[0], b = row[1], c = row[2];
   return hit_triangle(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, o, d, eps, t_max, t_out);
 }
 
@@ -98,9 +183,10 @@ __device__ __forceinline__ bool hit_triangle(const float4* row, V3 o, V3 d, floa
 // with its team's least t and, among equal t, the least row. No t may be NaN
 // (a miss is inf), so this is the strict first-minimum argmin over the rows
 // the team's threads kept.
-__device__ __forceinline__ void group_min(float* t, int* row, int k, unsigned mask) {
+template <typename F>
+__device__ __forceinline__ void group_min(F* t, int* row, int k, unsigned mask) {
   for (int off = k >> 1; off > 0; off >>= 1) {
-    const float ot = __shfl_xor_sync(mask, *t, off);
+    const F ot = __shfl_xor_sync(mask, *t, off);
     const int orow = __shfl_xor_sync(mask, *row, off);
     if (ot < *t || (ot == *t && orow < *row)) {
       *t = ot;
@@ -155,16 +241,16 @@ __device__ __forceinline__ bool vote(int r0, int r1, int part, unsigned mask, Hi
 // `part` of the team of K scans boxes part, part + K, ..., then group_min
 // over `mask`; sets (*e, *c) to the box and returns true, or returns false
 // (*c = kNone) when there is none. Every thread of the team must call it.
-template <int K, typename Entry>
-__device__ __forceinline__ bool next_box(int n, int part, unsigned mask, Entry entry, float* e,
+template <int K, typename Entry, typename F>
+__device__ __forceinline__ bool next_box(int n, int part, unsigned mask, Entry entry, F* e,
                                          int* c) {
-  const float last_e = *e;
+  const F last_e = *e;
   const int last_c = *c;
-  float best_e = INFINITY;
+  F best_e = INFINITY;
   int best_c = kNone;
   for (int b = part; b < n; b += K) {
-    const float eb = entry(b);
-    if (!(eb < INFINITY)) continue;  // not entered
+    const F eb = entry(b);
+    if (!(eb < F(INFINITY))) continue;  // not entered
     const bool after = eb > last_e || (eb == last_e && b > last_c);
     if (after && eb < best_e) {  // ids ascend: the first of equal entries wins
       best_e = eb;
@@ -181,26 +267,26 @@ __device__ __forceinline__ bool next_box(int n, int part, unsigned mask, Entry e
 // the near root if it is >= eps, else the far one. NaN on a miss and on a
 // padding row (k = NaN), so every compare with it fails (twin:
 // ops/shade.py::_sphere_ts). A negative or NaN discriminant returns NaN
-// before the square root, where sqrtf would give NaN anyway: a miss, the
-// common case of a sweep, skips the correctly rounded sqrtf, the costliest
-// step of the test.
-__device__ __forceinline__ float sphere_root(float4 s, V3 o, V3 d, float od, float oo,
-                                             float eps) {
-  float cd = s.x * d.x + s.y * d.y + s.z * d.z;
-  float co = s.x * o.x + s.y * o.y + s.z * o.z;
-  float half_b = od - cd;
-  float c = oo - 2.0f * co + s.w;
-  float disc = half_b * half_b - c;
-  if (!(disc >= 0.0f)) return NAN;
-  float sq = sqrtf(disc);
-  float root1 = -half_b - sq;
+// before the square root, where sqrt would give NaN anyway: a miss, the
+// common case of a sweep, skips the correctly rounded square root, the
+// costliest step of the test.
+template <typename F>
+__device__ __forceinline__ F sphere_root(Q4<F> s, Vec3<F> o, Vec3<F> d, F od, F oo, F eps) {
+  F cd = s.x * d.x + s.y * d.y + s.z * d.z;
+  F co = s.x * o.x + s.y * o.y + s.z * o.z;
+  F half_b = od - cd;
+  F c = oo - F(2) * co + s.w;
+  F disc = half_b * half_b - c;
+  if (!(disc >= F(0))) return NAN;
+  F sq = sqrt_(disc);
+  F root1 = -half_b - sq;
   return root1 >= eps ? root1 : -half_b + sq;
 }
 
-// The same on a table row holding center and k in its first four floats.
-__device__ __forceinline__ float sphere_root(const float* row, V3 o, V3 d, float od, float oo,
-                                             float eps) {
-  return sphere_root(make_float4(row[0], row[1], row[2], row[3]), o, d, od, oo, eps);
+// The same on a table row holding center and k in its first four values.
+template <typename F>
+__device__ __forceinline__ F sphere_root(const F* row, Vec3<F> o, Vec3<F> d, F od, F oo, F eps) {
+  return sphere_root(q4(row[0], row[1], row[2], row[3]), o, d, od, oo, eps);
 }
 
 // Reciprocal of a direction component, |c| clamped up to 1e-20.

@@ -97,6 +97,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "geom.cuh"
 
 namespace {
@@ -109,25 +111,37 @@ constexpr int kCluster = 256;
 constexpr float kRootErr = 7.62939453125e-06f;  // 2^-17 = 128 u
 using pt::kNone;
 
-struct Ray {
-  pt::V3 o, d, inv;
-  float lo, hi, od, oo;
+// The cluster boxes (and the pad analysis below) are float32: the float64
+// instance of any_hit runs one tile of each table (ROADMAP Queue 1, item 4b
+// ports the clustered modes).
+template <typename F>
+constexpr bool kClustered = std::is_same<F, float>::value;
+
+template <typename F>
+struct RayT {
+  pt::Vec3<F> o, d;
+  pt::V3 inv;  // the clusters' slab test (float32 only)
+  F lo, hi, od, oo;
   float len_o;  // |o|
   float gain;   // sqrt(2^-17 + 8 |d.d - 1|): the sphere pad over L
 };
+using Ray = RayT<float>;
 
-__device__ __forceinline__ Ray load_ray(const float* o, const float* d, const float* t_min,
-                                        const float* t_max, int i) {
-  Ray r;
+template <typename F>
+__device__ __forceinline__ RayT<F> load_ray(const F* o, const F* d, const F* t_min,
+                                            const F* t_max, int i) {
+  RayT<F> r;
   r.o = pt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
   r.d = pt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  r.inv = pt::v3(pt::safe_inv(r.d.x), pt::safe_inv(r.d.y), pt::safe_inv(r.d.z));
   r.lo = t_min[i];
   r.hi = t_max[i];
   r.od = pt::dot3(r.o, r.d);
   r.oo = pt::dot3(r.o, r.o);
-  r.len_o = sqrtf(r.oo);
-  r.gain = sqrtf(kRootErr + 8.0f * fabsf(pt::dot3(r.d, r.d) - 1.0f));
+  if constexpr (kClustered<F>) {
+    r.inv = pt::v3(pt::safe_inv(r.d.x), pt::safe_inv(r.d.y), pt::safe_inv(r.d.z));
+    r.len_o = sqrtf(r.oo);
+    r.gain = sqrtf(kRootErr + 8.0f * fabsf(pt::dot3(r.d, r.d) - 1.0f));
+  }
   return r;
 }
 
@@ -146,14 +160,14 @@ __device__ __forceinline__ float sphere_entry(const float* __restrict__ box, con
 // in ascending (entry, id) order while the entry is <= bound(). Calls
 // sweep(first row, end row) on each cluster and returns true as soon as one
 // returns true.
-template <int K, typename Entry, typename Bound, typename Sweep>
-__device__ __forceinline__ bool walk(int n_rows, int n_box, const Ray& ray, int part,
+template <int K, typename F, typename Entry, typename Bound, typename Sweep>
+__device__ __forceinline__ bool walk(int n_rows, int n_box, const RayT<F>& ray, int part,
                                      unsigned mask, Entry entry, Bound bound, Sweep sweep) {
   if (n_rows <= 0) return false;
   const int n = n_box > 0 ? n_box : 1;
   const int size = n_box > 0 ? kCluster : n_rows;
   auto enter = [&](int c) { return n_box > 0 ? entry(c) : ray.lo; };
-  float e = -INFINITY;
+  F e = -INFINITY;
   int c = -1;
   while (pt::next_box<K>(n, part, mask, enter, &e, &c) && e <= bound()) {
     const int r0 = c * size;
@@ -218,39 +232,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int K>
+template <int K, typename F>
 __global__ void __launch_bounds__(kThreads)
-    any_hit_kernel(const float4* __restrict__ sph, int n_sph, const float* __restrict__ sph_box,
-                   int n_sph_box, const float4* __restrict__ tri, int n_tri,
-                   const float* __restrict__ tri_box, int n_tri_box, const float* __restrict__ o,
-                   const float* __restrict__ d, const float* __restrict__ t_min,
-                   const float* __restrict__ t_max, bool* __restrict__ occ, int N) {
+    any_hit_kernel(const pt::Q4<F>* __restrict__ sph, int n_sph, const float* __restrict__ sph_box,
+                   int n_sph_box, const pt::Q4<F>* __restrict__ tri, int n_tri,
+                   const float* __restrict__ tri_box, int n_tri_box, const F* __restrict__ o,
+                   const F* __restrict__ d, const F* __restrict__ t_min,
+                   const F* __restrict__ t_max, bool* __restrict__ occ, int N) {
   const int part = threadIdx.x & (K - 1);
   const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;
   const unsigned mask = pt::team_mask(K);
-  const Ray ray = load_ray(o, d, t_min, t_max, i);
+  const RayT<F> ray = load_ray(o, d, t_min, t_max, i);
   bool hit = false;
   if (ray.hi >= ray.lo) {  // else an empty range (also NaN): nothing to hit
     auto bound = [&] { return ray.hi; };
-    auto sph_entry = [&](int c) { return sphere_entry(sph_box + c * kBoxCols, ray); };
-    auto tri_entry = [&](int c) {
-      return pt::box_entry(tri_box + c * kBoxCols, ray.o, ray.inv, ray.lo, ray.hi);
-    };
     auto sph_hit = [&](int r) {
-      const float t = pt::sphere_root(sph[r * (kSphCols / 4)], ray.o, ray.d, ray.od, ray.oo,
-                                      ray.lo);
+      const F t = pt::sphere_root(sph[r * (kSphCols / 4)], ray.o, ray.d, ray.od, ray.oo, ray.lo);
       return t >= ray.lo && t <= ray.hi;
     };
     auto tri_hit = [&](int r) {
-      float t;
+      F t;
       return pt::hit_triangle(tri + static_cast<size_t>(r) * (kTriCols / 4), ray.o, ray.d,
                               ray.lo, ray.hi, &t);
     };
     auto sph_sweep = [&](int r0, int r1) { return pt::vote<K>(r0, r1, part, mask, sph_hit); };
     auto tri_sweep = [&](int r0, int r1) { return pt::vote<K>(r0, r1, part, mask, tri_hit); };
-    hit = walk<K>(n_sph, n_sph_box, ray, part, mask, sph_entry, bound, sph_sweep) ||
-          walk<K>(n_tri, n_tri_box, ray, part, mask, tri_entry, bound, tri_sweep);
+    if constexpr (kClustered<F>) {
+      auto sph_entry = [&](int c) { return sphere_entry(sph_box + c * kBoxCols, ray); };
+      auto tri_entry = [&](int c) {
+        return pt::box_entry(tri_box + c * kBoxCols, ray.o, ray.inv, ray.lo, ray.hi);
+      };
+      hit = walk<K>(n_sph, n_sph_box, ray, part, mask, sph_entry, bound, sph_sweep) ||
+            walk<K>(n_tri, n_tri_box, ray, part, mask, tri_entry, bound, tri_sweep);
+    } else {  // one tile of each table: the walk's one cluster, entered at t_min
+      auto none = [](int) { return F(0); };
+      hit = walk<K>(n_sph, 0, ray, part, mask, none, bound, sph_sweep) ||
+            walk<K>(n_tri, 0, ray, part, mask, none, bound, tri_sweep);
+    }
   }
   if (part == 0) occ[i] = hit;
 }
@@ -267,16 +286,16 @@ cudaError_t launch_closest(const float* sph, int n_sph, const float* box, int n_
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_any_hit(const float* sph, int n_sph, const float* sph_box, int n_sph_box,
-                           const float* tri, int n_tri, const float* tri_box, int n_tri_box,
-                           const float* o, const float* d, const float* t_min,
-                           const float* t_max, bool* occ, int N, cudaStream_t stream) {
+template <int K, typename F>
+cudaError_t launch_any_hit(const F* sph, int n_sph, const float* sph_box, int n_sph_box,
+                           const F* tri, int n_tri, const float* tri_box, int n_tri_box,
+                           const F* o, const F* d, const F* t_min, const F* t_max, bool* occ,
+                           int N, cudaStream_t stream) {
   const int grid = (N + kThreads / K - 1) / (kThreads / K);
-  any_hit_kernel<K><<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(sph), n_sph, sph_box, n_sph_box,
-      reinterpret_cast<const float4*>(tri), n_tri, tri_box, n_tri_box, o, d, t_min, t_max, occ,
-      N);
+  any_hit_kernel<K, F><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const pt::Q4<F>*>(sph), n_sph, sph_box, n_sph_box,
+      reinterpret_cast<const pt::Q4<F>*>(tri), n_tri, tri_box, n_tri_box, o, d, t_min, t_max,
+      occ, N);
   return cudaGetLastError();
 }
 
@@ -288,10 +307,11 @@ cudaError_t closest(const float* sph, int n_sph, const float* box, int n_box, in
                  n_out, m_out, N, stream)
 }
 
-cudaError_t any_hit(const float* sph, int n_sph, const float* sph_box, int n_sph_box,
-                    const float* tri, int n_tri, const float* tri_box, int n_tri_box, int team,
-                    const float* o, const float* d, const float* t_min, const float* t_max,
-                    bool* occ, int N, cudaStream_t stream) {
+template <typename F>
+cudaError_t any_hit(const F* sph, int n_sph, const float* sph_box, int n_sph_box, const F* tri,
+                    int n_tri, const float* tri_box, int n_tri_box, int team, const F* o,
+                    const F* d, const F* t_min, const F* t_max, bool* occ, int N,
+                    cudaStream_t stream) {
   PT_TEAM_LAUNCH(launch_any_hit, team, sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
                  n_tri_box, o, d, t_min, t_max, occ, N, stream)
 }
@@ -317,4 +337,16 @@ extern "C" int pt_any_hit(const float* sph, int n_sph, const float* sph_box, int
   return static_cast<int>(any_hit(sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
                                   n_tri_box, team, o, d, t_min, t_max, occ, N,
                                   static_cast<cudaStream_t>(stream)));
+}
+
+// The float64 instance: one tile of each table; it refuses cluster boxes.
+extern "C" int pt_any_hit_f64(const double* sph, int n_sph, const float* sph_box,
+                              int n_sph_box, const double* tri, int n_tri, const float* tri_box,
+                              int n_tri_box, int team, const double* o, const double* d,
+                              const double* t_min, const double* t_max, bool* occ, int N,
+                              void* stream) {
+  if (n_sph_box > 0 || n_tri_box > 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0) return 0;
+  return static_cast<int>(any_hit(sph, n_sph, sph_box, 0, tri, n_tri, tri_box, 0, team, o, d,
+                                  t_min, t_max, occ, N, static_cast<cudaStream_t>(stream)));
 }

@@ -23,15 +23,21 @@
 // threads of a group share the lane, so they take the same branches around
 // each vote. Lanes with t_max < eps (no NEE query) write 0 without a sweep.
 // The geometry columns the test needs (center and k of a sphere as one
-// float4, v0/e1/e2 of a triangle at a stride of 9 floats, at most ~10 KB)
-// are staged once per block into shared memory, where the T rows a warp
-// reads at once sit in distinct banks. A sphere row whose discriminant is
+// float4, v0/e1/e2 of a triangle at a stride of 9 floats, at most ~10 KB;
+// twice that in float64) are staged once per block into shared memory, where
+// the T rows a warp reads at once sit in distinct banks. A sphere row whose discriminant is
 // negative or NaN skips the square root (geom.cuh :: sphere_root).
 // Blocks are lanes x T threads; the host gives each thread at most ~32 rows
 // (T = 16 for the 496 rows of many_spheres, 1 up to 32 rows).
 //
 // The TPU kernel's MXU quadratic-form tables and bf16 splits are not
 // carried over: on this card the sphere test is plain FP32 ALU work.
+//
+// Float64: the kernel is a template on the float type; the float64 instance
+// (pt_shadow_any_hit_f64) is the same code in double, the shadow test the
+// JAX float64 pool runs through pallas_intersect.any_hit (its quad tables are
+// float32 only), with the same hit criteria. The H100 runs FP64 at half the
+// FP32 rate, and the staged rows take twice the bytes.
 // Built without fast math: NaN padding rows (k = NaN) must fail every
 // compare.
 
@@ -47,17 +53,18 @@ constexpr int kTriCols = 22;
 constexpr int kTriUse = 9;  // v0, e1, e2
 constexpr int kCheck = 4;   // rows a thread tests between two votes of its group
 
+template <typename F>
 __global__ void __launch_bounds__(kMaxThreads)
-    shadow_any_hit_kernel(const float* __restrict__ sph, int n_sph, const float* __restrict__ tri,
-                          int n_tri, const float* __restrict__ o, const float* __restrict__ d,
-                          const float* __restrict__ t_max_in, bool* __restrict__ occ, int S,
-                          float eps, int split, int lanes) {
+    shadow_any_hit_kernel(const F* __restrict__ sph, int n_sph, const F* __restrict__ tri,
+                          int n_tri, const F* __restrict__ o, const F* __restrict__ d,
+                          const F* __restrict__ t_max_in, bool* __restrict__ occ, int S, F eps,
+                          int split, int lanes) {
   extern __shared__ float4 smem4[];
-  float4* s_sph = smem4;                                     // cx, cy, cz, k
-  float* s_tri = reinterpret_cast<float*>(s_sph + n_sph);    // v0, e1, e2
+  pt::Q4<F>* s_sph = reinterpret_cast<pt::Q4<F>*>(smem4);     // cx, cy, cz, k
+  F* s_tri = reinterpret_cast<F*>(s_sph + n_sph);              // v0, e1, e2
   for (int k = threadIdx.x; k < n_sph; k += blockDim.x) {
-    const float* row = sph + k * kSphCols;
-    s_sph[k] = make_float4(row[0], row[1], row[2], row[3]);
+    const F* row = sph + k * kSphCols;
+    s_sph[k] = pt::q4(row[0], row[1], row[2], row[3]);
   }
   for (int k = threadIdx.x; k < n_tri * kTriUse; k += blockDim.x)
     s_tri[k] = tri[(k / kTriUse) * kTriCols + k % kTriUse];
@@ -67,17 +74,17 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int part = threadIdx.x & (T - 1);
   const int i = blockIdx.x * lanes + threadIdx.x / T;
   if (i >= S) return;  // the whole group leaves together
-  const float t_max = t_max_in[i];
+  const F t_max = t_max_in[i];
   if (!(t_max >= eps)) {  // no query (also NaN): nothing can lie in [eps, t_max]
     if (part == 0) occ[i] = false;
     return;
   }
   // The group's threads within the warp (T <= 16 divides 32; groups are aligned).
   const unsigned group = ((1u << T) - 1u) << ((threadIdx.x & 31) & ~(T - 1));
-  const pt::V3 o3 = pt::v3(o[i], o[S + i], o[2 * S + i]);
-  const pt::V3 d3 = pt::v3(d[i], d[S + i], d[2 * S + i]);
-  const float od = pt::dot3(o3, d3);
-  const float oo = pt::dot3(o3, o3);
+  const pt::Vec3<F> o3 = pt::v3(o[i], o[S + i], o[2 * S + i]);
+  const pt::Vec3<F> d3 = pt::v3(d[i], d[S + i], d[2 * S + i]);
+  const F od = pt::dot3(o3, d3);
+  const F oo = pt::dot3(o3, o3);
 
   // Triangles, then spheres; each group votes after every kCheck rows a thread.
   bool hit = false;
@@ -85,7 +92,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
     for (int c = 0; c < kCheck; ++c) {
       const int r = base + c * T + part;
-      float t;
+      F t;
       if (!hit && r < n_tri) hit = pt::hit_triangle(s_tri + r * kTriUse, o3, d3, eps, t_max, &t);
     }
     if (__any_sync(group, hit)) {
@@ -98,7 +105,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int c = 0; c < kCheck; ++c) {
       const int r = base + c * T + part;
       if (!hit && r < n_sph) {
-        const float t_c = pt::sphere_root(s_sph[r], o3, d3, od, oo, eps);
+        const F t_c = pt::sphere_root(s_sph[r], o3, d3, od, oo, eps);
         hit = t_c >= eps && t_c <= t_max;
       }
     }
@@ -110,21 +117,35 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (part == 0) occ[i] = false;
 }
 
-}  // namespace
-
-extern "C" int pt_shadow_any_hit(const float* sph, int n_sph, const float* tri, int n_tri,
-                                 const float* o, const float* d, const float* t_max, bool* occ,
-                                 int S, float eps, int split, int lanes, void* stream) {
+template <typename F>
+int launch(const F* sph, int n_sph, const F* tri, int n_tri, const F* o, const F* d,
+           const F* t_max, bool* occ, int S, F eps, int split, int lanes, void* stream) {
   if (S <= 0) return 0;
   // split: a power of two up to 16; lanes: whole warps.
   if (split < 1 || split > 16 || (split & (split - 1)) != 0 || lanes < 32 || lanes % 32 != 0 ||
       lanes * split > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   // kernels/binding.py :: shared_bytes mirrors this carve-up.
-  size_t smem = sizeof(float4) * static_cast<size_t>(n_sph) +
-                sizeof(float) * static_cast<size_t>(n_tri) * kTriUse;
+  size_t smem = sizeof(pt::Q4<F>) * static_cast<size_t>(n_sph) +
+                sizeof(F) * static_cast<size_t>(n_tri) * kTriUse;
   int grid = (S + lanes - 1) / lanes;
-  shadow_any_hit_kernel<<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(
+  shadow_any_hit_kernel<F><<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(
       sph, n_sph, tri, n_tri, o, d, t_max, occ, S, eps, split, lanes);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The float32 and float64 instances; eps comes in the instance's type.
+extern "C" int pt_shadow_any_hit(const float* sph, int n_sph, const float* tri, int n_tri,
+                                 const float* o, const float* d, const float* t_max, bool* occ,
+                                 int S, float eps, int split, int lanes, void* stream) {
+  return launch(sph, n_sph, tri, n_tri, o, d, t_max, occ, S, eps, split, lanes, stream);
+}
+
+extern "C" int pt_shadow_any_hit_f64(const double* sph, int n_sph, const double* tri, int n_tri,
+                                     const double* o, const double* d, const double* t_max,
+                                     bool* occ, int S, double eps, int split, int lanes,
+                                     void* stream) {
+  return launch(sph, n_sph, tri, n_tri, o, d, t_max, occ, S, eps, split, lanes, stream);
 }

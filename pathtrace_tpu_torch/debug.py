@@ -39,8 +39,12 @@ def render_pixel_samples(
     pixel_id = torch.full((spp,), y * width + x, dtype=torch.int64, device=device)
     sample_idx = torch.arange(spp, dtype=torch.int64, device=device)
     keys = rng.pixel_sample_keys(rng.base_key(seed, device), pixel_id, sample_idx)
-    o, d = camera.generate_rays(pixel_id % width, height - 1 - pixel_id // width,
-                                rng.primary_jitter(keys), transposed=False)
+    # Jitter in the camera's dtype, as the renders draw it (the JAX replay
+    # draws float32 jitter even for a float64 camera, so its float64 replay
+    # is not its float64 render's samples; this one is).
+    jitter = rng.primary_jitter(keys, camera.origin.dtype)
+    o, d = camera.generate_rays(pixel_id % width, height - 1 - pixel_id // width, jitter,
+                                transposed=False)
     radiance = trace_wave(scene, o, d, keys, integrator=integrator, max_bounces=max_bounces,
                           tables=intersect.build_tables(scene, method))
     return radiance.cpu().numpy()

@@ -23,6 +23,8 @@ the previous vertex, its BSDF sample with its own.
 
 Every intersection goes through ``ops/intersect.py`` on the route of the
 scene's tables (the small, flat or BVH kernels; their twins on the CPU).
+Everything runs in the rays' dtype, the uniforms included (float64: the
+small route only).
 """
 
 from __future__ import annotations
@@ -114,10 +116,10 @@ def _trace_nee_mis(scene, tables, ray_o, ray_d, keys, max_bounces, use_mis,
             d = w_nee[:, None] * bsdf_l * ls.emission * (cos_l / ls.pdf)[:, None]
             return vec.finite_or_zero(torch.where(blocked[:, None], 0.0, d))
 
-        u = rng.bounce_uniforms(keys, bounce)
+        u = rng.bounce_uniforms(keys, bounce, ray_d.dtype)
         direct = nee_once(u)
         for kj in light_keys[1:]:
-            direct = direct + nee_once(rng.bounce_uniforms(kj, bounce))
+            direct = direct + nee_once(rng.bounce_uniforms(kj, bounce, ray_d.dtype))
         if num_light_samples > 1:
             direct = direct / _full_like(direct, num_light_samples)
 
@@ -166,7 +168,7 @@ def _trace_brdf_only(scene, tables, ray_o, ray_d, keys, max_bounces):
 
     bounce = 0
     while bounce < max_bounces and bool(alive.any()):
-        u = rng.bounce_uniforms(keys, bounce)
+        u = rng.bounce_uniforms(keys, bounce, ray_d.dtype)
         hit = intersect.intersect(tables, ray_o, ray_d, EPS, float("inf"))
         mp = bsdf.mat_of(scene, hit.mat)
         emis = hit.valid & bsdf.is_emissive_params(mp)

@@ -28,6 +28,13 @@ stopped at the table's real rows (:func:`flat_team`, from the longest
 cluster's real rows), and ``pt_combined_closest_small`` splits each ray's
 triangle and sphere sweeps over a team (:func:`small_team`). Every split
 and every team gives the same bits and counts.
+
+Four kernels also have a float64 instance (``pt_fused_bounce_f64``,
+``pt_shadow_any_hit_f64``, ``pt_combined_closest_small_f64``,
+``pt_any_hit_f64``, the last one tile only: it refuses boxes): their
+launchers pick the instance from the tensors' dtype, pass ``eps`` as a
+double, and size the shared memory by the element size
+(:func:`shared_bytes`). Nothing falls back from one instance to the other.
 """
 
 from __future__ import annotations
@@ -42,12 +49,13 @@ from . import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 _lib: ctypes.CDLL | None = None
 
 SPLITS = (1, 2, 4, 8, 16)      # threads a lane's sweep can take
 SHARED_LIMIT = 48 * 1024       # dynamic shared memory without an opt-in attribute
-_SPH_USE, _TRI_USE, _LGT_COLS = 16, 36, 72   # staged bytes a sphere, triangle, light row
+_SPH_USE, _TRI_USE, _LGT_COLS = 4, 9, 18   # staged values a sphere, triangle, light row
 
 
 # Rows a thread sweeps at most, by kernel, as measured on an H100 (PERF.md,
@@ -146,12 +154,15 @@ def launch_shape(split: int) -> tuple[int, int]:
     return lanes, lanes * split
 
 
-def shared_bytes(n_sph: int, n_tri: int, n_lgt: int = 0, lanes: int = 0) -> int:
+def shared_bytes(n_sph: int, n_tri: int, n_lgt: int = 0, lanes: int = 0,
+                 itemsize: int = 4) -> int:
     """Dynamic shared memory of a block: the sweep's sphere and triangle
-    columns, plus (``pt_fused_bounce``) the light table and four words a lane
-    for the group's winners; ``pt_shadow_any_hit`` stages the first two
-    only (``n_lgt = lanes = 0``)."""
-    return n_sph * _SPH_USE + n_tri * _TRI_USE + n_lgt * _LGT_COLS + lanes * 16
+    columns, plus (``pt_fused_bounce``) the light table and, for each lane,
+    the group winners' two t and two rows; ``pt_shadow_any_hit`` stages the
+    first two only (``n_lgt = lanes = 0``). ``itemsize``: 4 (float32) or 8
+    (float64; the rows are int32 in both)."""
+    return (itemsize * (n_sph * _SPH_USE + n_tri * _TRI_USE + n_lgt * _LGT_COLS + lanes * 2)
+            + 4 * lanes * 2)
 
 
 def _shape(tables, split, kernel: str) -> tuple[int, int]:
@@ -160,10 +171,11 @@ def _shape(tables, split, kernel: str) -> tuple[int, int]:
     n_sph, n_tri = tables.sph.shape[0], tables.tri.shape[0]
     split = sweep_split(n_sph + n_tri, kernel) if split is None else split
     lanes, _ = launch_shape(split)
+    size = tables.sph.element_size()
     if kernel == "fused_bounce":
-        smem = shared_bytes(n_sph, n_tri, tables.lgt.shape[0], lanes)
+        smem = shared_bytes(n_sph, n_tri, tables.lgt.shape[0], lanes, size)
     else:
-        smem = shared_bytes(n_sph, n_tri)
+        smem = shared_bytes(n_sph, n_tri, itemsize=size)
     if smem > SHARED_LIMIT:
         raise ValueError(f"{smem} bytes of shared memory exceed {SHARED_LIMIT}")
     return split, lanes
@@ -175,21 +187,29 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         path, _ = build.build()
         lib = ctypes.CDLL(str(path))
-        lib.pt_fused_bounce.argtypes = [_P] * 8 + [_P, _I, _P, _I, _P, _I] + [_P] * 11 + \
-            [_I] * 10 + [_F, _I, _I, _P]
-        lib.pt_fused_bounce.restype = _I
-        lib.pt_shadow_any_hit.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _P]
-        lib.pt_shadow_any_hit.restype = _I
+        for name, real in (("pt_fused_bounce", _F), ("pt_fused_bounce_f64", _D)):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 8 + [_P, _I, _P, _I, _P, _I] + [_P] * 11 + \
+                [_I] * 10 + [real, _I, _I, _P]
+            fn.restype = _I
+        for name, real in (("pt_shadow_any_hit", _F), ("pt_shadow_any_hit_f64", _D)):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, real, _I, _I, _P]
+            fn.restype = _I
         lib.pt_sphere_closest.argtypes = [_P, _I, _P, _I, _I] + [_P] * 8 + [_I, _P]
         lib.pt_sphere_closest.restype = _I
-        lib.pt_any_hit.argtypes = [_P, _I] * 4 + [_I] + [_P] * 5 + [_I, _P]
-        lib.pt_any_hit.restype = _I
+        for name in ("pt_any_hit", "pt_any_hit_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P, _I] * 4 + [_I] + [_P] * 5 + [_I, _P]
+            fn.restype = _I
         lib.pt_bvh_closest.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 10 + [_I, _P]
         lib.pt_bvh_closest.restype = _I
         lib.pt_bvh_anyhit.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I, _P]
         lib.pt_bvh_anyhit.restype = _I
-        lib.pt_combined_closest_small.argtypes = [_P, _I, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
-        lib.pt_combined_closest_small.restype = _I
+        for name in ("pt_combined_closest_small", "pt_combined_closest_small_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P, _I, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
+            fn.restype = _I
         lib.pt_triangle_closest.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
         lib.pt_triangle_closest.restype = _I
         lib.pt_binned_round_closest.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _P]
@@ -213,6 +233,16 @@ def _raise_on(code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {code}")
 
 
+def _instance(lib, name: str, x: torch.Tensor):
+    """The entry point ``name`` (float32) or ``name + "_f64"`` for the dtype
+    of ``x``; raises on any other dtype."""
+    if x.dtype == torch.float32:
+        return getattr(lib, name)
+    if x.dtype == torch.float64:
+        return getattr(lib, name + "_f64")
+    raise ValueError(f"{name}: no instance for {x.dtype}")
+
+
 def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, out, *,
                         num_tris, num_lights, max_bounces, eps,
                         use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr,
@@ -221,9 +251,9 @@ def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefi
     ``ops.shade.kernel_flags``; ``split``: threads a lane (default
     :func:`sweep_split`)."""
     split, lanes = _shape(tables, split, "fused_bounce")
-    lib = library()
+    fn = _instance(library(), "pt_fused_bounce", ray_o)
     with torch.cuda.device(busy.device):   # launch on the inputs' card
-        code = lib.pt_fused_bounce(
+        code = fn(
             busy.data_ptr(), bounce.data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
             eta.data_ptr(), pdf_prev.data_ptr(), prefix.data_ptr(), u.data_ptr(),
             tables.sph.data_ptr(), tables.sph.shape[0],
@@ -243,9 +273,9 @@ def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefi
 
 def launch_shadow_any_hit(tables, o, d, t_max, occ, *, eps, split=None) -> None:
     split, lanes = _shape(tables, split, "shadow_any_hit")
-    lib = library()
+    fn = _instance(library(), "pt_shadow_any_hit", t_max)
     with torch.cuda.device(t_max.device):
-        code = lib.pt_shadow_any_hit(
+        code = fn(
             tables.sph.data_ptr(), tables.sph.shape[0],
             tables.tri.data_ptr(), tables.tri.shape[0],
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), occ.data_ptr(),
@@ -291,9 +321,9 @@ def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None
     ``team``: threads a ray (default :func:`cluster_team`)."""
     team = _team(team, cluster_team("any_hit", (sph, sph_box), (tri, tri_box)),
                  ("sph", sph), ("tri", tri))
-    lib = library()
+    fn = _instance(library(), "pt_any_hit", t_min)   # float64: one tile, boxes refused
     with torch.cuda.device(t_min.device):
-        code = lib.pt_any_hit(
+        code = fn(
             sph.data_ptr(), sph.shape[0], *_boxes(sph_box), tri.data_ptr(), tri.shape[0],
             *_boxes(tri_box), team,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
@@ -353,9 +383,9 @@ def launch_combined_closest_small(tables, o, d, t_min, t_max, t, prim, n, m,
     threads a ray (default :func:`small_team`)."""
     team = _team(team, small_team(tables), ("tables.tri", tables.tri),
                  ("tables.sph", tables.sph))
-    lib = library()
+    fn = _instance(library(), "pt_combined_closest_small", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_combined_closest_small(
+        code = fn(
             tables.sph.data_ptr(), tables.sph.shape[0], tables.tri.data_ptr(),
             tables.tri.shape[0], tables.tri_rows, team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(), prim.data_ptr(), n.data_ptr(),

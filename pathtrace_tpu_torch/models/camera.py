@@ -1,7 +1,8 @@
 """Pinhole camera with vectorized jittered ray generation.
 
-Counterpart of ``pathtrace_tpu/models/camera.py`` with the same float32 op
-order, so primary rays match the JAX package's bit for bit. Two conventions of
+Counterpart of ``pathtrace_tpu/models/camera.py`` with the same op order, in
+the camera's dtype (float32, or float64 after ``render.cast_floats``), so
+primary rays match the JAX package's bit for bit. Two conventions of
 the reference renderer are kept on purpose:
 
 * The FOV parameter drives the **vertical** viewport (width = height x
@@ -22,7 +23,7 @@ from ..utils import vec
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
-    origin: torch.Tensor             # (3,) float32
+    origin: torch.Tensor             # (3,) float32 or float64
     lower_left_corner: torch.Tensor  # (3,)
     horizontal: torch.Tensor         # (3,)
     vertical: torch.Tensor           # (3,)
@@ -89,10 +90,11 @@ class Camera:
             return o.T.contiguous(), d.T.contiguous()
         # Divide by 0-dim tensors: CUDA would turn division by a host scalar
         # into multiplication by its reciprocal, which rounds differently.
-        wm1, hm1 = torch.tensor([self.width - 1, self.height - 1],
-                                dtype=torch.float32, device=jitter.device)
-        u = (px.to(torch.float32) + jitter[:, 0]) / wm1
-        v = (py.to(torch.float32) + jitter[:, 1]) / hm1
+        dtype = self.origin.dtype
+        wm1, hm1 = torch.tensor([self.width - 1, self.height - 1], dtype=dtype,
+                                device=jitter.device)
+        u = (px.to(dtype) + jitter[:, 0]) / wm1
+        v = (py.to(dtype) + jitter[:, 1]) / hm1
         comps = [
             self.lower_left_corner[c] + self.horizontal[c] * u
             + self.vertical[c] * v - self.origin[c]

@@ -107,7 +107,7 @@ def live_rays(kmin, idmask: int, bound=None):
 # ---------------------------------------------------------------------------
 
 def _check_round(tables, o, d, t_min, t_up, key):
-    n, kind = _check_rays(o, d, t_min, t_up)
+    n, kind = _check_rays(o, d, t_min, t_up, "the binned round kernels")
     _check_route(tables, "binned", t_min.device)
     _check("key", key, torch.int32, (n,))
     if key.device != t_min.device:
@@ -202,7 +202,7 @@ def round_anyhit(tables: Tables, o, d, t_min, t_max, key):
 # ---------------------------------------------------------------------------
 
 def _initial_state(tables, o, d, t_min, t_max):
-    _check_rays(o, d, t_min, t_max)
+    _check_rays(o, d, t_min, t_max, "the binned driver")
     _check_route(tables, "binned", t_min.device)
     n_clusters = tables.leaf.shape[0]
     keys, idmask = pack_keys(cluster_entries(o, d, t_min, t_max, tables.leaf), n_clusters)

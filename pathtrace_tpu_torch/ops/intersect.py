@@ -60,7 +60,8 @@ the same answer, which is what ``chip_smoke.py`` checks on the card. The
 wrappers dispatch on the device of their inputs: CPU tensors run the twin,
 CUDA tensors launch the kernel (or raise); there is no fallback. Each launch
 adds one to ``shade.LAUNCHES`` under the kernel's name, the clustered mode of
-``sphere_closest``/``any_hit`` under ``*_clustered``.
+``sphere_closest``/``any_hit`` under ``*_clustered``, a float64 instance
+under ``*_f64``.
 
 :func:`intersect` and :func:`occluded` compose them as the JAX package does:
 global prim ids are triangle rows, then spheres offset by the padded
@@ -74,6 +75,14 @@ no result and keeps TPU subtiles union-coherent (on the GPU, rays sorted by
 first entered group move the BVH kernels by under 0.01 ms, less than a sort
 costs: PERF.md), the ``coherent`` hint, and the ``_lift_tree`` varying-axes
 plumbing. Rays are ``(N, 3)`` float32; ``t_min``/``t_max`` are ``(N,)``.
+
+float64 (the reference's precision) runs on the small route:
+:func:`combined_closest_small` and the one-tile :func:`any_hit` take float64
+rays and tables and launch their kernels' float64 instances. Every other
+kernel, and the clustered mode of ``any_hit``, raises
+``NotImplementedError`` on float64 input, on either device, naming ROADMAP
+Queue 1, item 4b; so does :func:`build_tables` for a float64 scene on any
+other route.
 """
 
 from __future__ import annotations
@@ -85,7 +94,7 @@ import torch
 
 from ..models.scene import CLUSTER_SIZE, SPH_CLUSTER_SIZE, Scene
 from ..utils import vec
-from .shade import LAUNCHES, _check, _device_kind, _sphere_ts, _tri_hits
+from .shade import _SUFFIX, LAUNCHES, _check, _device_kind, _sphere_ts, _tri_hits
 
 _INF = float("inf")
 
@@ -106,6 +115,10 @@ _BOX_COLS = 8      # min, max, 2 zeros (sphere boxes: min, max, reach, least rad
 # never culls a cluster that holds a hit the brute-force twin accepts.
 _BOX_MARGIN = 1e-4
 _ROOT_ERR = 2.0**-17   # csrc/intersect.cu kRootErr: the sphere root's error over L^2
+# Kernels with a float64 instance (the small route's two); the others, and
+# the clustered any hit, refuse float64 rays, citing this ROADMAP item.
+F64_KERNELS = ("combined_closest_small", "any_hit")
+F64_ITEM = "ROADMAP Queue 1, item 4b"
 
 
 class Hit(NamedTuple):
@@ -255,8 +268,14 @@ def build_tables(scene: Scene, method: str = "auto") -> Tables:
     t = scene.tri_v0.shape[0]
     s_rows = scene.sph_center.shape[0]
     route = resolve_route(t, s_rows, method)
+    dtype = scene.tri_v0.dtype
+    if dtype == torch.float64 and route != "small":
+        raise NotImplementedError(
+            f"float64 on the {route} route ({t} triangle rows, {s_rows} sphere rows): its "
+            f"kernels have no float64 instance yet ({F64_ITEM}); float64 runs on the small "
+            f"route (<= {SMALL_MAX_TRIS} triangles, <= {SMALL_MAX_SPHERES} spheres)")
     tri = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_normal,
-                     scene.tri_mat.to(torch.float32)[:, None],
+                     scene.tri_mat.to(dtype)[:, None],
                      scene.tri_v0.new_zeros((t, 3))], dim=1)
     no_boxes = tri.new_zeros((0, _BOX_COLS))
     n_groups = 0
@@ -281,7 +300,7 @@ def build_tables(scene: Scene, method: str = "auto") -> Tables:
     k = torch.where(pos, c2[:, 0] + c2[:, 1] + c2[:, 2] - radius * radius, math.nan)
     inv_r = torch.where(pos, 1.0 / torch.where(pos, radius, 1.0), 0.0)
     sph = torch.cat([centers, k[:, None], inv_r[:, None],
-                     scene.sph_mat.to(torch.float32)[:, None],
+                     scene.sph_mat.to(dtype)[:, None],
                      centers.new_zeros((centers.shape[0], 2))], dim=1)
     sph_box = sphere_cluster_boxes(scene) if s_rows > SMALL_MAX_SPHERES else no_boxes
     return Tables(tri=tri.contiguous(), leaf=leaf, group=group, sph=sph.contiguous(),
@@ -705,40 +724,48 @@ def _merge(tables: Tables, sph, tri):
 # Dispatching wrappers
 # ---------------------------------------------------------------------------
 
-def _check_rays(o, d, t_min, t_max):
+def _check_rays(o, d, t_min, t_max, kernel: str = "this kernel"):
+    """``(N, device kind)`` of a wave of float32 rays, or float64 rays for a
+    kernel of :data:`F64_KERNELS`; float64 rays for any other kernel raise
+    ``NotImplementedError`` (before the CPU twin could run them)."""
     n = t_min.shape[0]
-    _check("o", o, torch.float32, (n, 3))
-    _check("d", d, torch.float32, (n, 3))
-    _check("t_min", t_min, torch.float32, (n,))
-    _check("t_max", t_max, torch.float32, (n,))
+    if o.dtype == torch.float64 and kernel not in F64_KERNELS:
+        raise NotImplementedError(
+            f"{kernel}: float64 rays, but the kernel has no float64 instance yet ({F64_ITEM}); "
+            "float64 runs on the small route")
+    dtype = torch.float64 if o.dtype == torch.float64 else torch.float32
+    _check("o", o, dtype, (n, 3))
+    _check("d", d, dtype, (n, 3))
+    _check("t_min", t_min, dtype, (n,))
+    _check("t_max", t_max, dtype, (n,))
     for x in (o, d, t_max):
         if x.device != t_min.device:
             raise ValueError(f"ray inputs on {x.device} and {t_min.device}")
     return n, _device_kind(t_min)
 
 
-def _check_table(name, tab, cols, device):
-    _check(name, tab, torch.float32, (tab.shape[0], cols))
+def _check_table(name, tab, cols, device, dtype=torch.float32):
+    _check(name, tab, dtype, (tab.shape[0], cols))
     if tab.device != device:
         raise ValueError(f"{name} on {tab.device}, rays on {device}")
 
 
 def _check_sph_box(sph, box, device):
     """Sphere cluster boxes must cover every row of ``sph`` (or be absent)."""
-    _check_table("sph_box", box, _BOX_COLS, device)
+    _check_table("sph_box", box, _BOX_COLS, device, sph.dtype)
     if box.shape[0] and box.shape[0] * SPH_CLUSTER_SIZE < sph.shape[0]:
         raise ValueError(f"{box.shape[0]} sphere cluster boxes for {sph.shape[0]} sphere rows "
                          "(use build_tables)")
 
 
-def _check_route(tables: Tables, route: str, device):
+def _check_route(tables: Tables, route: str, device, dtype=torch.float32):
     if tables.route != route:
         raise ValueError(f"tables of the {tables.route} route passed to a {route} kernel")
-    _check_table("tables.tri", tables.tri, _TRI_COLS, device)
-    _check_table("tables.sph", tables.sph, _SPH_COLS, device)
+    _check_table("tables.tri", tables.tri, _TRI_COLS, device, dtype)
+    _check_table("tables.sph", tables.sph, _SPH_COLS, device, dtype)
     _check_sph_box(tables.sph, tables.sph_box, device)
-    _check_table("tables.leaf", tables.leaf, _BOX_COLS, device)
-    _check_table("tables.group", tables.group, _BOX_COLS, device)
+    _check_table("tables.leaf", tables.leaf, _BOX_COLS, device, dtype)
+    _check_table("tables.group", tables.group, _BOX_COLS, device, dtype)
     if route == "small":   # the kernel stages both tables in shared memory
         ok = (tables.tri.shape[0] == tables.tri_rows <= SMALL_MAX_TRIS
               and tables.sph.shape[0] <= SMALL_MAX_SPHERES)
@@ -771,7 +798,7 @@ def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
     rounds and half-gated sweeps; these are the port's per-ray work. The
     hits are those of ``counters=False``. The kernel with counters is
     counted under ``bvh_closest_counters``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
+    n, kind = _check_rays(o, d, t_min, t_max, "bvh_closest")
     _check_route(tables, "bvh", t_min.device)
     if kind == "cpu":
         if not counters:
@@ -795,7 +822,7 @@ def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
 def bvh_anyhit(tables: Tables, o, d, t_min, t_max):
     """Occlusion by any triangle in ``[t_min, t_max]`` through the BVH:
     bool ``(N,)``. Counterpart of ``triangle_anyhit_bvh``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
+    n, kind = _check_rays(o, d, t_min, t_max, "bvh_anyhit")
     _check_route(tables, "bvh", t_min.device)
     if kind == "cpu":
         return bvh_anyhit_reference(tables, o, d, t_min, t_max)
@@ -813,7 +840,7 @@ def sphere_closest(sph, o, d, t_min, t_max, box=None):
     past 512 spheres) the kernel skips the 256-row clusters a ray's segment
     misses; the answer is the same. Counterpart of
     ``pallas_intersect.sphere_closest``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
+    n, kind = _check_rays(o, d, t_min, t_max, "sphere_closest")
     _check_table("sph", sph, _SPH_COLS, t_min.device)
     box = sph.new_zeros((0, _BOX_COLS)) if box is None else box
     _check_sph_box(sph, box, t_min.device)
@@ -831,17 +858,19 @@ def sphere_closest(sph, o, d, t_min, t_max, box=None):
 def combined_closest_small(tables: Tables, o, d, t_min, t_max):
     """Closest hit over the spheres and triangles of a small-route scene in
     one pass: ``(t, global prim id, outward normal, material)``; a miss is
-    ``(inf, -1, 0, 0)``. Counterpart of ``pallas_intersect.combined_closest_small``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
-    _check_route(tables, "small", t_min.device)
+    ``(inf, -1, 0, 0)``. Float32 or float64 rays and tables, which launch the
+    kernel's instance for the dtype. Counterpart of
+    ``pallas_intersect.combined_closest_small``."""
+    n, kind = _check_rays(o, d, t_min, t_max, "combined_closest_small")
+    _check_route(tables, "small", t_min.device, o.dtype)
     if kind == "cpu":
         return combined_closest_small_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
 
-    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
-           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    out = (_empty((n,), o.dtype, o), _empty((n,), torch.int32, o),
+           _empty((n, 3), o.dtype, o), _empty((n,), torch.int32, o))
     binding.launch_combined_closest_small(tables, o, d, t_min, t_max, *out)
-    LAUNCHES["combined_closest_small"] += 1
+    LAUNCHES["combined_closest_small" + _SUFFIX[o.dtype]] += 1
     return out
 
 
@@ -849,7 +878,7 @@ def triangle_closest(tables: Tables, o, d, t_min, t_max):
     """Closest triangle hit over the flat route's 256-row clusters: ``(t,
     row, outward normal, material)``; a miss is ``(inf, -1, 0, 0)``.
     Counterpart of ``pallas_intersect.triangle_closest``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
+    n, kind = _check_rays(o, d, t_min, t_max, "triangle_closest")
     _check_route(tables, "flat", t_min.device)
     if kind == "cpu":
         return triangle_closest_reference(tables, o, d, t_min, t_max)
@@ -867,7 +896,7 @@ def resident_closest(tables: Tables, o, d, t_min, t_max):
     resident route's 128-row clusters: ``(t, row, outward normal,
     material)``; a miss is ``(inf, -1, 0, 0)``. Counterpart of
     ``resident_intersect.triangle_closest_resident``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
+    n, kind = _check_rays(o, d, t_min, t_max, "resident_closest")
     _check_route(tables, "resident", t_min.device)
     if kind == "cpu":
         return triangle_closest_reference(tables, o, d, t_min, t_max)
@@ -884,7 +913,7 @@ def resident_anyhit(tables: Tables, o, d, t_min, t_max):
     """Occlusion by any triangle in ``[t_min, t_max]`` over the same
     clusters, swept in id order up to the first hit: bool ``(N,)``.
     Counterpart of ``resident_intersect.triangle_anyhit_resident``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
+    n, kind = _check_rays(o, d, t_min, t_max, "resident_anyhit")
     _check_route(tables, "resident", t_min.device)
     if kind == "cpu":
         return bvh_anyhit_reference(tables, o, d, t_min, t_max)
@@ -901,24 +930,30 @@ def any_hit(sph, tri, o, d, t_min, t_max, sph_box=None, tri_box=None):
     (``Tables`` row layouts; ``tri`` may have no rows): bool ``(N,)``. With
     ``sph_box`` (``Tables.sph_box``) or ``tri_box`` (the flat route's
     ``Tables.leaf``, 256 rows a box) the kernel skips the clusters a ray's
-    segment misses; the answer is the same. Counterpart of
-    ``pallas_intersect.any_hit``."""
-    n, kind = _check_rays(o, d, t_min, t_max)
-    _check_table("sph", sph, _SPH_COLS, t_min.device)
-    _check_table("tri", tri, _TRI_COLS, t_min.device)
+    segment misses; the answer is the same. Float32 or float64 rays and
+    tables; float64 in one tile only (no boxes), the clustered mode raises
+    ``NotImplementedError``. Counterpart of ``pallas_intersect.any_hit``."""
+    n, kind = _check_rays(o, d, t_min, t_max, "any_hit")
+    dtype = o.dtype
+    _check_table("sph", sph, _SPH_COLS, t_min.device, dtype)
+    _check_table("tri", tri, _TRI_COLS, t_min.device, dtype)
     sph_box = sph.new_zeros((0, _BOX_COLS)) if sph_box is None else sph_box
     tri_box = tri.new_zeros((0, _BOX_COLS)) if tri_box is None else tri_box
     _check_sph_box(sph, sph_box, t_min.device)
-    _check_table("tri_box", tri_box, _BOX_COLS, t_min.device)
+    _check_table("tri_box", tri_box, _BOX_COLS, t_min.device, dtype)
     if tri_box.shape[0] and tri_box.shape[0] * CLUSTER_SIZE < tri.shape[0]:
         raise ValueError(f"{tri_box.shape[0]} triangle cluster boxes for {tri.shape[0]} rows")
+    if dtype == torch.float64 and (sph_box.shape[0] or tri_box.shape[0]):
+        raise NotImplementedError(f"any_hit: the clustered mode has no float64 instance yet "
+                                  f"({F64_ITEM}); float64 runs in one tile")
     if kind == "cpu":
         return any_hit_reference(sph, tri, o, d, t_min, t_max)
     from ..kernels import binding
 
     occ = _empty((n,), torch.bool, o)
     binding.launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=sph_box, tri_box=tri_box)
-    LAUNCHES["any_hit_clustered" if sph_box.shape[0] or tri_box.shape[0] else "any_hit"] += 1
+    name = "any_hit_clustered" if sph_box.shape[0] or tri_box.shape[0] else "any_hit"
+    LAUNCHES[name + _SUFFIX[dtype]] += 1
     return occ
 
 

@@ -17,7 +17,9 @@ plain-torch twin here with the same op order:
   quadratic with the near-then-far root select, for t in [eps, t_max].
 
 Everything is in kernel layout: 3-vectors ``(3, S)``, scalars ``(S,)``,
-uniforms ``(9, S)`` (``utils/rng.py`` slots). float32 only.
+uniforms ``(9, S)`` (``utils/rng.py`` slots), in float32 or float64 (the
+reference's precision; the tables, rays and uniforms of a call share one
+dtype, and each kernel has an instance for each).
 
 The wrappers dispatch on the device of their inputs: CPU tensors run the
 twin, CUDA tensors launch the kernel (or raise); there is no fallback.
@@ -81,8 +83,10 @@ _LGT_COLS = 18
 
 # Kernel launches per wrapper, counted where the kernel is launched; a kernel
 # with a further mode counts it apart (``fused_bounce_on_pbr``: the Oren-Nayar
-# or PBR lanes on; ``*_clustered`` in ops/intersect.py).
+# or PBR lanes on; ``*_clustered`` in ops/intersect.py), and a float64
+# instance under its name with ``_f64`` appended.
 LAUNCHES: collections.Counter = collections.Counter()
+_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 
 def _round8(n):
@@ -139,11 +143,14 @@ def supports_scene(scene: Scene, integrator: str) -> bool:
 
 
 def build_tables(scene: Scene) -> Tables:
-    """Resolve each primitive's material into its row and pack the lights."""
+    """Resolve each primitive's material into its row and pack the lights,
+    in the scene's float dtype (material kinds and light prim ids too)."""
+    dtype = scene.mat_color.dtype
+
     def mat_cols(mid):
         mid = mid.long()
         return [
-            scene.mat_kind[mid].to(torch.float32)[:, None],
+            scene.mat_kind[mid].to(dtype)[:, None],
             scene.mat_color[mid],
             scene.mat_emission[mid],
             scene.mat_roughness[mid][:, None],
@@ -171,7 +178,7 @@ def build_tables(scene: Scene) -> Tables:
     tri = _pad_rows(tri, _round8(tri.shape[0]))
 
     lgt = torch.cat(
-        [scene.light_geom, scene.light_prims.to(torch.float32)[:, None]], dim=1
+        [scene.light_geom, scene.light_prims.to(dtype)[:, None]], dim=1
     )
     n_real = lgt.shape[0]
     lgt = _pad_rows(lgt, _round8(n_real))
@@ -688,7 +695,7 @@ def fused_bounce_reference(
             if num_lights == 1:
                 lsel = lgt[0, :_LC_EMI][:, None].expand(-1, ox.shape[0])
             else:
-                match = lgt[:, _LC_PRIM:_LC_PRIM + 1] == prim.to(torch.float32)[None, :]
+                match = lgt[:, _LC_PRIM:_LC_PRIM + 1] == prim.to(lgt.dtype)[None, :]
                 lsel = _select(lgt, torch.argmax(match.to(torch.int32), 0),
                                match.any(0), 0, _LC_EMI)
             l_is_tri = lsel[_LC_ISTRI] > 0.5
@@ -894,7 +901,7 @@ def fused_bounce_reference(
     next_tp = (pfx[0] * factor[0], pfx[1] * factor[1], pfx[2] * factor[2])
 
     lum = torch.clamp_max(_luminance3(_forz3(next_tp)), 1.0)
-    decay = torch.exp2(-torch.clamp_min(bounce - RR_MIN_DEPTH, 0).to(torch.float32))
+    decay = torch.exp2(-torch.clamp_min(bounce - RR_MIN_DEPTH, 0).to(lum.dtype))
     rr = torch.where(
         bounce < RR_MIN_DEPTH,
         torch.ones_like(lum),
@@ -948,10 +955,18 @@ def _check(name, x, dtype, shape):
         )
 
 
-def _check_tables(tables: Tables, device):
-    _check("tables.sph", tables.sph, torch.float32, (tables.sph.shape[0], _SPH_COLS))
-    _check("tables.tri", tables.tri, torch.float32, (tables.tri.shape[0], _TRI_COLS))
-    _check("tables.lgt", tables.lgt, torch.float32, (tables.lgt.shape[0], _LGT_COLS))
+def _float_dtype(x) -> torch.dtype:
+    """The float dtype of a call, from its first float input: float32 or
+    float64, the two the kernels have instances for."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"expected float32 or float64, got {x.dtype}")
+    return x.dtype
+
+
+def _check_tables(tables: Tables, device, dtype=torch.float32):
+    _check("tables.sph", tables.sph, dtype, (tables.sph.shape[0], _SPH_COLS))
+    _check("tables.tri", tables.tri, dtype, (tables.tri.shape[0], _TRI_COLS))
+    _check("tables.lgt", tables.lgt, dtype, (tables.lgt.shape[0], _LGT_COLS))
     if (tables.sph.shape[0] > _round8(MAX_SPHERES) or tables.tri.shape[0] > _round8(MAX_TRIS)
             or tables.lgt.shape[0] > _round8(MAX_LIGHTS)):
         raise ValueError("scene tables exceed the kernels' size caps (supports_scene)")
@@ -975,19 +990,21 @@ def fused_bounce(
     """One full path vertex for every lane (see the module docstring).
 
     ``busy`` bool ``(S,)``, ``bounce`` int32 ``(S,)``, ``ray_o``/``ray_d``/
-    ``prefix`` float32 ``(3, S)``, ``eta``/``pdf_prev`` float32 ``(S,)``,
-    ``u`` float32 ``(9, S)``. CPU tensors run :func:`fused_bounce_reference`;
-    CUDA tensors launch the kernel.
+    ``prefix`` ``(3, S)``, ``eta``/``pdf_prev`` ``(S,)``, ``u`` ``(9, S)``,
+    all float32 or all float64 with the tables. CPU tensors run
+    :func:`fused_bounce_reference`; CUDA tensors launch the kernel's
+    instance for the dtype.
     """
     if integrator not in ("mis", "nee", "brdf_only"):
         raise ValueError(f"unknown integrator {integrator!r}")
     S = busy.shape[0]
     _check("busy", busy, torch.bool, (S,))
     _check("bounce", bounce, torch.int32, (S,))
+    dtype = _float_dtype(ray_o)
     for name, x, shape in (("ray_o", ray_o, (3, S)), ("ray_d", ray_d, (3, S)),
                            ("eta", eta, (S,)), ("pdf_prev", pdf_prev, (S,)),
                            ("prefix", prefix, (3, S)), ("u", u, (9, S))):
-        _check(name, x, torch.float32, shape)
+        _check(name, x, dtype, shape)
     kw = dict(num_tris=num_tris, num_lights=num_lights, integrator=integrator,
               max_bounces=max_bounces, eps=eps, has_tri_lights=has_tri_lights,
               has_sph_lights=has_sph_lights, has_oren_nayar=has_oren_nayar, has_pbr=has_pbr)
@@ -995,15 +1012,15 @@ def fused_bounce(
     for x in (bounce, ray_o, ray_d, eta, pdf_prev, prefix, u):
         if x.device != device:
             raise ValueError(f"inputs on {x.device} and {device}")
-    _check_tables(tables, device)
+    _check_tables(tables, device, dtype)
     if _device_kind(busy) == "cpu":
         return fused_bounce_reference(
             tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, **kw)
 
     from ..kernels import binding
 
-    def empty(shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=device)
+    def empty(shape, out_dtype=dtype):
+        return torch.empty(shape, dtype=out_dtype, device=device)
 
     out = BounceResult(
         rad_delta=empty((3, S)), next_o=empty((3, S)), next_d=empty((3, S)),
@@ -1015,22 +1032,26 @@ def fused_bounce(
         tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, out,
         num_tris=num_tris, num_lights=num_lights, max_bounces=max_bounces, eps=eps,
         **kernel_flags(integrator, has_tri_lights, has_sph_lights, has_oren_nayar, has_pbr))
-    LAUNCHES["fused_bounce_on_pbr" if has_oren_nayar or has_pbr else "fused_bounce"] += 1
+    name = "fused_bounce_on_pbr" if has_oren_nayar or has_pbr else "fused_bounce"
+    LAUNCHES[name + _SUFFIX[dtype]] += 1
     return out
 
 
 def shadow_any_hit(tables: Tables, o, d, t_max, *, eps: float = EPS):
-    """Occlusion of shadow rays ``o``/``d`` float32 ``(3, S)`` over
-    ``[eps, t_max]`` (``t_max`` float32 ``(S,)``; below ``eps`` means no
-    query). Returns bool ``(S,)``. Counterpart of ``any_hit_quad``."""
+    """Occlusion of shadow rays ``o``/``d`` ``(3, S)`` over ``[eps, t_max]``
+    (``t_max`` ``(S,)``; below ``eps`` means no query), all float32 or all
+    float64 with the tables. Returns bool ``(S,)``. Counterpart of
+    ``any_hit_quad`` (in float64, of the JAX ``any_hit`` the JAX pool takes
+    there: the same hit criteria)."""
     S = t_max.shape[0]
-    _check("o", o, torch.float32, (3, S))
-    _check("d", d, torch.float32, (3, S))
-    _check("t_max", t_max, torch.float32, (S,))
+    dtype = _float_dtype(o)
+    _check("o", o, dtype, (3, S))
+    _check("d", d, dtype, (3, S))
+    _check("t_max", t_max, dtype, (S,))
     device = t_max.device
     if o.device != device or d.device != device:
         raise ValueError("o, d and t_max must share a device")
-    _check_tables(tables, device)
+    _check_tables(tables, device, dtype)
     if _device_kind(t_max) == "cpu":
         return shadow_any_hit_reference(tables, o, d, t_max, eps=eps)
 
@@ -1038,5 +1059,5 @@ def shadow_any_hit(tables: Tables, o, d, t_max, *, eps: float = EPS):
 
     occ = torch.empty((S,), dtype=torch.bool, device=device)
     binding.launch_shadow_any_hit(tables, o, d, t_max, occ, eps=eps)
-    LAUNCHES["shadow_any_hit"] += 1
+    LAUNCHES["shadow_any_hit" + _SUFFIX[dtype]] += 1
     return occ

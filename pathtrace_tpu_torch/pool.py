@@ -199,9 +199,17 @@ def render_pool(
     num_slots: int = 32768,
     seed: int = 0,
     sample_offset: int = 0,
+    dtype=None,
     method: str | None = None,
 ):
     """Render the full frame with a saturated path pool on ``scene.device``.
+
+    ``dtype`` is the estimator's precision: None keeps the scene/camera
+    dtypes (float32); ``torch.float64`` is the reference's native precision
+    (``render.cast_floats`` widens the scene and the camera, as the JAX
+    pool does). Every state tensor and the framebuffer take it. float64 runs
+    the fused branch and the composed branch on the small route; the other
+    routes raise ``NotImplementedError`` (ROADMAP Queue 1, item 4b).
 
     ``method`` picks the intersection traversal for this call (:func:`route`;
     ``None`` is ``"auto"``): ``"bvh"``, ``"binned"`` and ``"resident"`` run
@@ -211,15 +219,22 @@ def render_pool(
     render ``spp`` samples from there, continuing the same RNG streams, so
     passes at offsets 0, 1, ... sum to one render of their total spp.
 
-    Returns ``(image_sum (H*W, 3) float32, counters (4,) int64, iters)``;
+    Returns ``(image_sum (H*W, 3) in the dtype, counters (4,) int64, iters)``;
     divide the image by ``spp`` for mean radiance. ``counters`` is
     ``(rays_hi, rays_lo, busy_hi, busy_lo)``, each a 32-bit half, decoded by
     :func:`ray_count` / :func:`busy_count` exactly as the JAX package's.
     """
+    if dtype is not None:
+        from .render import cast_floats
+
+        scene, camera = cast_floats(scene, dtype), cast_floats(camera, dtype)
     composed = route(scene, integrator, method) == "composed"
     device = scene.device
     if camera.origin.device != device:
         raise ValueError(f"camera on {camera.origin.device}, scene on {device}")
+    fdt = camera.origin.dtype
+    if scene.tri_v0.dtype != fdt:
+        raise ValueError(f"camera in {fdt}, scene in {scene.tri_v0.dtype} (pass dtype=)")
     use_nee = integrator in ("mis", "nee")
     eps = shade.EPS
     if composed:
@@ -242,23 +257,23 @@ def render_pool(
     perm = _coprime_stride(padded_pixels)
     key = rng.base_key(seed, device)
 
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    i32, i64 = torch.int32, torch.int64
     slot_ids = torch.arange(S, dtype=i64, device=device)
     pixel = torch.zeros(S, dtype=i64, device=device)
     chunk = torch.zeros(S, dtype=i64, device=device)
     sample = torch.zeros(S, dtype=i64, device=device)
     bounce = torch.zeros(S, dtype=i32, device=device)
     cursor = torch.zeros(S, dtype=i64, device=device)
-    ray_o = torch.zeros((3, S), dtype=f32, device=device)
-    ray_d = torch.zeros((3, S), dtype=f32, device=device)
+    ray_o = torch.zeros((3, S), dtype=fdt, device=device)
+    ray_d = torch.zeros((3, S), dtype=fdt, device=device)
     ray_d[2] = 1.0
-    ray_eta = torch.ones(S, dtype=f32, device=device)
-    pdf_prev = torch.ones(S, dtype=f32, device=device)
-    prefix = torch.ones((3, S), dtype=f32, device=device)
-    radiance = torch.zeros((3, S), dtype=f32, device=device)
+    ray_eta = torch.ones(S, dtype=fdt, device=device)
+    pdf_prev = torch.ones(S, dtype=fdt, device=device)
+    prefix = torch.ones((3, S), dtype=fdt, device=device)
+    radiance = torch.zeros((3, S), dtype=fdt, device=device)
     busy = torch.zeros(S, dtype=torch.bool, device=device)
     # Slot-strided framebuffer: work item w = chunk * S + slot at row w.
-    image = torch.zeros((padded_pixels, 3), dtype=f32, device=device)
+    image = torch.zeros((padded_pixels, 3), dtype=fdt, device=device)
     rays = torch.zeros((), dtype=i64, device=device)
     busy_total = torch.zeros((), dtype=i64, device=device)
 
@@ -281,7 +296,7 @@ def render_pool(
         # One (9, S) draw covers every decision of this bounce, including
         # the camera jitter (slots 7-8) of refilled lanes.
         keys = rng.pixel_sample_keys(key, pixel, sample)
-        u = rng.per_slot_uniforms(keys, bounce.to(i64))
+        u = rng.per_slot_uniforms(keys, bounce.to(i64), fdt)
         jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
         cam_o, cam_d = camera.generate_rays(
             pixel % width, (height - 1) - pixel // width, jitter)

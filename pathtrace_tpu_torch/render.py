@@ -4,13 +4,16 @@ accumulation, the checkpoint format and the display transform.
 Counterpart of ``pathtrace_tpu/render.py``. The whole frame (or one pixel
 chunk of it) is one wave of rays per sample, traced by
 :func:`~pathtrace_tpu_torch.integrators.trace_wave` and accumulated into an
-``(H, W, 3)`` float32 radiance sum on the scene's device. The accumulation
-state doubles as the progressive-rendering checkpoint; its ``.npz`` format
-is the JAX package's, so a checkpoint written by either package resumes in
-the other.
+``(H, W, 3)`` radiance sum on the scene's device, in the camera's dtype. The
+accumulation state doubles as the progressive-rendering checkpoint; its
+``.npz`` format is the JAX package's, so a checkpoint written by either
+package resumes in the other.
 
-Not ported yet: ``RenderConfig(dtype=float64)`` (ROADMAP Queue 1, item 4)
-and ``cast_floats``; the port renders in float32 only.
+``RenderConfig(dtype=torch.float64)`` renders in the reference's native
+precision: :func:`cast_floats` widens the scene, the camera and the state,
+as the JAX package does. float64 runs on the small intersection route
+(<= 64 triangles, <= 512 spheres); the other routes raise
+``NotImplementedError`` (ROADMAP Queue 1, item 4b).
 """
 
 from __future__ import annotations
@@ -39,15 +42,36 @@ class RenderConfig:
     samples_per_batch: int = 1           # samples traced per render_batch call
     num_light_samples: int = 1           # NEE light samples per vertex
     pixel_chunk: Optional[int] = None    # split the pixel wave to bound memory
-    dtype: Optional[object] = None       # None or float32; float64 is not ported
+    # Compute dtype of the whole estimator: None keeps the scene/camera
+    # dtypes (float32); torch.float64 is the reference's native precision.
+    dtype: Optional[object] = None
     method: str = "auto"                 # intersection route (intersect.resolve_route)
 
 
-def _check_dtype(dtype) -> None:
-    if dtype is not None and dtype not in (torch.float32, "float32", "f32"):
-        raise NotImplementedError(
-            f"dtype {dtype!r}: the port renders in float32 only; float64 is "
-            "ROADMAP Queue 1, item 4")
+_DTYPES = {torch.float32: torch.float32, torch.float64: torch.float64,
+           "float32": torch.float32, "f32": torch.float32,
+           "float64": torch.float64, "f64": torch.float64}
+
+
+def _float_dtype(dtype) -> torch.dtype:
+    """``torch.float32`` or ``torch.float64`` from a torch dtype or its
+    name (``"float64"``, ``"f64"``, ...); raises ``ValueError`` otherwise."""
+    try:
+        return _DTYPES[dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"dtype {dtype!r}: the estimator runs in float32 or float64") from None
+
+
+def cast_floats(obj, dtype):
+    """Cast every floating tensor field of ``obj`` (a :class:`Scene`,
+    :class:`Camera` or :class:`RenderState`) to ``dtype``, leaving integer
+    tensors (material ids, light prims) and plain fields alone. The
+    counterpart of the JAX ``cast_floats``; torch has no process-global x64
+    switch, so there is nothing to check."""
+    dtype = _float_dtype(dtype)
+    return dataclasses.replace(obj, **{
+        f.name: v.to(dtype) for f in dataclasses.fields(obj)
+        if isinstance(v := getattr(obj, f.name), torch.Tensor) and v.is_floating_point()})
 
 
 @dataclasses.dataclass
@@ -71,8 +95,9 @@ class RenderState:
 
     @classmethod
     def load(cls, path: str, device="cuda") -> "RenderState":
+        """The state of a checkpoint, its sum in the dtype it was saved in."""
         z = np.load(path)
-        return cls(torch.from_numpy(np.array(z["image_sum"], np.float32)).to(device),
+        return cls(torch.from_numpy(np.array(z["image_sum"])).to(device),
                    int(z["num_samples"]))
 
 
@@ -97,17 +122,19 @@ def render_batch(
     tables: intersect.Tables | None = None,
 ):
     """Radiance **sum** over ``samples_per_batch`` samples for each pixel id,
-    one wave per sample: ``((N, 3), ray queries)``."""
+    one wave per sample, in the camera's dtype: ``((N, 3), ray queries)``."""
     if tables is None:
         tables = intersect.build_tables(scene)
     px = pixel_ids % width
     py = pixel_ids // width
-    acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32, device=pixel_ids.device)
+    dtype = camera.origin.dtype
+    acc = torch.zeros((pixel_ids.shape[0], 3), dtype=dtype, device=pixel_ids.device)
     rays = 0
     for s in range(samples_per_batch):
         keys = rng.pixel_sample_keys(key, pixel_ids,
                                      torch.full_like(pixel_ids, sample_start + s))
-        o, d = camera.generate_rays(px, height - 1 - py, rng.primary_jitter(keys),
+        # Jitter in the camera dtype, as the pool draws it: the same samples.
+        o, d = camera.generate_rays(px, height - 1 - py, rng.primary_jitter(keys, dtype),
                                     transposed=False)
         radiance, n = trace_wave(scene, o, d, keys, integrator=integrator,
                                  max_bounces=max_bounces, return_stats=True,
@@ -124,8 +151,12 @@ def render(
     state: Optional[RenderState] = None,
     progress_callback=None,
 ) -> RenderState:
-    """Full render (or continuation of ``state``) on ``scene.device``."""
-    _check_dtype(config.dtype)
+    """Full render (or continuation of ``state``) on ``scene.device``, in
+    ``config.dtype`` (None: the scene/camera dtypes)."""
+    if config.dtype is not None:
+        scene, camera = cast_floats(scene, config.dtype), cast_floats(camera, config.dtype)
+        if state is not None:
+            state = cast_floats(state, config.dtype)
     w, h = config.width, config.height
     if (camera.width, camera.height) != (w, h):
         raise ValueError(f"camera {camera.width}x{camera.height}, config {w}x{h}")
@@ -134,7 +165,7 @@ def render(
     key = rng.base_key(config.seed, device)
     ids = pixel_grid(w, h, device)
     if state is None:
-        state = RenderState(torch.zeros((h, w, 3), dtype=torch.float32, device=device), 0)
+        state = RenderState(torch.zeros((h, w, 3), dtype=camera.origin.dtype, device=device), 0)
 
     image_sum = state.image_sum.to(device).reshape(-1, 3).clone()
     done, rays = state.num_samples, state.ray_queries
@@ -156,8 +187,11 @@ def render(
 
 
 def to_srgb_u8(image) -> np.ndarray:
-    """Gamma 2.0 (sqrt) and clamp to uint8: the reference's display transform."""
-    img = torch.as_tensor(image, dtype=torch.float32).cpu()
+    """Gamma 2.0 (sqrt) and clamp to uint8: the reference's display
+    transform, in the image's dtype (float32 for anything not floating)."""
+    img = torch.as_tensor(image).cpu()
+    if not img.is_floating_point():
+        img = img.to(torch.float32)
     g = torch.sqrt(torch.clamp_min(img, 0.0))
     return (torch.clamp(g, 0.0, 1.0) * 255.0).numpy().astype(np.uint8)
 

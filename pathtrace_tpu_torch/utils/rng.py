@@ -79,24 +79,38 @@ def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return mant.view(torch.float32) - 1.0
 
 
-def per_slot_uniforms(keys, bounces: torch.Tensor) -> torch.Tensor:
-    """The pool's per-iteration draw: ``uniform(fold_in(key, bounce), (9,))``
-    for every lane, in kernel layout ``(NUM_SLOTS, S)`` float32."""
+def bits_to_unit_double(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """JAX's float64 uniform from the two threefry words: the 64-bit word
+    ``(w0 << 32) | w1``, its top 52 bits as a mantissa in [1, 2), minus 1.
+    The mantissa is built as ``(w0 << 20) | (w1 >> 12)``: the whole word
+    would not fit in int64, whose ``>>`` is arithmetic."""
+    mant = (w0 << 20) | (w1 >> 12) | 0x3FF0000000000000
+    return mant.view(torch.float64) - 1.0
+
+
+def per_slot_uniforms(keys, bounces: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """The pool's per-iteration draw: ``uniform(fold_in(key, bounce), (9,),
+    dtype)`` for every lane, in kernel layout ``(NUM_SLOTS, S)``; ``dtype``
+    float32 (the words' XOR, as JAX draws 32 bits) or float64 (both words)."""
     k0, k1 = fold_in(keys, bounces)
     slots = torch.arange(NUM_SLOTS, dtype=torch.int64, device=k0.device)[:, None]
     b0, b1 = threefry2x32(k0[None, :], k1[None, :], torch.zeros_like(slots), slots)
+    if dtype == torch.float64:
+        return bits_to_unit_double(b0, b1)
+    if dtype != torch.float32:
+        raise ValueError(f"uniforms come in float32 or float64, not {dtype}")
     return bits_to_unit_float(b0 ^ b1)
 
 
-def bounce_uniforms(keys, bounce: int) -> torch.Tensor:
+def bounce_uniforms(keys, bounce: int, dtype=torch.float32) -> torch.Tensor:
     """The wave engine's draw for one bounce: the same stream as
     :func:`per_slot_uniforms`, laid out ``(N, NUM_SLOTS)``."""
-    return per_slot_uniforms(keys, torch.full_like(keys[0], bounce)).T
+    return per_slot_uniforms(keys, torch.full_like(keys[0], bounce), dtype).T
 
 
-def primary_jitter(keys) -> torch.Tensor:
+def primary_jitter(keys, dtype=torch.float32) -> torch.Tensor:
     """Sub-pixel jitter ``(N, 2)``: slots 7-8 of the bounce-0 draw."""
-    return bounce_uniforms(keys, 0)[:, SLOT_JITTER_X:SLOT_JITTER_Y + 1]
+    return bounce_uniforms(keys, 0, dtype)[:, SLOT_JITTER_X:SLOT_JITTER_Y + 1]
 
 
 # Key-fold namespace of NEE light samples beyond the first: sample j draws
