@@ -121,8 +121,9 @@ lanes of ``fused_bounce``:
     repeat ``CLUSTER_EXPECT``), device operations an iteration and the busy
     share (profiler over a 1-spp run).
 
-Float64, the reference's native precision (the fused pool and the small
-route; every scene widened from float32 by ``render.cast_floats``):
+Float64, the reference's native precision (the fused pool and the small,
+flat and bvh routes; every scene widened from float32 by
+``render.cast_floats``):
 
 3f. the float64 instances of ``fused_bounce`` and ``shadow_any_hit``
     against their float64 twins, bitwise, at every split, on 16,384 lanes of
@@ -130,6 +131,18 @@ route; every scene widened from float32 by ``render.cast_floats``):
     ``combined_closest_small`` and the one-tile ``any_hit`` at every team on
     phase 3c's 65,536 wave-Cornell lanes, 1,024 edge lanes and the small tie
     case; each timed against its bound at the FP64 peak;
+3g. float64 on the flat and bvh routes: the float64 instances of
+    ``sphere_closest`` (one tile and clustered), the clustered ``any_hit``,
+    ``triangle_closest``, ``bvh_closest`` (``counters=True`` too) and
+    ``bvh_anyhit`` against their float64 twins, bitwise, at every team
+    (1-32), on the lanes of phases 3b, 3c and 3e widened to float64: the
+    65,536 config-4 rays and shadow rays, the sphere field's first 16,384,
+    ``mesh_scene(2000)``'s 65,536; the edge lanes and tie cases in float64;
+    each timed by events and queued at the host's team and at every team,
+    beside its float32 instance, bound at the FP64 peak; config 4 and the
+    sphere field at 1920x1080, 1 spp, in float64 on the composed pool
+    (rays within 2% of the float32 frames'), and ``mesh_scene(2000)`` at
+    32x32 in float64 on the card against the CPU twins;
 8.  float64 frames: the Cornell 128x128 pool frame and a 64x64, 2-spp wave
     Cornell frame on the card against the CPU twins (equal rays and
     iterations); many_spheres at 1920x1080, 4 spp, 32 bounces, 16,384 slots,
@@ -150,9 +163,10 @@ Parity against the C++ oracle (``csrc/oracle.cpp`` through
     samples against the oracle's window; and the golden image's window
     ``[240:244, 190:198]`` re-rendered bitwise at 8,192 spp.
 
-The next-to-last lines are the kernels' JSON record (twenty entries: the
-twelve kernels, the four further modes and the four float64 instances
-(``*_f64``, bound at the FP64 peak), each with its time, its twin's,
+The next-to-last lines are the kernels' JSON record (twenty-seven entries:
+the twelve kernels, the four further modes and the eleven float64 instances
+(``*_f64``, bound at the FP64 peak; phase 3g's seven also with ``ms_f32``,
+the float32 instance's time on the same lanes), each with its time, its twin's,
 its launches on its path and its roofline bound; the pool's two kernels with
 the host's split and their time at every split, the BVH pair with the host's
 team, its time at every team and its work a ray, ``bvh_closest_counters`` with its launches in
@@ -308,6 +322,29 @@ F64_KERNELS = {
     "any_hit_f64": ("pathtrace_tpu_torch/csrc/intersect.cu",
                     "pathtrace_tpu/ops/pallas_intersect.py:679"),
 }
+# Float64 on the flat and bvh routes (phase 3g): the instances, by launch
+# counter name.
+F64_ROUTE_KERNELS = {
+    "sphere_closest_f64": ("pathtrace_tpu_torch/csrc/intersect.cu",
+                           "pathtrace_tpu/ops/pallas_intersect.py:240"),
+    "sphere_closest_clustered_f64": ("pathtrace_tpu_torch/csrc/intersect.cu",
+                                     "pathtrace_tpu/ops/pallas_intersect.py:240"),
+    "any_hit_clustered_f64": ("pathtrace_tpu_torch/csrc/intersect.cu",
+                              "pathtrace_tpu/ops/pallas_intersect.py:679"),
+    "triangle_closest_f64": ("pathtrace_tpu_torch/csrc/triangle_closest.cu",
+                             "pathtrace_tpu/ops/pallas_intersect.py:448"),
+    "bvh_closest_f64": ("pathtrace_tpu_torch/csrc/bvh.cu",
+                        "pathtrace_tpu/ops/bvh_intersect.py:388"),
+    "bvh_closest_counters_f64": ("pathtrace_tpu_torch/csrc/bvh.cu",
+                                 "pathtrace_tpu/ops/bvh_intersect.py:388"),
+    "bvh_anyhit_f64": ("pathtrace_tpu_torch/csrc/bvh.cu",
+                       "pathtrace_tpu/ops/bvh_intersect.py:596"),
+}
+# The phase 3g frame whose launches an instance's entry reports (else the
+# sphere field's): config 4's, or mesh_scene(2000)'s 32x32 frame.
+F64_FRAME_OF = {"sphere_closest_f64": "config4", "bvh_closest_f64": "config4",
+                "bvh_anyhit_f64": "config4", "triangle_closest_f64": "flat"}
+F64_RAYS_RTOL = 0.02        # a float64 frame's rays against the float32 frame's
 F64_WAVE = dict(width=64, height=64, spp=2, integrator="mis", max_bounces=64, seed=0)
 F64_FRAME = dict(width=1920, height=1080, spp=4, integrator="mis", max_bounces=32,
                  num_slots=16384, seed=0)
@@ -773,7 +810,7 @@ def tie_rays(dev):
             torch.tensor([5.0, 4.5] * (m // 2), device=dev))
 
 
-def sphere_tie_tables(dev, upper_cluster):
+def sphere_tie_tables(dev, upper_cluster, dtype=torch.float32):
     """Clustered sphere tables in a given row order (the scene builder would
     reorder the spheres): sphere A (row 0, cluster 0) and its copy B (the
     first row of ``upper_cluster``), unit spheres at (0, 0, -1) whose top
@@ -783,16 +820,17 @@ def sphere_tie_tables(dev, upper_cluster):
     off the rays' path, so it is entered first, at about t = 1.5. Every
     other row is a small sphere at (20, 20, -5). The brute-force answer is
     A, the lower row. Returns ``(sph, box, B's row)``: ``Tables.sph`` and
-    ``Tables.sph_box`` rows (``intersect.sphere_cluster_boxes``)."""
+    ``Tables.sph_box`` rows (``intersect.sphere_cluster_boxes``), in
+    ``dtype``."""
     import types
 
     from pathtrace_tpu_torch.ops import intersect
 
     n = (upper_cluster + 1) * 256
     b = upper_cluster * 256
-    center = torch.tensor([20.0, 20.0, -5.0], device=dev).repeat(n, 1)
-    radius = torch.full((n,), 0.1, device=dev)
-    mat = torch.zeros(n, device=dev)
+    center = torch.tensor([20.0, 20.0, -5.0], dtype=dtype, device=dev).repeat(n, 1)
+    radius = torch.full((n,), 0.1, dtype=dtype, device=dev)
+    mat = torch.zeros(n, dtype=dtype, device=dev)
     for r, m in ((0, 1.0), (b, 2.0)):                  # A and B, told apart by material
         center[r] = torch.tensor([0.0, 0.0, -1.0])
         radius[r], mat[r] = 1.0, m
@@ -809,6 +847,13 @@ def sphere_tie_tables(dev, upper_cluster):
 
 
 SPHERE_TIE_RAYS = ((0.0, 0.0), (0.3, -0.2), (-0.5, 0.4), (0.1, 0.6))   # (x, y) over A and B
+
+
+def widen_tables(tables, dtype):
+    """``tables`` (an ``intersect.Tables``) with its float tables in
+    ``dtype`` (float32 widened exactly to float64)."""
+    return tables._replace(**{k: getattr(tables, k).to(dtype)
+                              for k in ("tri", "leaf", "group", "sph", "sph_box")})
 
 
 def small_tie_tables(dev, dtype=torch.float32):
@@ -886,7 +931,7 @@ def hold_bvh_kernels(what, tables, closest, shadow):
 
     def scrub():
         for x in out + counts + a_counts:
-            x.fill_(float("nan") if x.dtype == torch.float32 else -7)
+            x.fill_(float("nan") if x.is_floating_point() else -7)
         occ.copy_(~ref_occ)
 
     for team in binding.TEAMS:
@@ -910,22 +955,23 @@ def bvh_edge_cases(dev, tables, o, d, so, sd, lo):
     -1, 0 (below t_min), t_min itself and inf; and the tie case
     (:func:`tie_tables`, the upper leaf in the same group and in the next
     one), where the kernels must return the lower row, with shadow t_max 5
-    (the hit lies at t_max) and 4.5 (no hit)."""
+    (the hit lies at t_max) and 4.5 (no hit). All in the lanes' dtype."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.ops import intersect, shade
 
     n = 1024
-    hi = torch.full((n,), float("inf"), device=dev)
-    st = torch.full((n,), 6.0, device=dev)
+    hi = torch.full((n,), float("inf"), dtype=o.dtype, device=dev)
+    st = torch.full((n,), 6.0, dtype=o.dtype, device=dev)
     for k, v in enumerate((float("nan"), -1.0, 0.0, shade.EPS, float("inf"))):
         hi[k::7] = v
         st[k::7] = v
     e = (o[:n], d[:n], lo[:n], hi), (so[:n], sd[:n], lo[:n], st)
     hold_bvh_kernels("edge lanes", tables, (*e[0], intersect.bvh_closest_reference(tables, *e[0])),
                      (*e[1], intersect.bvh_anyhit_reference(tables, *e[1])))
-    to, td, tlo, thi, tst = tie_rays(dev)
+    to, td, tlo, thi, tst = (x.to(o.dtype) for x in tie_rays(dev))
     for upper in (1, 16):
         tt, b = tie_tables(dev, upper)
+        tt = widen_tables(tt, o.dtype)
         ref = intersect.bvh_closest_reference(tt, to, td, tlo, thi)
         if not ((ref[0] == 5.0).all() and (ref[1] == 0).all()):
             raise AssertionError(f"tie case (upper leaf {upper}): twin gave {ref[:2]}")
@@ -935,9 +981,10 @@ def bvh_edge_cases(dev, tables, o, d, so, sd, lo):
         if not ((model[5] == 2).all() and torch.equal(a_model[0], tst == 5.0)):
             raise AssertionError(f"tie case (upper leaf {upper}): leaves swept {model[5]}, "
                                  f"occlusion {a_model[0]}")
-    log(f"[mesh-kernels] edge lanes: bvh_closest and bvh_anyhit bitwise equal to their twins, "
-        f"their counts to the model's, at teams {list(binding.TEAMS)}, on {n} mesh lanes with t_max NaN, -1, 0, t_min, inf, and the tie case "
-        f"(B at row 128 and at row 2048, entered first): row 0, both leaves swept")
+    log(f"[mesh-kernels] edge lanes ({o.dtype}): bvh_closest and bvh_anyhit bitwise equal to "
+        f"their twins, their counts to the model's, at teams {list(binding.TEAMS)}, on {n} mesh "
+        f"lanes with t_max NaN, -1, 0, t_min, inf, and the tie case (B at row 128 and at row "
+        f"2048, entered first): row 0, both leaves swept")
 
 
 def check_mesh_kernels(dev, scene, camera):
@@ -1810,7 +1857,8 @@ def check_wave_kernels(dev):
     (:func:`small_tie_tables`; :func:`tie_tables` on flat tables, B in the
     next cluster and in cluster 7); every team timed. Returns the worst
     errors, times, bounds, the kernels' teams and times by team, and the
-    flat route's tables and shadow lanes ``(tables, o, d, t_max)``."""
+    flat route's tables, shadow lanes and closest-hit rays ``(tables, o, d,
+    t_max, o, d)``."""
     from pathtrace_tpu_torch.kernels import binding
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import intersect, shade
@@ -1862,7 +1910,7 @@ def check_wave_kernels(dev):
         extra.setdefault(kname, {"team": team, "ms_by_team": by_team, "queued_ms": q_ms})
         tri_box = None if small else tables.leaf              # as occluded() passes it
         if not small:
-            flat = (tables, so, sd, st)
+            flat = (tables, so, sd, st, o, d)
         blocked = same_occ(intersect.any_hit_reference(tables.sph, tri, so, sd, lo, st),
                            intersect.any_hit(tables.sph, tri, so, sd, lo, st, tri_box=tri_box))
         a_ms = cuda_ms(lambda: binding.launch_any_hit(tables.sph, tri, so, sd, lo, st, occ_k,
@@ -2077,7 +2125,7 @@ def hold_cluster_kernels(what, sph, box, closest, shadow, tri=None, tri_box=None
     for team in binding.TEAMS:
         if closest is not None:
             for x in out:
-                x.fill_(float("nan") if x.dtype == torch.float32 else -7)
+                x.fill_(float("nan") if x.is_floating_point() else -7)
             binding.launch_sphere_closest(sph, o, d, lo, hi, *out, box=box, team=team)
             _bitwise(f"sphere_closest_clustered, {what}, team {team}", ref, out)
         occ.copy_(~ref_occ)
@@ -2093,15 +2141,15 @@ def cluster_edge_lanes(dev, tables, o, d, so, sd, lo, n=1024, seed=0):
     at its spheres; ``n`` grazing rays aimed at sphere silhouettes from up to
     ~100 away, a third with directions up to 1e-3 off unit length (the cases
     the sphere boxes' pad covers). Returns closest ``(o, d, t_min, t_max)``
-    and shadow ``(o, d, t_min, t_max)`` lanes."""
+    and shadow ``(o, d, t_min, t_max)`` lanes, in the dtype of ``o``."""
     from pathtrace_tpu_torch.ops import shade
 
     g = np.random.default_rng(seed)
 
     def t(a):
-        return torch.tensor(a, dtype=torch.float32, device=dev)
+        return torch.tensor(a, dtype=o.dtype, device=dev)
 
-    hi = torch.full((n,), float("inf"), device=dev)
+    hi = torch.full((n,), float("inf"), dtype=o.dtype, device=dev)
     st = t(g.uniform(0.05, 60.0, n))
     for k, v in enumerate((float("nan"), -1.0, 0.0, shade.EPS, float("inf"))):
         hi[k::7] = v
@@ -2122,8 +2170,8 @@ def cluster_edge_lanes(dev, tables, o, d, so, sd, lo, n=1024, seed=0):
     ed /= np.linalg.norm(ed, axis=1, keepdims=True)
     ed[n:] *= np.where(g.random(n) < 0.3, 1 + g.uniform(-1e-3, 1e-3, n), 1.0)[:, None]
     eo, ed = t(eo), t(ed)
-    inf = torch.full((2 * n,), float("inf"), device=dev)
-    elo = torch.full((2 * n,), shade.EPS, device=dev)
+    inf = torch.full((2 * n,), float("inf"), dtype=o.dtype, device=dev)
+    elo = torch.full((2 * n,), shade.EPS, dtype=o.dtype, device=dev)
     return ((torch.cat([o[:n], eo]), torch.cat([d[:n], ed]), torch.cat([lo[:n], elo]),
              torch.cat([hi, inf])),
             (torch.cat([so[:n], eo]), torch.cat([sd[:n], ed]), torch.cat([lo[:n], elo]),
@@ -2144,17 +2192,18 @@ def check_cluster_edges(dev, tables, lanes):
     ref_occ = intersect.any_hit_reference(tables.sph, tri, *s)
     hold_cluster_kernels("edge lanes", tables.sph, box, (*c, ref), (*s, ref_occ), tri,
                          tables.leaf)
+    dt = lanes[0].dtype
     for upper in (1, 2):
-        sph, tbox, b = sphere_tie_tables(dev, upper)
+        sph, tbox, b = sphere_tie_tables(dev, upper, dt)
         m = len(SPHERE_TIE_RAYS)
-        to = torch.tensor([[x, y, 5.0] for x, y in SPHERE_TIE_RAYS], device=dev)
-        td = torch.tensor([[0.0, 0.0, -1.0]] * m, device=dev)
-        tlo = torch.full((m,), 1e-3, device=dev)
-        thi = torch.full((m,), float("inf"), device=dev)
+        to = torch.tensor([[x, y, 5.0] for x, y in SPHERE_TIE_RAYS], dtype=dt, device=dev)
+        td = torch.tensor([[0.0, 0.0, -1.0]] * m, dtype=dt, device=dev)
+        tlo = torch.full((m,), 1e-3, dtype=dt, device=dev)
+        thi = torch.full((m,), float("inf"), dtype=dt, device=dev)
         tref = intersect.sphere_closest_reference(sph, to, td, tlo, thi)
         if not (tref[1] == 0).all():
             raise AssertionError(f"sphere tie case (B at row {b}): twin gave {tref[:2]}")
-        tst = tref[0] - torch.tensor([0.0, 0.5] * (m // 2), device=dev)
+        tst = tref[0] - torch.tensor([0.0, 0.5] * (m // 2), dtype=dt, device=dev)
         model, a_model = hold_cluster_kernels(
             f"sphere tie case, B at row {b}", sph, tbox, (to, td, tlo, thi, tref),
             (to, td, tlo, tst, intersect.any_hit_reference(sph, sph.new_zeros((0, 16)), to, td,
@@ -2162,17 +2211,18 @@ def check_cluster_edges(dev, tables, lanes):
         if not ((model[4] == 2).all() and torch.equal(a_model[0], tst == tref[0])):
             raise AssertionError(f"sphere tie case (B at row {b}): clusters visited {model[4]}, "
                                  f"occlusion {a_model[0]}")
-    log(f"[cluster-kernels] edge lanes: sphere_closest_clustered and any_hit_clustered bitwise "
-        f"equal to their twins at every team on {c[0].shape[0]} lanes (field lanes with t_max "
-        f"NaN, -1, 0, t_min, inf; rays from 150-200 away; grazing rays) and on the sphere tie "
-        f"case (B at row 256 and 512, its cluster entered first): row 0, both clusters swept")
+    log(f"[cluster-kernels] edge lanes ({dt}): sphere_closest_clustered and any_hit_clustered "
+        f"bitwise equal to their twins at every team on {c[0].shape[0]} lanes (field lanes "
+        f"with t_max NaN, -1, 0, t_min, inf; rays from 150-200 away; grazing rays) and on the "
+        f"sphere tie case (B at row 256 and 512, its cluster entered first): row 0, both "
+        f"clusters swept")
 
 
 def check_clustered_kernels(dev, flat):
     """Phase 3e: the clustered sphere_closest and any_hit against their twins,
     bitwise, at every team size 1-32: the sphere field's 65,536 lanes and
     their first 16,384, the flat ``mesh_scene(2000)`` shadow lanes of phase
-    3c (``flat``: ``(tables, o, d, t_max)``) with the triangle boxes, the
+    3c (``flat``: ``(tables, o, d, t_max, ...)``) with the triangle boxes, the
     field's edge lanes and the cross-cluster tie; every team timed at both
     lane counts, the flat any hit at 65,536; the walk's work a ray against
     the bound's. Then fused_bounce with its ON/PBR lanes against its twin at
@@ -2213,7 +2263,7 @@ def check_clustered_kernels(dev, flat):
     hold_cluster_kernels(f"field, first {n} lanes", tables.sph, box,
                          (o[:n], d[:n], lo[:n], hi[:n], tuple(x[:n] for x in ref_s)),
                          (so[:n], sd[:n], lo[:n], st[:n], ref_occ[:n]), tri, tables.leaf)
-    ft, fo, fd, fst = flat
+    ft, fo, fd, fst = flat[:4]
     ftri = ft.tri[:ft.tri_rows]
     flo = torch.full((fo.shape[0],), shade.EPS, device=dev)
     f_occ = intersect.any_hit_reference(ft.sph, ftri, fo, fd, flo, fst)
@@ -2345,7 +2395,7 @@ def check_clustered_kernels(dev, flat):
         f"split; ms (fused, shadow) by split {json.dumps(ms_split)}; twin "
         f"{ms['fused_bounce_on_pbr']['twin'][0]:.4f} ms; bound "
         f"{json.dumps(bounds['fused_bounce_on_pbr'])}")
-    return worst, ms, bounds, at_slice, extra
+    return worst, ms, bounds, at_slice, extra, (tables, o, d, so, sd, st)
 
 
 def run_cluster_frames(dev):
@@ -2769,6 +2819,372 @@ def check_f64_kernels(dev):
     return worst, ms, bounds, extra
 
 
+def timed_once(fn):
+    """``(fn(), ms)``: one call between CUDA events (the float64 twins,
+    0.01-2 s a call, are timed on the call that gives the reference)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def teams_bitwise(name, ref, launch):
+    """``launch(team, out)`` at every team size into outputs shaped as
+    ``ref`` (scrubbed first), bitwise equal to ``ref``."""
+    from pathtrace_tpu_torch.kernels import binding
+
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for team in binding.TEAMS:
+        out = tuple(torch.full_like(x, float("nan") if x.is_floating_point() else -7)
+                    if x.dtype != torch.bool else ~x for x in ref)
+        launch(team, out)
+        _bitwise(f"{name}, team {team}", ref, out)
+
+
+def check_f64_route_kernels(dev, mesh, lanes, flat, field):
+    """Phase 3g, kernels: the float64 instances of the flat and bvh routes
+    against their float64 twins on the card, bitwise, at every team size
+    1-32, on the lanes of phases 3b, 3c and 3e widened to float64 (exact):
+    ``bvh_closest`` (also ``counters=True`` against the walk model),
+    ``bvh_anyhit``, ``sphere_closest`` and the one-tile ``any_hit`` on the
+    65,536 config-4 lanes (``lanes``), with :func:`bvh_edge_cases`;
+    the clustered ``sphere_closest``/``any_hit`` and ``triangle_closest``
+    on the first 16,384 lanes of the sphere field (``field``), with
+    :func:`check_cluster_edges`; ``triangle_closest`` and the flat any hit
+    on ``mesh_scene(2000)``'s 65,536 lanes (``flat``), edge lanes and the
+    flat tie case. Each timed by events and queued at the host's team, at
+    every team, its twin on the call that gives the reference, the float32
+    instance on the float32 lanes beside it; bounds at the FP64 peak.
+    Scenes are the float32 ones widened (``render.cast_floats``)."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import intersect, shade
+    from pathtrace_tpu_torch.render import cast_floats
+
+    f64, i32, inf = torch.float64, torch.int32, float("inf")
+    worst, ms, bounds, extra = {}, {}, {}, {}
+
+    def outs(o):
+        n = o.shape[0]
+        return (torch.empty(n, dtype=o.dtype, device=dev), torch.empty(n, dtype=i32, device=dev),
+                torch.empty((n, 3), dtype=o.dtype, device=dev),
+                torch.empty(n, dtype=i32, device=dev))
+
+    def record(k, err, by_team, team, twin_ms, bnd, q_ms, f32_ms, **more):
+        worst[k] = err
+        ms[k] = (by_team[team], twin_ms)
+        bounds[k] = bnd
+        extra[k] = {"team": team, "ms_by_team": by_team, "queued_ms": q_ms, "ms_f32": f32_ms,
+                    **more}
+
+    # Config 4 (the bvh route): phase 3b's lanes, widened.
+    S = MESH_S
+    t32 = intersect.build_tables(mesh)
+    tables = intersect.build_tables(cast_floats(mesh, f64))
+    o, d, lo, so, sd, st = (lanes[k].to(f64) for k in ("o", "d", "lo", "so", "sd", "st"))
+    hi = torch.full((S,), inf, dtype=f64, device=dev)
+    ref_s, s_twin = timed_once(lambda: intersect.sphere_closest_reference(tables.sph, o, d, lo,
+                                                                          hi))
+    err_s = _bitwise("sphere_closest f64", ref_s,
+                     intersect.sphere_closest(tables.sph, o, d, lo, hi))
+    hi_t = torch.minimum(hi, ref_s[0])
+    ref_t, t_twin = timed_once(lambda: intersect.bvh_closest_reference(tables, o, d, lo, hi_t))
+    err_t = _bitwise("bvh_closest f64", ref_t, intersect.bvh_closest(tables, o, d, lo, hi_t))
+    ref_occ, a_twin = timed_once(lambda: intersect.bvh_anyhit_reference(tables, so, sd, lo, st))
+    _bitwise("bvh_anyhit f64", ref_occ, intersect.bvh_anyhit(tables, so, sd, lo, st))
+    no_tris = tables.tri[:0]
+    ref_socc = intersect.any_hit_reference(tables.sph, no_tris, so, sd, lo, st)
+    _bitwise("any_hit f64, config-4 spheres", ref_socc,
+             intersect.any_hit(tables.sph, no_tris, so, sd, lo, st))
+    model, a_model = hold_bvh_kernels("config-4 lanes f64", tables, (o, d, lo, hi_t, ref_t),
+                                      (so, sd, lo, st, ref_occ))
+    _, m_twin = timed_once(lambda: intersect.bvh_traversal_reference(tables, o, d, lo, hi_t,
+                                                                     chunk=S))
+    shade.LAUNCHES.clear()
+    sums = tuple(intersect.bvh_span_sums(c, S) for c in model[4:])
+    err_c = _bitwise("bvh_closest(counters=True) f64 vs the model's per-span sums", ref_t + sums,
+                     intersect.bvh_closest(tables, o, d, lo, hi_t, counters=True))
+    counter_launches = shade.LAUNCHES["bvh_closest_counters_f64"]
+    bvh_edge_cases(dev, tables, o, d, so, sd, lo)
+    teams_bitwise("sphere_closest f64", ref_s, lambda team, out: binding.launch_sphere_closest(
+        tables.sph, o, d, lo, hi, *out, team=team))
+    teams_bitwise("any_hit f64, config-4 spheres", ref_socc, lambda team, out: (
+        binding.launch_any_hit(tables.sph, no_tris, so, sd, lo, st, *out, team=team)))
+
+    out, out32 = outs(o), outs(lanes["o"])
+    counts = (torch.empty(S, dtype=i32, device=dev), torch.empty(S, dtype=i32, device=dev))
+    occ = torch.empty(S, dtype=torch.bool, device=dev)
+    l32 = [lanes[k] for k in ("o", "d", "lo", "hi_t", "so", "sd", "st")]
+    by_team = {team: (
+        cuda_ms(lambda: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out, team=team)),
+        cuda_ms(lambda: binding.launch_bvh_anyhit(tables, so, sd, lo, st, occ, team=team)),
+        cuda_ms(lambda: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out, counts=counts,
+                                                   team=team)),
+        cuda_ms(lambda: binding.launch_sphere_closest(tables.sph, o, d, lo, hi, *out,
+                                                      team=team)))
+        for team in binding.TEAMS}
+    q = (queued_ms(lambda: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out)),
+         queued_ms(lambda: binding.launch_bvh_anyhit(tables, so, sd, lo, st, occ)),
+         queued_ms(lambda: binding.launch_bvh_closest(tables, o, d, lo, hi_t, *out,
+                                                      counts=counts)),
+         queued_ms(lambda: binding.launch_sphere_closest(tables.sph, o, d, lo, hi, *out)))
+    f32 = (cuda_ms(lambda: binding.launch_bvh_closest(t32, *l32[:4], *out32)),
+           cuda_ms(lambda: binding.launch_bvh_anyhit(t32, l32[4], l32[5], l32[2], l32[6],
+                                                     occ)),
+           cuda_ms(lambda: binding.launch_bvh_closest(t32, *l32[:4], *out32, counts=counts)),
+           cuda_ms(lambda: binding.launch_sphere_closest(t32.sph, l32[0], l32[1], l32[2],
+                                                         lanes["lo"].new_full((S,), inf),
+                                                         *out32)))
+    rays, c_out = nbytes(o, d, lo, hi), nbytes(*out)
+    tri_bytes = nbytes(tables.tri, tables.leaf, tables.group)
+    need_c = closest_tests(tables.leaf, intersect.LEAF, o, d, lo, hi_t, ref_t[0])
+    need_a = anyhit_tests(tables.leaf, intersect.LEAF, so, sd, lo, st, ref_occ)
+    mesh_bounds = (
+        bound(rays + tri_bytes + c_out, TRI_OPS * need_c, PEAK_FP64),
+        bound(nbytes(so, sd, lo, st, occ) + tri_bytes, TRI_OPS * need_a, PEAK_FP64),
+        bound(rays + tri_bytes + c_out + nbytes(*counts), TRI_OPS * need_c, PEAK_FP64),
+        bound(rays + nbytes(tables.sph) + c_out, S * tables.sph.shape[0] * SPH_OPS,
+              PEAK_FP64))
+    per_ray = {"groups": model[4].double().mean().item(),
+               "leaves": model[5].double().mean().item(), "bound_tests": need_c / S}
+    a_per_ray = {"groups": a_model[1].double().mean().item(),
+                 "leaves": a_model[2].double().mean().item(), "bound_tests": need_a / S}
+    for which, (k, team, twin, err, more) in enumerate((
+            ("bvh_closest_f64", binding._bvh_team(tables, None, "bvh_closest"), t_twin, err_t,
+             {"per_ray": per_ray}),
+            ("bvh_anyhit_f64", binding._bvh_team(tables, None, "bvh_anyhit"), a_twin, 0.0,
+             {"per_ray": a_per_ray}),
+            ("bvh_closest_counters_f64", binding._bvh_team(tables, None, "bvh_closest"), m_twin,
+             err_c, {}),
+            ("sphere_closest_f64", binding.cluster_team("sphere_closest", (tables.sph, None)),
+             s_twin, err_s, {}))):
+        record(k, err, {t: v[which] for t, v in by_team.items()}, team, twin,
+               mesh_bounds[which], q[which], f32[which], **more)
+    log(f"[f64-routes] config 4 float64, {S} lanes: sphere_closest ({int((ref_s[1] >= 0).sum())} "
+        f"hits), bvh_closest ({int((ref_t[1] >= 0).sum())} hits, counters too), bvh_anyhit "
+        f"({int(ref_occ.sum())} blocked) and any_hit bitwise equal to their float64 twins at "
+        f"every team, on edge lanes and the tie case; ms by team (closest, any hit, counters, "
+        f"spheres) {json.dumps(by_team)}; queued {q}; float32 {f32}; twins {t_twin:.1f}, "
+        f"{a_twin:.1f}, {m_twin:.1f}, {s_twin:.2f} ms; per ray {per_ray}, {a_per_ray}")
+
+    # The sphere field (clustered spheres, the flat route's 2 triangles):
+    # phase 3e's first 16,384 lanes, widened.
+    ft32, fo, fd, fso, fsd, fst = field
+    n = SLICE_S
+    ft = intersect.build_tables(cast_floats(sphere_field(dev), f64))
+    box, tri = ft.sph_box, ft.tri[:ft.tri_rows]
+    o, d, so, sd, st = (x[:n].to(f64) for x in (fo, fd, fso, fsd, fst))
+    lo = torch.full((n,), shade.EPS, dtype=f64, device=dev)
+    hi = torch.full((n,), inf, dtype=f64, device=dev)
+    ref_s, s_twin = timed_once(lambda: intersect.sphere_closest_reference(ft.sph, o, d, lo, hi))
+    err_s = _bitwise("sphere_closest_clustered f64", ref_s,
+                     intersect.sphere_closest(ft.sph, o, d, lo, hi, box=box))
+    ref_occ, a_twin = timed_once(lambda: intersect.any_hit_reference(ft.sph, tri, so, sd, lo, st))
+    _bitwise("any_hit_clustered f64", ref_occ,
+             intersect.any_hit(ft.sph, tri, so, sd, lo, st, sph_box=box, tri_box=ft.leaf))
+    c_model, ca_model = hold_cluster_kernels("field f64, first 16384 lanes", ft.sph, box,
+                                             (o, d, lo, hi, ref_s), (so, sd, lo, st, ref_occ),
+                                             tri, ft.leaf)
+    check_cluster_edges(dev, ft, (o, d, so, sd, lo))
+    fl = (o, d, lo, torch.minimum(hi, ref_s[0]))
+    ref_ft, ft_twin = timed_once(lambda: intersect.triangle_closest_reference(ft, *fl))
+    hold_wave_kernel("triangle_closest", "field f64, first 16384 lanes", ft, *fl)
+    out, out32 = outs(o), outs(fo[:n])
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    f32l = (fo[:n], fd[:n], lanes["lo"][:n], torch.full((n,), inf, device=dev))
+    ftri32 = ft32.tri[:ft32.tri_rows]
+    by_team = {team: (
+        cuda_ms(lambda: binding.launch_sphere_closest(ft.sph, o, d, lo, hi, *out, box=box,
+                                                      team=team)),
+        cuda_ms(lambda: binding.launch_any_hit(ft.sph, tri, so, sd, lo, st, occ, sph_box=box,
+                                               tri_box=ft.leaf, team=team)))
+        for team in binding.TEAMS}
+    host = (binding.cluster_team("sphere_closest", (ft.sph, box)),
+            binding.cluster_team("any_hit", (ft.sph, box), (tri, ft.leaf)))
+    q = (queued_ms(lambda: binding.launch_sphere_closest(ft.sph, o, d, lo, hi, *out, box=box)),
+         queued_ms(lambda: binding.launch_any_hit(ft.sph, tri, so, sd, lo, st, occ, sph_box=box,
+                                                  tri_box=ft.leaf)))
+    f32 = (cuda_ms(lambda: binding.launch_sphere_closest(ft32.sph, *f32l, *out32,
+                                                         box=ft32.sph_box)),
+           cuda_ms(lambda: binding.launch_any_hit(ft32.sph, ftri32, fso[:n], fsd[:n], f32l[2],
+                                                  fst[:n], occ, sph_box=ft32.sph_box,
+                                                  tri_box=ft32.leaf)))
+    tri_by_team = team_times("triangle_closest", ft, *fl)
+    tri_team = binding.flat_team(ft)
+    tri_q = queued_ms(lambda: binding.launch_triangle_closest(ft, *fl, *out))
+    tri_bound = bound(nbytes(*fl, tri, ft.leaf, *out),
+                      TRI_OPS * closest_tests(ft.leaf, real_rows(ft), *fl, ref_ft[0]), PEAK_FP64)
+    per_box = torch.clamp(ft.sph.shape[0] - 256 * torch.arange(box.shape[0], device=dev), 0, 256)
+    free = ~ref_occ
+    rows_c = closest_tests(box, per_box, o, d, lo, hi, ref_s[0])
+    rows_s = entered_rows(box, per_box, so[free], sd[free], lo[free], st[free])
+    rows_t = entered_rows(ft.leaf, ft.tri_rows, so[free], sd[free], lo[free], st[free])
+    n_occ = int(ref_occ.sum())
+    field_bounds = (
+        bound(nbytes(o, d, lo, hi, ft.sph, box, *out), SPH_OPS * rows_c, PEAK_FP64),
+        bound(nbytes(so, sd, lo, st, occ, ft.sph, box, tri, ft.leaf),
+              SPH_OPS * (rows_s + n_occ) + TRI_OPS * rows_t, PEAK_FP64))
+    for which, (k, twin, err, res) in enumerate((
+            ("sphere_closest_clustered_f64", s_twin, err_s, c_model),
+            ("any_hit_clustered_f64", a_twin, 0.0, ca_model))):
+        visited, tested = res[-2:]
+        record(k, err, {t: v[which] for t, v in by_team.items()}, host[which], twin,
+               field_bounds[which], q[which], f32[which], lanes=n,
+               per_ray={"clusters": visited.double().mean().item(),
+                        "rows": tested.double().mean().item()})
+    field_tri = {"team_16384": tri_team, "ms_16384": tri_by_team[tri_team],
+                 "queued_ms_16384": tri_q, "plain_ms_16384": ft_twin,
+                 "bound_ms_16384": tri_bound["bound_ms"], "bound_by_16384": tri_bound["bound_by"],
+                 "ms_by_team_16384": tri_by_team}
+    log(f"[f64-routes] sphere field float64 ({ft.sph.shape[0]} spheres, {box.shape[0]} clusters), "
+        f"first {n} lanes: sphere_closest_clustered ({int((ref_s[1] >= 0).sum())} hits), "
+        f"any_hit_clustered ({n_occ} blocked) and triangle_closest "
+        f"({int((ref_ft[1] >= 0).sum())} hits) bitwise equal to their float64 twins at every team, "
+        f"on edge lanes and the sphere tie case; (closest, any hit) ms by team "
+        f"{json.dumps(by_team)}; queued {q}; float32 {f32}; twins {s_twin:.2f}, {a_twin:.2f} ms; "
+        f"triangle_closest {json.dumps(field_tri)}; bounds {json.dumps(field_bounds)}")
+
+    # mesh_scene(2000) (the flat route): phase 3c's lanes, widened.
+    mt32, mso, msd, mst, mo, md = flat
+    S = WAVE_S
+    mt = intersect.build_tables(cast_floats(scenes.mesh_scene(FLAT_TRIS, device=dev), f64))
+    o, d, so, sd, st = (x.to(f64) for x in (mo, md, mso, msd, mst))
+    lo = torch.full((S,), shade.EPS, dtype=f64, device=dev)
+    hi = torch.full((S,), inf, dtype=f64, device=dev)
+    hi_k = torch.minimum(hi, intersect.sphere_closest_reference(mt.sph, o, d, lo, hi)[0])
+    ref, t_twin = timed_once(lambda: intersect.triangle_closest_reference(mt, o, d, lo, hi_k))
+    hold_wave_kernel("triangle_closest", f"mesh_{FLAT_TRIS} f64, {S} lanes", mt, o, d, lo, hi_k)
+    err_t = _bitwise("triangle_closest f64", ref, intersect.triangle_closest(mt, o, d, lo, hi_k))
+    hold_wave_kernel("triangle_closest", f"mesh_{FLAT_TRIS} f64, edge lanes", mt, o[:EDGE_N],
+                     d[:EDGE_N], *edge_ranges(lo, hi_k, ref[0], EDGE_N))
+    to, td, tlo, thi, _ = (x.to(f64) for x in tie_rays(dev))
+    for upper in (1, 7):
+        tt, b = tie_tables(dev, upper, route="flat")
+        tref = hold_wave_kernel("triangle_closest", f"tie case f64, B at row {b}",
+                                widen_tables(tt, f64), to, td, tlo, thi)
+        if not ((tref[0] == 5.0).all() and (tref[1] == 0).all()):
+            raise AssertionError(f"flat tie case f64 (B at row {b}): twin gave {tref[:2]}")
+    mtri = mt.tri[:mt.tri_rows]
+    m_occ, ma_twin = timed_once(lambda: intersect.any_hit_reference(mt.sph, mtri, so, sd, lo, st))
+    _bitwise("any_hit flat f64", m_occ,
+             intersect.any_hit(mt.sph, mtri, so, sd, lo, st, sph_box=mt.sph_box, tri_box=mt.leaf))
+    hold_cluster_kernels(f"mesh_{FLAT_TRIS} shadow lanes f64", mt.sph, mt.sph_box, None,
+                         (so, sd, lo, st, m_occ), mtri, mt.leaf)
+    out, out32 = outs(o), outs(mo)
+    occ = torch.empty(S, dtype=torch.bool, device=dev)
+    t_by_team = team_times("triangle_closest", mt, o, d, lo, hi_k)
+    team = binding.flat_team(mt)
+    t_q = queued_ms(lambda: binding.launch_triangle_closest(mt, o, d, lo, hi_k, *out))
+    hi32 = torch.minimum(torch.full((S,), inf, device=dev), intersect.sphere_closest_reference(
+        mt32.sph, mo, md, lanes["lo"].new_full((S,), shade.EPS), torch.full((S,), inf,
+                                                                            device=dev))[0])
+    lo32 = hi32.new_full((S,), shade.EPS)
+    t_f32 = cuda_ms(lambda: binding.launch_triangle_closest(mt32, mo, md, lo32, hi32, *out32))
+    flat_any = {t: cuda_ms(lambda: binding.launch_any_hit(
+        mt.sph, mtri, so, sd, lo, st, occ, sph_box=mt.sph_box, tri_box=mt.leaf, team=t))
+        for t in binding.TEAMS}
+    extra["any_hit_clustered_f64"]["flat_ms_by_team"] = flat_any
+    extra["any_hit_clustered_f64"]["flat_plain_ms"] = ma_twin
+    t_bound = bound(nbytes(o, d, lo, hi_k, mtri, mt.leaf, *out),
+                    TRI_OPS * closest_tests(mt.leaf, real_rows(mt), o, d, lo, hi_k, ref[0]),
+                    PEAK_FP64)
+    record("triangle_closest_f64", err_t, t_by_team, team, t_twin, t_bound, t_q, t_f32,
+           **field_tri)
+    log(f"[f64-routes] mesh_{FLAT_TRIS} float64, {S} lanes: triangle_closest "
+        f"({int((ref[1] >= 0).sum())} hits) bitwise equal to its float64 twin at every team, on "
+        f"{EDGE_N} edge lanes and the flat tie case; by team {json.dumps(t_by_team)}, queued "
+        f"{t_q:.4f}, float32 {t_f32:.4f}, twin {t_twin:.2f} ms, bound {json.dumps(t_bound)}; "
+        f"the flat any hit ({int(m_occ.sum())} blocked) bitwise at every team, by team "
+        f"{json.dumps(flat_any)}; worst abs error {worst}")
+    return worst, ms, bounds, extra, counter_launches
+
+
+def run_f64_route_frames(dev, mesh, mesh_cam, smi: str):
+    """Phase 3g, frames: float64 through the composed pool on the bvh and flat
+    routes. Config 4 at 1 spp (1080p, ``method="auto"``: bvh) and the sphere
+    field at 1 spp (1080p, 16,384 slots) in float64, timed, their rays within
+    ``F64_RAYS_RTOL`` of the float32 frames' (config 4: ``METHOD_EXPECT``; the
+    field's float32 frame is rendered here), launching only the float64
+    kernels of their routes; ``mesh_scene(2000)`` at 32x32 (``FLAT_POOL``)
+    in float64 on the card against the CPU twins: equal rays and
+    iterations, images within the imgutil budget. Every launch counter is
+    zeroed before a frame and read after it. Returns the launches of the
+    three float64 frames."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+
+    f64 = torch.float64
+    frames, launches = {}, {}
+    field = sphere_field(dev)
+    W, H = CLUSTER_FRAME["width"], CLUSTER_FRAME["height"]
+    for name, scene, camera, run, dtype, want in (
+        ("config4", mesh, mesh_cam, dict(CONFIG4, spp=1), f64,
+         {"bvh_closest_f64", "bvh_anyhit_f64", "sphere_closest_f64", "any_hit_f64"}),
+        ("field", field, scenes.many_spheres_camera(W, H, dev), dict(CLUSTER_FRAME, spp=1), f64,
+         {"sphere_closest_clustered_f64", "any_hit_clustered_f64", "triangle_closest_f64"}),
+        ("field_f32", field, scenes.many_spheres_camera(W, H, dev), dict(CLUSTER_FRAME, spp=1),
+         None, {"sphere_closest_clustered", "any_hit_clustered", "triangle_closest"}),
+    ):
+        shade.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, counters, iters = render_pool(scene, camera, dtype=dtype, **run)
+        checksum = float(img.double().sum().item())     # forces completion
+        wall = time.perf_counter() - t0
+        got = dict(shade.LAUNCHES)
+        if set(got) != want or not np.isfinite(checksum) or img.dtype != (dtype or torch.float32):
+            raise AssertionError(f"{name} 1-spp frame: {img.dtype}, launches {got}, checksum "
+                                 f"{checksum}")
+        rays = ray_count(counters)
+        frames[name] = {"total_rays": rays, "iters": iters, "image_checksum": checksum,
+                        "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
+                        "launches_per_iter": {k: v / iters for k, v in sorted(got.items())}}
+        launches[name] = got
+    for name, f32_rays in (("config4", METHOD_EXPECT[0]),
+                           ("field", frames["field_f32"]["total_rays"])):
+        frames[name]["rays_rel_diff_vs_f32"] = (frames[name]["total_rays"] - f32_rays) / f32_rays
+        if abs(frames[name]["rays_rel_diff_vs_f32"]) > F64_RAYS_RTOL:
+            raise AssertionError(f"{name} float64 frame: {frames[name]['total_rays']} rays against "
+                                 f"{f32_rays} in float32")
+    log("[f64-route-frames] " + json.dumps({
+        "workloads": f"1920x1080 1spp MIS: config 4 (mesh_scene, {mesh.num_tris} tris, depth "
+                     f"{CONFIG4['max_bounces']}, {CONFIG4['num_slots']} slots, bvh) and "
+                     f"many_spheres(n_per_side={FIELD_N}) (depth {CLUSTER_FRAME['max_bounces']}, "
+                     f"{CLUSTER_FRAME['num_slots']} slots), composed pool",
+        **frames, "card": smi}))
+
+    W, H = FLAT_POOL["width"], FLAT_POOL["height"]
+    shade.LAUNCHES.clear()
+    img, counters, iters = render_pool(scenes.mesh_scene(FLAT_TRIS, device=dev),
+                                       scenes.mesh_scene_camera(W, H, dev), dtype=f64,
+                                       **FLAT_POOL)
+    img = img.cpu().numpy()
+    got = dict(shade.LAUNCHES)
+    t0 = time.perf_counter()
+    img_cpu, counters_cpu, iters_cpu = render_pool(
+        scenes.mesh_scene(FLAT_TRIS, device="cpu"), scenes.mesh_scene_camera(W, H, "cpu"),
+        dtype=f64, **FLAT_POOL)
+    cpu_s = time.perf_counter() - t0
+    rays, rays_cpu = ray_count(counters), ray_count(counters_cpu)
+    if (rays, iters) != (rays_cpu, iters_cpu) or img.dtype != np.float64:
+        raise AssertionError(f"flat pool f64: GPU {rays} rays {iters} iters, CPU {rays_cpu} "
+                             f"rays {iters_cpu} iters ({img.dtype})")
+    assert_images_match(img, img_cpu.numpy())
+    if got.get("triangle_closest_f64", 0) != iters or set(got) != {
+            "triangle_closest_f64", "sphere_closest_f64", "any_hit_clustered_f64"}:
+        raise AssertionError(f"flat pool f64 launches {got} for {iters} iterations")
+    launches["flat"] = got
+    log(f"[f64-flat-pool] mesh_scene({FLAT_TRIS}) {W}x{H} {FLAT_POOL['spp']}spp MIS depth "
+        f"{FLAT_POOL['max_bounces']} float64: rays {rays}, iters {iters} on the card and the CPU "
+        f"twins (CPU {cpu_s:.1f} s); max pixel diff {np.abs(img - img_cpu.numpy()).max():.4g}; "
+        f"launches {got}")
+    return launches
+
+
 def golden_rmse(img, spp: int) -> dict:
     """``img`` (H*W, 3) mean radiance against the golden image: the
     full-resolution RMSE, each channel's mean bias, and the noise floor
@@ -2955,12 +3371,17 @@ def main() -> int:
         "3b", check_mesh_kernels, dev, mesh, mesh_cam)
     trav_worst, trav_ms, trav_bnd, trav_extra = phase(
         "3d", check_traversal_kernels, dev, mesh, lanes)
-    del lanes
     wave_worst, wave_ms, wave_bnd, wave_extra, flat = phase("3c", check_wave_kernels, dev)
-    cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra = phase(
+    cl_worst, cl_ms, cl_bnd, cl_slice, cl_extra, field = phase(
         "3e", check_clustered_kernels, dev, flat)
-    del flat
     f64_worst, f64_ms, f64_bnd, f64_extra = phase("3f", check_f64_kernels, dev)
+
+    def f64_routes():
+        out = check_f64_route_kernels(dev, mesh, lanes, flat, field)
+        return out, run_f64_route_frames(dev, mesh, mesh_cam, smi)
+
+    (r64_worst, r64_ms, r64_bnd, r64_extra, r64_counters), r64_launches = phase("3g", f64_routes)
+    del lanes, flat, field
     phase("4", run_cornell, dev)
     phase("4b", run_mesh_frame, dev)
     launches = phase("5", run_bench, dev, smi)
@@ -3024,6 +3445,13 @@ def main() -> int:
         entry(k, src, rep, {**f64_pool_launches, **f64_wave_launches}[k], f64_worst[k],
               f64_ms[k], f64_bnd[k], **f64_extra[k])
         for k, (src, rep) in F64_KERNELS.items()
+    ] + [
+        entry(k, src, rep, r64_counters if k == "bvh_closest_counters_f64" else
+              r64_launches[F64_FRAME_OF.get(k, "field")][k],
+              r64_worst[k], r64_ms[k], r64_bnd[k], **r64_extra[k],
+              **({"launches_16384": r64_launches["field"][k]} if k == "triangle_closest_f64"
+                 else {}))
+        for k, (src, rep) in F64_ROUTE_KERNELS.items()
     ]}
     print(json.dumps(record))
     print(smi)

@@ -22,8 +22,9 @@ JAX CLI's process default does: ``auto``, ``pallas``, ``bruteforce``,
 ``pallas`` (every route gives the brute-force hit), and the pool runs it on
 its composed branch, as the JAX pool does. ``--dtype f64`` renders in the
 reference's native precision (every command, ``bench`` too) on the fused
-pool and the small intersection route; a scene whose route has no float64
-kernels yet exits with status 2 naming ROADMAP Queue 1, item 4b. Not ported
+pool and the small, flat and bvh intersection routes; ``--method binned``
+and ``--method resident``, which have no float64 kernels yet, exit with
+status 2 naming ROADMAP Queue 1, item 4c. Not ported
 yet, exiting with status 2 and a message naming its ROADMAP item: the
 multi-process flags.
 """

@@ -289,39 +289,66 @@ __device__ __forceinline__ F sphere_root(const F* row, Vec3<F> o, Vec3<F> d, F o
   return sphere_root(q4(row[0], row[1], row[2], row[3]), o, d, od, oo, eps);
 }
 
-// Reciprocal of a direction component, |c| clamped up to 1e-20.
-__device__ __forceinline__ float safe_inv(float c) {
-  return 1.0f / (fabsf(c) < 1e-20f ? 1e-20f : c);
+// The least |direction component| safe_inv divides by, by type: each its
+// own literal (a double literal rounded to float need not equal 1e-20f).
+template <typename F>
+struct Tiny;
+template <>
+struct Tiny<float> {
+  static constexpr float value = 1e-20f;
+};
+template <>
+struct Tiny<double> {
+  static constexpr double value = 1e-20;
+};
+
+// Reciprocal of a direction component, |c| clamped up to Tiny<F>.
+template <typename F>
+__device__ __forceinline__ F safe_inv(F c) {
+  constexpr F tiny = Tiny<F>::value;
+  return F(1) / (abs_(c) < tiny ? tiny : c);
 }
 
-// Entry distance into one AABB row (min in its first three floats, max in
+// Max/min that drop a NaN operand (fmaxf/fminf, fmax/fmin): box_entry's
+// slab test relies on it (a NaN t_max yields a finite entry, which every
+// caller's gate then refuses).
+__device__ __forceinline__ float fmax_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax_(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float fmin_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double fmin_(double a, double b) { return fmin(a, b); }
+
+// Entry distance into one AABB row (min in its first three values, max in
 // the next three) over [t_min, t_up]; +inf when the segment misses it or the
 // box is inverted (an empty padding box).
-__device__ __forceinline__ float box_entry(const float* __restrict__ box, V3 o, V3 inv,
-                                           float t_min, float t_up) {
-  const float mnx = box[0], mny = box[1], mnz = box[2];
-  const float mxx = box[3], mxy = box[4], mxz = box[5];
-  if (!(mnx <= mxx)) return INFINITY;
-  const float ax = (mnx - o.x) * inv.x, bx = (mxx - o.x) * inv.x;
-  const float ay = (mny - o.y) * inv.y, by = (mxy - o.y) * inv.y;
-  const float az = (mnz - o.z) * inv.z, bz = (mxz - o.z) * inv.z;
-  const float tn = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fmaxf(fminf(az, bz), t_min));
-  const float tf = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fminf(fmaxf(az, bz), t_up));
-  return tn <= tf ? tn : INFINITY;
+template <typename F>
+__device__ __forceinline__ F box_entry(const F* __restrict__ box, Vec3<F> o, Vec3<F> inv,
+                                       F t_min, F t_up) {
+  const F mnx = box[0], mny = box[1], mnz = box[2];
+  const F mxx = box[3], mxy = box[4], mxz = box[5];
+  if (!(mnx <= mxx)) return F(INFINITY);
+  const F ax = (mnx - o.x) * inv.x, bx = (mxx - o.x) * inv.x;
+  const F ay = (mny - o.y) * inv.y, by = (mxy - o.y) * inv.y;
+  const F az = (mnz - o.z) * inv.z, bz = (mxz - o.z) * inv.z;
+  const F tn = fmax_(fmax_(fmin_(ax, bx), fmin_(ay, by)), fmax_(fmin_(az, bz), t_min));
+  const F tf = fmin_(fmin_(fmax_(ax, bx), fmax_(ay, by)), fmin_(fmax_(az, bz), t_up));
+  return tn <= tf ? tn : F(INFINITY);
 }
 
 // A ray of the mesh walks: origin, direction, the direction's reciprocal
 // (safe_inv, for box_entry) and the range [t_min, t_max].
-struct Ray {
-  V3 o, d, inv;
-  float t_min, t_max;
+template <typename F>
+struct RayT {
+  Vec3<F> o, d, inv;
+  F t_min, t_max;
 };
+using Ray = RayT<float>;
 
 // Ray i of (N, 3) origins and directions and (N,) ranges.
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
-                                        const float* __restrict__ t_min,
-                                        const float* __restrict__ t_max, int i) {
-  Ray r;
+template <typename F>
+__device__ __forceinline__ RayT<F> load_ray(const F* __restrict__ o, const F* __restrict__ d,
+                                            const F* __restrict__ t_min,
+                                            const F* __restrict__ t_max, int i) {
+  RayT<F> r;
   r.o = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
   r.d = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
   r.inv = v3(safe_inv(r.d.x), safe_inv(r.d.y), safe_inv(r.d.z));

@@ -22,6 +22,11 @@
 // route's triangles) the whole table is one cluster, entered at t_min, and
 // the same code sweeps it.
 //
+// Types. Both kernels are templates on the float type F: pt_sphere_closest
+// and pt_any_hit are the float instances, pt_sphere_closest_f64 and
+// pt_any_hit_f64 the double ones (float64 rays, tables, boxes and outputs;
+// a row's four values read as one Q4<F>, a float4 or two 16-byte halves).
+//
 // The walk. A team of K threads (1, 2, 4, 8, 16 or 32, aligned in a warp;
 // 128 threads a block, so 128 / K rays) shares one ray; every decision is
 // taken on a team-reduced value, and every shuffle and vote names the
@@ -51,25 +56,34 @@
 //   :: vote) and stops at the first hit; an empty or NaN range occludes
 //   nothing. The order is for speed: any order gives the same boolean.
 //
-// Cull safety of the sphere boxes. The f32 quadratic cancels for rays far
-// from the origin, so a root the twin accepts can lie off the sphere: its
-// point q = o + t d has |q - c|^2 = r^2 + f, with L = |o| + |c| + r and
-//   |f| <= (2^-17 + 8 |d.d - 1|) L^2.
-// The first term is ~50 u L^2 (u = 2^-24) from the roundings of o.d, o.o,
-// c.d, c.o, half_b, c, disc, the sqrt and the root, taken as 128 u; the
-// second bounds the (d.d - 1) t^2 term of a direction that is not exactly
-// unit, with |t| <= 2.5 L. So q lies within min(s, s^2 / (2 r)),
-// s = sqrt(2^-17 + 8 |d.d - 1|) L, of the sphere and of its cluster's box.
-// Each ray widens each sphere box by that pad, with L from |o| and the
-// box's reach (the largest |c| + r in the cluster) and r its least radius;
-// the slab test's own rounding (a few u L) lies far inside it, and the
-// boxes also carry the triangles' 1e-4 margin. tests/test_torch_clustered.py
+// Cull safety of the sphere boxes. The quadratic cancels for rays far from
+// the origin, so a root the twin accepts can lie off the sphere: its point
+// q = o + t d has |q - c|^2 = r^2 + f, with L = |o| + |c| + r and
+//   |f| <= (128 u + 8 |d.d - 1|) L^2,
+// u the unit roundoff of the type (2^-24 in float, 2^-53 in double). The
+// first term is ~50 u L^2 from the roundings of o.d, o.o, c.d, c.o, half_b,
+// c, disc, the sqrt and the root, each a relative error of u in a term of
+// at most ~L^2 (the same count in either type), taken as 128 u: 2^-17 in
+// float, 2^-46 in double (RootErr); the second bounds the (d.d - 1) t^2
+// term of a direction that is not exactly unit, with |t| <= 2.5 L. So q lies
+// within min(s, s^2 / (2 r)), s = sqrt(128 u + 8 |d.d - 1|) L, of the sphere
+// and of its cluster's box. Each ray widens each sphere box by that pad,
+// with L from |o| and the box's reach (the largest |c| + r in the cluster)
+// and r its least radius; the boxes also carry the triangles' 1e-4 margin
+// (1e-4 (1 + the box's largest |coordinate|), ops/intersect.py :: _widen).
+// The slab test's own rounding (a few u L) lies inside the pad in either
+// type: s >= sqrt(128 u) L, and s^2 / (2 r) >= 64 u L^2 / r >= 64 u L since
+// L >= r. In double the pad shrinks to ~7e-15 L^2 / r, and the 1e-4
+// margin, ~10^10 times the root error, carries the safety. A pad too wide
+// costs only work; one too narrow would drop hits. tests/test_torch_clustered.py
 // checks the bound in float32 with this op order on 400,000 grazing rays
-// (|o| up to ~170, r from 0.02 to 30, |d.d - 1| up to 1e-3). For the ordered
-// walk: a root t the twin accepts has its point inside its cluster's widened
-// box, so the cluster's entry is <= t; while the ray's best is >= t the
-// bound is too, so the walk reaches that cluster before its bound drops
-// below the root, and a root above the best cannot be the answer.
+// (|o| up to ~170, r from 0.02 to 30, |d.d - 1| up to 1e-3), and
+// tests/test_torch_f64_routes.py in float64 with the float64 pad. For the
+// ordered walk: a root t the twin accepts has its point inside its
+// cluster's widened box, so the cluster's entry is <= t; while the ray's
+// best is >= t the bound is too, so the walk reaches that cluster before its
+// bound drops below the root, and a root above the best cannot be the
+// answer.
 //
 // What bounds them on the H100: per-ray work with divergent control flow,
 // ~20 flops a sphere row and ~50 a triangle row times the rows of the
@@ -97,8 +111,6 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "geom.cuh"
 
 namespace {
@@ -108,24 +120,27 @@ constexpr int kSphCols = 8;   // center, k, 1/r, material, 2 zeros
 constexpr int kTriCols = 16;  // v0, e1, e2, normal, material, 3 zeros
 constexpr int kBoxCols = 8;   // min, max; sphere boxes: reach, least radius
 constexpr int kCluster = 256;
-constexpr float kRootErr = 7.62939453125e-06f;  // 2^-17 = 128 u
 using pt::kNone;
 
-// The cluster boxes (and the pad analysis below) are float32: the float64
-// instance of any_hit runs one tile of each table (ROADMAP Queue 1, item 4b
-// ports the clustered modes).
+// The root-error pad's first term over L^2 (file header), by type: 128 u.
 template <typename F>
-constexpr bool kClustered = std::is_same<F, float>::value;
+struct RootErr;
+template <>
+struct RootErr<float> {
+  static constexpr float value = 7.62939453125e-06f;  // 2^-17, u = 2^-24
+};
+template <>
+struct RootErr<double> {
+  static constexpr double value = 1.4210854715202004e-14;  // 2^-46, u = 2^-53
+};
 
 template <typename F>
 struct RayT {
-  pt::Vec3<F> o, d;
-  pt::V3 inv;  // the clusters' slab test (float32 only)
+  pt::Vec3<F> o, d, inv;  // inv: the clusters' slab test
   F lo, hi, od, oo;
-  float len_o;  // |o|
-  float gain;   // sqrt(2^-17 + 8 |d.d - 1|): the sphere pad over L
+  F len_o;  // |o|
+  F gain;   // sqrt(128 u + 8 |d.d - 1|): the sphere pad over L
 };
-using Ray = RayT<float>;
 
 template <typename F>
 __device__ __forceinline__ RayT<F> load_ray(const F* o, const F* d, const F* t_min,
@@ -137,21 +152,20 @@ __device__ __forceinline__ RayT<F> load_ray(const F* o, const F* d, const F* t_m
   r.hi = t_max[i];
   r.od = pt::dot3(r.o, r.d);
   r.oo = pt::dot3(r.o, r.o);
-  if constexpr (kClustered<F>) {
-    r.inv = pt::v3(pt::safe_inv(r.d.x), pt::safe_inv(r.d.y), pt::safe_inv(r.d.z));
-    r.len_o = sqrtf(r.oo);
-    r.gain = sqrtf(kRootErr + 8.0f * fabsf(pt::dot3(r.d, r.d) - 1.0f));
-  }
+  r.inv = pt::v3(pt::safe_inv(r.d.x), pt::safe_inv(r.d.y), pt::safe_inv(r.d.z));
+  r.len_o = pt::sqrt_(r.oo);
+  r.gain = pt::sqrt_(RootErr<F>::value + F(8) * pt::abs_(pt::dot3(r.d, r.d) - F(1)));
   return r;
 }
 
 // Entry of [t_min, t_max] into sphere cluster box `box`, widened by the
 // ray's root-error pad (file header); +inf when it misses.
-__device__ __forceinline__ float sphere_entry(const float* __restrict__ box, const Ray& r) {
-  float pad = r.gain * (r.len_o + box[6]);
-  pad = fminf(pad, pad * pad / (2.0f * box[7]));
-  const float wide[6] = {box[0] - pad, box[1] - pad, box[2] - pad,
-                         box[3] + pad, box[4] + pad, box[5] + pad};
+template <typename F>
+__device__ __forceinline__ F sphere_entry(const F* __restrict__ box, const RayT<F>& r) {
+  F pad = r.gain * (r.len_o + box[6]);
+  pad = pt::fmin_(pad, pad * pad / (F(2) * box[7]));
+  const F wide[6] = {box[0] - pad, box[1] - pad, box[2] - pad,
+                     box[3] + pad, box[4] + pad, box[5] + pad};
   return pt::box_entry(wide, r.o, r.inv, r.lo, r.hi);
 }
 
@@ -167,7 +181,7 @@ __device__ __forceinline__ bool walk(int n_rows, int n_box, const RayT<F>& ray, 
   const int n = n_box > 0 ? n_box : 1;
   const int size = n_box > 0 ? kCluster : n_rows;
   auto enter = [&](int c) { return n_box > 0 ? entry(c) : ray.lo; };
-  F e = -INFINITY;
+  F e = -F(INFINITY);
   int c = -1;
   while (pt::next_box<K>(n, part, mask, enter, &e, &c) && e <= bound()) {
     const int r0 = c * size;
@@ -176,30 +190,31 @@ __device__ __forceinline__ bool walk(int n_rows, int n_box, const RayT<F>& ray, 
   return false;
 }
 
-template <int K>
+template <int K, typename F>
 __global__ void __launch_bounds__(kThreads)
-    sphere_closest_kernel(const float4* __restrict__ sph, int n_sph, const float* __restrict__ box,
-                          int n_box, const float* __restrict__ o, const float* __restrict__ d,
-                          const float* __restrict__ t_min, const float* __restrict__ t_max,
-                          float* __restrict__ t_out, int* __restrict__ idx_out,
-                          float* __restrict__ n_out, int* __restrict__ m_out, int N) {
+    sphere_closest_kernel(const pt::Q4<F>* __restrict__ sph, int n_sph,
+                          const F* __restrict__ box, int n_box, const F* __restrict__ o,
+                          const F* __restrict__ d, const F* __restrict__ t_min,
+                          const F* __restrict__ t_max, F* __restrict__ t_out,
+                          int* __restrict__ idx_out, F* __restrict__ n_out,
+                          int* __restrict__ m_out, int N) {
   const int part = threadIdx.x & (K - 1);
   const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;  // the whole team leaves together
   const unsigned mask = pt::team_mask(K);
-  const Ray ray = load_ray(o, d, t_min, t_max, i);
-  float best_t = INFINITY;
+  const RayT<F> ray = load_ray(o, d, t_min, t_max, i);
+  F best_t = INFINITY;
   int best_r = kNone;
   // NaN t_max stays NaN, so nothing passes the gate or the row test.
   auto bound = [&] { return pt::clamp_max(ray.hi, best_t); };
   auto entry = [&](int c) { return sphere_entry(box + c * kBoxCols, ray); };
   auto sweep = [&](int r0, int r1) {
-    const float cap = bound();
-    float lt = INFINITY;
+    const F cap = bound();
+    F lt = INFINITY;
     int lr = kNone;
     for (int r = r0 + part; r < r1; r += K) {
-      const float t = pt::sphere_root(sph[r * (kSphCols / 4)], ray.o, ray.d, ray.od, ray.oo,
-                                      ray.lo);
+      const F t = pt::sphere_root(sph[r * (kSphCols / 4)], ray.o, ray.d, ray.od, ray.oo,
+                                  ray.lo);
       if (t >= ray.lo && t <= cap && t < lt) {
         lt = t;  // strict: a thread's first minimum in row order
         lr = r;
@@ -216,8 +231,8 @@ __global__ void __launch_bounds__(kThreads)
   if (part != 0) return;
   t_out[i] = best_t;
   if (best_r != kNone) {
-    const float* row = reinterpret_cast<const float*>(sph) + best_r * kSphCols;
-    const float ir = row[4];
+    const F* row = reinterpret_cast<const F*>(sph) + best_r * kSphCols;
+    const F ir = row[4];
     idx_out[i] = best_r;
     n_out[3 * i] = (ray.o.x + best_t * ray.d.x - row[0]) * ir;
     n_out[3 * i + 1] = (ray.o.y + best_t * ray.d.y - row[1]) * ir;
@@ -225,18 +240,18 @@ __global__ void __launch_bounds__(kThreads)
     m_out[i] = static_cast<int>(row[5]);
   } else {
     idx_out[i] = -1;
-    n_out[3 * i] = 0.0f;
-    n_out[3 * i + 1] = 0.0f;
-    n_out[3 * i + 2] = 0.0f;
+    n_out[3 * i] = F(0);
+    n_out[3 * i + 1] = F(0);
+    n_out[3 * i + 2] = F(0);
     m_out[i] = 0;
   }
 }
 
 template <int K, typename F>
 __global__ void __launch_bounds__(kThreads)
-    any_hit_kernel(const pt::Q4<F>* __restrict__ sph, int n_sph, const float* __restrict__ sph_box,
+    any_hit_kernel(const pt::Q4<F>* __restrict__ sph, int n_sph, const F* __restrict__ sph_box,
                    int n_sph_box, const pt::Q4<F>* __restrict__ tri, int n_tri,
-                   const float* __restrict__ tri_box, int n_tri_box, const F* __restrict__ o,
+                   const F* __restrict__ tri_box, int n_tri_box, const F* __restrict__ o,
                    const F* __restrict__ d, const F* __restrict__ t_min,
                    const F* __restrict__ t_max, bool* __restrict__ occ, int N) {
   const int part = threadIdx.x & (K - 1);
@@ -258,37 +273,30 @@ __global__ void __launch_bounds__(kThreads)
     };
     auto sph_sweep = [&](int r0, int r1) { return pt::vote<K>(r0, r1, part, mask, sph_hit); };
     auto tri_sweep = [&](int r0, int r1) { return pt::vote<K>(r0, r1, part, mask, tri_hit); };
-    if constexpr (kClustered<F>) {
-      auto sph_entry = [&](int c) { return sphere_entry(sph_box + c * kBoxCols, ray); };
-      auto tri_entry = [&](int c) {
-        return pt::box_entry(tri_box + c * kBoxCols, ray.o, ray.inv, ray.lo, ray.hi);
-      };
-      hit = walk<K>(n_sph, n_sph_box, ray, part, mask, sph_entry, bound, sph_sweep) ||
-            walk<K>(n_tri, n_tri_box, ray, part, mask, tri_entry, bound, tri_sweep);
-    } else {  // one tile of each table: the walk's one cluster, entered at t_min
-      auto none = [](int) { return F(0); };
-      hit = walk<K>(n_sph, 0, ray, part, mask, none, bound, sph_sweep) ||
-            walk<K>(n_tri, 0, ray, part, mask, none, bound, tri_sweep);
-    }
+    auto sph_entry = [&](int c) { return sphere_entry(sph_box + c * kBoxCols, ray); };
+    auto tri_entry = [&](int c) {
+      return pt::box_entry(tri_box + c * kBoxCols, ray.o, ray.inv, ray.lo, ray.hi);
+    };
+    hit = walk<K>(n_sph, n_sph_box, ray, part, mask, sph_entry, bound, sph_sweep) ||
+          walk<K>(n_tri, n_tri_box, ray, part, mask, tri_entry, bound, tri_sweep);
   }
   if (part == 0) occ[i] = hit;
 }
 
-template <int K>
-cudaError_t launch_closest(const float* sph, int n_sph, const float* box, int n_box,
-                           const float* o, const float* d, const float* t_min,
-                           const float* t_max, float* t_out, int* idx_out, float* n_out,
-                           int* m_out, int N, cudaStream_t stream) {
+template <int K, typename F>
+cudaError_t launch_closest(const F* sph, int n_sph, const F* box, int n_box, const F* o,
+                           const F* d, const F* t_min, const F* t_max, F* t_out, int* idx_out,
+                           F* n_out, int* m_out, int N, cudaStream_t stream) {
   const int grid = (N + kThreads / K - 1) / (kThreads / K);
-  sphere_closest_kernel<K><<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(sph), n_sph, box, n_box, o, d, t_min, t_max, t_out,
+  sphere_closest_kernel<K, F><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const pt::Q4<F>*>(sph), n_sph, box, n_box, o, d, t_min, t_max, t_out,
       idx_out, n_out, m_out, N);
   return cudaGetLastError();
 }
 
 template <int K, typename F>
-cudaError_t launch_any_hit(const F* sph, int n_sph, const float* sph_box, int n_sph_box,
-                           const F* tri, int n_tri, const float* tri_box, int n_tri_box,
+cudaError_t launch_any_hit(const F* sph, int n_sph, const F* sph_box, int n_sph_box,
+                           const F* tri, int n_tri, const F* tri_box, int n_tri_box,
                            const F* o, const F* d, const F* t_min, const F* t_max, bool* occ,
                            int N, cudaStream_t stream) {
   const int grid = (N + kThreads / K - 1) / (kThreads / K);
@@ -299,19 +307,18 @@ cudaError_t launch_any_hit(const F* sph, int n_sph, const float* sph_box, int n_
   return cudaGetLastError();
 }
 
-cudaError_t closest(const float* sph, int n_sph, const float* box, int n_box, int team,
-                    const float* o, const float* d, const float* t_min, const float* t_max,
-                    float* t_out, int* idx_out, float* n_out, int* m_out, int N,
-                    cudaStream_t stream) {
+template <typename F>
+cudaError_t closest(const F* sph, int n_sph, const F* box, int n_box, int team, const F* o,
+                    const F* d, const F* t_min, const F* t_max, F* t_out, int* idx_out, F* n_out,
+                    int* m_out, int N, cudaStream_t stream) {
   PT_TEAM_LAUNCH(launch_closest, team, sph, n_sph, box, n_box, o, d, t_min, t_max, t_out, idx_out,
                  n_out, m_out, N, stream)
 }
 
 template <typename F>
-cudaError_t any_hit(const F* sph, int n_sph, const float* sph_box, int n_sph_box, const F* tri,
-                    int n_tri, const float* tri_box, int n_tri_box, int team, const F* o,
-                    const F* d, const F* t_min, const F* t_max, bool* occ, int N,
-                    cudaStream_t stream) {
+cudaError_t any_hit(const F* sph, int n_sph, const F* sph_box, int n_sph_box, const F* tri,
+                    int n_tri, const F* tri_box, int n_tri_box, int team, const F* o, const F* d,
+                    const F* t_min, const F* t_max, bool* occ, int N, cudaStream_t stream) {
   PT_TEAM_LAUNCH(launch_any_hit, team, sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
                  n_tri_box, o, d, t_min, t_max, occ, N, stream)
 }
@@ -319,11 +326,22 @@ cudaError_t any_hit(const F* sph, int n_sph, const float* sph_box, int n_sph_box
 }  // namespace
 
 // team: threads a ray (1, 2, 4, 8, 16 or 32); sph and tri 16-byte aligned;
-// n_box = 0: one cluster of every row.
+// n_box = 0: one cluster of every row. The _f64 entry points are the same
+// kernels in double: every pointer of a float type points to doubles.
 extern "C" int pt_sphere_closest(const float* sph, int n_sph, const float* box, int n_box,
                                  int team, const float* o, const float* d, const float* t_min,
                                  const float* t_max, float* t_out, int* idx_out, float* n_out,
                                  int* m_out, int N, void* stream) {
+  if (N <= 0) return 0;
+  return static_cast<int>(closest(sph, n_sph, box, n_box, team, o, d, t_min, t_max, t_out,
+                                  idx_out, n_out, m_out, N, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int pt_sphere_closest_f64(const double* sph, int n_sph, const double* box, int n_box,
+                                     int team, const double* o, const double* d,
+                                     const double* t_min, const double* t_max, double* t_out,
+                                     int* idx_out, double* n_out, int* m_out, int N,
+                                     void* stream) {
   if (N <= 0) return 0;
   return static_cast<int>(closest(sph, n_sph, box, n_box, team, o, d, t_min, t_max, t_out,
                                   idx_out, n_out, m_out, N, static_cast<cudaStream_t>(stream)));
@@ -339,14 +357,13 @@ extern "C" int pt_any_hit(const float* sph, int n_sph, const float* sph_box, int
                                   static_cast<cudaStream_t>(stream)));
 }
 
-// The float64 instance: one tile of each table; it refuses cluster boxes.
-extern "C" int pt_any_hit_f64(const double* sph, int n_sph, const float* sph_box,
-                              int n_sph_box, const double* tri, int n_tri, const float* tri_box,
-                              int n_tri_box, int team, const double* o, const double* d,
-                              const double* t_min, const double* t_max, bool* occ, int N,
-                              void* stream) {
-  if (n_sph_box > 0 || n_tri_box > 0) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int pt_any_hit_f64(const double* sph, int n_sph, const double* sph_box,
+                              int n_sph_box, const double* tri, int n_tri,
+                              const double* tri_box, int n_tri_box, int team, const double* o,
+                              const double* d, const double* t_min, const double* t_max,
+                              bool* occ, int N, void* stream) {
   if (N <= 0) return 0;
-  return static_cast<int>(any_hit(sph, n_sph, sph_box, 0, tri, n_tri, tri_box, 0, team, o, d,
-                                  t_min, t_max, occ, N, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(any_hit(sph, n_sph, sph_box, n_sph_box, tri, n_tri, tri_box,
+                                  n_tri_box, team, o, d, t_min, t_max, occ, N,
+                                  static_cast<cudaStream_t>(stream)));
 }

@@ -8,11 +8,13 @@
 // triangle_closest_reference (brute force over every real row).
 //
 // The table is the scene's triangle rows in their build order, zero-padded to
-// whole clusters of 256 rows, 16 floats a row, 16-byte aligned (a row is
-// three float4 loads), with one AABB row per cluster (Scene.tri_cluster_min/
-// max, widened outward by a small margin in ops/intersect.py :: build_tables
-// so that slab-test rounding never drops a cluster holding a hit the twin
-// accepts; clusters with no rows carry inverted boxes and are never entered).
+// whole clusters of 256 rows, 16 values a row, 16-byte aligned (a row is
+// three Q4 loads: float4s, or 16-byte halves of doubles), with one AABB row
+// per cluster (Scene.tri_cluster_min/max, widened outward by a small margin
+// in ops/intersect.py :: build_tables so that slab-test rounding never drops
+// a cluster holding a hit the twin accepts; clusters with no rows carry
+// inverted boxes and are never entered). The kernel is a template on the
+// float type: float rows, boxes and rays, or (the float64 instance) double.
 // The wrapper builds both and passes n_rows, the scene's real rows: a
 // cluster's sweep ends there, so the padding rows (which would fail the
 // |a| >= 1e-8 reject anyway) are never tested. On the sphere field the route
@@ -71,37 +73,36 @@ constexpr int kTriCols = 16;  // v0, e1, e2, normal, material, 3 zeros
 constexpr int kBoxCols = 8;   // min, max, 2 zeros
 constexpr int kCluster = 256;
 using pt::kNone;
-using pt::Ray;
 
-template <int K>
+template <int K, typename F>
 __global__ void __launch_bounds__(kThreads)
-    triangle_closest_kernel(const float4* __restrict__ tri, const float* __restrict__ box,
-                            int n_clusters, int n_rows, const float* __restrict__ o,
-                            const float* __restrict__ d, const float* __restrict__ t_min,
-                            const float* __restrict__ t_max, float* __restrict__ t_out,
-                            int* __restrict__ idx_out, float* __restrict__ n_out,
+    triangle_closest_kernel(const pt::Q4<F>* __restrict__ tri, const F* __restrict__ box,
+                            int n_clusters, int n_rows, const F* __restrict__ o,
+                            const F* __restrict__ d, const F* __restrict__ t_min,
+                            const F* __restrict__ t_max, F* __restrict__ t_out,
+                            int* __restrict__ idx_out, F* __restrict__ n_out,
                             int* __restrict__ m_out, int N) {
   const int part = threadIdx.x & (K - 1);
   const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;  // the whole team leaves together
   const unsigned mask = pt::team_mask(K);
-  const Ray ray = pt::load_ray(o, d, t_min, t_max, i);
+  const pt::RayT<F> ray = pt::load_ray(o, d, t_min, t_max, i);
   auto entry = [&](int c) {
     return pt::box_entry(box + c * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max);
   };
-  float best_t = INFINITY;
+  F best_t = INFINITY;
   int best_i = kNone;
-  float e = -INFINITY;
+  F e = -F(INFINITY);
   int c = -1;
   // NaN t_max stays NaN under clamp_max, so nothing passes the gate.
   while (pt::next_box<K>(n_clusters, part, mask, entry, &e, &c) &&
          e <= pt::clamp_max(ray.t_max, best_t)) {
-    const float cap = pt::clamp_max(ray.t_max, best_t);
+    const F cap = pt::clamp_max(ray.t_max, best_t);
     const int r1 = min((c + 1) * kCluster, n_rows);
-    float lt = INFINITY;
+    F lt = INFINITY;
     int lr = kNone;
     for (int r = c * kCluster + part; r < r1; r += K) {
-      float t;
+      F t;
       if (pt::hit_triangle(tri + static_cast<size_t>(r) * (kTriCols / 4), ray.o, ray.d,
                            ray.t_min, cap, &t) &&
           t < lt) {
@@ -118,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
   if (part != 0) return;
   t_out[i] = best_t;
   if (best_i != kNone) {
-    const float* row = reinterpret_cast<const float*>(tri) + static_cast<size_t>(best_i) * kTriCols;
+    const F* row = reinterpret_cast<const F*>(tri) + static_cast<size_t>(best_i) * kTriCols;
     idx_out[i] = best_i;
     n_out[3 * i] = row[9];
     n_out[3 * i + 1] = row[10];
@@ -126,29 +127,28 @@ __global__ void __launch_bounds__(kThreads)
     m_out[i] = static_cast<int>(row[12]);
   } else {
     idx_out[i] = -1;
-    n_out[3 * i] = 0.0f;
-    n_out[3 * i + 1] = 0.0f;
-    n_out[3 * i + 2] = 0.0f;
+    n_out[3 * i] = F(0);
+    n_out[3 * i + 1] = F(0);
+    n_out[3 * i + 2] = F(0);
     m_out[i] = 0;
   }
 }
 
-template <int K>
-cudaError_t launch(const float* tri, const float* box, int n_clusters, int n_rows,
-                   const float* o, const float* d, const float* t_min, const float* t_max,
-                   float* t_out, int* idx_out, float* n_out, int* m_out, int N,
-                   cudaStream_t stream) {
+template <int K, typename F>
+cudaError_t launch(const F* tri, const F* box, int n_clusters, int n_rows, const F* o,
+                   const F* d, const F* t_min, const F* t_max, F* t_out, int* idx_out, F* n_out,
+                   int* m_out, int N, cudaStream_t stream) {
   const int grid = (N + kThreads / K - 1) / (kThreads / K);
-  triangle_closest_kernel<K><<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(tri), box, n_clusters, n_rows, o, d, t_min, t_max, t_out,
-      idx_out, n_out, m_out, N);
+  triangle_closest_kernel<K, F><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const pt::Q4<F>*>(tri), box, n_clusters, n_rows, o, d, t_min, t_max,
+      t_out, idx_out, n_out, m_out, N);
   return cudaGetLastError();
 }
 
-cudaError_t closest(const float* tri, const float* box, int n_clusters, int n_rows, int team,
-                    const float* o, const float* d, const float* t_min, const float* t_max,
-                    float* t_out, int* idx_out, float* n_out, int* m_out, int N,
-                    cudaStream_t stream) {
+template <typename F>
+cudaError_t closest(const F* tri, const F* box, int n_clusters, int n_rows, int team, const F* o,
+                    const F* d, const F* t_min, const F* t_max, F* t_out, int* idx_out,
+                    F* n_out, int* m_out, int N, cudaStream_t stream) {
   PT_TEAM_LAUNCH(launch, team, tri, box, n_clusters, n_rows, o, d, t_min, t_max, t_out, idx_out,
                  n_out, m_out, N, stream)
 }
@@ -156,11 +156,22 @@ cudaError_t closest(const float* tri, const float* box, int n_clusters, int n_ro
 }  // namespace
 
 // n_rows: the table's real rows (<= n_clusters * 256); team: threads a ray
-// (1, 2, 4, 8, 16 or 32); tri 16-byte aligned.
+// (1, 2, 4, 8, 16 or 32); tri 16-byte aligned. pt_triangle_closest_f64 is
+// the same kernel in double (float64 rows, boxes, rays and outputs).
 extern "C" int pt_triangle_closest(const float* tri, const float* box, int n_clusters,
                                    int n_rows, int team, const float* o, const float* d,
                                    const float* t_min, const float* t_max, float* t_out,
                                    int* idx_out, float* n_out, int* m_out, int N, void* stream) {
+  if (N <= 0) return 0;
+  return static_cast<int>(closest(tri, box, n_clusters, n_rows, team, o, d, t_min, t_max, t_out,
+                                  idx_out, n_out, m_out, N, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int pt_triangle_closest_f64(const double* tri, const double* box, int n_clusters,
+                                       int n_rows, int team, const double* o, const double* d,
+                                       const double* t_min, const double* t_max, double* t_out,
+                                       int* idx_out, double* n_out, int* m_out, int N,
+                                       void* stream) {
   if (N <= 0) return 0;
   return static_cast<int>(closest(tri, box, n_clusters, n_rows, team, o, d, t_min, t_max, t_out,
                                   idx_out, n_out, m_out, N, static_cast<cudaStream_t>(stream)));

@@ -29,12 +29,16 @@ cluster's real rows), and ``pt_combined_closest_small`` splits each ray's
 triangle and sphere sweeps over a team (:func:`small_team`). Every split
 and every team gives the same bits and counts.
 
-Four kernels also have a float64 instance (``pt_fused_bounce_f64``,
+Eight entry points also have a float64 instance (``pt_fused_bounce_f64``,
 ``pt_shadow_any_hit_f64``, ``pt_combined_closest_small_f64``,
-``pt_any_hit_f64``, the last one tile only: it refuses boxes): their
-launchers pick the instance from the tensors' dtype, pass ``eps`` as a
-double, and size the shared memory by the element size
-(:func:`shared_bytes`). Nothing falls back from one instance to the other.
+``pt_any_hit_f64``, ``pt_sphere_closest_f64``, ``pt_triangle_closest_f64``,
+``pt_bvh_closest_f64``, ``pt_bvh_anyhit_f64``): their launchers pick the
+instance from the tensors' dtype, pass ``eps`` as a double, and size the
+shared memory by the element size (:func:`shared_bytes`). The teams are the
+same in both types but for ``triangle_closest``'s
+(:data:`ROWS_PER_THREAD_F64`) and ``bvh_closest``'s (:data:`BVH_TEAM_F64`).
+Nothing falls back from one instance to the other; the binned and resident
+kernels have no float64 instance.
 """
 
 from __future__ import annotations
@@ -78,6 +82,13 @@ _SPH_USE, _TRI_USE, _LGT_COLS = 4, 9, 18   # staged values a sphere, triangle, l
 ROWS_PER_THREAD = {"fused_bounce": 128, "shadow_any_hit": 32,
                    "sphere_closest": 32, "any_hit": 12,
                    "triangle_closest": 32, "combined_closest_small": 128}
+# The float64 instances' rows a thread where their times differ (PERF.md
+# row 6f): csrc/triangle_closest.cu in double on mesh_scene(2000)'s
+# 65,536 lanes is fastest at 4 threads (64 rows each; 0.467 ms against
+# 0.655 at 8 and 0.478 at 2; 0.458 against 0.645 and 0.472 in a second
+# call). The other float64 instances keep their float32 teams but for the
+# BVH closest hit (BVH_TEAM_F64).
+ROWS_PER_THREAD_F64 = {"triangle_closest": 64}
 
 TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH or cluster walk can take
 # Threads sharing one ray's walk in csrc/bvh.cu, by kernel: the fastest of
@@ -85,6 +96,10 @@ TEAMS = (1, 2, 4, 8, 16, 32)   # threads one ray's BVH or cluster walk can take
 # (PERF.md): the closest hit 0.165 ms at 16 (0.175 at 8, 0.20 at 32), the
 # any hit, which only votes, 0.085 ms at 32 (0.097 at 16).
 BVH_TEAM = {"bvh_closest": 16, "bvh_anyhit": 32}
+# The float64 instances' teams where their times differ (PERF.md row 7f):
+# the closest hit in double is fastest at 8 in two calls (0.451 and 0.456 ms
+# against 0.475 and 0.481 at 16); the any hit stays fastest at 32.
+BVH_TEAM_F64 = {"bvh_closest": 8}
 # Threads sharing one sorted ray's 256-row cluster sweep in csrc/binned.cu,
 # by kernel: the fastest of TEAMS in the sum over all 21 (20) rounds of one
 # closest (any-hit) driver call on chip_smoke.py's 65,536 config-4 lanes of
@@ -105,14 +120,18 @@ BINNED_TEAM = {"binned_round_closest": 16, "binned_round_anyhit": 32}
 RESIDENT_TEAM = {"resident_closest": 16, "resident_anyhit": 32}
 
 
-def sweep_split(rows: int, kernel: str, choices=SPLITS) -> int:
+def sweep_split(rows: int, kernel: str, choices=SPLITS, dtype=torch.float32) -> int:
     """Threads sharing one sweep over ``rows`` rows (the pool's kernels: a
     lane's sphere and triangle rows, the tables' padded row counts): the
     fewest of ``choices`` that leave each thread at most
     ``ROWS_PER_THREAD[kernel]`` rows (one for a small scene, where a split
-    only adds shuffles)."""
+    only adds shuffles); for the float64 instance (``dtype``) the rows of
+    :data:`ROWS_PER_THREAD_F64` where it has them."""
+    per = ROWS_PER_THREAD[kernel]
+    if dtype == torch.float64:
+        per = ROWS_PER_THREAD_F64.get(kernel, per)
     split = 1
-    while split < choices[-1] and rows > split * ROWS_PER_THREAD[kernel]:
+    while split < choices[-1] and rows > split * per:
         split *= 2
     return split
 
@@ -122,17 +141,17 @@ def cluster_team(kernel: str, *tables) -> int:
     ``"any_hit"`` or ``"triangle_closest"``) takes on ``tables``, ``(rows,
     boxes)`` pairs of row tables and their cluster boxes (None or no rows:
     one tile): the :func:`sweep_split` of the longest sweep, at most a
-    cluster's 256 rows or a whole one-tile table."""
+    cluster's 256 rows or a whole one-tile table, in the rows' dtype."""
     rows = max(min(t.shape[0], CLUSTER_SIZE) if b is not None and b.shape[0] else t.shape[0]
                for t, b in tables)
-    return sweep_split(rows, kernel, TEAMS)
+    return sweep_split(rows, kernel, TEAMS, tables[0][0].dtype)
 
 
 def flat_team(tables) -> int:
     """The team of :data:`TEAMS` that ``triangle_closest`` takes on the flat
     route's ``tables``: the :func:`cluster_team` of its real rows, so the
     :func:`sweep_split` of ``min(tri_rows, 256)`` (one thread on the sphere
-    field's 2 ground triangles)."""
+    field's 2 ground triangles; 8 on 256 rows in float32, 4 in float64)."""
     return cluster_team("triangle_closest", (tables.tri[:tables.tri_rows], tables.leaf))
 
 
@@ -196,22 +215,29 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, real, _I, _I, _P]
             fn.restype = _I
-        lib.pt_sphere_closest.argtypes = [_P, _I, _P, _I, _I] + [_P] * 8 + [_I, _P]
-        lib.pt_sphere_closest.restype = _I
+        for name in ("pt_sphere_closest", "pt_sphere_closest_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P, _I, _P, _I, _I] + [_P] * 8 + [_I, _P]
+            fn.restype = _I
         for name in ("pt_any_hit", "pt_any_hit_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [_P, _I] * 4 + [_I] + [_P] * 5 + [_I, _P]
             fn.restype = _I
-        lib.pt_bvh_closest.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 10 + [_I, _P]
-        lib.pt_bvh_closest.restype = _I
-        lib.pt_bvh_anyhit.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I, _P]
-        lib.pt_bvh_anyhit.restype = _I
+        for suffix in ("", "_f64"):
+            fn = getattr(lib, "pt_bvh_closest" + suffix)
+            fn.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 10 + [_I, _P]
+            fn.restype = _I
+            fn = getattr(lib, "pt_bvh_anyhit" + suffix)
+            fn.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 7 + [_I, _P]
+            fn.restype = _I
         for name in ("pt_combined_closest_small", "pt_combined_closest_small_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [_P, _I, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
             fn.restype = _I
-        lib.pt_triangle_closest.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
-        lib.pt_triangle_closest.restype = _I
+        for name in ("pt_triangle_closest", "pt_triangle_closest_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
+            fn.restype = _I
         lib.pt_binned_round_closest.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _P]
         lib.pt_binned_round_closest.restype = _I
         lib.pt_binned_round_anyhit.argtypes = [_P, _I, _I] + [_P] * 6 + [_I, _P]
@@ -305,9 +331,9 @@ def launch_sphere_closest(sph, o, d, t_min, t_max, t, idx, n, m, box=None, team=
     """``box``: ``Tables.sph_box`` for the clustered mode, else one tile;
     ``team``: threads a ray (default :func:`cluster_team`)."""
     team = _team(team, cluster_team("sphere_closest", (sph, box)), ("sph", sph))
-    lib = library()
+    fn = _instance(library(), "pt_sphere_closest", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_sphere_closest(
+        code = fn(
             sph.data_ptr(), sph.shape[0], *_boxes(box), team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(), idx.data_ptr(),
             n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
@@ -321,7 +347,7 @@ def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None
     ``team``: threads a ray (default :func:`cluster_team`)."""
     team = _team(team, cluster_team("any_hit", (sph, sph_box), (tri, tri_box)),
                  ("sph", sph), ("tri", tri))
-    fn = _instance(library(), "pt_any_hit", t_min)   # float64: one tile, boxes refused
+    fn = _instance(library(), "pt_any_hit", t_min)
     with torch.cuda.device(t_min.device):
         code = fn(
             sph.data_ptr(), sph.shape[0], *_boxes(sph_box), tri.data_ptr(), tri.shape[0],
@@ -333,10 +359,13 @@ def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None
 
 
 def _bvh_team(tables, team, kernel: str) -> int:
-    """Team size of a ``csrc/bvh.cu`` launch (None: :data:`BVH_TEAM`);
-    raises on a team size the kernels lack, or on a table the float4 row
-    loads cannot read."""
-    return _team(team, BVH_TEAM[kernel], ("tables.tri", tables.tri))
+    """Team size of a ``csrc/bvh.cu`` launch (None: :data:`BVH_TEAM`, for
+    float64 tables :data:`BVH_TEAM_F64` where it has the kernel); raises on
+    a team size the kernels lack, or on a table the row loads cannot read."""
+    default = BVH_TEAM[kernel]
+    if tables.tri.dtype == torch.float64:
+        default = BVH_TEAM_F64.get(kernel, default)
+    return _team(team, default, ("tables.tri", tables.tri))
 
 
 def _counts(counts) -> tuple:
@@ -349,11 +378,11 @@ def launch_bvh_closest(tables, o, d, t_min, t_max, t, idx, n, m, counts=None,
                        team=None) -> None:
     """``tables`` is an ``ops.intersect.Tables``; ``counts``: two int32
     ``(N,)`` outputs for the per-ray groups visited and leaves swept, or
-    None; ``team``: threads a ray (default :data:`BVH_TEAM`)."""
+    None; ``team``: threads a ray (default :func:`_bvh_team`)."""
     team = _bvh_team(tables, team, "bvh_closest")
-    lib = library()
+    fn = _instance(library(), "pt_bvh_closest", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_bvh_closest(
+        code = fn(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.group.data_ptr(),
             tables.n_groups, team, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
             t_max.data_ptr(), t.data_ptr(), idx.data_ptr(), n.data_ptr(), m.data_ptr(),
@@ -366,9 +395,9 @@ def launch_bvh_anyhit(tables, o, d, t_min, t_max, occ, counts=None, team=None) -
     """As :func:`launch_bvh_closest`; the counts stop at the leaf of the
     first hit."""
     team = _bvh_team(tables, team, "bvh_anyhit")
-    lib = library()
+    fn = _instance(library(), "pt_bvh_anyhit", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_bvh_anyhit(
+        code = fn(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.group.data_ptr(),
             tables.n_groups, team, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
             t_max.data_ptr(), occ.data_ptr(), *_counts(counts), t_min.shape[0],
@@ -399,9 +428,9 @@ def launch_triangle_closest(tables, o, d, t_min, t_max, t, idx, n, m, team=None)
     stops at its ``tri_rows`` real rows; ``team``: threads a ray (default
     :func:`flat_team`)."""
     team = _team(team, flat_team(tables), ("tables.tri", tables.tri))
-    lib = library()
+    fn = _instance(library(), "pt_triangle_closest", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_triangle_closest(
+        code = fn(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0],
             tables.tri_rows, team, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
             t_max.data_ptr(), t.data_ptr(), idx.data_ptr(), n.data_ptr(), m.data_ptr(),

@@ -74,15 +74,18 @@ meshes (``_ray_sort_key``/``_sort_rays_by_key``/``_unsort``), which changes
 no result and keeps TPU subtiles union-coherent (on the GPU, rays sorted by
 first entered group move the BVH kernels by under 0.01 ms, less than a sort
 costs: PERF.md), the ``coherent`` hint, and the ``_lift_tree`` varying-axes
-plumbing. Rays are ``(N, 3)`` float32; ``t_min``/``t_max`` are ``(N,)``.
+plumbing. Rays are ``(N, 3)`` float32 or float64; ``t_min``/``t_max`` are
+``(N,)``.
 
-float64 (the reference's precision) runs on the small route:
-:func:`combined_closest_small` and the one-tile :func:`any_hit` take float64
-rays and tables and launch their kernels' float64 instances. Every other
-kernel, and the clustered mode of ``any_hit``, raises
-``NotImplementedError`` on float64 input, on either device, naming ROADMAP
-Queue 1, item 4b; so does :func:`build_tables` for a float64 scene on any
-other route.
+float64 (the reference's precision) runs on the small, flat and bvh
+routes: :func:`combined_closest_small`, :func:`sphere_closest` and
+:func:`any_hit` (one tile or clustered), :func:`triangle_closest`,
+:func:`bvh_closest` (``counters=True`` too) and :func:`bvh_anyhit` take
+float64 rays and tables (boxes included, built in the scene's dtype) and
+launch their kernels' float64 instances; their twins run in the rays' dtype.
+The binned and resident kernels raise ``NotImplementedError`` on float64
+input, on either device, naming ROADMAP Queue 1, item 4c; so does
+:func:`build_tables` for a float64 scene on those two routes.
 """
 
 from __future__ import annotations
@@ -114,11 +117,15 @@ _BOX_COLS = 8      # min, max, 2 zeros (sphere boxes: min, max, reach, least rad
 # routes, relative to 1 + their largest coordinate: slab-test rounding then
 # never culls a cluster that holds a hit the brute-force twin accepts.
 _BOX_MARGIN = 1e-4
-_ROOT_ERR = 2.0**-17   # csrc/intersect.cu kRootErr: the sphere root's error over L^2
-# Kernels with a float64 instance (the small route's two); the others, and
-# the clustered any hit, refuse float64 rays, citing this ROADMAP item.
-F64_KERNELS = ("combined_closest_small", "any_hit")
-F64_ITEM = "ROADMAP Queue 1, item 4b"
+# csrc/intersect.cu RootErr: the sphere root's error over L^2, 128 u of the
+# dtype (u = 2^-24 in float32, 2^-53 in float64).
+_ROOT_ERR = {torch.float32: 2.0**-17, torch.float64: 2.0**-46}
+# Kernels with a float64 instance (the small, flat and bvh routes'); the
+# binned and resident ones refuse float64 rays, citing this ROADMAP item.
+F64_KERNELS = ("combined_closest_small", "any_hit", "sphere_closest", "triangle_closest",
+               "bvh_closest", "bvh_anyhit")
+F64_ROUTES = ("small", "flat", "bvh")
+F64_ITEM = "ROADMAP Queue 1, item 4c"
 
 
 class Hit(NamedTuple):
@@ -269,11 +276,11 @@ def build_tables(scene: Scene, method: str = "auto") -> Tables:
     s_rows = scene.sph_center.shape[0]
     route = resolve_route(t, s_rows, method)
     dtype = scene.tri_v0.dtype
-    if dtype == torch.float64 and route != "small":
+    if dtype == torch.float64 and route not in F64_ROUTES:
         raise NotImplementedError(
             f"float64 on the {route} route ({t} triangle rows, {s_rows} sphere rows): its "
-            f"kernels have no float64 instance yet ({F64_ITEM}); float64 runs on the small "
-            f"route (<= {SMALL_MAX_TRIS} triangles, <= {SMALL_MAX_SPHERES} spheres)")
+            f"kernels have no float64 instance yet ({F64_ITEM}); float64 runs on the "
+            f"{', '.join(F64_ROUTES)} routes")
     tri = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_normal,
                      scene.tri_mat.to(dtype)[:, None],
                      scene.tri_v0.new_zeros((t, 3))], dim=1)
@@ -441,12 +448,12 @@ def _walk_chunk(tables, rows, groups, o, d, t_min, t_max, anyhit):
     n, dev = t_min.shape[0], t_min.device
     ge = cluster_entries(o, d, t_min, t_max, groups)                      # (n, G)
     le = cluster_entries(o, d, t_min, t_max, tables.leaf).view(n, -1, GROUP)
-    best_t = torch.full((n,), _INF, device=dev)
+    best_t = torch.full((n,), _INF, dtype=o.dtype, device=dev)
     best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
     visited = torch.zeros(n, dtype=torch.int32, device=dev)
     swept = torch.zeros(n, dtype=torch.int32, device=dev)
-    g_e = torch.full((n,), -_INF, device=dev)
+    g_e = torch.full((n,), -_INF, dtype=o.dtype, device=dev)
     g_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
     l_e, l_c = g_e.clone(), g_c.clone()
     in_group = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -522,7 +529,7 @@ def sphere_cluster_entries(o, d, t_min, t_max, box):
     kernel's gate then visits nothing)."""
     oo = o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1] + o[:, 2] * o[:, 2]
     dd = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-    gain = torch.sqrt(_ROOT_ERR + 8.0 * torch.abs(dd - 1.0))
+    gain = torch.sqrt(_ROOT_ERR[o.dtype] + 8.0 * torch.abs(dd - 1.0))
     pad = gain[:, None] * (torch.sqrt(oo)[:, None] + box[None, :, 6])
     pad = torch.fmin(pad, pad * pad / (2.0 * box[None, :, 7]))[:, :, None]
     wide = torch.cat([box[None, :, 0:3] - pad, box[None, :, 3:6] + pad], dim=2)
@@ -605,7 +612,7 @@ def _cluster_chunk(phases, o, d, t_min, t_max, anyhit, id_order):
     from .binned import cluster_entries
 
     n, dev = t_min.shape[0], t_min.device
-    best_t = torch.full((n,), _INF, device=dev)
+    best_t = torch.full((n,), _INF, dtype=o.dtype, device=dev)
     best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
     visited = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -628,7 +635,7 @@ def _cluster_chunk(phases, o, d, t_min, t_max, anyhit, id_order):
         n_cl = -(-m // size)
         fill = rows.new_full((n_cl * size - m, cols), math.nan if is_sph else 0.0)
         table = torch.cat([rows, fill]).view(n_cl, size, cols)
-        last_e = torch.full((n,), -_INF, device=dev)
+        last_e = torch.full((n,), -_INF, dtype=o.dtype, device=dev)
         last_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
         live = ~done
         while bool(live.any()):
@@ -732,7 +739,7 @@ def _check_rays(o, d, t_min, t_max, kernel: str = "this kernel"):
     if o.dtype == torch.float64 and kernel not in F64_KERNELS:
         raise NotImplementedError(
             f"{kernel}: float64 rays, but the kernel has no float64 instance yet ({F64_ITEM}); "
-            "float64 runs on the small route")
+            f"float64 runs on the {', '.join(F64_ROUTES)} routes")
     dtype = torch.float64 if o.dtype == torch.float64 else torch.float32
     _check("o", o, dtype, (n, 3))
     _check("d", d, dtype, (n, 3))
@@ -786,10 +793,19 @@ def _empty(shape, dtype, like):
     return torch.empty(shape, dtype=dtype, device=like.device)
 
 
+def _closest_out(o):
+    """Uninitialised ``(t, row, normal, material)`` outputs of a closest-hit
+    launch on the rays ``o`` ``(N, 3)``, floats in their dtype."""
+    n = o.shape[0]
+    return (_empty((n,), o.dtype, o), _empty((n,), torch.int32, o),
+            _empty((n, 3), o.dtype, o), _empty((n,), torch.int32, o))
+
+
 def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
     """Closest triangle hit through the BVH: ``(t (N,), row (N,) int32,
     outward normal (N, 3), material (N,) int32)``; a miss is
-    ``(inf, -1, 0, 0)``. Counterpart of ``triangle_closest_bvh``.
+    ``(inf, -1, 0, 0)``. Float32 or float64 rays and tables (the kernel's
+    instance for the dtype). Counterpart of ``triangle_closest_bvh``.
 
     ``counters=True`` appends two int32 ``(N_pad / 256,)`` diagnostics, the
     shape of the JAX ``counters=True`` tuple: the groups visited and the
@@ -797,9 +813,9 @@ def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
     to 1024 lanes (:func:`bvh_span_sums`). The JAX counts are its subtiles'
     rounds and half-gated sweeps; these are the port's per-ray work. The
     hits are those of ``counters=False``. The kernel with counters is
-    counted under ``bvh_closest_counters``."""
+    counted under ``bvh_closest_counters`` (``bvh_closest_counters_f64``)."""
     n, kind = _check_rays(o, d, t_min, t_max, "bvh_closest")
-    _check_route(tables, "bvh", t_min.device)
+    _check_route(tables, "bvh", t_min.device, o.dtype)
     if kind == "cpu":
         if not counters:
             return bvh_closest_reference(tables, o, d, t_min, t_max)
@@ -807,15 +823,14 @@ def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
         return (*out, bvh_span_sums(visited, n), bvh_span_sums(swept, n))
     from ..kernels import binding
 
-    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
-           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    out = _closest_out(o)
     if not counters:
         binding.launch_bvh_closest(tables, o, d, t_min, t_max, *out)
-        LAUNCHES["bvh_closest"] += 1
+        LAUNCHES["bvh_closest" + _SUFFIX[o.dtype]] += 1
         return out
     counts = (_empty((n,), torch.int32, o), _empty((n,), torch.int32, o))
     binding.launch_bvh_closest(tables, o, d, t_min, t_max, *out, counts=counts)
-    LAUNCHES["bvh_closest_counters"] += 1
+    LAUNCHES["bvh_closest_counters" + _SUFFIX[o.dtype]] += 1
     return (*out, *(bvh_span_sums(c, n) for c in counts))
 
 
@@ -823,14 +838,14 @@ def bvh_anyhit(tables: Tables, o, d, t_min, t_max):
     """Occlusion by any triangle in ``[t_min, t_max]`` through the BVH:
     bool ``(N,)``. Counterpart of ``triangle_anyhit_bvh``."""
     n, kind = _check_rays(o, d, t_min, t_max, "bvh_anyhit")
-    _check_route(tables, "bvh", t_min.device)
+    _check_route(tables, "bvh", t_min.device, o.dtype)
     if kind == "cpu":
         return bvh_anyhit_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
 
     occ = _empty((n,), torch.bool, o)
     binding.launch_bvh_anyhit(tables, o, d, t_min, t_max, occ)
-    LAUNCHES["bvh_anyhit"] += 1
+    LAUNCHES["bvh_anyhit" + _SUFFIX[o.dtype]] += 1
     return occ
 
 
@@ -838,20 +853,21 @@ def sphere_closest(sph, o, d, t_min, t_max, box=None):
     """Closest sphere hit over the rows of ``sph`` (``Tables.sph``): ``(t,
     row, outward normal, material)``. With ``box`` (``Tables.sph_box``, rows
     past 512 spheres) the kernel skips the 256-row clusters a ray's segment
-    misses; the answer is the same. Counterpart of
+    misses; the answer is the same. Float32 or float64 rays, rows and boxes,
+    which launch the kernel's instance for the dtype. Counterpart of
     ``pallas_intersect.sphere_closest``."""
-    n, kind = _check_rays(o, d, t_min, t_max, "sphere_closest")
-    _check_table("sph", sph, _SPH_COLS, t_min.device)
+    _, kind = _check_rays(o, d, t_min, t_max, "sphere_closest")
+    _check_table("sph", sph, _SPH_COLS, t_min.device, o.dtype)
     box = sph.new_zeros((0, _BOX_COLS)) if box is None else box
     _check_sph_box(sph, box, t_min.device)
     if kind == "cpu":
         return sphere_closest_reference(sph, o, d, t_min, t_max)
     from ..kernels import binding
 
-    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
-           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    out = _closest_out(o)
     binding.launch_sphere_closest(sph, o, d, t_min, t_max, *out, box=box)
-    LAUNCHES["sphere_closest_clustered" if box.shape[0] else "sphere_closest"] += 1
+    name = "sphere_closest_clustered" if box.shape[0] else "sphere_closest"
+    LAUNCHES[name + _SUFFIX[o.dtype]] += 1
     return out
 
 
@@ -861,14 +877,13 @@ def combined_closest_small(tables: Tables, o, d, t_min, t_max):
     ``(inf, -1, 0, 0)``. Float32 or float64 rays and tables, which launch the
     kernel's instance for the dtype. Counterpart of
     ``pallas_intersect.combined_closest_small``."""
-    n, kind = _check_rays(o, d, t_min, t_max, "combined_closest_small")
+    _, kind = _check_rays(o, d, t_min, t_max, "combined_closest_small")
     _check_route(tables, "small", t_min.device, o.dtype)
     if kind == "cpu":
         return combined_closest_small_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
 
-    out = (_empty((n,), o.dtype, o), _empty((n,), torch.int32, o),
-           _empty((n, 3), o.dtype, o), _empty((n,), torch.int32, o))
+    out = _closest_out(o)
     binding.launch_combined_closest_small(tables, o, d, t_min, t_max, *out)
     LAUNCHES["combined_closest_small" + _SUFFIX[o.dtype]] += 1
     return out
@@ -876,18 +891,18 @@ def combined_closest_small(tables: Tables, o, d, t_min, t_max):
 
 def triangle_closest(tables: Tables, o, d, t_min, t_max):
     """Closest triangle hit over the flat route's 256-row clusters: ``(t,
-    row, outward normal, material)``; a miss is ``(inf, -1, 0, 0)``.
+    row, outward normal, material)``; a miss is ``(inf, -1, 0, 0)``. Float32
+    or float64 rays and tables (the kernel's instance for the dtype).
     Counterpart of ``pallas_intersect.triangle_closest``."""
-    n, kind = _check_rays(o, d, t_min, t_max, "triangle_closest")
-    _check_route(tables, "flat", t_min.device)
+    _, kind = _check_rays(o, d, t_min, t_max, "triangle_closest")
+    _check_route(tables, "flat", t_min.device, o.dtype)
     if kind == "cpu":
         return triangle_closest_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
 
-    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
-           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    out = _closest_out(o)
     binding.launch_triangle_closest(tables, o, d, t_min, t_max, *out)
-    LAUNCHES["triangle_closest"] += 1
+    LAUNCHES["triangle_closest" + _SUFFIX[o.dtype]] += 1
     return out
 
 
@@ -896,14 +911,13 @@ def resident_closest(tables: Tables, o, d, t_min, t_max):
     resident route's 128-row clusters: ``(t, row, outward normal,
     material)``; a miss is ``(inf, -1, 0, 0)``. Counterpart of
     ``resident_intersect.triangle_closest_resident``."""
-    n, kind = _check_rays(o, d, t_min, t_max, "resident_closest")
+    _, kind = _check_rays(o, d, t_min, t_max, "resident_closest")
     _check_route(tables, "resident", t_min.device)
     if kind == "cpu":
         return triangle_closest_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
 
-    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
-           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    out = _closest_out(o)
     binding.launch_resident_closest(tables, o, d, t_min, t_max, *out)
     LAUNCHES["resident_closest"] += 1
     return out
@@ -930,9 +944,9 @@ def any_hit(sph, tri, o, d, t_min, t_max, sph_box=None, tri_box=None):
     (``Tables`` row layouts; ``tri`` may have no rows): bool ``(N,)``. With
     ``sph_box`` (``Tables.sph_box``) or ``tri_box`` (the flat route's
     ``Tables.leaf``, 256 rows a box) the kernel skips the clusters a ray's
-    segment misses; the answer is the same. Float32 or float64 rays and
-    tables; float64 in one tile only (no boxes), the clustered mode raises
-    ``NotImplementedError``. Counterpart of ``pallas_intersect.any_hit``."""
+    segment misses; the answer is the same. Float32 or float64 rays, tables
+    and boxes, which launch the kernel's instance for the dtype. Counterpart
+    of ``pallas_intersect.any_hit``."""
     n, kind = _check_rays(o, d, t_min, t_max, "any_hit")
     dtype = o.dtype
     _check_table("sph", sph, _SPH_COLS, t_min.device, dtype)
@@ -943,9 +957,6 @@ def any_hit(sph, tri, o, d, t_min, t_max, sph_box=None, tri_box=None):
     _check_table("tri_box", tri_box, _BOX_COLS, t_min.device, dtype)
     if tri_box.shape[0] and tri_box.shape[0] * CLUSTER_SIZE < tri.shape[0]:
         raise ValueError(f"{tri_box.shape[0]} triangle cluster boxes for {tri.shape[0]} rows")
-    if dtype == torch.float64 and (sph_box.shape[0] or tri_box.shape[0]):
-        raise NotImplementedError(f"any_hit: the clustered mode has no float64 instance yet "
-                                  f"({F64_ITEM}); float64 runs in one tile")
     if kind == "cpu":
         return any_hit_reference(sph, tri, o, d, t_min, t_max)
     from ..kernels import binding

@@ -27,9 +27,10 @@ Tolerances, and why:
   its own wave engine: ``1e-6``, as ``tests/test_pool.py`` holds the JAX
   pool to its wave engine).
 
-Every other route has no float64 kernel yet: it must raise
-``NotImplementedError`` naming ROADMAP Queue 1, item 4b, on the CPU as it
-would on the card.
+The flat and bvh routes in float64 are held in
+``tests/test_torch_f64_routes.py``. The binned and resident routes have no
+float64 kernel yet: they must raise ``NotImplementedError`` naming ROADMAP
+Queue 1, item 4c, on the CPU as they would on the card.
 """
 
 import os
@@ -373,37 +374,39 @@ def test_bench_line_f64():
 
 @pytest.mark.parametrize("call", ["render_pool", "render", "intersect", "wrappers"])
 def test_f64_refused_without_kernels(call):
-    """float64 where no float64 kernel exists yet (the bvh route of
-    ``mesh_scene(4200)``, the flat route, the clustered any hit, and every
-    other kernel's wrapper) raises ``NotImplementedError`` naming ROADMAP
-    Queue 1, item 4b, before any CPU twin could run it."""
-    match = "ROADMAP Queue 1, item 4b"
+    """float64 where no float64 kernel exists yet (the binned and resident
+    routes of ``mesh_scene(4200)`` through the pool and the wave engine,
+    ``build_tables`` for those routes, and the binned and resident wrappers)
+    raises ``NotImplementedError`` naming ROADMAP Queue 1, item 4c, before
+    any CPU twin could run it."""
+    match = "ROADMAP Queue 1, item 4c"
     if call in ("render_pool", "render"):
         sc = scenes.mesh_scene(4200, device="cpu")
         cam = scenes.mesh_scene_camera(4, 4, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            if call == "render_pool":
-                pool.render_pool(sc, cam, width=4, height=4, spp=1, dtype=F64)
-            else:
-                render.render(sc, cam, render.RenderConfig(width=4, height=4, spp=1, dtype=F64))
+        for method in ("binned", "resident"):
+            with pytest.raises(NotImplementedError, match=match):
+                if call == "render_pool":
+                    pool.render_pool(sc, cam, width=4, height=4, spp=1, dtype=F64,
+                                     method=method)
+                else:
+                    render.render(sc, cam, render.RenderConfig(width=4, height=4, spp=1,
+                                                               dtype=F64, method=method))
         return
+    sc = render.cast_floats(scenes.mesh_scene(300, device="cpu"), F64)
     if call == "intersect":
-        for method in ("pallas", "bvh", "binned", "resident"):
-            sc = render.cast_floats(scenes.mesh_scene(300, device="cpu"), F64)
+        for method in ("binned", "resident"):
             with pytest.raises(NotImplementedError, match=match):
                 intersect.build_tables(sc, method)
         return
-    tables = intersect.build_tables(scenes.mesh_scene(300, device="cpu"))
+    from pathtrace_tpu_torch.ops import binned
+
     o = torch.zeros((4, 3), dtype=F64)
     d = torch.tensor([[0.0, 0.0, -1.0]] * 4, dtype=F64)
     lo, hi = torch.full((4,), 1e-3, dtype=F64), torch.full((4,), 9.0, dtype=F64)
-    for fn in (intersect.triangle_closest, intersect.bvh_closest, intersect.bvh_anyhit,
-               intersect.resident_closest, intersect.resident_anyhit):
-        with pytest.raises(NotImplementedError, match=match):
-            fn(tables, o, d, lo, hi)
-    sph = tables.sph.to(F64)
-    with pytest.raises(NotImplementedError, match=match):
-        intersect.sphere_closest(sph, o, d, lo, hi)
-    with pytest.raises(NotImplementedError, match=match):     # clustered any hit
-        intersect.any_hit(sph, tables.tri[:tables.tri_rows].to(F64), o, d, lo, hi,
-                          tri_box=tables.leaf.to(F64))
+    for method, fns in (("binned", (binned.triangle_closest_binned,
+                                    binned.triangle_anyhit_binned)),
+                        ("resident", (intersect.resident_closest, intersect.resident_anyhit))):
+        tables = intersect.build_tables(scenes.mesh_scene(300, device="cpu"), method)
+        for fn in fns:
+            with pytest.raises(NotImplementedError, match=match):
+                fn(tables, o, d, lo, hi)

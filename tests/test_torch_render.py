@@ -159,10 +159,10 @@ def test_replay_pixel_equals_frame_samples():
 
 def test_render_refuses_what_is_not_ported():
     sc, cam = _cornell()
-    mesh = scenes.mesh_scene(1000, device="cpu")      # the flat route: no float64 kernels yet
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4b"):
+    mesh = scenes.mesh_scene(1000, device="cpu")      # binned: no float64 kernels yet
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4c"):
         render.render(mesh, scenes.mesh_scene_camera(W, H, device="cpu"),
-                      _cfg(dtype=torch.float64))
+                      _cfg(dtype=torch.float64, method="binned"))
     with pytest.raises(ValueError, match="camera"):
         render.render(sc, scenes.cornell_camera(W + 1, H, device="cpu"), _cfg())
 
@@ -223,7 +223,8 @@ def test_cli_renders_resumes_and_replays(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["render", "--scene", "mesh", "--dtype", "f64"], "Queue 1, item 4"),   # item 4b
+    (["render", "--scene", "mesh", "--dtype", "f64", "--method", "resident"],
+     "Queue 1, item 4"),                                                     # item 4c
     (["--num-processes", "2", "render"], "Queue 1, item 5"),
 ])
 def test_cli_unported_flags_exit_nonzero(args, item):
