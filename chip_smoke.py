@@ -121,8 +121,8 @@ lanes of ``fused_bounce``:
     repeat ``CLUSTER_EXPECT``), device operations an iteration and the busy
     share (profiler over a 1-spp run).
 
-Float64, the reference's native precision (the fused pool and the small,
-flat and bvh routes; every scene widened from float32 by
+Float64, the reference's native precision (the fused pool and every
+intersection route; every scene widened from float32 by
 ``render.cast_floats``):
 
 3f. the float64 instances of ``fused_bounce`` and ``shadow_any_hit``
@@ -143,6 +143,20 @@ flat and bvh routes; every scene widened from float32 by
     sphere field at 1920x1080, 1 spp, in float64 on the composed pool
     (rays within 2% of the float32 frames'), and ``mesh_scene(2000)`` at
     32x32 in float64 on the card against the CPU twins;
+3h. float64 on the binned and resident routes: the float64 instances of
+    the binned round pair and the resident pair against their float64
+    twins, bitwise, at every team (1-32), on phase 3b's 65,536 config-4
+    lanes widened to float64: the round pair on every round's sorted wave
+    of one call of each binned driver, on edge waves and the tie case; both
+    float64 drivers against the same drivers on the round twins and the
+    brute-force twin on every lane (their rounds and ray-rounds beside the
+    float32 drivers'); the resident pair, the closest hit with its entries
+    cached where they fit in double and recomputed, on the lanes, edge
+    lanes, tables padded to 1,544 boxes (past the float64 fit) and the tie
+    case; each timed at the host's team and at every team beside its
+    float32 instance, bound at the FP64 peak; config 4 at 1920x1080, 1 spp,
+    in float64 under binned and resident, once each, timed: rays within 2%
+    of the float32 frames of phase 5d, the two frames' images equal;
 8.  float64 frames: the Cornell 128x128 pool frame and a 64x64, 2-spp wave
     Cornell frame on the card against the CPU twins (equal rays and
     iterations); many_spheres at 1920x1080, 4 spp, 32 bounces, 16,384 slots,
@@ -163,10 +177,11 @@ Parity against the C++ oracle (``csrc/oracle.cpp`` through
     samples against the oracle's window; and the golden image's window
     ``[240:244, 190:198]`` re-rendered bitwise at 8,192 spp.
 
-The next-to-last lines are the kernels' JSON record (twenty-seven entries:
-the twelve kernels, the four further modes and the eleven float64 instances
-(``*_f64``, bound at the FP64 peak; phase 3g's seven also with ``ms_f32``,
-the float32 instance's time on the same lanes), each with its time, its twin's,
+The next-to-last lines are the kernels' JSON record (thirty-one entries:
+the twelve kernels, the four further modes and the fifteen float64
+instances (``*_f64``, bound at the FP64 peak; phase 3g's seven and phase
+3h's four also with ``ms_f32``, the float32 instance's time on the same
+lanes), each with its time, its twin's,
 its launches on its path and its roofline bound; the pool's two kernels with
 the host's split and their time at every split, the BVH pair with the host's
 team, its time at every team and its work a ray, ``bvh_closest_counters`` with its launches in
@@ -344,6 +359,10 @@ F64_ROUTE_KERNELS = {
 # sphere field's): config 4's, or mesh_scene(2000)'s 32x32 frame.
 F64_FRAME_OF = {"sphere_closest_f64": "config4", "bvh_closest_f64": "config4",
                 "bvh_anyhit_f64": "config4", "triangle_closest_f64": "flat"}
+# Float64 on the binned and resident routes (phase 3h): the instances, by
+# launch counter name, and the methods whose config-4 frame launches them.
+F64_TRAVERSAL_KERNELS = {f"{k}_f64": v for k, v in TRAVERSAL_KERNELS.items()}
+F64_METHODS = ("binned", "resident")
 F64_RAYS_RTOL = 0.02        # a float64 frame's rays against the float32 frame's
 F64_WAVE = dict(width=64, height=64, spp=2, integrator="mis", max_bounces=64, seed=0)
 F64_FRAME = dict(width=1920, height=1080, spp=4, integrator="mis", max_bounces=32,
@@ -1235,7 +1254,7 @@ def hold_binned_rounds(what, tb, closest_waves, anyhit_waves):
     refs_a = [binned.round_anyhit_reference(tb, *w) for w in anyhit_waves]
     for team in binding.TEAMS:
         for j, (w, ref) in enumerate(zip(closest_waves, refs_c)):
-            out = tuple(torch.full_like(x, float("nan") if x.dtype == torch.float32 else -7)
+            out = tuple(torch.full_like(x, float("nan") if x.is_floating_point() else -7)
                         for x in ref)
             binding.launch_binned_round_closest(tb, *w, *out, team=team)
             _bitwise(f"binned_round_closest, {what} wave {j}, team {team}", ref, out)
@@ -1250,17 +1269,21 @@ def binned_edge_cases(dev, tb, rc, ra, t_rc, t_ra):
     """The round kernels at every team on the edge waves of the first
     closest and any-hit rounds (:func:`binned_edge_wave`) and on the tie
     case (:func:`binned_tie_tables`), where the lower row must win; the
-    closest driver on the tie tables against brute force."""
+    closest driver on the tie tables against brute force. All in the
+    dtype of ``tb``."""
     from pathtrace_tpu_torch.ops import binned, intersect, shade
 
+    dtype = tb.tri.dtype
     n_clusters = tb.leaf.shape[0]
     edges = [binned_edge_wave(rc, t_rc, n_clusters), binned_edge_wave(ra, t_ra, n_clusters)]
     refs_c, _ = hold_binned_rounds("edge", tb, edges, edges)
     tt, to, td, key = binned_tie_tables(dev)
+    tt, to, td = widen_tables(tt, dtype), to.to(dtype), td.to(dtype)
     m = to.shape[0]
-    tlo = torch.full((m,), shade.EPS, device=dev)
-    thi = torch.full((m,), float("inf"), device=dev)
-    tst = torch.tensor([5.0, 4.5] * (m // 2), device=dev)     # the hit at t_max, or short
+    tlo = torch.full((m,), shade.EPS, dtype=dtype, device=dev)
+    thi = torch.full((m,), float("inf"), dtype=dtype, device=dev)
+    # The hit at t_max, or short.
+    tst = torch.tensor([5.0, 4.5] * (m // 2), dtype=dtype, device=dev)
     (ref,), (occ,) = hold_binned_rounds("tie", tt, [(to, td, tlo, thi, key)],
                                         [(to, td, tlo, tst, key)])
     lower = torch.tensor([a for a, _ in BINNED_TIE_PAIRS], device=dev).repeat_interleave(m // 2)
@@ -1272,10 +1295,10 @@ def binned_edge_cases(dev, tb, rc, ra, t_rc, t_ra):
              binned.triangle_closest_binned(tt, to, td, tlo, thi))
     dead = sum(int(((w[4] < 0) | (w[4] >= n_clusters)).sum()) for w in edges)
     hits = sum(int((r[1] >= 0).sum()) for r in refs_c)
-    log(f"[traversal-kernels] edge waves ({len(edges)} x {BINNED_EDGE_S} rays, {dead} sentinel "
-        f"keys, {hits} hits; t_up NaN, -1, 0, inf; t_min and t_up at the hit's t) and the tie "
-        f"case (rows {BINNED_TIE_PAIRS}): both round kernels bitwise equal to their twins at "
-        f"every team, the tie to the lower row")
+    log(f"[traversal-kernels] {dtype} edge waves ({len(edges)} x {BINNED_EDGE_S} rays, {dead} "
+        f"sentinel keys, {hits} hits; t_up NaN, -1, 0, inf; t_min and t_up at the hit's t) and "
+        f"the tie case (rows {BINNED_TIE_PAIRS}): both round kernels bitwise equal to their "
+        f"twins at every team, the tie to the lower row")
 
 
 def hold_resident_kernels(what, tables, closest, shadow):
@@ -1295,12 +1318,12 @@ def hold_resident_kernels(what, tables, closest, shadow):
     _bitwise(f"{what}: the resident closest walk vs brute force", ref, model[:4])
     a_model = intersect.resident_walk_reference(tables, so, sd, slo, st, anyhit=True)
     _bitwise(f"{what}: the resident any-hit walk vs brute force", ref_occ, a_model[0])
-    n_boxes = tables.leaf.shape[0]
+    n_boxes, size = tables.leaf.shape[0], tables.leaf.element_size()
     for team in binding.TEAMS:
         for cached in (True, False):
-            if cached and not binding.resident_cached(n_boxes, team):
+            if cached and not binding.resident_cached(n_boxes, team, size):
                 continue
-            out = tuple(torch.full_like(x, float("nan") if x.dtype == torch.float32 else -7)
+            out = tuple(torch.full_like(x, float("nan") if x.is_floating_point() else -7)
                         for x in ref)
             binding.launch_resident_closest(tables, o, d, lo, hi, *out, team=team, cached=cached)
             _bitwise(f"resident_closest, {what}, team {team}, cached {cached}", ref, out)
@@ -1320,9 +1343,11 @@ def resident_edge_cases(dev, tr, closest, shadow, n=1024):
     cluster next to cluster 0 and 16 clusters up), where the kernels must
     return the lower row, with shadow t_max 5 (the hit lies at t_max) and
     4.5 (no hit). ``closest`` and ``shadow`` are the lanes as
-    :func:`hold_resident_kernels` takes them."""
+    :func:`hold_resident_kernels` takes them. All in the dtype of ``tr``
+    (in float64 the padded tables recompute their entries at every team)."""
     from pathtrace_tpu_torch.ops import intersect
 
+    dtype = tr.tri.dtype
     o, d, lo, hi_t, ref_t = closest
     so, sd, _, st, _ = shadow
     elo, hi = edge_ranges(lo, hi_t, ref_t[0], n)
@@ -1334,14 +1359,16 @@ def resident_edge_cases(dev, tr, closest, shadow, n=1024):
                           (*e[1], intersect.bvh_anyhit_reference(tr, *e[1])))
     # Padded with inverted boxes and zero rows: the same answers.
     pad = RESIDENT_PADDED_BOXES - tr.leaf.shape[0]
-    inverted = torch.tensor([float("inf")] * 3 + [float("-inf")] * 3 + [0.0, 0.0], device=dev)
+    inverted = torch.tensor([float("inf")] * 3 + [float("-inf")] * 3 + [0.0, 0.0], dtype=dtype,
+                            device=dev)
     big = tr._replace(leaf=torch.cat([tr.leaf, inverted.expand(pad, 8)]).contiguous(),
                       tri=torch.cat([tr.tri, tr.tri.new_zeros((pad * intersect.LEAF, 16))]))
     hold_resident_kernels("padded tables", big, closest, shadow)
     del big
-    to, td, tlo, thi, tst = tie_rays(dev)
+    to, td, tlo, thi, tst = (x.to(dtype) for x in tie_rays(dev))
     for upper in (1, 16):
         tt, _ = tie_tables(dev, upper, route="resident")
+        tt = widen_tables(tt, dtype)
         ref = intersect.triangle_closest_reference(tt, to, td, tlo, thi)
         if not ((ref[0] == 5.0).all() and (ref[1] == 0).all()):
             raise AssertionError(f"resident tie case (upper cluster {upper}): twin gave {ref[:2]}")
@@ -1351,8 +1378,8 @@ def resident_edge_cases(dev, tr, closest, shadow, n=1024):
         if not ((model[4] == 2).all() and torch.equal(a_model[0], tst == 5.0)):
             raise AssertionError(f"resident tie case (upper cluster {upper}): clusters visited "
                                  f"{model[4]}, occlusion {a_model[0]}")
-    log(f"[traversal-kernels] resident edge lanes ({n} lanes: t_max NaN, -1, 0, t_min, inf; "
-        f"t_min, t_max or both at the hit's t), the tables padded to {RESIDENT_PADDED_BOXES} "
+    log(f"[traversal-kernels] {dtype} resident edge lanes ({n} lanes: t_max NaN, -1, 0, t_min, "
+        f"inf; t_min, t_max or both at the hit's t), the tables padded to {RESIDENT_PADDED_BOXES} "
         f"boxes ({o.shape[0]} lanes) and the tie case (B at row 128 and at row 2048, entered first): "
         f"both kernels bitwise equal to brute force at every team and mode, the walk model "
         f"too, the tie to row 0 with both clusters visited")
@@ -3185,6 +3212,237 @@ def run_f64_route_frames(dev, mesh, mesh_cam, smi: str):
     return launches
 
 
+def check_f64_traversal_kernels(dev, mesh, lanes):
+    """Phase 3h, kernels: the float64 instances of the binned round pair and
+    the resident pair against their float64 twins on the card, bitwise, at
+    every team size 1-32, on phase 3b's 65,536 config-4 lanes widened to
+    float64 (exact): the binned drivers on the kernels against the same
+    drivers on the round twins and the brute-force twin on every lane, the
+    round kernels at every team on every round's sorted wave of one call of
+    each driver, on edge waves and the tie case (:func:`binned_edge_cases`);
+    the resident pair at every team, the closest hit with its entries
+    cached where they fit and recomputed, on the lanes, edge lanes, the
+    padded tables (past the float64 fit) and the tie case
+    (:func:`hold_resident_kernels`, :func:`resident_edge_cases`). Each
+    timed at the host's team and at every team (the round pair on the first
+    round's wave by events and summed over a driver call's waves queued),
+    the float32 instance on the float32 lanes beside it, the twin on the
+    call that gives the reference; bounds at the FP64 peak. The drivers'
+    rounds and ray-rounds in both dtypes."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import binned, intersect
+    from pathtrace_tpu_torch.render import cast_floats
+
+    f64, i32, inf = torch.float64, torch.int32, float("inf")
+    sc = cast_floats(mesh, f64)
+    tb, tr = intersect.build_tables(sc, "binned"), intersect.build_tables(sc, "resident")
+    tb32, tr32 = intersect.build_tables(mesh, "binned"), intersect.build_tables(mesh, "resident")
+    o, d, lo, so, sd, st = (lanes[k].to(f64) for k in ("o", "d", "lo", "so", "sd", "st"))
+    S = o.shape[0]
+    hi = torch.full((S,), inf, dtype=f64, device=dev)
+    hi_t = torch.minimum(hi, intersect.sphere_closest_reference(tb.sph, o, d, lo, hi)[0])
+    l32 = tuple(lanes[k] for k in ("o", "d", "lo", "hi_t", "so", "sd", "st"))
+    ref_t, t_twin = timed_once(lambda: intersect.triangle_closest_reference(tr, o, d, lo, hi_t))
+    ref_occ, a_twin = timed_once(lambda: intersect.bvh_anyhit_reference(tr, so, sd, lo, st))
+    worst, ms, bounds, extra = {}, {}, {}, {}
+
+    def outs(n, dtype):
+        return (torch.empty(n, dtype=dtype, device=dev), torch.empty(n, dtype=i32, device=dev),
+                torch.empty((n, 3), dtype=dtype, device=dev), torch.empty(n, dtype=i32, device=dev))
+
+    # The binned drivers, float64 and float32: every round's wave captured,
+    # the float64 results against the round twins' drivers and brute force.
+    stats = {k: {} for k in ("closest", "anyhit", "closest_f32", "anyhit_f32")}
+    got_c, waves_c = capture_rounds(binned.triangle_closest_binned, tb, o, d, lo, hi_t,
+                                    stats=stats["closest"])
+    _bitwise("binned closest driver f64 vs brute force", ref_t, got_c)
+    _bitwise("binned closest driver f64 vs its round twin",
+             binned.triangle_closest_binned(tb, o, d, lo, hi_t, round_twin=True), got_c)
+    got_a, waves_a = capture_rounds(binned.triangle_anyhit_binned, tb, so, sd, lo, st,
+                                    stats=stats["anyhit"])
+    _bitwise("binned any-hit driver f64 vs brute force", ref_occ, got_a)
+    _bitwise("binned any-hit driver f64 vs its round twin",
+             binned.triangle_anyhit_binned(tb, so, sd, lo, st, round_twin=True), got_a)
+    _, w32c = capture_rounds(binned.triangle_closest_binned, tb32, *l32[:4],
+                             stats=stats["closest_f32"])
+    _, w32a = capture_rounds(binned.triangle_anyhit_binned, tb32, l32[4], l32[5], l32[2], l32[6],
+                             stats=stats["anyhit_f32"])
+    for k, waves in (("closest", waves_c), ("anyhit", waves_a)):
+        sizes = [w[4].shape[0] for w in waves]
+        if (len(sizes), sum(sizes)) != (stats[k]["rounds"], stats[k]["ray_rounds"]):
+            raise AssertionError(f"binned {k} f64: captured {len(sizes)} waves of {sum(sizes)} "
+                                 f"rays, the driver counted {stats[k]}")
+    rc, ra = waves_c[0], waves_a[0]
+    refs_c, refs_a = hold_binned_rounds("driver call f64", tb, waves_c, waves_a)
+    ref_rc, ref_ra = refs_c[0], refs_a[0]
+    worst["binned_round_closest_f64"] = _bitwise("binned_round_closest f64", ref_rc,
+                                                 binned.round_closest(tb, *rc))
+    worst["binned_round_anyhit_f64"] = _bitwise("binned_round_anyhit f64", ref_ra,
+                                                binned.round_anyhit(tb, *ra))
+    binned_edge_cases(dev, tb, rc, ra, ref_rc[0], binned.round_closest_reference(tb, *ra)[0])
+
+    # The resident pair: through the wrappers (the host's team and mode),
+    # then raw at every team and mode on the lanes, edge lanes, padded
+    # tables and the tie case.
+    worst["resident_closest_f64"] = _bitwise("resident_closest f64", ref_t,
+                                             intersect.resident_closest(tr, o, d, lo, hi_t))
+    worst["resident_anyhit_f64"] = _bitwise("resident_anyhit f64", ref_occ,
+                                            intersect.resident_anyhit(tr, so, sd, lo, st))
+    r_lanes = (o, d, lo, hi_t, ref_t), (so, sd, lo, st, ref_occ)
+    r_model, r_a_model = hold_resident_kernels("config-4 lanes f64", tr, *r_lanes)
+    resident_edge_cases(dev, tr, *r_lanes)
+
+    # Times: the round pair at every team on the first round's wave and
+    # summed over the driver call's waves; the float32 instance beside it,
+    # at the float32 host team.
+    outs_c = [outs(w[4].shape[0], f64) for w in waves_c]
+    occs_a = [torch.empty(w[4].shape[0], dtype=torch.bool, device=dev) for w in waves_a]
+    outs32 = [outs(w[4].shape[0], torch.float32) for w in w32c]
+    occs32 = [torch.empty(w[4].shape[0], dtype=torch.bool, device=dev) for w in w32a]
+    rounds = {"binned_round_closest_f64": (
+                  lambda j, team: binding.launch_binned_round_closest(
+                      tb, *waves_c[j], *outs_c[j], team=team),
+                  lambda j, team: binding.launch_binned_round_closest(
+                      tb32, *w32c[j], *outs32[j], team=team), len(waves_c), len(w32c)),
+              "binned_round_anyhit_f64": (
+                  lambda j, team: binding.launch_binned_round_anyhit(
+                      tb, *waves_a[j], occs_a[j], team=team),
+                  lambda j, team: binding.launch_binned_round_anyhit(
+                      tb32, *w32a[j], occs32[j], team=team), len(waves_a), len(w32a))}
+    twin = {"binned_round_closest_f64": timed_once(
+                lambda: binned.round_closest_reference(tb, *rc))[1],
+            "binned_round_anyhit_f64": timed_once(
+                lambda: binned.round_anyhit_reference(tb, *ra))[1]}
+    for k, (launch, launch32, n64, n32) in rounds.items():
+        team = binding._binned_team(tb, None, k.removesuffix("_f64"))
+        which = "closest" if "closest" in k else "anyhit"
+        by_team = {t: cuda_ms(lambda: launch(0, t)) for t in binding.TEAMS}
+        call_by_team = {t: queued_ms(lambda: [launch(j, t) for j in range(n64)])
+                        for t in binding.TEAMS}
+        ms[k] = (by_team[team], twin[k])
+        extra[k] = {"team": team, "ms_by_team": by_team, "call_ms_by_team": call_by_team,
+                    "queued_ms": queued_ms(lambda: launch(0, team)),
+                    "ms_f32": cuda_ms(lambda: launch32(0, None)),
+                    "call_ms_f32": queued_ms(lambda: [launch32(j, None) for j in range(n32)]),
+                    "rounds": stats[which]["rounds"], "ray_rounds": stats[which]["ray_rounds"],
+                    "rounds_f32": stats[which + "_f32"]["rounds"],
+                    "ray_rounds_f32": stats[which + "_f32"]["ray_rounds"],
+                    "wave_sizes": [w[4].shape[0] for w in (waves_c if which == "closest"
+                                                           else waves_a)]}
+
+    # The resident pair at every team (the closest hit cached where its
+    # entries fit in float64, and recomputed), the float32 instance beside.
+    out, out32 = outs(S, f64), outs(S, torch.float32)
+    occ = torch.empty(S, dtype=torch.bool, device=dev)
+    n_boxes = tr.leaf.shape[0]
+    r_by_team = {"resident_closest_f64": {}, "recomputed": {}, "resident_anyhit_f64": {}}
+    for t in binding.TEAMS:
+        if binding.resident_cached(n_boxes, t, tr.leaf.element_size()):
+            r_by_team["resident_closest_f64"][t] = cuda_ms(lambda: binding.launch_resident_closest(
+                tr, o, d, lo, hi_t, *out, team=t, cached=True))
+        r_by_team["recomputed"][t] = cuda_ms(lambda: binding.launch_resident_closest(
+            tr, o, d, lo, hi_t, *out, team=t, cached=False))
+        r_by_team["resident_anyhit_f64"][t] = cuda_ms(lambda: binding.launch_resident_anyhit(
+            tr, so, sd, lo, st, occ, team=t))
+    r_launch = {"resident_closest_f64": (
+                    lambda: binding.launch_resident_closest(tr, o, d, lo, hi_t, *out),
+                    lambda: binding.launch_resident_closest(tr32, *l32[:4], *out32), t_twin),
+                "resident_anyhit_f64": (
+                    lambda: binding.launch_resident_anyhit(tr, so, sd, lo, st, occ),
+                    lambda: binding.launch_resident_anyhit(tr32, l32[4], l32[5], l32[2], l32[6],
+                                                           occ), a_twin)}
+    for (k, (launch, launch32, tw)), model in zip(r_launch.items(), (r_model, r_a_model)):
+        ms[k] = (cuda_ms(launch), tw)
+        extra[k] = {"team": binding.RESIDENT_TEAM[k.removesuffix("_f64")],
+                    "ms_by_team": r_by_team[k],
+                    "queued_ms": queued_ms(launch), "ms_f32": cuda_ms(launch32),
+                    "per_ray": {"clusters": model[-2].double().mean().item(),
+                                "tests": model[-1].double().mean().item()}}
+    extra["resident_closest_f64"]["ms_by_team_recomputed"] = r_by_team["recomputed"]
+    extra["resident_closest_f64"]["cached"] = binding.resident_cached(
+        n_boxes, binding.RESIDENT_TEAM["resident_closest"], tr.leaf.element_size())
+
+    need_c = closest_tests(tr.leaf, intersect.LEAF, o, d, lo, hi_t, ref_t[0])
+    need_a = anyhit_tests(tr.leaf, intersect.LEAF, so, sd, lo, st, ref_occ)
+    extra["resident_closest_f64"]["per_ray"]["bound_tests"] = need_c / S
+    extra["resident_anyhit_f64"]["per_ray"]["bound_tests"] = need_a / S
+    cluster_bytes = CLUSTER_ROWS * tb.tri.shape[1] * tb.tri.element_size()
+    bounds = {
+        "binned_round_closest_f64": bound(
+            nbytes(*rc, *outs_c[0]) + cluster_bytes * torch.unique(rc[4]).numel(),
+            rc[4].shape[0] * CLUSTER_ROWS * TRI_OPS, PEAK_FP64),
+        "binned_round_anyhit_f64": bound(
+            nbytes(*ra, occs_a[0]) + cluster_bytes * torch.unique(ra[4]).numel(),
+            TRI_OPS * (int((~ref_ra).sum()) * CLUSTER_ROWS + int(ref_ra.sum())), PEAK_FP64),
+        "resident_closest_f64": bound(nbytes(o, d, lo, hi_t, tr.tri, tr.leaf, *out),
+                                      TRI_OPS * need_c, PEAK_FP64),
+        "resident_anyhit_f64": bound(nbytes(so, sd, lo, st, tr.tri, tr.leaf, occ),
+                                     TRI_OPS * need_a, PEAK_FP64),
+    }
+    log(f"[f64-traversals] config 4 float64, {S} lanes ({int((ref_t[1] >= 0).sum())} hits, "
+        f"{int(ref_occ.sum())} blocked): binned {tb.leaf.shape[0]} clusters, resident "
+        f"{n_boxes} boxes. Bitwise equal to their float64 twins at teams {list(binding.TEAMS)}: "
+        f"binned_round_closest_f64 on all {len(waves_c)} waves of a closest driver call, "
+        f"binned_round_anyhit_f64 on all {len(waves_a)} of an any-hit call, edge waves and the "
+        f"tie; both float64 drivers equal their round twins' and brute force on every lane; "
+        f"resident_closest_f64 (entries cached where they fit, and recomputed) and "
+        f"resident_anyhit_f64 equal brute force at every team on every lane, edge lanes, the "
+        f"padded tables and the tie case. Driver rounds / ray-rounds f64 vs f32: "
+        f"{json.dumps(stats)}; twins {t_twin:.1f}, {a_twin:.1f} ms")
+    log("[f64-traversals] ms and bounds: " + json.dumps(
+        {k: {"ms": ms[k][0], "plain_ms": ms[k][1], **bounds[k], **extra[k]} for k in ms}))
+    return worst, ms, bounds, extra
+
+
+def run_f64_traversal_frames(dev, mesh, mesh_cam, smi: str):
+    """Phase 3h, frames: config 4 at 1920x1080, 1 spp, in float64 through
+    the composed pool under ``method="binned"`` and ``"resident"``, once
+    each, timed: launching only the float64 kernels of their routes, rays
+    within ``F64_RAYS_RTOL`` of the float32 frames of phase 5d
+    (``METHOD_EXPECT``), the two frames' rays, iterations and images equal
+    (every route gives the brute-force hit). Every launch counter is zeroed
+    before a frame and read after it. Returns the launches by method."""
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+
+    frames, launches, images = {}, {}, {}
+    for m in F64_METHODS:
+        want = {f"{k}_f64" for k in METHOD_KERNELS[m]} | {"sphere_closest_f64", "any_hit_f64"}
+        shade.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, counters, iters = render_pool(mesh, mesh_cam, dtype=torch.float64, method=m,
+                                           **dict(CONFIG4, spp=1))
+        checksum = float(img.sum().item())     # forces completion
+        wall = time.perf_counter() - t0
+        got = dict(shade.LAUNCHES)
+        if set(got) != want or not np.isfinite(checksum) or img.dtype != torch.float64:
+            raise AssertionError(f"config 4 float64 under {m}: {img.dtype}, launches {got}, "
+                                 f"checksum {checksum}")
+        rays = ray_count(counters)
+        rel = (rays - METHOD_EXPECT[0]) / METHOD_EXPECT[0]
+        if abs(rel) > F64_RAYS_RTOL:
+            raise AssertionError(f"config 4 float64 under {m}: {rays} rays against "
+                                 f"{METHOD_EXPECT[0]} in float32")
+        frames[m] = {"total_rays": rays, "iters": iters, "image_checksum": checksum,
+                     "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
+                     "rays_rel_diff_vs_f32": rel, "iters_f32": METHOD_EXPECT[1],
+                     "launches_per_iter": {k: v / iters for k, v in sorted(got.items())}}
+        launches[m], images[m] = got, img
+    a, b = F64_METHODS
+    if ((frames[a]["total_rays"], frames[a]["iters"]) != (frames[b]["total_rays"],
+                                                          frames[b]["iters"])
+            or not torch.equal(images[a], images[b])):
+        raise AssertionError(f"config 4 float64: {a} and {b} frames differ: {frames}")
+    log("[f64-traversal-frames] " + json.dumps({
+        "workload": f"config 4 (mesh_scene, {mesh.num_tris} tris) {CONFIG4['width']}x"
+                    f"{CONFIG4['height']} 1spp MIS depth {CONFIG4['max_bounces']}, "
+                    f"{CONFIG4['num_slots']} slots, float64, composed pool; {a} and {b} images "
+                    f"bitwise equal",
+        **frames, "card": smi}))
+    return launches
+
+
 def golden_rmse(img, spp: int) -> dict:
     """``img`` (H*W, 3) mean radiance against the golden image: the
     full-resolution RMSE, each channel's mean bias, and the noise floor
@@ -3381,6 +3639,12 @@ def main() -> int:
         return out, run_f64_route_frames(dev, mesh, mesh_cam, smi)
 
     (r64_worst, r64_ms, r64_bnd, r64_extra, r64_counters), r64_launches = phase("3g", f64_routes)
+
+    def f64_traversals():
+        out = check_f64_traversal_kernels(dev, mesh, lanes)
+        return out, run_f64_traversal_frames(dev, mesh, mesh_cam, smi)
+
+    (t64_worst, t64_ms, t64_bnd, t64_extra), t64_launches = phase("3h", f64_traversals)
     del lanes, flat, field
     phase("4", run_cornell, dev)
     phase("4b", run_mesh_frame, dev)
@@ -3452,6 +3716,10 @@ def main() -> int:
               **({"launches_16384": r64_launches["field"][k]} if k == "triangle_closest_f64"
                  else {}))
         for k, (src, rep) in F64_ROUTE_KERNELS.items()
+    ] + [
+        entry(k, src, rep, t64_launches[method_of[k.removesuffix("_f64")]][k], t64_worst[k],
+              t64_ms[k], t64_bnd[k], **t64_extra[k])
+        for k, (src, rep) in F64_TRAVERSAL_KERNELS.items()
     ]}
     print(json.dumps(record))
     print(smi)

@@ -22,9 +22,7 @@ JAX CLI's process default does: ``auto``, ``pallas``, ``bruteforce``,
 ``pallas`` (every route gives the brute-force hit), and the pool runs it on
 its composed branch, as the JAX pool does. ``--dtype f64`` renders in the
 reference's native precision (every command, ``bench`` too) on the fused
-pool and the small, flat and bvh intersection routes; ``--method binned``
-and ``--method resident``, which have no float64 kernels yet, exit with
-status 2 naming ROADMAP Queue 1, item 4c. Not ported
+pool and every intersection route, whatever the ``--method``. Not ported
 yet, exiting with status 2 and a message naming its ROADMAP item: the
 multi-process flags.
 """
@@ -209,7 +207,7 @@ def main(argv=None) -> int:
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--dtype", choices=["f32", "f64"], default="f32",
                         help="estimator precision; f64 is the reference's native "
-                             "precision (the fused pool and the small route)")
+                             "precision (every engine and route)")
         sp.add_argument("--method",
                         choices=["auto", "pallas", "binned", "resident", "bvh", "bruteforce"],
                         default="auto",

@@ -10,14 +10,19 @@
 //
 // The tables are the resident route's (ops/intersect.py :: build_tables):
 // the scene's triangle rows zero-padded to whole clusters of 128 rows
-// (padding rows fail the |a| >= 1e-8 reject), 16 floats a row, 16-byte
-// aligned (a row is three float4 loads), and one AABB row per cluster
+// (padding rows fail the |a| >= 1e-8 reject), 16 values a row, 16-byte
+// aligned (a row is three Q4 loads), and one AABB row per cluster
 // derived from the geometry, widened outward by a small margin so that
 // slab-test rounding never drops a cluster holding a hit the twin accepts;
 // padding clusters carry inverted boxes and are never entered. The entry of
 // a cluster is the slab entry into [t_min, t_max] (csrc/geom.cuh ::
 // box_entry: the 1e-20 guard of 1/d and the min <= max validity test, as
 // _entries_block).
+//
+// Types. Both kernels are templates on the float type F: pt_resident_closest
+// and pt_resident_anyhit are the float instances, the _f64 entry points the
+// double ones (float64 rows, boxes, rays and outputs; cached entries in
+// double too).
 //
 // A team of K threads (1, 2, 4, 8, 16 or 32, aligned in a warp; 128 threads
 // a block, so 128 / K rays) shares one ray; every decision is taken on a
@@ -33,14 +38,15 @@
 //   row, which the brute-force twin returns.
 // - The entries, once a ray: thread j computes the entries of its clusters
 //   j, j+K, ... once into its own column of shared memory (ceil(C / K)
-//   floats, 128 threads a block: 17.5 KB at K = 16 for C = 552), and every
-//   later scan reads them back instead of the boxes. Each thread reads only
-//   what it wrote, so no barrier is needed, and a block's threads use
-//   neighbouring words. Where that does not fit the 48 KB a block takes
-//   without an opt-in (a small K or a large table: at K = 16 past 1,536
-//   clusters, ~196k triangles), the same kernel in its other mode
-//   (kCached = false) computes the C / K entries a thread again at every
-//   scan; the host picks the mode (kernels/binding.py :: resident_cached).
+//   values of F, 128 threads a block: at K = 16 for C = 552, 17.5 KB in
+//   float, 35 KB in double), and every later scan reads them back instead
+//   of the boxes. Each thread reads only what it wrote, so no barrier is
+//   needed, and a block's threads use neighbouring words. Where that does
+//   not fit the 48 KB a block takes without an opt-in (a small K or a large
+//   table: at K = 16 past 1,536 clusters, ~196k triangles, in float; past
+//   768, ~98k, in double), the same kernel in its other mode (kCached =
+//   false) computes the C / K entries a thread again at every scan; the
+//   host picks the mode (kernels/binding.py :: resident_cached).
 // - The sweep, split: thread j tests rows j, j+K, ... of the cluster
 //   (Moller-Trumbore, geom.cuh :: hit_triangle: 1e-8 parallel reject,
 //   inclusive barycentric bounds, closed [t_min, bound]), keeps its strict
@@ -93,48 +99,49 @@ constexpr int kBoxCols = 8;   // min, max, 2 zeros
 constexpr int kCluster = 128;
 constexpr size_t kSharedLimit = 48 * 1024;  // dynamic shared memory without an opt-in
 using pt::kNone;
-using pt::Ray;
+using pt::RayT;
 
-// Shared memory of a block at K threads a ray with the entries cached.
+// Shared memory of a block at K threads a ray with the entries (F) cached.
+template <typename F>
 size_t cached_bytes(int n_boxes, int k) {
-  return static_cast<size_t>(kThreads) * ((n_boxes + k - 1) / k) * sizeof(float);
+  return static_cast<size_t>(kThreads) * ((n_boxes + k - 1) / k) * sizeof(F);
 }
 
-template <int K, bool kCached>
+template <int K, bool kCached, typename F>
 __global__ void __launch_bounds__(kThreads)
-    resident_closest_kernel(const float4* __restrict__ tri, const float* __restrict__ box,
-                            int n_boxes, const float* __restrict__ o,
-                            const float* __restrict__ d, const float* __restrict__ t_min,
-                            const float* __restrict__ t_max, float* __restrict__ t_out,
-                            int* __restrict__ idx_out, float* __restrict__ n_out,
-                            int* __restrict__ m_out, int N) {
-  extern __shared__ float smem[];
-  float* mine = smem + threadIdx.x;  // this thread's column: entry of cluster part + s K at s * 128
+    resident_closest_kernel(const pt::Q4<F>* __restrict__ tri, const F* __restrict__ box,
+                            int n_boxes, const F* __restrict__ o, const F* __restrict__ d,
+                            const F* __restrict__ t_min, const F* __restrict__ t_max,
+                            F* __restrict__ t_out, int* __restrict__ idx_out,
+                            F* __restrict__ n_out, int* __restrict__ m_out, int N) {
+  extern __shared__ float4 smem4[];
+  // This thread's column: the entry of cluster part + s K at s * 128.
+  F* mine = reinterpret_cast<F*>(smem4) + threadIdx.x;
   const int part = threadIdx.x & (K - 1);
   const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;  // the whole team leaves together
   const unsigned mask = pt::team_mask(K);
-  const Ray ray = pt::load_ray(o, d, t_min, t_max, i);
+  const RayT<F> ray = pt::load_ray(o, d, t_min, t_max, i);
   auto slab = [&](int c) {
     return pt::box_entry(box + c * kBoxCols, ray.o, ray.inv, ray.t_min, ray.t_max);
   };
   if (kCached)
     for (int c = part; c < n_boxes; c += K) mine[(c / K) * kThreads] = slab(c);
   auto entry = [&](int c) { return kCached ? mine[(c / K) * kThreads] : slab(c); };
-  float best_t = INFINITY;
+  F best_t = INFINITY;
   int best_i = kNone;
-  float e = -INFINITY;
+  F e = -F(INFINITY);
   int c = -1;
   // NaN t_max stays NaN under clamp_max, so nothing passes the gate.
   while (pt::next_box<K>(n_boxes, part, mask, entry, &e, &c) &&
          e <= pt::clamp_max(ray.t_max, best_t)) {
-    const float cap = pt::clamp_max(ray.t_max, best_t);
-    const float4* row = tri + (static_cast<size_t>(c) * kCluster + part) * (kTriCols / 4);
-    float lt = INFINITY;
+    const F cap = pt::clamp_max(ray.t_max, best_t);
+    const pt::Q4<F>* row = tri + (static_cast<size_t>(c) * kCluster + part) * (kTriCols / 4);
+    F lt = INFINITY;
     int lr = kNone;
 #pragma unroll 4
     for (int r = part; r < kCluster; r += K, row += K * (kTriCols / 4)) {
-      float t;
+      F t;
       if (pt::hit_triangle(row, ray.o, ray.d, ray.t_min, cap, &t) && t < lt) {
         lt = t;  // strict: a thread's first minimum in row order
         lr = c * kCluster + r;
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
   if (part != 0) return;
   t_out[i] = best_t;
   if (best_i != kNone) {
-    const float* row = reinterpret_cast<const float*>(tri) + static_cast<size_t>(best_i) * kTriCols;
+    const F* row = reinterpret_cast<const F*>(tri) + static_cast<size_t>(best_i) * kTriCols;
     idx_out[i] = best_i;
     n_out[3 * i] = row[9];
     n_out[3 * i + 1] = row[10];
@@ -157,36 +164,36 @@ __global__ void __launch_bounds__(kThreads)
     m_out[i] = static_cast<int>(row[12]);
   } else {
     idx_out[i] = -1;
-    n_out[3 * i] = 0.0f;
-    n_out[3 * i + 1] = 0.0f;
-    n_out[3 * i + 2] = 0.0f;
+    n_out[3 * i] = F(0);
+    n_out[3 * i + 1] = F(0);
+    n_out[3 * i + 2] = F(0);
     m_out[i] = 0;
   }
 }
 
-template <int K>
+template <int K, typename F>
 __global__ void __launch_bounds__(kThreads)
-    resident_anyhit_kernel(const float4* __restrict__ tri, const float* __restrict__ box,
-                           int n_boxes, const float* __restrict__ o,
-                           const float* __restrict__ d, const float* __restrict__ t_min,
-                           const float* __restrict__ t_max, bool* __restrict__ occ, int N) {
+    resident_anyhit_kernel(const pt::Q4<F>* __restrict__ tri, const F* __restrict__ box,
+                           int n_boxes, const F* __restrict__ o, const F* __restrict__ d,
+                           const F* __restrict__ t_min, const F* __restrict__ t_max,
+                           bool* __restrict__ occ, int N) {
   const int part = threadIdx.x & (K - 1);
   const int i = blockIdx.x * (kThreads / K) + threadIdx.x / K;
   if (i >= N) return;
   const unsigned mask = pt::team_mask(K);
   const int first_lane = (threadIdx.x & 31) & ~(K - 1);  // the team's lowest lane
-  const Ray ray = pt::load_ray(o, d, t_min, t_max, i);
+  const RayT<F> ray = pt::load_ray(o, d, t_min, t_max, i);
   bool hit = false;
   if (ray.t_max >= ray.t_min) {  // else an empty range (also NaN): nothing to hit
     auto row_hit = [&](int r) {
-      float t;
+      F t;
       return pt::hit_triangle(tri + static_cast<size_t>(r) * (kTriCols / 4), ray.o, ray.d,
                               ray.t_min, ray.t_max, &t);
     };
     for (int base = 0; base < n_boxes && !hit; base += K) {
       const int c = base + part;
       const bool in = c < n_boxes && pt::box_entry(box + c * kBoxCols, ray.o, ray.inv,
-                                                   ray.t_min, ray.t_max) < INFINITY;
+                                                   ray.t_min, ray.t_max) < F(INFINITY);
       // Bit j: the team's thread j entered its box.
       unsigned entered = (__ballot_sync(mask, in) & mask) >> first_lane;
       for (; entered != 0u && !hit; entered &= entered - 1u) {
@@ -198,68 +205,99 @@ __global__ void __launch_bounds__(kThreads)
   if (part == 0) occ[i] = hit;
 }
 
-template <int K>
-cudaError_t launch_closest(const float* tri, const float* box, int n_boxes, bool cached,
-                           const float* o, const float* d, const float* t_min,
-                           const float* t_max, float* t_out, int* idx_out, float* n_out,
-                           int* m_out, int N, cudaStream_t stream) {
+template <int K, typename F>
+cudaError_t launch_closest(const F* tri, const F* box, int n_boxes, bool cached, const F* o,
+                           const F* d, const F* t_min, const F* t_max, F* t_out, int* idx_out,
+                           F* n_out, int* m_out, int N, cudaStream_t stream) {
   const int grid = (N + kThreads / K - 1) / (kThreads / K);
-  const float4* rows = reinterpret_cast<const float4*>(tri);
+  const pt::Q4<F>* rows = reinterpret_cast<const pt::Q4<F>*>(tri);
   if (!cached) {
-    resident_closest_kernel<K, false><<<grid, kThreads, 0, stream>>>(
+    resident_closest_kernel<K, false, F><<<grid, kThreads, 0, stream>>>(
         rows, box, n_boxes, o, d, t_min, t_max, t_out, idx_out, n_out, m_out, N);
   } else {
-    const size_t smem = cached_bytes(n_boxes, K);
+    const size_t smem = cached_bytes<F>(n_boxes, K);
     if (smem > kSharedLimit) return cudaErrorInvalidValue;
-    resident_closest_kernel<K, true><<<grid, kThreads, smem, stream>>>(
+    resident_closest_kernel<K, true, F><<<grid, kThreads, smem, stream>>>(
         rows, box, n_boxes, o, d, t_min, t_max, t_out, idx_out, n_out, m_out, N);
   }
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_anyhit(const float* tri, const float* box, int n_boxes, const float* o,
-                          const float* d, const float* t_min, const float* t_max, bool* occ,
-                          int N, cudaStream_t stream) {
+template <int K, typename F>
+cudaError_t launch_anyhit(const F* tri, const F* box, int n_boxes, const F* o, const F* d,
+                          const F* t_min, const F* t_max, bool* occ, int N,
+                          cudaStream_t stream) {
   const int grid = (N + kThreads / K - 1) / (kThreads / K);
-  resident_anyhit_kernel<K><<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(tri), box, n_boxes, o, d, t_min, t_max, occ, N);
+  resident_anyhit_kernel<K, F><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const pt::Q4<F>*>(tri), box, n_boxes, o, d, t_min, t_max, occ, N);
   return cudaGetLastError();
 }
 
-cudaError_t closest(const float* tri, const float* box, int n_boxes, int team, bool cached,
-                    const float* o, const float* d, const float* t_min, const float* t_max,
-                    float* t_out, int* idx_out, float* n_out, int* m_out, int N,
-                    cudaStream_t stream) {
+template <typename F>
+cudaError_t closest(const F* tri, const F* box, int n_boxes, int team, bool cached, const F* o,
+                    const F* d, const F* t_min, const F* t_max, F* t_out, int* idx_out,
+                    F* n_out, int* m_out, int N, cudaStream_t stream) {
   PT_TEAM_LAUNCH(launch_closest, team, tri, box, n_boxes, cached, o, d, t_min, t_max, t_out,
                  idx_out, n_out, m_out, N, stream)
 }
 
-cudaError_t anyhit(const float* tri, const float* box, int n_boxes, int team, const float* o,
-                   const float* d, const float* t_min, const float* t_max, bool* occ, int N,
-                   cudaStream_t stream) {
+template <typename F>
+cudaError_t anyhit(const F* tri, const F* box, int n_boxes, int team, const F* o, const F* d,
+                   const F* t_min, const F* t_max, bool* occ, int N, cudaStream_t stream) {
   PT_TEAM_LAUNCH(launch_anyhit, team, tri, box, n_boxes, o, d, t_min, t_max, occ, N, stream)
 }
 
-}  // namespace
-
-// team: threads a ray (1, 2, 4, 8, 16 or 32); tri 16-byte aligned; cached:
-// keep each ray's cluster entries in shared memory (refused past 48 KB a
-// block: 128 * ceil(n_boxes / team) floats).
-extern "C" int pt_resident_closest(const float* tri, const float* box, int n_boxes, int team,
-                                   int cached, const float* o, const float* d,
-                                   const float* t_min, const float* t_max, float* t_out,
-                                   int* idx_out, float* n_out, int* m_out, int N, void* stream) {
+template <typename F>
+int run_closest(const F* tri, const F* box, int n_boxes, int team, int cached, const F* o,
+                const F* d, const F* t_min, const F* t_max, F* t_out, int* idx_out, F* n_out,
+                int* m_out, int N, void* stream) {
   if (N <= 0) return 0;
   return static_cast<int>(closest(tri, box, n_boxes, team, cached != 0, o, d, t_min, t_max,
                                   t_out, idx_out, n_out, m_out, N,
                                   static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int pt_resident_anyhit(const float* tri, const float* box, int n_boxes, int team,
-                                  const float* o, const float* d, const float* t_min,
-                                  const float* t_max, bool* occ, int N, void* stream) {
+template <typename F>
+int run_anyhit(const F* tri, const F* box, int n_boxes, int team, const F* o, const F* d,
+               const F* t_min, const F* t_max, bool* occ, int N, void* stream) {
   if (N <= 0) return 0;
   return static_cast<int>(anyhit(tri, box, n_boxes, team, o, d, t_min, t_max, occ, N,
                                  static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+// team: threads a ray (1, 2, 4, 8, 16 or 32); tri 16-byte aligned; cached:
+// keep each ray's cluster entries in shared memory (refused past 48 KB a
+// block: 128 * ceil(n_boxes / team) values of the float type). The _f64
+// entry points are the same kernels in double (float64 rows, boxes, rays
+// and outputs).
+extern "C" int pt_resident_closest(const float* tri, const float* box, int n_boxes, int team,
+                                   int cached, const float* o, const float* d,
+                                   const float* t_min, const float* t_max, float* t_out,
+                                   int* idx_out, float* n_out, int* m_out, int N, void* stream) {
+  return run_closest(tri, box, n_boxes, team, cached, o, d, t_min, t_max, t_out, idx_out, n_out,
+                     m_out, N, stream);
+}
+
+extern "C" int pt_resident_closest_f64(const double* tri, const double* box, int n_boxes,
+                                       int team, int cached, const double* o, const double* d,
+                                       const double* t_min, const double* t_max,
+                                       double* t_out, int* idx_out, double* n_out, int* m_out,
+                                       int N, void* stream) {
+  return run_closest(tri, box, n_boxes, team, cached, o, d, t_min, t_max, t_out, idx_out, n_out,
+                     m_out, N, stream);
+}
+
+extern "C" int pt_resident_anyhit(const float* tri, const float* box, int n_boxes, int team,
+                                  const float* o, const float* d, const float* t_min,
+                                  const float* t_max, bool* occ, int N, void* stream) {
+  return run_anyhit(tri, box, n_boxes, team, o, d, t_min, t_max, occ, N, stream);
+}
+
+extern "C" int pt_resident_anyhit_f64(const double* tri, const double* box, int n_boxes,
+                                      int team, const double* o, const double* d,
+                                      const double* t_min, const double* t_max, bool* occ,
+                                      int N, void* stream) {
+  return run_anyhit(tri, box, n_boxes, team, o, d, t_min, t_max, occ, N, stream);
 }

@@ -29,16 +29,15 @@ cluster's real rows), and ``pt_combined_closest_small`` splits each ray's
 triangle and sphere sweeps over a team (:func:`small_team`). Every split
 and every team gives the same bits and counts.
 
-Eight entry points also have a float64 instance (``pt_fused_bounce_f64``,
-``pt_shadow_any_hit_f64``, ``pt_combined_closest_small_f64``,
-``pt_any_hit_f64``, ``pt_sphere_closest_f64``, ``pt_triangle_closest_f64``,
-``pt_bvh_closest_f64``, ``pt_bvh_anyhit_f64``): their launchers pick the
-instance from the tensors' dtype, pass ``eps`` as a double, and size the
-shared memory by the element size (:func:`shared_bytes`). The teams are the
-same in both types but for ``triangle_closest``'s
-(:data:`ROWS_PER_THREAD_F64`) and ``bvh_closest``'s (:data:`BVH_TEAM_F64`).
-Nothing falls back from one instance to the other; the binned and resident
-kernels have no float64 instance.
+Every entry point also has a float64 instance, its name ending in
+``_f64`` (``pt_fused_bounce_f64`` ... ``pt_resident_anyhit_f64``): the
+launchers pick the instance from the tensors' dtype (:func:`_instance`),
+pass ``eps`` as a double, and size the shared memory by the element size
+(:func:`shared_bytes`, :func:`resident_cached`). The teams are the same in
+both types but for ``triangle_closest``'s (:data:`ROWS_PER_THREAD_F64`),
+``bvh_closest``'s (:data:`BVH_TEAM_F64`) and ``binned_round_closest``'s
+(:data:`BINNED_TEAM_F64`). Nothing falls back from one instance to the
+other.
 """
 
 from __future__ import annotations
@@ -110,6 +109,12 @@ BVH_TEAM_F64 = {"bvh_closest": 8}
 # waves of a closest call are fastest at 2 (0.047 ms against 0.079 at 16),
 # the 19 tail waves of a few thousand rays or fewer at 16-32.
 BINNED_TEAM = {"binned_round_closest": 16, "binned_round_anyhit": 32}
+# The float64 instances' teams where their times differ (PERF.md row 9f):
+# the closest round in double, summed over a driver call's 21 waves, is
+# fastest at 4 (0.751 ms against 0.843 at 16 and 0.862 at 8); its first
+# ~55,000-ray wave at 2 (0.080 ms against 0.284 at 16). The any hit stays
+# fastest at 32.
+BINNED_TEAM_F64 = {"binned_round_closest": 4}
 # Threads sharing one ray's walk of the resident route's 128-row clusters in
 # csrc/resident.cu, by kernel: the fastest of TEAMS in tools/time_kernels.py's
 # times on the 65,536 config-4 lanes of an H100 (PERF.md): the closest hit,
@@ -238,14 +243,19 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
             fn.restype = _I
-        lib.pt_binned_round_closest.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _P]
-        lib.pt_binned_round_closest.restype = _I
-        lib.pt_binned_round_anyhit.argtypes = [_P, _I, _I] + [_P] * 6 + [_I, _P]
-        lib.pt_binned_round_anyhit.restype = _I
-        lib.pt_resident_closest.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
-        lib.pt_resident_closest.restype = _I
-        lib.pt_resident_anyhit.argtypes = [_P, _P, _I, _I] + [_P] * 5 + [_I, _P]
-        lib.pt_resident_anyhit.restype = _I
+        for suffix in ("", "_f64"):
+            fn = getattr(lib, "pt_binned_round_closest" + suffix)
+            fn.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _P]
+            fn.restype = _I
+            fn = getattr(lib, "pt_binned_round_anyhit" + suffix)
+            fn.argtypes = [_P, _I, _I] + [_P] * 6 + [_I, _P]
+            fn.restype = _I
+            fn = getattr(lib, "pt_resident_closest" + suffix)
+            fn.argtypes = [_P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P]
+            fn.restype = _I
+            fn = getattr(lib, "pt_resident_anyhit" + suffix)
+            fn.argtypes = [_P, _P, _I, _I] + [_P] * 5 + [_I, _P]
+            fn.restype = _I
         _lib = lib
     return _lib
 
@@ -358,14 +368,26 @@ def launch_any_hit(sph, tri, o, d, t_min, t_max, occ, sph_box=None, tri_box=None
     _raise_on(code, "any_hit")
 
 
-def _bvh_team(tables, team, kernel: str) -> int:
-    """Team size of a ``csrc/bvh.cu`` launch (None: :data:`BVH_TEAM`, for
-    float64 tables :data:`BVH_TEAM_F64` where it has the kernel); raises on
-    a team size the kernels lack, or on a table the row loads cannot read."""
-    default = BVH_TEAM[kernel]
+def _host_team(tables, team, kernel: str, teams: dict, teams_f64: dict) -> int:
+    """``team``, or (None) the host's team for ``kernel``: ``teams``, for
+    float64 tables ``teams_f64`` where it has the kernel; raises on a team
+    size the kernels lack, or on a table the row loads cannot read."""
+    default = teams[kernel]
     if tables.tri.dtype == torch.float64:
-        default = BVH_TEAM_F64.get(kernel, default)
+        default = teams_f64.get(kernel, default)
     return _team(team, default, ("tables.tri", tables.tri))
+
+
+def _bvh_team(tables, team, kernel: str) -> int:
+    """Team size of a ``csrc/bvh.cu`` launch (None: :data:`BVH_TEAM` and
+    :data:`BVH_TEAM_F64`)."""
+    return _host_team(tables, team, kernel, BVH_TEAM, BVH_TEAM_F64)
+
+
+def _binned_team(tables, team, kernel: str) -> int:
+    """Team size of a ``csrc/binned.cu`` launch (None: :data:`BINNED_TEAM`
+    and :data:`BINNED_TEAM_F64`)."""
+    return _host_team(tables, team, kernel, BINNED_TEAM, BINNED_TEAM_F64)
 
 
 def _counts(counts) -> tuple:
@@ -443,11 +465,11 @@ def launch_binned_round_closest(tables, o, d, t_min, t_up, key, t, idx, n, m,
                                 team=None) -> None:
     """``tables`` is an ``ops.intersect.Tables`` of the binned route; the
     wave is sorted by ``key``; ``team``: threads a ray (default
-    :data:`BINNED_TEAM`)."""
-    team = _team(team, BINNED_TEAM["binned_round_closest"], ("tables.tri", tables.tri))
-    lib = library()
+    :func:`_binned_team`)."""
+    team = _binned_team(tables, team, "binned_round_closest")
+    fn = _instance(library(), "pt_binned_round_closest", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_binned_round_closest(
+        code = fn(
             tables.tri.data_ptr(), tables.leaf.shape[0], team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_up.data_ptr(), key.data_ptr(), t.data_ptr(), idx.data_ptr(),
             n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
@@ -456,10 +478,10 @@ def launch_binned_round_closest(tables, o, d, t_min, t_up, key, t, idx, n, m,
 
 
 def launch_binned_round_anyhit(tables, o, d, t_min, t_max, key, occ, team=None) -> None:
-    team = _team(team, BINNED_TEAM["binned_round_anyhit"], ("tables.tri", tables.tri))
-    lib = library()
+    team = _binned_team(tables, team, "binned_round_anyhit")
+    fn = _instance(library(), "pt_binned_round_anyhit", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_binned_round_anyhit(
+        code = fn(
             tables.tri.data_ptr(), tables.leaf.shape[0], team, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), key.data_ptr(), occ.data_ptr(),
             t_min.shape[0], _stream(t_min.device),
@@ -467,12 +489,13 @@ def launch_binned_round_anyhit(tables, o, d, t_min, t_max, key, occ, team=None) 
     _raise_on(code, "binned_round_anyhit")
 
 
-def resident_cached(n_boxes: int, team: int) -> bool:
+def resident_cached(n_boxes: int, team: int, itemsize: int = 4) -> bool:
     """Do the cluster entries of a block's rays fit in shared memory (the
     closest kernel's cached mode, ``csrc/resident.cu``)? 128 threads a
-    block, ``ceil(n_boxes / team)`` floats each, at most
-    :data:`SHARED_LIMIT`: at K = 16, up to 1,536 clusters."""
-    return 128 * (-(-n_boxes // team)) * 4 <= SHARED_LIMIT
+    block, ``ceil(n_boxes / team)`` entries each of ``itemsize`` bytes (4:
+    float32, 8: float64), at most :data:`SHARED_LIMIT`: at K = 16, up to
+    1,536 clusters in float32, 768 in float64."""
+    return 128 * (-(-n_boxes // team)) * itemsize <= SHARED_LIMIT
 
 
 def launch_resident_closest(tables, o, d, t_min, t_max, t, idx, n, m, team=None,
@@ -483,14 +506,14 @@ def launch_resident_closest(tables, o, d, t_min, t_max, t, idx, n, m, team=None,
     :func:`resident_cached`; raises where they do not)."""
     team = _team(team, RESIDENT_TEAM["resident_closest"], ("tables.tri", tables.tri))
     n_boxes = tables.leaf.shape[0]
-    fits = resident_cached(n_boxes, team)
+    fits = resident_cached(n_boxes, team, tables.leaf.element_size())
     cached = fits if cached is None else bool(cached)
     if cached and not fits:
         raise ValueError(f"the entries of {n_boxes} clusters at team {team} do not fit in "
                          f"{SHARED_LIMIT} bytes of shared memory")
-    lib = library()
+    fn = _instance(library(), "pt_resident_closest", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_resident_closest(
+        code = fn(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), n_boxes, team, int(cached),
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), t.data_ptr(),
             idx.data_ptr(), n.data_ptr(), m.data_ptr(), t_min.shape[0], _stream(t_min.device),
@@ -502,9 +525,9 @@ def launch_resident_anyhit(tables, o, d, t_min, t_max, occ, team=None) -> None:
     """As :func:`launch_resident_closest`; the any hit walks the clusters in
     id order and caches nothing."""
     team = _team(team, RESIDENT_TEAM["resident_anyhit"], ("tables.tri", tables.tri))
-    lib = library()
+    fn = _instance(library(), "pt_resident_anyhit", t_min)
     with torch.cuda.device(t_min.device):
-        code = lib.pt_resident_anyhit(
+        code = fn(
             tables.tri.data_ptr(), tables.leaf.data_ptr(), tables.leaf.shape[0], team,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), occ.data_ptr(),
             t_min.shape[0], _stream(t_min.device),

@@ -7,8 +7,8 @@ around two hand-written round kernels (``csrc/binned.cu``, replacing
 
 Every ray keeps the entry distance of its segment into each 256-row cluster
 box (the binned tables' widened boxes, :func:`cluster_entries`), packed with
-the cluster id into one monotone int32 key (:func:`pack_keys`). Round by
-round:
+the cluster id into one monotone key (:func:`pack_keys`: int32 from float32
+rays, int64 from float64 ones). Round by round:
 
 * each live ray takes its nearest unvisited cluster (the minimum key);
 * the wave is sorted by that cluster id (``torch.sort`` and gathers; dead
@@ -33,10 +33,16 @@ port's other traversals do:
   cluster visited first).
 
 So the result depends neither on the cascade nor on the order the sort
-gives equal keys. The round kernels' plain twins test each ray against the
-256 rows of its cluster in the kernels' op order (``shade._tri_hits``); the
-round wrappers dispatch on the device (CPU: twin; CUDA: kernel or raise) and
-count each launch in ``shade.LAUNCHES``.
+gives equal keys. In float64 the JAX driver packs its entries rounded to
+nearest into float32 and compares them with the bound rounded the same way,
+so a rounded-up entry can stop a ray before the cluster that holds its hit;
+the port packs the float64 bits themselves into int64 keys, truncated down
+like the float32 ones, so the gate stays conservative in both types.
+
+The round kernels' plain twins test each ray against the 256 rows of its
+cluster in the kernels' op order (``shade._tri_hits``); the round wrappers
+dispatch on the device (CPU: twin; CUDA: kernel or raise) and count each
+launch in ``shade.LAUNCHES`` (a float64 instance under ``*_f64``).
 """
 
 from __future__ import annotations
@@ -49,13 +55,18 @@ from .intersect import (
     Tables,
     _check_rays,
     _check_route,
+    _closest_out,
     _empty,
 )
-from .shade import LAUNCHES, _check, _tri_hits
+from .shade import _SUFFIX, LAUNCHES, _check, _tri_hits
 
 _INF = float("inf")
-_INF_BITS = 0x7F800000      # int32 bits of +inf: a cluster the segment misses
-_CLEARED = 0x7FFFFFFF       # a visited cluster: above every bound, id bits stripped
+# By key dtype (int32 from float32 entries, int64 from float64 ones): the
+# bits of +inf (a cluster the segment misses), and the key of a visited
+# cluster (above every bound once its id bits are stripped).
+_KEY_DTYPE = {torch.float32: torch.int32, torch.float64: torch.int64}
+_INF_BITS = {torch.int32: 0x7F800000, torch.int64: 0x7FF0000000000000}
+_CLEARED = {torch.int32: 0x7FFFFFFF, torch.int64: 0x7FFFFFFFFFFFFFFF}
 CASCADE_MIN = 4096          # waves from this size compact their live tail
 _TWIN_RAYS = 4096           # rays per step of the round twins
 
@@ -81,24 +92,28 @@ def id_bits(n_clusters: int) -> int:
 
 
 def pack_keys(entries, n_clusters: int):
-    """``(keys (N, C) int32, idmask)``: each entry's int32 bits (monotone for
+    """``(keys (N, C), idmask)``: each entry's bits as an integer of its
+    width (int32 for float32 entries, int64 for float64: monotone for
     non-negative floats) with the low :func:`id_bits` bits replaced by the
     cluster id. The minimum key of a row is its nearest cluster, and its
-    high bits a truncated-down (conservative) entry."""
+    high bits a truncated-down (conservative) entry. In float64 the keys
+    take twice the memory: 144 MB at 65,536 rays and 274 clusters."""
     idmask = (1 << id_bits(n_clusters)) - 1
-    ids = torch.arange(entries.shape[1], dtype=torch.int32, device=entries.device)
-    return (entries.contiguous().view(torch.int32) & ~idmask) | ids[None, :], idmask
+    kdt = _KEY_DTYPE[entries.dtype]
+    ids = torch.arange(entries.shape[1], dtype=kdt, device=entries.device)
+    return (entries.contiguous().view(kdt) & ~idmask) | ids[None, :], idmask
 
 
 def live_rays(kmin, idmask: int, bound=None):
     """Rays whose nearest unvisited cluster (minimum key ``kmin``) is
-    entered, and entered no later than ``bound`` (float32, ``min(best_t,
-    t_max)``) when one is given: the truncated entry is ``<=`` the bound,
-    so an equal-``t`` hit in that cluster is still found."""
+    entered, and entered no later than ``bound`` (``min(best_t, t_max)``,
+    in the keys' float type, its bits compared exactly) when one is given:
+    the truncated entry is ``<=`` the bound, so an equal-``t`` hit in that
+    cluster is still found."""
     entry = kmin & ~idmask
-    live = entry < _INF_BITS
+    live = entry < _INF_BITS[kmin.dtype]
     if bound is not None:
-        live &= entry <= bound.contiguous().view(torch.int32)
+        live &= entry <= bound.contiguous().view(kmin.dtype)
     return live
 
 
@@ -107,8 +122,8 @@ def live_rays(kmin, idmask: int, bound=None):
 # ---------------------------------------------------------------------------
 
 def _check_round(tables, o, d, t_min, t_up, key):
-    n, kind = _check_rays(o, d, t_min, t_up, "the binned round kernels")
-    _check_route(tables, "binned", t_min.device)
+    n, kind = _check_rays(o, d, t_min, t_up)
+    _check_route(tables, "binned", t_min.device, o.dtype)
     _check("key", key, torch.int32, (n,))
     if key.device != t_min.device:
         raise ValueError(f"key on {key.device}, rays on {t_min.device}")
@@ -133,9 +148,10 @@ def _split(x, a, b):
 
 def round_closest_reference(tables: Tables, o, d, t_min, t_up, key):
     """Twin of :func:`round_closest`: per ray, the closest of the 256 rows
-    of cluster ``key`` in ``[t_min, t_up]``, the lower row on equal ``t``."""
+    of cluster ``key`` in ``[t_min, t_up]``, the lower row on equal ``t``;
+    floats in the rays' dtype."""
     n = t_min.shape[0]
-    t = torch.full((n,), _INF, dtype=torch.float32, device=o.device)
+    t = torch.full((n,), _INF, dtype=o.dtype, device=o.device)
     idx = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     for a in range(0, n, _TWIN_RAYS):
         b = min(a + _TWIN_RAYS, n)
@@ -169,16 +185,16 @@ def round_closest(tables: Tables, o, d, t_min, t_up, key):
     """One round on a wave sorted by cluster: for each ray with ``key`` in
     ``[0, C)``, the closest hit among that cluster's 256 rows in ``[t_min,
     t_up]``: ``(t, row, outward normal, material)``; a miss or the sentinel
-    key gives ``(inf, -1, 0, 0)``. Counterpart of ``_run_round_closest``."""
-    n, kind = _check_round(tables, o, d, t_min, t_up, key)
+    key gives ``(inf, -1, 0, 0)``. Float32 or float64 rays and tables (the
+    kernel's instance for the dtype). Counterpart of ``_run_round_closest``."""
+    _, kind = _check_round(tables, o, d, t_min, t_up, key)
     if kind == "cpu":
         return round_closest_reference(tables, o, d, t_min, t_up, key)
     from ..kernels import binding
 
-    out = (_empty((n,), torch.float32, o), _empty((n,), torch.int32, o),
-           _empty((n, 3), torch.float32, o), _empty((n,), torch.int32, o))
+    out = _closest_out(o)
     binding.launch_binned_round_closest(tables, o, d, t_min, t_up, key, *out)
-    LAUNCHES["binned_round_closest"] += 1
+    LAUNCHES["binned_round_closest" + _SUFFIX[o.dtype]] += 1
     return out
 
 
@@ -193,7 +209,7 @@ def round_anyhit(tables: Tables, o, d, t_min, t_max, key):
 
     occ = _empty((n,), torch.bool, o)
     binding.launch_binned_round_anyhit(tables, o, d, t_min, t_max, key, occ)
-    LAUNCHES["binned_round_anyhit"] += 1
+    LAUNCHES["binned_round_anyhit" + _SUFFIX[o.dtype]] += 1
     return occ
 
 
@@ -202,8 +218,8 @@ def round_anyhit(tables: Tables, o, d, t_min, t_max, key):
 # ---------------------------------------------------------------------------
 
 def _initial_state(tables, o, d, t_min, t_max):
-    _check_rays(o, d, t_min, t_max, "the binned driver")
-    _check_route(tables, "binned", t_min.device)
+    _check_rays(o, d, t_min, t_max)
+    _check_route(tables, "binned", t_min.device, o.dtype)
     n_clusters = tables.leaf.shape[0]
     keys, idmask = pack_keys(cluster_entries(o, d, t_min, t_max, tables.leaf), n_clusters)
     st = dict(o=o, d=d, t_min=t_min, t_max=t_max, keys=keys, kmin=keys.amin(dim=1))
@@ -212,8 +228,9 @@ def _initial_state(tables, o, d, t_min, t_max):
 
 def _sorted_wave(st, live, n_live, idmask, n_clusters):
     """``(perm, key)``: the live rays in order of their round cluster (the
-    first ``n_live`` of the wave sorted by key, dead rays keyed ``C``)."""
-    keyr = torch.where(live, st["kmin"] & idmask, n_clusters)
+    first ``n_live`` of the wave sorted by key, dead rays keyed ``C``), the
+    key an int32 cluster id whatever the keys' width."""
+    keyr = torch.where(live, (st["kmin"] & idmask).to(torch.int32), n_clusters)
     key, perm = torch.sort(keyr)
     return perm[:n_live], key[:n_live].contiguous()
 
@@ -233,7 +250,7 @@ def _traverse(st, live_of, step, results, stats):
                 return live
             step(st, live, n_live)
             st["keys"] = torch.where(live[:, None] & (st["keys"] == st["kmin"][:, None]),
-                                     _CLEARED, st["keys"])
+                                     _CLEARED[st["keys"].dtype], st["keys"])
             st["kmin"] = st["keys"].amin(dim=1)
             if stats is not None:
                 stats["rounds"] = stats.get("rounds", 0) + 1
@@ -257,15 +274,16 @@ def triangle_closest_binned(tables: Tables, o, d, t_min, t_max, *, round_twin: b
                             stats: dict | None = None):
     """Closest triangle hit by per-ray binned traversal on the binned route's
     tables: ``(t (N,), row (N,) int32, outward normal (N, 3), material (N,)
-    int32)``; a miss is ``(inf, -1, 0, 0)``. Equals
-    ``intersect.triangle_closest_reference``. ``round_twin=True`` runs the
-    round twin on any device (for checking the kernel); ``stats`` gathers
-    ``rounds`` and ``ray_rounds`` (rays tested, summed over rounds)."""
+    int32)``; a miss is ``(inf, -1, 0, 0)``; floats in the rays' dtype
+    (float32 or float64). Equals ``intersect.triangle_closest_reference``.
+    ``round_twin=True`` runs the round twin on any device (for checking the
+    kernel); ``stats`` gathers ``rounds`` and ``ray_rounds`` (rays tested,
+    summed over rounds)."""
     st, idmask, n_clusters = _initial_state(tables, o, d, t_min, t_max)
     n = o.shape[0]
-    st.update(best_t=torch.full((n,), _INF, dtype=torch.float32, device=o.device),
+    st.update(best_t=torch.full((n,), _INF, dtype=o.dtype, device=o.device),
               best_i=torch.full((n,), -1, dtype=torch.int32, device=o.device),
-              best_n=torch.zeros((n, 3), dtype=torch.float32, device=o.device),
+              best_n=torch.zeros((n, 3), dtype=o.dtype, device=o.device),
               best_m=torch.zeros((n,), dtype=torch.int32, device=o.device))
     round_fn = round_closest_reference if round_twin else round_closest
 

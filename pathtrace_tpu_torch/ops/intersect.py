@@ -77,15 +77,26 @@ costs: PERF.md), the ``coherent`` hint, and the ``_lift_tree`` varying-axes
 plumbing. Rays are ``(N, 3)`` float32 or float64; ``t_min``/``t_max`` are
 ``(N,)``.
 
-float64 (the reference's precision) runs on the small, flat and bvh
-routes: :func:`combined_closest_small`, :func:`sphere_closest` and
-:func:`any_hit` (one tile or clustered), :func:`triangle_closest`,
-:func:`bvh_closest` (``counters=True`` too) and :func:`bvh_anyhit` take
-float64 rays and tables (boxes included, built in the scene's dtype) and
-launch their kernels' float64 instances; their twins run in the rays' dtype.
-The binned and resident kernels raise ``NotImplementedError`` on float64
-input, on either device, naming ROADMAP Queue 1, item 4c; so does
-:func:`build_tables` for a float64 scene on those two routes.
+float64 (the reference's precision) runs on every route: every wrapper
+here and the binned driver take float64 rays and tables (boxes included,
+built in the scene's dtype), launch their kernels' float64 instances and
+count them under ``*_f64``; their twins run in the rays' dtype.
+
+Left behind from the JAX module, none of which a user of the port's entry
+points reaches:
+
+* ``occluded_transposed``: the JAX pool calls it only with the quad shadow
+  off (``pathtrace_tpu/pool.py:489-502``); the port's pool computes the same
+  occlusion of its ``(3, S)`` shadow rays with ``shade.shadow_any_hit``;
+* the ``*_interpret`` methods (the Pallas kernels in interpret mode, a
+  TPU-less debugging aid: the twins here are the port's);
+* ``method="mxu"`` with ``sphere_hit_ts_mxu``/``triangle_hit_ts_mxu`` (the
+  hit tests as TPU matrix products);
+* ``fused_bounce``'s ``sections`` knob (how the TPU kernel tiles its
+  sweep; the port's split is ``kernels/binding.py :: sweep_split``);
+* the process-global ``set_default_method``/``default_method``: the port
+  takes ``method=`` per call (``render_pool``, ``RenderConfig``, the CLI's
+  ``--method``).
 """
 
 from __future__ import annotations
@@ -120,12 +131,6 @@ _BOX_MARGIN = 1e-4
 # csrc/intersect.cu RootErr: the sphere root's error over L^2, 128 u of the
 # dtype (u = 2^-24 in float32, 2^-53 in float64).
 _ROOT_ERR = {torch.float32: 2.0**-17, torch.float64: 2.0**-46}
-# Kernels with a float64 instance (the small, flat and bvh routes'); the
-# binned and resident ones refuse float64 rays, citing this ROADMAP item.
-F64_KERNELS = ("combined_closest_small", "any_hit", "sphere_closest", "triangle_closest",
-               "bvh_closest", "bvh_anyhit")
-F64_ROUTES = ("small", "flat", "bvh")
-F64_ITEM = "ROADMAP Queue 1, item 4c"
 
 
 class Hit(NamedTuple):
@@ -276,11 +281,6 @@ def build_tables(scene: Scene, method: str = "auto") -> Tables:
     s_rows = scene.sph_center.shape[0]
     route = resolve_route(t, s_rows, method)
     dtype = scene.tri_v0.dtype
-    if dtype == torch.float64 and route not in F64_ROUTES:
-        raise NotImplementedError(
-            f"float64 on the {route} route ({t} triangle rows, {s_rows} sphere rows): its "
-            f"kernels have no float64 instance yet ({F64_ITEM}); float64 runs on the "
-            f"{', '.join(F64_ROUTES)} routes")
     tri = torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_normal,
                      scene.tri_mat.to(dtype)[:, None],
                      scene.tri_v0.new_zeros((t, 3))], dim=1)
@@ -731,15 +731,9 @@ def _merge(tables: Tables, sph, tri):
 # Dispatching wrappers
 # ---------------------------------------------------------------------------
 
-def _check_rays(o, d, t_min, t_max, kernel: str = "this kernel"):
-    """``(N, device kind)`` of a wave of float32 rays, or float64 rays for a
-    kernel of :data:`F64_KERNELS`; float64 rays for any other kernel raise
-    ``NotImplementedError`` (before the CPU twin could run them)."""
+def _check_rays(o, d, t_min, t_max):
+    """``(N, device kind)`` of a wave of float32 or float64 rays."""
     n = t_min.shape[0]
-    if o.dtype == torch.float64 and kernel not in F64_KERNELS:
-        raise NotImplementedError(
-            f"{kernel}: float64 rays, but the kernel has no float64 instance yet ({F64_ITEM}); "
-            f"float64 runs on the {', '.join(F64_ROUTES)} routes")
     dtype = torch.float64 if o.dtype == torch.float64 else torch.float32
     _check("o", o, dtype, (n, 3))
     _check("d", d, dtype, (n, 3))
@@ -814,7 +808,7 @@ def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
     rounds and half-gated sweeps; these are the port's per-ray work. The
     hits are those of ``counters=False``. The kernel with counters is
     counted under ``bvh_closest_counters`` (``bvh_closest_counters_f64``)."""
-    n, kind = _check_rays(o, d, t_min, t_max, "bvh_closest")
+    n, kind = _check_rays(o, d, t_min, t_max)
     _check_route(tables, "bvh", t_min.device, o.dtype)
     if kind == "cpu":
         if not counters:
@@ -837,7 +831,7 @@ def bvh_closest(tables: Tables, o, d, t_min, t_max, counters: bool = False):
 def bvh_anyhit(tables: Tables, o, d, t_min, t_max):
     """Occlusion by any triangle in ``[t_min, t_max]`` through the BVH:
     bool ``(N,)``. Counterpart of ``triangle_anyhit_bvh``."""
-    n, kind = _check_rays(o, d, t_min, t_max, "bvh_anyhit")
+    n, kind = _check_rays(o, d, t_min, t_max)
     _check_route(tables, "bvh", t_min.device, o.dtype)
     if kind == "cpu":
         return bvh_anyhit_reference(tables, o, d, t_min, t_max)
@@ -856,7 +850,7 @@ def sphere_closest(sph, o, d, t_min, t_max, box=None):
     misses; the answer is the same. Float32 or float64 rays, rows and boxes,
     which launch the kernel's instance for the dtype. Counterpart of
     ``pallas_intersect.sphere_closest``."""
-    _, kind = _check_rays(o, d, t_min, t_max, "sphere_closest")
+    _, kind = _check_rays(o, d, t_min, t_max)
     _check_table("sph", sph, _SPH_COLS, t_min.device, o.dtype)
     box = sph.new_zeros((0, _BOX_COLS)) if box is None else box
     _check_sph_box(sph, box, t_min.device)
@@ -877,7 +871,7 @@ def combined_closest_small(tables: Tables, o, d, t_min, t_max):
     ``(inf, -1, 0, 0)``. Float32 or float64 rays and tables, which launch the
     kernel's instance for the dtype. Counterpart of
     ``pallas_intersect.combined_closest_small``."""
-    _, kind = _check_rays(o, d, t_min, t_max, "combined_closest_small")
+    _, kind = _check_rays(o, d, t_min, t_max)
     _check_route(tables, "small", t_min.device, o.dtype)
     if kind == "cpu":
         return combined_closest_small_reference(tables, o, d, t_min, t_max)
@@ -894,7 +888,7 @@ def triangle_closest(tables: Tables, o, d, t_min, t_max):
     row, outward normal, material)``; a miss is ``(inf, -1, 0, 0)``. Float32
     or float64 rays and tables (the kernel's instance for the dtype).
     Counterpart of ``pallas_intersect.triangle_closest``."""
-    _, kind = _check_rays(o, d, t_min, t_max, "triangle_closest")
+    _, kind = _check_rays(o, d, t_min, t_max)
     _check_route(tables, "flat", t_min.device, o.dtype)
     if kind == "cpu":
         return triangle_closest_reference(tables, o, d, t_min, t_max)
@@ -909,17 +903,18 @@ def triangle_closest(tables: Tables, o, d, t_min, t_max):
 def resident_closest(tables: Tables, o, d, t_min, t_max):
     """Closest triangle hit by per-ray nearest-first traversal of the
     resident route's 128-row clusters: ``(t, row, outward normal,
-    material)``; a miss is ``(inf, -1, 0, 0)``. Counterpart of
+    material)``; a miss is ``(inf, -1, 0, 0)``. Float32 or float64 rays and
+    tables (the kernel's instance for the dtype). Counterpart of
     ``resident_intersect.triangle_closest_resident``."""
-    _, kind = _check_rays(o, d, t_min, t_max, "resident_closest")
-    _check_route(tables, "resident", t_min.device)
+    _, kind = _check_rays(o, d, t_min, t_max)
+    _check_route(tables, "resident", t_min.device, o.dtype)
     if kind == "cpu":
         return triangle_closest_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
 
     out = _closest_out(o)
     binding.launch_resident_closest(tables, o, d, t_min, t_max, *out)
-    LAUNCHES["resident_closest"] += 1
+    LAUNCHES["resident_closest" + _SUFFIX[o.dtype]] += 1
     return out
 
 
@@ -927,15 +922,15 @@ def resident_anyhit(tables: Tables, o, d, t_min, t_max):
     """Occlusion by any triangle in ``[t_min, t_max]`` over the same
     clusters, swept in id order up to the first hit: bool ``(N,)``.
     Counterpart of ``resident_intersect.triangle_anyhit_resident``."""
-    n, kind = _check_rays(o, d, t_min, t_max, "resident_anyhit")
-    _check_route(tables, "resident", t_min.device)
+    n, kind = _check_rays(o, d, t_min, t_max)
+    _check_route(tables, "resident", t_min.device, o.dtype)
     if kind == "cpu":
         return bvh_anyhit_reference(tables, o, d, t_min, t_max)
     from ..kernels import binding
 
     occ = _empty((n,), torch.bool, o)
     binding.launch_resident_anyhit(tables, o, d, t_min, t_max, occ)
-    LAUNCHES["resident_anyhit"] += 1
+    LAUNCHES["resident_anyhit" + _SUFFIX[o.dtype]] += 1
     return occ
 
 
@@ -947,7 +942,7 @@ def any_hit(sph, tri, o, d, t_min, t_max, sph_box=None, tri_box=None):
     segment misses; the answer is the same. Float32 or float64 rays, tables
     and boxes, which launch the kernel's instance for the dtype. Counterpart
     of ``pallas_intersect.any_hit``."""
-    n, kind = _check_rays(o, d, t_min, t_max, "any_hit")
+    n, kind = _check_rays(o, d, t_min, t_max)
     dtype = o.dtype
     _check_table("sph", sph, _SPH_COLS, t_min.device, dtype)
     _check_table("tri", tri, _TRI_COLS, t_min.device, dtype)

@@ -208,9 +208,8 @@ def render_pool(
     dtypes (float32); ``torch.float64`` is the reference's native precision
     (``render.cast_floats`` widens the scene and the camera, as the JAX
     pool does). Every state tensor and the framebuffer take it. float64 runs
-    the fused branch and the composed branch on the small, flat and bvh
-    routes; ``method="binned"`` and ``"resident"`` raise
-    ``NotImplementedError`` (ROADMAP Queue 1, item 4c).
+    the fused branch and the composed branch on every route, ``method=``
+    included.
 
     ``method`` picks the intersection traversal for this call (:func:`route`;
     ``None`` is ``"auto"``): ``"bvh"``, ``"binned"`` and ``"resident"`` run

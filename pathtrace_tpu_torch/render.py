@@ -11,10 +11,8 @@ package resumes in the other.
 
 ``RenderConfig(dtype=torch.float64)`` renders in the reference's native
 precision: :func:`cast_floats` widens the scene, the camera and the state,
-as the JAX package does. float64 runs on the small, flat and bvh
-intersection routes (every route of ``method="auto"``, ``"pallas"`` and
-``"bruteforce"``); ``method="binned"`` and ``"resident"`` raise
-``NotImplementedError`` (ROADMAP Queue 1, item 4c).
+as the JAX package does. float64 runs on every intersection route and
+every ``method``.
 """
 
 from __future__ import annotations

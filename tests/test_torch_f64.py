@@ -28,9 +28,10 @@ Tolerances, and why:
   pool to its wave engine).
 
 The flat and bvh routes in float64 are held in
-``tests/test_torch_f64_routes.py``. The binned and resident routes have no
-float64 kernel yet: they must raise ``NotImplementedError`` naming ROADMAP
-Queue 1, item 4c, on the CPU as they would on the card.
+``tests/test_torch_f64_routes.py``, the binned and resident routes in
+``tests/test_torch_f64_traversals.py``; here, that every route runs
+float64 (:func:`test_f64_refused_without_kernels`, named for the refusal it
+replaced).
 """
 
 import os
@@ -374,39 +375,60 @@ def test_bench_line_f64():
 
 @pytest.mark.parametrize("call", ["render_pool", "render", "intersect", "wrappers"])
 def test_f64_refused_without_kernels(call):
-    """float64 where no float64 kernel exists yet (the binned and resident
-    routes of ``mesh_scene(4200)`` through the pool and the wave engine,
-    ``build_tables`` for those routes, and the binned and resident wrappers)
-    raises ``NotImplementedError`` naming ROADMAP Queue 1, item 4c, before
-    any CPU twin could run it."""
-    match = "ROADMAP Queue 1, item 4c"
+    """float64 on the binned and resident routes, which refused it before
+    their kernels had float64 instances, now runs: the routes of
+    ``mesh_scene(4200)`` through the pool and the wave engine give the
+    brute-force route's float64 image bit for bit, ``build_tables`` builds
+    their tables in float64 and ``intersect``/``occluded`` on them equal the
+    twins, and the binned and resident wrappers return float64 results equal
+    to the brute-force twins, all on the CPU."""
     if call in ("render_pool", "render"):
         sc = scenes.mesh_scene(4200, device="cpu")
         cam = scenes.mesh_scene_camera(4, 4, device="cpu")
+
+        def run(method):
+            if call == "render_pool":
+                img, counters, iters = pool.render_pool(sc, cam, width=4, height=4, spp=1,
+                                                        dtype=F64, method=method)
+                return img, pool.ray_count(counters), iters
+            st = render.render(sc, cam, render.RenderConfig(width=4, height=4, spp=1, dtype=F64,
+                                                            method=method))
+            return st.image_sum, st.ray_queries, st.num_samples
+
+        want = run("bruteforce")
+        assert want[0].dtype == F64 and want[1] > 16
         for method in ("binned", "resident"):
-            with pytest.raises(NotImplementedError, match=match):
-                if call == "render_pool":
-                    pool.render_pool(sc, cam, width=4, height=4, spp=1, dtype=F64,
-                                     method=method)
-                else:
-                    render.render(sc, cam, render.RenderConfig(width=4, height=4, spp=1,
-                                                               dtype=F64, method=method))
+            got = run(method)
+            assert got[1:] == want[1:] and torch.equal(got[0], want[0])
         return
     sc = render.cast_floats(scenes.mesh_scene(300, device="cpu"), F64)
+    g = np.random.default_rng(4)
+    o = torch.tensor(g.uniform(-2.0, 2.0, (64, 3)) + [0.0, 1.0, 4.0])
+    d = torch.tensor(g.normal(size=(64, 3))) * 0.1 + torch.tensor([0.0, -0.2, -1.0], dtype=F64)
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    lo, hi = torch.full((64,), 1e-3, dtype=F64), torch.full((64,), 9.0, dtype=F64)
     if call == "intersect":
         for method in ("binned", "resident"):
-            with pytest.raises(NotImplementedError, match=match):
-                intersect.build_tables(sc, method)
+            tables = intersect.build_tables(sc, method)
+            assert tables.route == method
+            assert all(t.dtype == F64 for t in (tables.tri, tables.leaf, tables.sph))
+            h = intersect.intersect(tables, o, d, lo, hi)
+            want = intersect.intersect(tables, o, d, lo, hi, twin=True)
+            assert h.t.dtype == F64 and (h.prim >= 0).any()
+            assert all(torch.equal(a, b) for a, b in zip(h, want))
+            occ = intersect.occluded(tables, o, d, lo, hi)
+            assert torch.equal(occ, intersect.any_hit_reference(
+                tables.sph, tables.tri[:tables.tri_rows], o, d, lo, hi))
         return
     from pathtrace_tpu_torch.ops import binned
 
-    o = torch.zeros((4, 3), dtype=F64)
-    d = torch.tensor([[0.0, 0.0, -1.0]] * 4, dtype=F64)
-    lo, hi = torch.full((4,), 1e-3, dtype=F64), torch.full((4,), 9.0, dtype=F64)
-    for method, fns in (("binned", (binned.triangle_closest_binned,
-                                    binned.triangle_anyhit_binned)),
-                        ("resident", (intersect.resident_closest, intersect.resident_anyhit))):
-        tables = intersect.build_tables(scenes.mesh_scene(300, device="cpu"), method)
-        for fn in fns:
-            with pytest.raises(NotImplementedError, match=match):
-                fn(tables, o, d, lo, hi)
+    for method, (closest, anyhit) in (
+            ("binned", (binned.triangle_closest_binned, binned.triangle_anyhit_binned)),
+            ("resident", (intersect.resident_closest, intersect.resident_anyhit))):
+        tables = intersect.build_tables(sc, method)
+        got = closest(tables, o, d, lo, hi)
+        want = intersect.triangle_closest_reference(tables, o, d, lo, hi)
+        assert got[0].dtype == got[2].dtype == F64 and (want[1] >= 0).any()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(anyhit(tables, o, d, lo, hi),
+                           intersect.bvh_anyhit_reference(tables, o, d, lo, hi))

@@ -158,11 +158,16 @@ def test_replay_pixel_equals_frame_samples():
 
 
 def test_render_refuses_what_is_not_ported():
+    """A camera of another size is refused; float64 under ``binned``, once
+    refused, renders the flat route's float64 image bit for bit."""
     sc, cam = _cornell()
-    mesh = scenes.mesh_scene(1000, device="cpu")      # binned: no float64 kernels yet
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4c"):
-        render.render(mesh, scenes.mesh_scene_camera(W, H, device="cpu"),
-                      _cfg(dtype=torch.float64, method="binned"))
+    mesh = scenes.mesh_scene(1000, device="cpu")
+    mcam = scenes.mesh_scene_camera(W, H, device="cpu")
+    cfg = dict(spp=1, max_bounces=8, dtype=torch.float64)
+    got = render.render(mesh, mcam, _cfg(method="binned", **cfg))
+    want = render.render(mesh, mcam, _cfg(method="pallas", **cfg))
+    assert got.image_sum.dtype == torch.float64 and got.ray_queries == want.ray_queries > W * H
+    assert torch.equal(got.image_sum, want.image_sum)
     with pytest.raises(ValueError, match="camera"):
         render.render(sc, scenes.cornell_camera(W + 1, H, device="cpu"), _cfg())
 
@@ -223,8 +228,7 @@ def test_cli_renders_resumes_and_replays(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["render", "--scene", "mesh", "--dtype", "f64", "--method", "resident"],
-     "Queue 1, item 4"),                                                     # item 4c
+    (["--coordinator", "localhost:1234", "render"], "Queue 1, item 5"),
     (["--num-processes", "2", "render"], "Queue 1, item 5"),
 ])
 def test_cli_unported_flags_exit_nonzero(args, item):
