@@ -6,7 +6,8 @@ its last line):
 
 1. device: torch version, card name and power limit;
 2. build: compile the CUDA kernels from ``pathtrace_tpu_torch/csrc``;
-3. the pool's two kernels (``fused_bounce``, ``shadow_any_hit``) against
+3. the pool's two kernels (``fused_bounce`` in its default mode, whose
+   raygen mode the pool runs and phase 3i checks; ``shadow_any_hit``) against
    their plain-torch twins on the card, bitwise, at every split of their
    sweeps (1-16 threads a lane) and through the wrappers (the host's split),
    each split timed: S = 16384 lanes of real lane states (camera rays and
@@ -119,7 +120,7 @@ lanes of ``fused_bounce``:
     the sphere field through the composed pool and the ON/PBR scene through
     the fused pool; wall, Mrays/s, rays, iterations, checksum (which must
     repeat ``CLUSTER_EXPECT``), device operations an iteration and the busy
-    share (profiler over a 1-spp run).
+    share (profiler over a 960x540, 1-spp run of the same scene and slots);
 
 Float64, the reference's native precision (the fused pool and every
 intersection route; every scene widened from float32 by
@@ -157,6 +158,29 @@ intersection route; every scene widened from float32 by
     float32 instance, bound at the FP64 peak; config 4 at 1920x1080, 1 spp,
     in float64 under binned and resident, once each, timed: rays within 2%
     of the float32 frames of phase 5d, the two frames' images equal;
+
+The modes of ``fused_bounce`` (``raygen``, which the fused pool runs, and
+``fuse_shadow``, which no pool runs yet):
+
+3i. every mode's instance (the default, raygen, the fused shadow sweep,
+    both) in float32 and float64 against its twin, bitwise, through the
+    wrapper and at every split, on S = 16,384 real lane states of Cornell,
+    many_spheres and the ON/PBR scene and on the edge lanes, ~40% of them
+    starting a sample on a real pixel for raygen, and on the many_spheres
+    and edge lanes cut to a ragged count (16,383 and 4,093: threads past S
+    in the last block at every split); the raygen twin against the split
+    path's (``generate_rays`` and the merges); the fused shadow's outputs
+    against the split pair's kernels (``fused_bounce`` + ``shadow_any_hit``
+    + the pool's mask); each mode timed at every split beside the default,
+    and in turns against the split path it replaces, on many_spheres; the
+    ON/PBR raygen instance timed at every split; the pool against its split
+    path (``split_pool``: ``generate_rays``, the merges and the default
+    instance, as the pool ran before) in turns on Cornell 128x128 1 spp,
+    many_spheres 1920x1080 1 spp (32 bounces, 16,384 slots) and the ON/PBR
+    scene at 32x32 2 spp in float32 and Cornell in float64: equal rays,
+    iterations and image, walls, and the Cornell float32 frame's device ops
+    an iteration;
+
 8.  float64 frames: the Cornell 128x128 pool frame and a 64x64, 2-spp wave
     Cornell frame on the card against the CPU twins (equal rays and
     iterations); many_spheres at 1920x1080, 4 spp, 32 bounces, 16,384 slots,
@@ -177,12 +201,19 @@ Parity against the C++ oracle (``csrc/oracle.cpp`` through
     samples against the oracle's window; and the golden image's window
     ``[240:244, 190:198]`` re-rendered bitwise at 8,192 spp.
 
-The next-to-last lines are the kernels' JSON record (thirty-one entries:
-the twelve kernels, the four further modes and the fifteen float64
+The next-to-last lines are the kernels' JSON record (thirty-eight entries:
+the twelve kernels, the four further modes, the seven instances of
+``fused_bounce``'s modes (phase 3i, with their time at every split beside
+the default's and, for raygen and the fused shadow, the split path's times
+in turns; the raygen instances' launches are the main path's frames',
+ON/PBR included; the fused shadow's those of phase 3i's wrapper call, since
+no pool runs it) and the fifteen float64
 instances (``*_f64``, bound at the FP64 peak; phase 3g's seven and phase
 3h's four also with ``ms_f32``, the float32 instance's time on the same
 lanes), each with its time, its twin's,
-its launches on its path and its roofline bound; the pool's two kernels with
+its launches on its path (the default instances of ``fused_bounce``, which
+the fused pool no longer runs: phase 3i's split frames') and its roofline
+bound; the pool's two kernels with
 the host's split and their time at every split, the BVH pair with the host's
 team, its time at every team and its work a ray, ``bvh_closest_counters`` with its launches in
 phase 3b, the clustered modes with their time and bound at 16,384 lanes, the
@@ -200,6 +231,7 @@ the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -237,6 +269,10 @@ KERNELS = {
     "shadow_any_hit": ("pathtrace_tpu_torch/csrc/shadow_any_hit.cu",
                        "pathtrace_tpu/ops/pallas_shade.py:1587"),
 }
+# The fused pool's launches, by counter name: fused_bounce in its raygen mode
+# (the default instance is run by phase 3i's split frames alone) and the
+# shadow test.
+POOL_KERNELS = ("fused_bounce_raygen", "shadow_any_hit")
 MESH_KERNELS = {
     "bvh_closest": ("pathtrace_tpu_torch/csrc/bvh.cu",
                     "pathtrace_tpu/ops/bvh_intersect.py:388"),
@@ -316,6 +352,7 @@ ON_PBR_POOL = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=16,
                    num_slots=1024, seed=0)
 CLUSTER_FRAME = dict(width=1920, height=1080, spp=4, integrator="mis", max_bounces=32,
                      num_slots=16384, seed=0)
+CLUSTER_PROFILED = dict(width=960, height=540, spp=1)   # phase 5e's profiled frame
 # The port's counts for phase 5e's two frames (rays, iterations, image sum to
 # two decimals), repeated by every version of the kernels since they were
 # first run: every team and split must give them again.
@@ -1752,7 +1789,8 @@ def run_cornell(dev):
     img = img.cpu().numpy()
     if img.shape != (W * H, 3) or not np.isfinite(img).all():
         raise AssertionError(f"cornell image {img.shape} not finite")
-    if launches.get("fused_bounce", 0) != iters or launches.get("shadow_any_hit", 0) <= 0:
+    if launches.get("fused_bounce_raygen", 0) != iters or \
+            launches.get("shadow_any_hit", 0) <= 0 or set(launches) != set(POOL_KERNELS):
         raise AssertionError(f"cornell launches {launches} for {iters} iterations")
     img_cpu, counters_cpu, iters_cpu = render_pool(
         scenes.cornell_box("cpu"), scenes.cornell_camera(W, H, "cpu"), **CORNELL)
@@ -1794,11 +1832,11 @@ def run_bench(dev, smi: str):
     rays, iters, checksum = extra["total_rays"], extra["pool_iterations"], extra["image_checksum"]
     if not np.isfinite(checksum):
         raise AssertionError(f"many_spheres image not finite: checksum {checksum}")
-    for k in KERNELS:
+    for k in POOL_KERNELS:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"{k} was not launched on the main path: {launches}")
-    if launches["fused_bounce"] != iters:
-        raise AssertionError(f"fused_bounce launches {launches} != iters {iters}")
+    if launches["fused_bounce_raygen"] != iters:
+        raise AssertionError(f"fused_bounce_raygen launches {launches} != iters {iters}")
     if spp == frame["spp"] and (rays, iters, checksum) != BENCH_EXPECT:
         raise AssertionError(f"many_spheres: {rays} rays, {iters} iterations, checksum "
                              f"{checksum}; expected {BENCH_EXPECT}")
@@ -2438,7 +2476,7 @@ def run_cluster_frames(dev):
         ("sphere field pool", sphere_field, scenes.many_spheres_camera, FIELD_POOL,
          {"sphere_closest_clustered", "triangle_closest", "any_hit_clustered"}),
         ("ON/PBR fused pool", on_pbr_scene, scenes.default_spheres_camera, ON_PBR_POOL,
-         {"fused_bounce_on_pbr", "shadow_any_hit"}),
+         {"fused_bounce_raygen_on_pbr", "shadow_any_hit"}),
     ):
         W, H = kw["width"], kw["height"]
         shade.LAUNCHES.clear()
@@ -2478,12 +2516,14 @@ def run_cluster_frames(dev):
 
 def run_cluster_bench(dev, smi: str):
     """Phase 5e: the sphere field (composed pool) and the ON/PBR scene (fused
-    pool) at 1920x1080, 4 spp, MIS, 32 bounces, 16,384 slots, timed. A 1-spp
-    warm-up gives the wall that the profiler's device time over the same
-    1-spp frame is divided by (busy share), and the device operations an
-    iteration; the 4-spp frame gives wall, Mrays/s, rays, iterations and the
-    checksum. Returns the launches of both frames' kernels, and those of the
-    sphere field's frame alone."""
+    pool) at 1920x1080, 4 spp, MIS, 32 bounces, 16,384 slots, timed, after a
+    1-spp warm-up. The profiler's device time and operations come from the
+    same scene at ``CLUSTER_PROFILED`` (a quarter of the pixels, the same
+    slots, so the same work an iteration in a quarter of the iterations:
+    the profiler takes ~0.25 ms an event), divided by that frame's unprofiled
+    wall (busy share) and by its iterations; the 4-spp frame gives wall,
+    Mrays/s, rays, iterations and the checksum. Returns the launches of both
+    frames' kernels, and those of the sphere field's frame alone."""
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import shade
     from pathtrace_tpu_torch.pool import busy_count, ray_count, render_pool
@@ -2494,16 +2534,23 @@ def run_cluster_bench(dev, smi: str):
     for name, build, cam_fn, want in (
         (f"many_spheres(n_per_side={FIELD_N})", sphere_field, scenes.many_spheres_camera,
          ("sphere_closest_clustered", "any_hit_clustered", "triangle_closest")),
-        ("on_pbr", on_pbr_scene, scenes.default_spheres_camera, ("fused_bounce_on_pbr",)),
+        ("on_pbr", on_pbr_scene, scenes.default_spheres_camera,
+         ("fused_bounce_raygen_on_pbr",)),
     ):
         scene, camera = build(dev), cam_fn(W, H, dev)
-        one = dict(CLUSTER_FRAME, spp=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, iters1 = render_pool(scene, camera, **one)
+        render_pool(scene, camera, **dict(CLUSTER_FRAME, spp=1))
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        dev_ms, dev_ops, _ = device_work(lambda: render_pool(scene, camera, **one))
+        small = dict(CLUSTER_FRAME, **CLUSTER_PROFILED)
+        small_cam = cam_fn(small["width"], small["height"], dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, iters1 = render_pool(scene, small_cam, **small)
+        torch.cuda.synchronize()
+        small_s = time.perf_counter() - t0
+        dev_ms, dev_ops, _ = device_work(lambda: render_pool(scene, small_cam, **small))
         shade.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2527,9 +2574,11 @@ def run_cluster_bench(dev, smi: str):
             "total_rays": rays, "iters": iters,
             "occupancy": busy_count(counters) / max(iters * slots, 1),
             "wall_s": wall, "mrays_per_s": rays / wall / 1e6, "image_checksum": checksum,
-            "warmup_1spp_s": warm_s, "iters_1spp": iters1,
-            "device_ms_1spp": dev_ms, "device_ops_per_iter": dev_ops / iters1,
-            "busy_share": dev_ms / 1e3 / warm_s if dev_ms else None,
+            "warmup_1spp_s": warm_s,
+            "profiled": f"{small['width']}x{small['height']} {small['spp']}spp",
+            "iters_profiled": iters1, "wall_s_profiled_frame": small_s,
+            "device_ms_profiled": dev_ms, "device_ops_per_iter": dev_ops / iters1,
+            "busy_share": dev_ms / 1e3 / small_s if dev_ms else None,
             "kernel_launches_per_iter": {k: launches[k] / iters for k in sorted(launches)},
             "card": smi,
         }
@@ -3465,7 +3514,7 @@ def run_f64_frames(dev, smi: str):
     channel's mean bias within 1e-3); and ``render --dtype f64`` and ``bench
     --small --dtype f64`` through the CLI. Every launch counter is zeroed
     before a frame and read after it: the pool frames must launch only the
-    float64 ``fused_bounce`` and ``shadow_any_hit``, the wave frame only the
+    float64 ``fused_bounce`` (its raygen instance) and ``shadow_any_hit``, the wave frame only the
     float64 ``combined_closest_small`` and ``any_hit``. Returns the
     launches of the timed 1080p frame and of the wave frame."""
     from pathtrace_tpu_torch.models import scenes
@@ -3474,7 +3523,7 @@ def run_f64_frames(dev, smi: str):
     from pathtrace_tpu_torch.render import RenderConfig, render
 
     f64 = torch.float64
-    pool_set = {"fused_bounce_f64", "shadow_any_hit_f64"}
+    pool_set = {"fused_bounce_raygen_f64", "shadow_any_hit_f64"}
 
     W, H = CORNELL["width"], CORNELL["height"]
     shade.LAUNCHES.clear()
@@ -3492,7 +3541,7 @@ def run_f64_frames(dev, smi: str):
     if (rays, iters) != (rays_cpu, iters_cpu):
         raise AssertionError(f"f64 cornell: GPU {rays} rays {iters} iters, CPU {rays_cpu} "
                              f"rays {iters_cpu} iters")
-    if set(launches) != pool_set or launches["fused_bounce_f64"] != iters:
+    if set(launches) != pool_set or launches["fused_bounce_raygen_f64"] != iters:
         raise AssertionError(f"f64 cornell launched {launches} for {iters} iterations")
     assert_images_match(img, img_cpu.numpy())
     log(f"[f64-cornell] {W}x{H} 1spp MIS depth {CORNELL['max_bounces']} float64 pool: rays "
@@ -3530,7 +3579,7 @@ def run_f64_frames(dev, smi: str):
         checksum = float(img.double().sum().item())       # forces completion
         wall = time.perf_counter() - t0
         launches = dict(shade.LAUNCHES)
-        want = pool_set if dtype == f64 else set(KERNELS)
+        want = pool_set if dtype == f64 else set(POOL_KERNELS)
         if set(launches) != want or not np.isfinite(checksum) or img.dtype != dtype:
             raise AssertionError(f"1080p {tag}: {img.dtype}, launches {launches}, checksum "
                                  f"{checksum}")
@@ -3594,6 +3643,427 @@ def run_f64_frames(dev, smi: str):
     return frame_launches["f64"], wave_launches
 
 
+# The modes of fused_bounce (phase 3i): each opt-in instance, by launch
+# counter name, in both float types.
+FUSED_MODES = ("raygen", "shadow", "raygen_shadow")
+MODE_KERNELS = {f"fused_bounce_{m}{sfx}": ("pathtrace_tpu_torch/csrc/fused_bounce.cu",
+                                           "pathtrace_tpu/ops/pallas_shade.py:537")
+                for sfx in ("", "_f64") for m in FUSED_MODES}
+RAYGEN_SHARE = 0.4          # lanes of phase 3i's raygen checks that start a sample
+# (name, dtype, render_pool arguments, profiled): split and raygen frames in
+# turns; a profiled frame is run once more each way under torch.profiler for
+# its device ops (the profiler takes ~0.3 ms an event, so not the 1080p one).
+RAYGEN_FRAMES = (
+    ("cornell", torch.float32, CORNELL, True),
+    ("many_spheres", torch.float32, dict(width=1920, height=1080, spp=1, integrator="mis",
+                                         max_bounces=32, num_slots=16384, seed=0), False),
+    ("on_pbr", torch.float32, ON_PBR_POOL, False),
+    ("cornell", torch.float64, CORNELL, False),
+)
+# Phase 3i's ragged lane counts, by lane set: S not a multiple of any
+# split's block of lanes, so the last block holds threads past S beside
+# threads that shade, at every split.
+RAGGED_S = {"many_spheres": SLICE_S - 1, "edge": EDGE_S - 3}
+
+
+def split_glue(camera):
+    """``shade.fused_bounce`` as the pool's glue called it before the fused
+    branch made its rays in the kernel: the started lanes' primary rays by
+    ``camera.generate_rays`` and the five merges, then the default instance
+    on the merged state. Patched in for ``shade.fused_bounce`` (by
+    :func:`split_pool`), it makes ``render_pool`` the split path that the
+    raygen mode replaces."""
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.utils import rng
+
+    kernel = shade.fused_bounce
+
+    def fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, *,
+                     raygen, **kw):
+        started, px, py, _ = raygen
+        jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
+        cam_o, cam_d = camera.generate_rays(px.long(), py.long(), jitter)
+        return kernel(tables, busy, bounce, torch.where(started, cam_o, ray_o),
+                      torch.where(started, cam_d, ray_d), torch.where(started, 1.0, eta),
+                      torch.where(started, 1.0, pdf_prev), torch.where(started, 1.0, prefix),
+                      u, **kw)
+    return fused_bounce
+
+
+@contextlib.contextmanager
+def split_pool(camera, on=True):
+    """Within the block, ``render_pool``'s fused branch runs the split path
+    (:func:`split_glue` of ``camera``, which must be the camera the pool
+    renders, in its dtype); ``on=False`` leaves the pool as it is."""
+    from pathtrace_tpu_torch.ops import shade
+
+    kernel = shade.fused_bounce
+    if on:
+        shade.fused_bounce = split_glue(camera)
+    try:
+        yield
+    finally:
+        shade.fused_bounce = kernel
+
+
+def raygen_lanes(camera, batch, seed=1):
+    """Phase 3i's raygen inputs from a merged lane batch: ~``RAYGEN_SHARE``
+    of the lanes start a sample on a pixel spread over the image, at bounce 0
+    with that pixel's uniforms (its jitter in slots 7-8), while their carried
+    ray state stays the batch's. Returns ``(pre, raygen, merged)``: the
+    kernel's inputs before the refill, its ``raygen`` tuple, and the same
+    lanes merged by ``Camera.generate_rays`` and the pool's five merges (the
+    split path's inputs)."""
+    from pathtrace_tpu_torch.pool import camera_row
+    from pathtrace_tpu_torch.utils import rng
+
+    dev = batch[0].device
+    S = batch[0].shape[0]
+    busy, bounce, o, d, eta, pdf, pfx, u = batch
+    lane, _, _, u0, _, _ = camera_lanes(camera, S, seed, dev)
+    W, H = camera.width, camera.height
+    pixel = (lane * 7919) % (W * H)
+    g = torch.Generator().manual_seed(seed)
+    started = (torch.rand(S, generator=g) < RAYGEN_SHARE).to(dev)
+    busy = busy | started
+    bounce = torch.where(started, 0, bounce)
+    u = torch.where(started, u0, u).contiguous()
+    px, py = pixel % W, (H - 1) - pixel // W
+    raygen = (started, px.to(torch.int32), py.to(torch.int32), camera_row(camera))
+    jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
+    cam_o, cam_d = camera.generate_rays(px, py, jitter)
+    merged = [busy, bounce, torch.where(started, cam_o, o).contiguous(),
+              torch.where(started, cam_d, d).contiguous(), torch.where(started, 1.0, eta),
+              torch.where(started, 1.0, pdf), torch.where(started, 1.0, pfx).contiguous(), u]
+    return [busy, bounce, o, d, eta, pdf, pfx, u], raygen, merged
+
+
+def hold_mode_kernels(name, tables, pre, raygen, merged, kw):
+    """Every mode of ``fused_bounce`` (the default and the three opt-in
+    instances) against its twin, bit for bit (NaNs equal), through the
+    wrapper and at every split; the raygen twin against the split path's
+    twin (the same mode on the merged lanes), and the fused-shadow kernels
+    against the split pair's kernels (``fused_bounce`` + ``shadow_any_hit`` +
+    the pool's mask: equal values, a zero's sign aside, where nothing is
+    added). Returns ``({mode: twin result}, {mode: worst abs error})``."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import shade
+
+    flags = shade.kernel_flags(kw["integrator"], kw["has_tri_lights"], kw["has_sph_lights"],
+                               kw["has_oren_nayar"], kw["has_pbr"])
+    launch = dict(num_tris=kw["num_tris"], num_lights=kw["num_lights"],
+                  max_bounces=kw["max_bounces"], eps=shade.EPS, **flags)
+    refs, errs, kernel = {}, {}, {}
+    for mode in ("default",) + FUSED_MODES:
+        rg = raygen if "raygen" in mode else None
+        fs = "shadow" in mode
+        batch = pre if rg else merged
+        ref = shade.fused_bounce_reference(tables, *batch, raygen=rg, fuse_shadow=fs, **kw)
+        got = shade.fused_bounce(tables, *batch, raygen=rg, fuse_shadow=fs, **kw)
+        err = _bitwise(f"fused_bounce {mode} {name}", tuple(ref), tuple(got), nan_equal=True)
+        out = shade.BounceResult(*(torch.empty_like(x) for x in ref))
+        for split in binding.SPLITS:
+            binding.launch_fused_bounce(tables, *batch, out, raygen=rg, fuse_shadow=fs,
+                                        split=split, **launch)
+            err = max(err, _bitwise(f"fused_bounce {mode} {name} split {split}", tuple(ref),
+                                    tuple(out), nan_equal=True))
+        refs[mode], errs[mode], kernel[mode] = ref, err, got
+    for mode, split_mode in (("raygen", "default"), ("raygen_shadow", "shadow")):
+        _bitwise(f"{mode} twin against the split path's, {name}", tuple(refs[split_mode]),
+                 tuple(refs[mode]), nan_equal=True)
+    split_res = kernel["default"]
+    occ = shade.shadow_any_hit(tables, split_res.next_o, split_res.shadow_d,
+                               split_res.shadow_tmax)
+    want = split_res._replace(
+        rad_delta=split_res.rad_delta + torch.where(split_res.live & ~occ, split_res.nee_gain,
+                                                    0.0),
+        nee_gain=torch.zeros_like(split_res.nee_gain))
+    got = kernel["shadow"]
+    for field, a, b in zip(shade.BounceResult._fields, want, got):
+        same = (a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b
+        if not same.all():
+            raise AssertionError(f"fused shadow {name}: {field} differs from the split pair's "
+                                 f"on {int((~same).reshape(-1, same.shape[-1]).any(0).sum())} "
+                                 f"lanes")
+    if int((split_res.live & occ).sum()) == 0 and kw["integrator"] != "brdf_only":
+        raise AssertionError(f"fused shadow {name}: no live lane blocked")
+    log(f"[modes] {name}: fused_bounce default, raygen ({int(raygen[0].sum())} lanes started), "
+        f"shadow and raygen_shadow bitwise equal to their twins through the wrapper and at "
+        f"splits {list(binding.SPLITS)}; the raygen twins equal the split path's; the fused "
+        f"shadow's rad_delta equals the split pair's ({int((split_res.live & occ).sum())} live "
+        f"lanes blocked), nee_gain zero; worst abs error {errs}")
+    return refs, errs
+
+
+def mode_times(tables, pre, raygen, merged, kw, camera, turn_splits=(None,)):
+    """CUDA-event times of phase 3i on one lane set: each mode's instance
+    at every split beside the default's; then, in turns (old, new, new,
+    old), the fused shadow against the split pair it replaces
+    (``fused_bounce`` + ``shadow_any_hit`` + the pool's mask and add) and the
+    raygen mode against the split path's glue (``generate_rays`` and the
+    five merges) + ``fused_bounce``, by events (host launches included) and
+    queued behind a spin kernel (device only), at each split of
+    ``turn_splits`` (None: the host's; every kernel of a pair at that split).
+    Returns ``(by_split, turns)``; ``turns`` is keyed by ``what_timer`` at
+    the host's split, by ``what_timer_split`` at the others."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.utils import rng
+
+    flags = shade.kernel_flags(kw["integrator"], kw["has_tri_lights"], kw["has_sph_lights"],
+                               kw["has_oren_nayar"], kw["has_pbr"])
+    launch = dict(num_tris=kw["num_tris"], num_lights=kw["num_lights"],
+                  max_bounces=kw["max_bounces"], eps=shade.EPS, **flags)
+    out = shade.fused_bounce_reference(tables, *merged, **kw)
+    out = shade.BounceResult(*(torch.empty_like(x) for x in out))
+    occ = torch.empty_like(out.live)
+    by_split = {}
+    for mode in ("default",) + FUSED_MODES:
+        rg = raygen if "raygen" in mode else None
+        batch = pre if rg else merged
+        by_split[mode] = {split: cuda_ms(lambda: binding.launch_fused_bounce(
+            tables, *batch, out, raygen=rg, fuse_shadow="shadow" in mode, split=split,
+            **launch)) for split in binding.SPLITS}
+    busy, bounce, o, d, eta, pdf, pfx, u = pre
+    started, px, py, _ = raygen
+
+    def split_pair(split):
+        binding.launch_fused_bounce(tables, *merged, out, split=split, **launch)
+        binding.launch_shadow_any_hit(tables, out.next_o, out.shadow_d, out.shadow_tmax, occ,
+                                      eps=shade.EPS, split=split)
+        return out.rad_delta + torch.where(out.live & ~occ, out.nee_gain, 0.0)
+
+    def split_raygen(split):
+        jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
+        cam_o, cam_d = camera.generate_rays(px, py, jitter)
+        batch = [busy, bounce, torch.where(started, cam_o, o), torch.where(started, cam_d, d),
+                 torch.where(started, 1.0, eta), torch.where(started, 1.0, pdf),
+                 torch.where(started, 1.0, pfx), u]
+        binding.launch_fused_bounce(tables, *batch, out, split=split, **launch)
+
+    turns = {}
+    for split in turn_splits:
+        for what, old, new in (
+            ("shadow", split_pair, lambda split: binding.launch_fused_bounce(
+                tables, *merged, out, fuse_shadow=True, split=split, **launch)),
+            ("raygen", split_raygen, lambda split: binding.launch_fused_bounce(
+                tables, *pre, out, raygen=raygen, split=split, **launch)),
+        ):
+            for timer in (cuda_ms, queued_ms):
+                ms = [timer(lambda: fn(split)) for fn in (old, new, new, old)]
+                key = f"{what}_{timer.__name__}" + ("" if split is None else f"_{split}")
+                turns[key] = {"old": [ms[0], ms[3]], "new": [ms[1], ms[2]]}
+    return by_split, turns
+
+
+def run_raygen_frames(dev, smi: str):
+    """Phase 3i, frames: the pool (whose fused branch runs the raygen mode)
+    against the split path it replaced (:func:`split_pool`), in turns
+    (split, raygen, raygen, split), on Cornell 128x128 1 spp, many_spheres
+    1920x1080 1 spp (32 bounces, 16,384 slots) and the ON/PBR scene at
+    ``ON_PBR_POOL`` in float32 and Cornell in float64 (``RAYGEN_FRAMES``):
+    equal rays and iterations and a bitwise-equal image; walls, and the
+    device ops an iteration of a profiled run of each way where the frame is
+    marked for it. Returns each frame's launches, by ``(name, dtype,
+    split)``: the split frames' are the only launches of the default
+    instances, which no pool runs."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+    from pathtrace_tpu_torch.render import cast_floats
+
+    launches = {}
+    for name, dtype, run, profiled in RAYGEN_FRAMES:
+        W, H = run["width"], run["height"]
+        scene, camera = {
+            "cornell": lambda: (scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev)),
+            "many_spheres": lambda: (scenes.many_spheres(device=dev),
+                                     scenes.many_spheres_camera(W, H, dev)),
+            "on_pbr": lambda: (on_pbr_scene(dev), scenes.default_spheres_camera(W, H, dev)),
+        }[name]()
+        scene, camera = cast_floats(scene, dtype), cast_floats(camera, dtype)
+        sfx = "_f64" if dtype == torch.float64 else ""
+        walls, outs = {True: [], False: []}, {}
+        for split in (True, False, False, True):
+            shade.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with split_pool(camera, split):
+                img, counters, iters = render_pool(scene, camera, **run)
+            checksum = float(img.double().sum().item())     # forces completion
+            walls[split].append(time.perf_counter() - t0)
+            got = (img, ray_count(counters), iters, checksum, dict(shade.LAUNCHES))
+            if split not in outs:
+                outs[split] = got
+            elif not torch.equal(img, outs[split][0]) or got[1:3] != outs[split][1:3]:
+                raise AssertionError(f"{name} {dtype}: a second frame differs (split {split})")
+        (img, rays, iters, checksum, split_l), (rimg, rrays, riters, _, raygen_l) = \
+            outs[True], outs[False]
+        if (rrays, riters) != (rays, iters) or not torch.equal(rimg, img):
+            raise AssertionError(f"{name} {dtype}: raygen frame {rrays} rays, {riters} "
+                                 f"iterations; split {rays}, {iters} (or the images differ)")
+        if not torch.isfinite(img).all():
+            raise AssertionError(f"{name} {dtype}: image not finite")
+        on_pbr = bool(scene.has_oren_nayar or scene.has_pbr)
+        for raygen, got in ((False, split_l), (True, raygen_l)):
+            want = shade.launch_name(raygen, False, on_pbr, dtype)
+            if got.get(want, 0) != iters or got.get(f"shadow_any_hit{sfx}", 0) <= 0 \
+                    or len(got) != 2:
+                raise AssertionError(f"{name} {dtype}: launches {got} for {iters} iterations")
+        work = {True: None, False: None}
+        for split in (True, False) if profiled else ():
+            with split_pool(camera, split):
+                dev_ms, dev_ops, kernel_ms = device_work(
+                    lambda: render_pool(scene, camera, **run))
+            work[split] = {"device_ms": dev_ms, "device_ops_per_iter": dev_ops / iters,
+                           "kernel_device_ms_per_iter": {k: v / iters
+                                                         for k, v in sorted(kernel_ms.items())}}
+        launches[(name, dtype, True)], launches[(name, dtype, False)] = split_l, raygen_l
+        log("[modes-frames] " + json.dumps({
+            "workload": f"{name} {W}x{H} {run['spp']}spp MIS depth {run['max_bounces']} "
+                        f"{run['num_slots']} slots {str(dtype).removeprefix('torch.')}",
+            "total_rays": rays, "iters": iters, "checksum": checksum,
+            "wall_s_split": walls[True], "wall_s_raygen": walls[False],
+            "split": work[True], "raygen": work[False], "card": smi}))
+    log("[modes-frames] every raygen frame gave its split frame's rays, iterations and image "
+        "bit for bit")
+    return launches
+
+
+def check_mode_kernels(dev, smi: str):
+    """Phase 3i: the modes of ``fused_bounce``. Every mode's instance (the
+    default, raygen, fused shadow, both) in float32 and float64 against its
+    twin, bitwise, through the wrapper and at every split, on S = 16,384
+    real lane states of Cornell, many_spheres and the ON/PBR scene and on
+    the edge lanes, ~40% of them started for raygen (:func:`raygen_lanes`),
+    and on ragged cuts of the many_spheres and edge lanes (``RAGGED_S``);
+    the raygen twin against the split path's; the fused shadow against the
+    split pair's kernels; times on many_spheres' lanes (:func:`mode_times`)
+    and the ON/PBR raygen instance's on its lanes; then the raygen frames
+    (:func:`run_raygen_frames`). Returns the record's entries of the six
+    instances of ``MODE_KERNELS`` and of ``fused_bounce_raygen_on_pbr`` (the
+    launches of the pool's raygen instances are set from the main path's
+    frames by the caller), and the split frames' launches of the default
+    instances."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.render import cast_floats
+
+    def cut(xs, n):
+        return [x[..., :n].contiguous() for x in xs]
+
+    t0 = time.perf_counter()
+    worst, record = {k: 0.0 for k in MODE_KERNELS}, {}
+    for dtype in (torch.float32, torch.float64):
+        sfx = "_f64" if dtype == torch.float64 else ""
+        peak = PEAK_FP64 if sfx else PEAK_FP32
+        for name in ("cornell", "many_spheres", "on_pbr", "edge"):
+            if name == "edge":
+                scene, tables, merged, _ = edge_lanes(dev, dtype=dtype)
+                camera = scenes.cornell_camera(64, 64, dev)
+            else:
+                scene, camera = {
+                    "cornell": (scenes.cornell_box(dev), scenes.cornell_camera(128, 128, dev)),
+                    "many_spheres": (scenes.many_spheres(device=dev),
+                                     scenes.many_spheres_camera(1920, 1080, dev)),
+                    "on_pbr": (on_pbr_scene(dev), scenes.default_spheres_camera(1920, 1080, dev)),
+                }[name]
+                scene = cast_floats(scene, dtype)
+                tables = shade.build_tables(scene)
+            camera = cast_floats(camera, dtype)
+            if name != "edge":
+                merged = lane_states(scene, camera, tables, SLICE_S)
+            pre, raygen, merged = raygen_lanes(camera, merged)
+            kw = bounce_kwargs(scene, "mis", 16)
+            refs, errs = hold_mode_kernels(f"{name} {dtype}", tables, pre, raygen, merged, kw)
+            if name in RAGGED_S:
+                n = RAGGED_S[name]
+                _, rerrs = hold_mode_kernels(
+                    f"{name} {dtype} ragged S={n}", tables, cut(pre, n),
+                    (*cut(raygen[:3], n), raygen[3]), cut(merged, n), kw)
+                errs = {m: max(errs[m], rerrs[m]) for m in errs}
+            for m in FUSED_MODES:
+                worst[f"fused_bounce_{m}{sfx}"] = max(worst[f"fused_bounce_{m}{sfx}"], errs[m])
+            if name == "on_pbr" and not sfx:
+                # The ON/PBR pool's instance: its time at every split.
+                split, _ = binding._shape(tables, None, "fused_bounce")
+                flags = shade.kernel_flags(kw["integrator"], kw["has_tri_lights"],
+                                           kw["has_sph_lights"], kw["has_oren_nayar"],
+                                           kw["has_pbr"])
+                out = shade.BounceResult(*(torch.empty_like(x) for x in refs["raygen"]))
+                by_split = {t: cuda_ms(lambda: binding.launch_fused_bounce(
+                    tables, *pre, out, raygen=raygen, split=t, num_tris=kw["num_tris"],
+                    num_lights=kw["num_lights"], max_bounces=kw["max_bounces"], eps=shade.EPS,
+                    **flags)) for t in binding.SPLITS}
+                twin = cuda_ms(lambda: shade.fused_bounce_reference(
+                    tables, *pre, raygen=raygen, **kw), runs=3, calls=1)
+                rows = scene.tri_v0.shape[0] * TRI_OPS + scene.sph_center.shape[0] * SPH_OPS
+                record["fused_bounce_raygen_on_pbr"] = {
+                    "ms": by_split[split], "plain_ms": twin,
+                    **bound(nbytes(*pre, *raygen, *tables, *refs["raygen"]),
+                            int(pre[0].sum()) * rows, peak),
+                    "split": split, "ms_by_split": by_split, "max_abs_err": errs["raygen"]}
+                log(f"[modes-times] on_pbr raygen instance S={SLICE_S}: ms by split "
+                    f"{json.dumps(by_split)}, twin {twin:.4f} ms; card {smi}")
+            if name != "many_spheres":
+                continue
+            by_split, turns = mode_times(tables, pre, raygen, merged, kw, camera)
+            n_tri, n_sph = scene.tri_v0.shape[0], scene.sph_center.shape[0]
+            row_ops = n_tri * TRI_OPS + n_sph * SPH_OPS
+            closest = int(pre[0].sum()) * row_ops
+            split_ref = refs["default"]
+            occ = shade.shadow_any_hit_reference(tables, split_ref.next_o, split_ref.shadow_d,
+                                                 split_ref.shadow_tmax)
+            query = split_ref.shadow_tmax >= shade.EPS
+            sweep = int((query & ~occ).sum()) * row_ops + int((query & occ).sum()) * SPH_OPS
+            shade.LAUNCHES.clear()
+            for m in FUSED_MODES:
+                rg = raygen if "raygen" in m else None
+                batch = pre if rg else merged
+                split, _ = binding._shape(tables, None, "fused_bounce_shadow" if "shadow" in m
+                                          else "fused_bounce")
+                twin = cuda_ms(lambda: shade.fused_bounce_reference(
+                    tables, *batch, raygen=rg, fuse_shadow="shadow" in m, **kw), runs=3, calls=1)
+                shade.fused_bounce(tables, *batch, raygen=rg, fuse_shadow="shadow" in m, **kw)
+                n_bytes = nbytes(*batch, *tables, *refs[m]) + (nbytes(*raygen) if rg else 0)
+                k = f"fused_bounce_{m}{sfx}"
+                record[k] = {
+                    "ms": by_split[m][split], "plain_ms": twin,
+                    **bound(n_bytes, closest + (sweep if "shadow" in m else 0), peak),
+                    "split": split, "ms_by_split": by_split[m],
+                    "default_ms_by_split": by_split["default"],
+                    **({"turns_ms": turns[f"{m}_cuda_ms"], "turns_queued_ms":
+                        turns[f"{m}_queued_ms"]} if f"{m}_cuda_ms" in turns else {}),
+                }
+            wrapper_launches = dict(shade.LAUNCHES)
+            for m in FUSED_MODES:
+                record[f"fused_bounce_{m}{sfx}"]["launches_phase_3i"] = \
+                    wrapper_launches[f"fused_bounce_{m}{sfx}"]
+            log(f"[modes-times] many_spheres {dtype} S={SLICE_S}: ms by split "
+                f"{json.dumps(by_split)}; in turns (old, new, new, old) "
+                f"{json.dumps(turns)}; host splits "
+                f"{ {m: record[f'fused_bounce_{m}{sfx}']['split'] for m in FUSED_MODES} }; "
+                f"card {smi}")
+    log(f"[modes] kernels checked and timed in {time.perf_counter() - t0:.1f} s")
+    frame_launches = run_raygen_frames(dev, smi)
+    for k, entry in record.items():
+        # No pool runs the fused shadow (the JAX pool has no switch for it):
+        # its launches are the wrapper's call of this phase.
+        if "shadow" in k:
+            entry["launches"] = entry["launches_phase_3i"]
+        if k in worst:
+            entry["max_abs_err"] = worst[k]
+    split_launches = {
+        "fused_bounce": frame_launches[("many_spheres", torch.float32, True)]["fused_bounce"],
+        "fused_bounce_on_pbr": frame_launches[("on_pbr", torch.float32, True)][
+            "fused_bounce_on_pbr"],
+        "fused_bounce_f64": frame_launches[("cornell", torch.float64, True)][
+            "fused_bounce_f64"],
+    }
+    return record, split_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3645,6 +4115,7 @@ def main() -> int:
         return out, run_f64_traversal_frames(dev, mesh, mesh_cam, smi)
 
     (t64_worst, t64_ms, t64_bnd, t64_extra), t64_launches = phase("3h", f64_traversals)
+    modes, split_launches = phase("3i", check_mode_kernels, dev, smi)
     del lanes, flat, field
     phase("4", run_cornell, dev)
     phase("4b", run_mesh_frame, dev)
@@ -3678,8 +4149,13 @@ def main() -> int:
     cases = {"combined_closest_small": ("cornell", wave_launches),
              "triangle_closest": (f"mesh_{FLAT_TRIS}", flat_launches)}
     method_of = {k: m for m, ks in METHOD_KERNELS.items() for k in ks}
+    # The pool's raygen instances: launches of the main path's frames.
+    modes["fused_bounce_raygen"]["launches"] = launches["fused_bounce_raygen"]
+    modes["fused_bounce_raygen_on_pbr"]["launches"] = cluster_launches["fused_bounce_raygen_on_pbr"]
+    modes["fused_bounce_raygen_f64"]["launches"] = f64_pool_launches["fused_bounce_raygen_f64"]
     record = {"kernels": [
-        split_entry(k, src, rep, launches[k], worst[k], ms["many_spheres"], which, bnd[k])
+        split_entry(k, src, rep, {**launches, **split_launches}[k], worst[k], ms["many_spheres"],
+                    which, bnd[k])
         for which, (k, (src, rep)) in enumerate(KERNELS.items())
     ] + [
         entry(k, src, rep, mesh_launches[k], mesh_worst[k], mesh_ms[k], mesh_bnd[k],
@@ -3703,10 +4179,11 @@ def main() -> int:
         for k, (src, rep) in CLUSTER_KERNELS.items() if k in cl_slice
     ] + [
         split_entry("fused_bounce_on_pbr", *CLUSTER_KERNELS["fused_bounce_on_pbr"],
-                    cluster_launches["fused_bounce_on_pbr"], cl_worst["fused_bounce_on_pbr"],
+                    split_launches["fused_bounce_on_pbr"], cl_worst["fused_bounce_on_pbr"],
                     cl_ms["fused_bounce_on_pbr"], 0, cl_bnd["fused_bounce_on_pbr"])
     ] + [
-        entry(k, src, rep, {**f64_pool_launches, **f64_wave_launches}[k], f64_worst[k],
+        entry(k, src, rep, {**f64_pool_launches, **f64_wave_launches, **split_launches}[k],
+              f64_worst[k],
               f64_ms[k], f64_bnd[k], **f64_extra[k])
         for k, (src, rep) in F64_KERNELS.items()
     ] + [
@@ -3720,6 +4197,14 @@ def main() -> int:
         entry(k, src, rep, t64_launches[method_of[k.removesuffix("_f64")]][k], t64_worst[k],
               t64_ms[k], t64_bnd[k], **t64_extra[k])
         for k, (src, rep) in F64_TRAVERSAL_KERNELS.items()
+    ] + [
+        entry(k, src, rep, modes[k]["launches"], modes[k]["max_abs_err"],
+              (modes[k]["ms"], modes[k]["plain_ms"]), modes[k],
+              **{x: v for x, v in modes[k].items() if x not in (
+                  "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+        for k, (src, rep) in {**MODE_KERNELS,
+                              "fused_bounce_raygen_on_pbr": MODE_KERNELS["fused_bounce_raygen"]
+                              }.items()
     ]}
     print(json.dumps(record))
     print(smi)

@@ -1,8 +1,12 @@
 // One full path vertex per lane: the pool's bounce kernel.
 //
 // Replaces pathtrace_tpu/ops/pallas_shade.py :: _fused_bounce_kernel
-// (wrapper fused_bounce), split-shadow mode, VPU sphere form, no raygen
-// mode. Plain-torch twin and the layout contract:
+// (wrapper fused_bounce), VPU sphere form, in its three modes: split shadow
+// (the default), raygen (which the pool's fused branch runs) and the fused
+// shadow sweep (fuse_shadow), each an instance of the kernel template
+// (kRaygen, kFuseShadow), so the default instance carries none of the
+// others' code.
+// Plain-torch twin and the layout contract:
 // pathtrace_tpu_torch/ops/shade.py :: fused_bounce_reference.
 //
 // Material lanes: Lambert, GGX mirror and emissive always; Oren-Nayar and
@@ -46,6 +50,32 @@
 // ~4 warps an SM, now sets a floor of ~0.02-0.03 ms at 16,384 lanes, and
 // larger blocks (fewer resident at once) only add waves.
 //
+// Raygen mode (kRaygen; the pool's fused branch): the ray state comes in as
+// it was before the pool's refill, with each lane's `started` flag, its
+// pixel (px, py; py flipped) and the camera row [origin, lower_left, w-1,
+// h-1] / [horizontal, vertical, 0, 0]. A started lane's ray is its jittered
+// primary ray (uniform slots 7-8): u = (px + jx) / (w-1), v likewise, the
+// direction lower_left + horizontal u + vertical v - origin normalised, with
+// the op sequence of models/camera.py :: Camera.generate_rays, and its eta,
+// pdf_prev and prefix are reset to 1. Every thread of the lane's group
+// computes the ray itself (lane_ray, ~20 flops and a square root), so the
+// sweep needs no staging; a lane that does not live on keeps the merged ray.
+//
+// Fused shadow mode (kFuseShadow): after shading, the live lanes' NEE shadow
+// rays (the shadow_d / shadow_tmax the default exports, from the hit point)
+// are swept here, on the rows already staged, by the same groups of `split`
+// threads with csrc/shadow_any_hit.cu's test and vote (shadow_sweep): each
+// shading thread stages its lane's ray, a barrier, each group tests rows
+// j, j+T, ... and votes every kCheck rows a thread, stopping at the first
+// hit, its first thread stages the verdict, a second barrier. The verdict
+// zeroes the direct light, prefix * direct is added into rad on live lanes
+// (the JAX order: rad + gain), and nee_gain is written as zeros; shadow_d
+// and shadow_tmax are written as in the default mode. Lanes that do not live
+// on pass no query: their verdict is never read. The barriers are reached
+// from three places (threads with no lane to shade leave early), so they are
+// the unaligned barrier.sync, which waits for every thread of the block
+// whatever its path.
+//
 // TPU workarounds of the JAX kernel not carried over: the bf16x3 one-hot
 // MXU row select is an indexed load, the MXU quadratic-
 // form sphere tables are not used, and there is no ray_tile lane padding.
@@ -53,7 +83,9 @@
 // Rounding: built with -fmad=false and without fast math, the arithmetic
 // matches the twin operation for operation (IEEE division and sqrt), except
 // cos/sin/atan2, which are the same CUDA math functions torch's own kernels
-// call on the card.
+// call on the card. The raygen prologue therefore gives torch's
+// generate_rays and its merges bit for bit, and the fused sweep the split
+// shadow_any_hit's verdicts.
 // NaN sphere padding rows (k = NaN) rely on NaN failing every compare,
 // which fast math would break.
 //
@@ -62,7 +94,7 @@
 // double (the JAX kernel's VPU form, which the JAX pool runs for float64
 // scenes), with the double libdevice sqrt/cos/sin/atan2, constants rounded
 // from double into F and eps passed as a double. The staged rows, the light
-// table and the lane winners' t take twice the bytes (<= ~33 KB a block at
+// table and the lane winners' t take twice the bytes (<= ~41 KB a block at
 // the size caps); the H100 runs FP64 at half its FP32 rate.
 
 #include <cuda_runtime.h>
@@ -78,6 +110,7 @@ constexpr int kSphCols = 15;
 constexpr int kTriCols = 22;
 constexpr int kLgtCols = 18;
 constexpr int kTriUse = 9;        // v0, e1, e2: the triangle columns the sweep reads
+constexpr int kShadowUse = 7;     // a staged shadow ray: origin, direction, t_max
 // Table columns (ops/shade.py).
 constexpr int kTcN = 9, kTcKind = 12;
 constexpr int kScInvR = 4, kScKind = 5;
@@ -97,6 +130,10 @@ struct Params {
   const F* pdf_prev;
   const F* prefix;
   const F* u;
+  const bool* started;  // raygen mode: the refilled lanes, their pixel, the camera row
+  const int* px;
+  const int* py;
+  const F* cam;
   const F* sph;
   const F* tri;
   const F* lgt;
@@ -462,7 +499,95 @@ __device__ __forceinline__ Mat<F> mat_row(const F* row, bool hit) {
   return m;
 }
 
+// Lane i's ray: the carried state, or (kRaygen) for a started lane its
+// jittered primary ray, as models/camera.py :: Camera.generate_rays computes
+// it (each product and sum rounded on its own, IEEE division, the correctly
+// rounded square root of normalize3).
+template <typename F, bool kRaygen>
+__device__ __forceinline__ void lane_ray(const Params<F>& p, int i, Vec3<F>* o3, Vec3<F>* d3) {
+  const int S = p.S;
+  if (kRaygen && p.started[i]) {
+    const F* c = p.cam;  // [origin, lower_left, w-1, h-1], [horizontal, vertical, 0, 0]
+    const F uu = (static_cast<F>(p.px[i]) + p.u[7 * S + i]) / c[6];
+    const F vv = (static_cast<F>(p.py[i]) + p.u[8 * S + i]) / c[7];
+    *o3 = v3(c[0], c[1], c[2]);
+    *d3 = normalize3(v3(c[3] + c[8] * uu + c[11] * vv - c[0], c[4] + c[9] * uu + c[12] * vv - c[1],
+                        c[5] + c[10] * uu + c[13] * vv - c[2]));
+  } else {
+    *o3 = v3(p.o[i], p.o[S + i], p.o[2 * S + i]);
+    *d3 = v3(p.d[i], p.d[S + i], p.d[2 * S + i]);
+  }
+}
+
+// All of a block's threads waiting for one another, whichever call site each
+// reached it from (barrier.sync without .aligned).
+__device__ __forceinline__ void block_barrier() { asm volatile("barrier.sync 0;" ::: "memory"); }
+
+// The fused-shadow sweep; every thread of the block calls it exactly once.
+// A thread that shades a lane (`own`) stages that lane's shadow ray so, sd
+// over [eps, st] (st < eps or NaN: no query); the other threads below `lanes`
+// stage no query. Then the group of `split` threads of each lane tests its
+// rows as csrc/shadow_any_hit.cu does (triangles, then spheres; a vote every
+// kCheck rows a thread, out at the first hit) and its first thread stages
+// the verdict. Returns the calling thread's lane's verdict (false when it
+// shades none).
 template <typename F>
+__device__ bool shadow_sweep(const Params<F>& p, const Q4<F>* s_sph, const F* s_tri, F* s_q,
+                             int* s_blk, bool own, Vec3<F> so, Vec3<F> sd, F st) {
+  if (threadIdx.x < p.lanes) {
+    F* q = s_q + threadIdx.x * kShadowUse;
+    q[0] = so.x;
+    q[1] = so.y;
+    q[2] = so.z;
+    q[3] = sd.x;
+    q[4] = sd.y;
+    q[5] = sd.z;
+    q[6] = own ? st : -F(1);
+  }
+  block_barrier();
+  const int T = p.split;
+  const int part = threadIdx.x & (T - 1);
+  const int local = threadIdx.x / T;
+  const F* q = s_q + local * kShadowUse;
+  const F t_max = q[6];
+  const F eps = p.eps;
+  bool blocked = false;
+  if (t_max >= eps) {  // the same value for the whole group
+    // The group's threads within the warp (T <= 16 divides 32; groups are aligned).
+    const unsigned group = ((1u << T) - 1u) << ((threadIdx.x & 31) & ~(T - 1));
+    const Vec3<F> o3 = v3(q[0], q[1], q[2]);
+    const Vec3<F> d3 = v3(q[3], q[4], q[5]);
+    const F od = dot3(o3, d3);
+    const F oo = dot3(o3, o3);
+    for (int base = 0; base < p.n_tri && !blocked; base += kCheck * T) {
+      bool hit = false;
+#pragma unroll
+      for (int c = 0; c < kCheck; ++c) {
+        const int r = base + c * T + part;
+        F t;
+        if (!hit && r < p.n_tri) hit = hit_triangle(s_tri + r * kTriUse, o3, d3, eps, t_max, &t);
+      }
+      blocked = __any_sync(group, hit);
+    }
+    for (int base = 0; base < p.n_sph && !blocked; base += kCheck * T) {
+      bool hit = false;
+#pragma unroll
+      for (int c = 0; c < kCheck; ++c) {
+        const int r = base + c * T + part;
+        if (!hit && r < p.n_sph) {
+          const F t_c = sphere_root(s_sph[r], o3, d3, od, oo, eps);
+          hit = t_c >= eps && t_c <= t_max;
+        }
+      }
+      blocked = __any_sync(group, hit);
+    }
+  }
+  if (part == 0) s_blk[local] = blocked;
+  block_barrier();
+  return threadIdx.x < p.lanes && s_blk[threadIdx.x] != 0;
+}
+
+template <typename F, bool kRaygen, bool kFuseShadow>
 __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) {
   extern __shared__ float4 smem4[];
   Q4<F>* s_sph = reinterpret_cast<Q4<F>*>(smem4);             // cx, cy, cz, k
@@ -472,6 +597,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) 
   F* s_sph_t = s_tri_t + p.lanes;
   int* s_tri_arg = reinterpret_cast<int*>(s_sph_t + p.lanes);
   int* s_sph_arg = s_tri_arg + p.lanes;
+  F* s_q = reinterpret_cast<F*>(s_sph_arg + p.lanes);        // kFuseShadow: the shadow rays
+  int* s_blk = reinterpret_cast<int*>(s_q + p.lanes * kShadowUse);   // and their verdicts
   for (int k = threadIdx.x; k < p.n_sph; k += blockDim.x) {
     const F* row = p.sph + k * kSphCols;
     s_sph[k] = q4(row[0], row[1], row[2], row[3]);
@@ -494,8 +621,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) 
     const int local = threadIdx.x / T;
     const int lane = blockIdx.x * p.lanes + local;
     const int il = lane < S ? lane : S - 1;
-    const Vec3<F> o3 = v3(p.o[il], p.o[S + il], p.o[2 * S + il]);
-    const Vec3<F> d3 = v3(p.d[il], p.d[S + il], p.d[2 * S + il]);
+    Vec3<F> o3, d3;
+    lane_ray<F, kRaygen>(p, il, &o3, &d3);
 
     // Triangles (Moller-Trumbore).
     F tri_t = inf;
@@ -535,9 +662,17 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) 
   __syncthreads();
 
   // ---- 2-4. One thread per lane shades ----
-  if (threadIdx.x >= p.lanes) return;
+  // (kFuseShadow: a thread with no lane to shade still takes its part in the
+  // shadow sweep.)
+  if (threadIdx.x >= p.lanes) {
+    if constexpr (kFuseShadow) shadow_sweep(p, s_sph, s_tri, s_q, s_blk, false, {}, {}, F(0));
+    return;
+  }
   const int i = blockIdx.x * p.lanes + threadIdx.x;
-  if (i >= S) return;
+  if (i >= S) {
+    if constexpr (kFuseShadow) shadow_sweep(p, s_sph, s_tri, s_q, s_blk, false, {}, {}, F(0));
+    return;
+  }
   const F tri_t = s_tri_t[threadIdx.x];
   const int tri_arg = s_tri_arg[threadIdx.x];
   const F sph_t = s_sph_t[threadIdx.x];
@@ -545,11 +680,13 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) 
 
   const bool busy = p.busy[i];
   const int bounce = p.bounce[i];
-  const Vec3<F> o3 = v3(p.o[i], p.o[S + i], p.o[2 * S + i]);
-  const Vec3<F> d3 = v3(p.d[i], p.d[S + i], p.d[2 * S + i]);
-  const F eta_in = p.eta[i];
-  const F pdf_prev = p.pdf_prev[i];
-  const Vec3<F> pfx = v3(p.prefix[i], p.prefix[S + i], p.prefix[2 * S + i]);
+  Vec3<F> o3, d3;
+  lane_ray<F, kRaygen>(p, i, &o3, &d3);
+  const bool fresh = kRaygen && p.started[i];  // raygen: the refill's resets
+  const F eta_in = fresh ? F(1) : p.eta[i];
+  const F pdf_prev = fresh ? F(1) : p.pdf_prev[i];
+  const Vec3<F> pfx =
+      fresh ? v3(F(1), F(1), F(1)) : v3(p.prefix[i], p.prefix[S + i], p.prefix[2 * S + i]);
   const F ox = o3.x, oy = o3.y, oz = o3.z;
   const F dx = d3.x, dy = d3.y, dz = d3.z;
 
@@ -790,9 +927,21 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) 
   const F rr = bounce < kRrMinDepth ? F(1) : (bounce >= kRrMaxDepth ? lum * decay : lum);
   const bool live = shade && (u[6] < rr);
 
-  // Split mode: export prefix * direct; the caller applies visibility and
-  // `live` (NEE counts only for RR survivors).
-  const Vec3<F> dout = forz3(mul3(pfx, direct));
+  Vec3<F> dout;
+  if constexpr (kFuseShadow) {
+    // The live lanes' shadow rays swept here; the visibility zeroes the
+    // direct light, which counts only for RR survivors.
+    const bool blocked =
+        shadow_sweep(p, s_sph, s_tri, s_q, s_blk, true, point, sdir, live ? stmax : -F(1));
+    const bool nee = p.use_nee && p.num_lights > 0;
+    const Vec3<F> dgain = forz3(mul3(pfx, nee ? forz3(blocked ? zero3 : direct) : direct));
+    rad = add3(rad, live ? dgain : zero3);
+    dout = zero3;
+  } else {
+    // Split mode: export prefix * direct; the caller applies visibility and
+    // `live` (NEE counts only for RR survivors).
+    dout = forz3(mul3(pfx, direct));
+  }
   const Vec3<F> new_pfx = forz3(v3(next_tp.x / rr, next_tp.y / rr, next_tp.z / rr));
 
   const Vec3<F> no = live ? point : o3;
@@ -827,65 +976,77 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bounce_kernel(Params<F> p) 
 // kernels/binding.py :: shared_bytes mirrors this carve-up.
 template <typename F>
 int launch(const bool* busy, const int* bounce, const F* o, const F* d, const F* eta,
-           const F* pdf_prev, const F* prefix, const F* u, const F* sph, int n_sph, const F* tri,
-           int n_tri, const F* lgt, int n_lgt, F* rad, F* next_o, F* next_d, F* next_eta,
-           F* next_pdf, F* next_prefix, bool* live, bool* shade, F* nee_gain, F* shadow_d,
-           F* shadow_tmax, int S, int num_tris, int num_lights, int max_bounces, int use_mis,
-           int use_nee, int has_tri_l, int has_sph_l, int has_on, int has_pbr, F eps, int split,
-           int lanes, void* stream) {
+           const F* pdf_prev, const F* prefix, const F* u, const bool* started, const int* px,
+           const int* py, const F* cam, const F* sph, int n_sph, const F* tri, int n_tri,
+           const F* lgt, int n_lgt, F* rad, F* next_o, F* next_d, F* next_eta, F* next_pdf,
+           F* next_prefix, bool* live, bool* shade, F* nee_gain, F* shadow_d, F* shadow_tmax,
+           int S, int num_tris, int num_lights, int max_bounces, int use_mis, int use_nee,
+           int has_tri_l, int has_sph_l, int has_on, int has_pbr, int raygen, int fuse_shadow,
+           F eps, int split, int lanes, void* stream) {
   if (S <= 0) return 0;
-  // split: a power of two up to 16; lanes: whole warps.
+  // split: a power of two up to 16; lanes: whole warps; raygen: its inputs.
   if (split < 1 || split > 16 || (split & (split - 1)) != 0 || lanes < 32 || lanes % 32 != 0 ||
-      lanes * split > kMaxThreads)
+      lanes * split > kMaxThreads || (raygen && (!started || !px || !py || !cam)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<F> p{busy,      bounce,     o,          d,         eta,      pdf_prev,   prefix,
-              u,         sph,        tri,        lgt,       rad,      next_o,     next_d,
-              next_eta,  next_pdf,   next_prefix, live,     shade,    nee_gain,   shadow_d,
-              shadow_tmax, S,        n_sph,      n_tri,     n_lgt,    split,      lanes,
-              num_tris,  num_lights, max_bounces, use_mis,  use_nee,  has_tri_l,  has_sph_l,
-              has_on,    has_pbr,    eps};
+              u,         started,    px,         py,        cam,      sph,        tri,
+              lgt,       rad,        next_o,     next_d,    next_eta, next_pdf,   next_prefix,
+              live,      shade,      nee_gain,   shadow_d,  shadow_tmax, S,       n_sph,
+              n_tri,     n_lgt,      split,      lanes,     num_tris, num_lights, max_bounces,
+              use_mis,   use_nee,    has_tri_l,  has_sph_l, has_on,   has_pbr,    eps};
   // The sweep's sphere rows (Q4), triangle columns and light table, then the
-  // group winners' t (F) and rows (int) of each lane.
+  // group winners' t (F) and rows (int) of each lane; with fuse_shadow each
+  // lane's shadow ray (F) and verdict (int).
   size_t smem = sizeof(Q4<F>) * static_cast<size_t>(n_sph) +
                 sizeof(F) * (static_cast<size_t>(n_tri) * kTriUse +
                              static_cast<size_t>(n_lgt) * kLgtCols +
                              static_cast<size_t>(lanes) * 2) +
                 sizeof(int) * static_cast<size_t>(lanes) * 2;
+  if (fuse_shadow) smem += (sizeof(F) * kShadowUse + sizeof(int)) * static_cast<size_t>(lanes);
+  void (*kernel)(Params<F>) = raygen ? (fuse_shadow ? fused_bounce_kernel<F, true, true>
+                                                    : fused_bounce_kernel<F, true, false>)
+                                      : (fuse_shadow ? fused_bounce_kernel<F, false, true>
+                                                     : fused_bounce_kernel<F, false, false>);
   int grid = (S + lanes - 1) / lanes;
-  fused_bounce_kernel<F><<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, lanes * split, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace pt
 
-// The float32 and float64 instances; eps comes in the instance's type.
+// The float32 and float64 instances; eps comes in the instance's type. The
+// raygen inputs (started, px, py, cam) are read only when raygen is set.
 extern "C" int pt_fused_bounce(
     const bool* busy, const int* bounce, const float* o, const float* d, const float* eta,
-    const float* pdf_prev, const float* prefix, const float* u, const float* sph, int n_sph,
+    const float* pdf_prev, const float* prefix, const float* u, const bool* started,
+    const int* px, const int* py, const float* cam, const float* sph, int n_sph,
     const float* tri, int n_tri, const float* lgt, int n_lgt, float* rad, float* next_o,
     float* next_d, float* next_eta, float* next_pdf, float* next_prefix, bool* live,
     bool* shade, float* nee_gain, float* shadow_d, float* shadow_tmax, int S, int num_tris,
     int num_lights, int max_bounces, int use_mis, int use_nee, int has_tri_l, int has_sph_l,
-    int has_on, int has_pbr, float eps, int split, int lanes, void* stream) {
-  return pt::launch(busy, bounce, o, d, eta, pdf_prev, prefix, u, sph, n_sph, tri, n_tri, lgt,
-                    n_lgt, rad, next_o, next_d, next_eta, next_pdf, next_prefix, live, shade,
-                    nee_gain, shadow_d, shadow_tmax, S, num_tris, num_lights, max_bounces,
-                    use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr, eps, split, lanes,
-                    stream);
+    int has_on, int has_pbr, int raygen, int fuse_shadow, float eps, int split, int lanes,
+    void* stream) {
+  return pt::launch(busy, bounce, o, d, eta, pdf_prev, prefix, u, started, px, py, cam, sph,
+                    n_sph, tri, n_tri, lgt, n_lgt, rad, next_o, next_d, next_eta, next_pdf,
+                    next_prefix, live, shade, nee_gain, shadow_d, shadow_tmax, S, num_tris,
+                    num_lights, max_bounces, use_mis, use_nee, has_tri_l, has_sph_l, has_on,
+                    has_pbr, raygen, fuse_shadow, eps, split, lanes, stream);
 }
 
 extern "C" int pt_fused_bounce_f64(
     const bool* busy, const int* bounce, const double* o, const double* d, const double* eta,
-    const double* pdf_prev, const double* prefix, const double* u, const double* sph, int n_sph,
+    const double* pdf_prev, const double* prefix, const double* u, const bool* started,
+    const int* px, const int* py, const double* cam, const double* sph, int n_sph,
     const double* tri, int n_tri, const double* lgt, int n_lgt, double* rad, double* next_o,
     double* next_d, double* next_eta, double* next_pdf, double* next_prefix, bool* live,
     bool* shade, double* nee_gain, double* shadow_d, double* shadow_tmax, int S, int num_tris,
     int num_lights, int max_bounces, int use_mis, int use_nee, int has_tri_l, int has_sph_l,
-    int has_on, int has_pbr, double eps, int split, int lanes, void* stream) {
-  return pt::launch(busy, bounce, o, d, eta, pdf_prev, prefix, u, sph, n_sph, tri, n_tri, lgt,
-                    n_lgt, rad, next_o, next_d, next_eta, next_pdf, next_prefix, live, shade,
-                    nee_gain, shadow_d, shadow_tmax, S, num_tris, num_lights, max_bounces,
-                    use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr, eps, split, lanes,
-                    stream);
+    int has_on, int has_pbr, int raygen, int fuse_shadow, double eps, int split, int lanes,
+    void* stream) {
+  return pt::launch(busy, bounce, o, d, eta, pdf_prev, prefix, u, started, px, py, cam, sph,
+                    n_sph, tri, n_tri, lgt, n_lgt, rad, next_o, next_d, next_eta, next_pdf,
+                    next_prefix, live, shade, nee_gain, shadow_d, shadow_tmax, S, num_tris,
+                    num_lights, max_bounces, use_mis, use_nee, has_tri_l, has_sph_l, has_on,
+                    has_pbr, raygen, fuse_shadow, eps, split, lanes, stream);
 }

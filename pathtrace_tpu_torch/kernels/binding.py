@@ -59,6 +59,7 @@ _lib: ctypes.CDLL | None = None
 SPLITS = (1, 2, 4, 8, 16)      # threads a lane's sweep can take
 SHARED_LIMIT = 48 * 1024       # dynamic shared memory without an opt-in attribute
 _SPH_USE, _TRI_USE, _LGT_COLS = 4, 9, 18   # staged values a sphere, triangle, light row
+_SHADOW_USE = 7                # staged values of a lane's shadow ray: origin, direction, t_max
 
 
 # Rows a thread sweeps at most, by kernel, as measured on an H100 (PERF.md,
@@ -77,8 +78,12 @@ _SPH_USE, _TRI_USE, _LGT_COLS = 4, 9, 18   # staged values a sphere, triangle, l
 # at 1 (0.0046 ms against 0.0049 at 2); the split of
 # csrc/combined_closest_small.cu on many_spheres' 490 rows at 4 (0.040 ms
 # against 0.042 at 2 and 0.044 at 8), on Cornell's 13 rows at 1 (0.0069 ms
-# against 0.0074 at 2).
-ROWS_PER_THREAD = {"fused_bounce": 128, "shadow_any_hit": 32,
+# against 0.0074 at 2). fused_bounce's fused-shadow instance (the vertex,
+# then the lane's shadow sweep by the same threads) on many_spheres' 496
+# rows, 16,384 lanes, is fastest at 8 (62 rows a thread; 0.0469 ms queued
+# against 0.0531 at 4 and 0.0513 at 16, tools/time_kernels.py pool), where
+# the vertex alone keeps 4.
+ROWS_PER_THREAD = {"fused_bounce": 128, "fused_bounce_shadow": 64, "shadow_any_hit": 32,
                    "sphere_closest": 32, "any_hit": 12,
                    "triangle_closest": 32, "combined_closest_small": 128}
 # The float64 instances' rows a thread where their times differ (PERF.md
@@ -179,25 +184,30 @@ def launch_shape(split: int) -> tuple[int, int]:
 
 
 def shared_bytes(n_sph: int, n_tri: int, n_lgt: int = 0, lanes: int = 0,
-                 itemsize: int = 4) -> int:
+                 itemsize: int = 4, fuse_shadow: bool = False) -> int:
     """Dynamic shared memory of a block: the sweep's sphere and triangle
     columns, plus (``pt_fused_bounce``) the light table and, for each lane,
-    the group winners' two t and two rows; ``pt_shadow_any_hit`` stages the
-    first two only (``n_lgt = lanes = 0``). ``itemsize``: 4 (float32) or 8
-    (float64; the rows are int32 in both)."""
-    return (itemsize * (n_sph * _SPH_USE + n_tri * _TRI_USE + n_lgt * _LGT_COLS + lanes * 2)
-            + 4 * lanes * 2)
+    the group winners' two t and two rows, and with ``fuse_shadow`` its
+    shadow ray (origin, direction, t_max) and verdict; ``pt_shadow_any_hit``
+    stages the first two only (``n_lgt = lanes = 0``). ``itemsize``: 4
+    (float32) or 8 (float64; the rows and verdicts are int32 in both)."""
+    floats, ints = (2 + _SHADOW_USE, 3) if fuse_shadow else (2, 2)   # a lane's, F and int32
+    return (itemsize * (n_sph * _SPH_USE + n_tri * _TRI_USE + n_lgt * _LGT_COLS + lanes * floats)
+            + 4 * lanes * ints)
 
 
 def _shape(tables, split, kernel: str) -> tuple[int, int]:
     """``(split, lanes)`` of a launch of ``kernel`` on ``tables`` (``split``
-    None: :func:`sweep_split`); raises past the shared-memory limit."""
+    None: :func:`sweep_split`); raises past the shared-memory limit.
+    ``kernel``: ``"fused_bounce"``, its fused-shadow instance
+    ``"fused_bounce_shadow"`` or ``"shadow_any_hit"``."""
     n_sph, n_tri = tables.sph.shape[0], tables.tri.shape[0]
     split = sweep_split(n_sph + n_tri, kernel) if split is None else split
     lanes, _ = launch_shape(split)
     size = tables.sph.element_size()
-    if kernel == "fused_bounce":
-        smem = shared_bytes(n_sph, n_tri, tables.lgt.shape[0], lanes, size)
+    if kernel.startswith("fused_bounce"):
+        smem = shared_bytes(n_sph, n_tri, tables.lgt.shape[0], lanes, size,
+                            fuse_shadow=kernel == "fused_bounce_shadow")
     else:
         smem = shared_bytes(n_sph, n_tri, itemsize=size)
     if smem > SHARED_LIMIT:
@@ -213,8 +223,8 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         for name, real in (("pt_fused_bounce", _F), ("pt_fused_bounce_f64", _D)):
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * 8 + [_P, _I, _P, _I, _P, _I] + [_P] * 11 + \
-                [_I] * 10 + [real, _I, _I, _P]
+            fn.argtypes = [_P] * 12 + [_P, _I, _P, _I, _P, _I] + [_P] * 11 + \
+                [_I] * 12 + [real, _I, _I, _P]
             fn.restype = _I
         for name, real in (("pt_shadow_any_hit", _F), ("pt_shadow_any_hit_f64", _D)):
             fn = getattr(lib, name)
@@ -282,16 +292,19 @@ def _instance(lib, name: str, x: torch.Tensor):
 def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, out, *,
                         num_tris, num_lights, max_bounces, eps,
                         use_mis, use_nee, has_tri_l, has_sph_l, has_on, has_pbr,
-                        split=None) -> None:
+                        raygen=None, fuse_shadow=False, split=None) -> None:
     """``out`` is a ``BounceResult`` of preallocated outputs; the flags are
-    ``ops.shade.kernel_flags``; ``split``: threads a lane (default
-    :func:`sweep_split`)."""
-    split, lanes = _shape(tables, split, "fused_bounce")
+    ``ops.shade.kernel_flags``; ``raygen`` (``(started, px, py, cam_row)``)
+    and ``fuse_shadow`` pick the kernel's instance for those modes;
+    ``split``: threads a lane (default :func:`sweep_split`, the fused-shadow
+    instance by its own rows a thread)."""
+    split, lanes = _shape(tables, split, "fused_bounce_shadow" if fuse_shadow else "fused_bounce")
     fn = _instance(library(), "pt_fused_bounce", ray_o)
+    rg = (None,) * 4 if raygen is None else tuple(x.data_ptr() for x in raygen)
     with torch.cuda.device(busy.device):   # launch on the inputs' card
         code = fn(
             busy.data_ptr(), bounce.data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
-            eta.data_ptr(), pdf_prev.data_ptr(), prefix.data_ptr(), u.data_ptr(),
+            eta.data_ptr(), pdf_prev.data_ptr(), prefix.data_ptr(), u.data_ptr(), *rg,
             tables.sph.data_ptr(), tables.sph.shape[0],
             tables.tri.data_ptr(), tables.tri.shape[0],
             tables.lgt.data_ptr(), tables.lgt.shape[0],
@@ -301,7 +314,7 @@ def launch_fused_bounce(tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefi
             out.shadow_d.data_ptr(), out.shadow_tmax.data_ptr(),
             busy.shape[0], num_tris, num_lights, max_bounces,
             int(use_mis), int(use_nee), int(has_tri_l), int(has_sph_l), int(has_on),
-            int(has_pbr), eps, split, lanes,
+            int(has_pbr), int(raygen is not None), int(bool(fuse_shadow)), eps, split, lanes,
             _stream(busy.device),
         )
     _raise_on(code, "fused_bounce")

@@ -10,8 +10,20 @@ plain-torch twin here with the same op order:
   the light count), the NEE light pick, sample and BSDF evaluation, the BSDF
   sample (Lambert, GGX mirror with VNDF, Fresnel coin, reflect/refract; the
   Oren-Nayar and PBR lanes when the scene's ``has_oren_nayar``/``has_pbr``
-  flags set them), Russian roulette and the next ray state. Split-shadow mode only: the shadow
-  ray is exported and tested by :func:`shadow_any_hit`.
+  flags set them), Russian roulette and the next ray state. By default the
+  shadow ray is exported and tested by :func:`shadow_any_hit`; two modes,
+  each a kernel instance of its own, fold more of the pool's iteration in:
+
+  - ``raygen=(started, px, py, cam_row)``: the ray state comes in as it was
+    before the pool's refill, and the kernel makes the started lanes'
+    jittered primary rays (uniform slots 7-8, the op sequence of
+    ``models/camera.py :: Camera.generate_rays``) and resets their ``eta``,
+    ``pdf_prev`` and ``prefix`` itself. The pool's fused branch always runs
+    this mode;
+  - ``fuse_shadow=True``: the NEE shadow ray of each live lane is swept
+    inside the kernel with :func:`shadow_any_hit`'s test, its visibility
+    zeroes the direct light, and ``prefix * direct`` is added into
+    ``rad_delta``; ``nee_gain`` comes back as zeros. No pool runs it yet.
 * :func:`shadow_any_hit` / :func:`shadow_any_hit_reference`: occlusion of
   the NEE shadow rays, Moller-Trumbore over the triangles OR the sphere
   quadratic with the near-then-far root select, for t in [eps, t_max].
@@ -33,8 +45,8 @@ TPU workarounds of the JAX kernel left behind here:
 * ``ray_tile`` lane padding is gone: any ``S`` is accepted;
 * the ``_lift_tree``/``vma`` varying-axes plumbing has no counterpart.
 
-Not ported yet (ROADMAP): the raygen mode and the fused in-kernel shadow
-sweep.
+Every mode of the JAX kernel is ported; the ``sections`` profiling knob is
+left behind.
 """
 
 from __future__ import annotations
@@ -82,9 +94,11 @@ _LC_PRIM = 17
 _LGT_COLS = 18
 
 # Kernel launches per wrapper, counted where the kernel is launched; a kernel
-# with a further mode counts it apart (``fused_bounce_on_pbr``: the Oren-Nayar
-# or PBR lanes on; ``*_clustered`` in ops/intersect.py), and a float64
-# instance under its name with ``_f64`` appended.
+# with a further mode counts it apart (``fused_bounce_raygen``,
+# ``fused_bounce_shadow``, ``fused_bounce_raygen_shadow``: the two modes;
+# ``..._on_pbr``: the Oren-Nayar or PBR lanes on; ``*_clustered`` in
+# ops/intersect.py), and a float64 instance under its name with ``_f64``
+# appended.
 LAUNCHES: collections.Counter = collections.Counter()
 _SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
@@ -187,6 +201,11 @@ def build_tables(scene: Scene) -> Tables:
 
 
 class BounceResult(NamedTuple):
+    """One vertex's outputs. With ``fuse_shadow`` the visible NEE gain is
+    already in ``rad_delta`` and ``nee_gain`` is zeros, while ``shadow_d``
+    and ``shadow_tmax`` still hold the shadow ray the kernel swept (the JAX
+    kernel writes them in both modes)."""
+
     rad_delta: torch.Tensor    # (3, S) radiance gained this bounce
     next_o: torch.Tensor       # (3, S) hit point for live lanes (shadow origin)
     next_d: torch.Tensor       # (3, S)
@@ -195,7 +214,7 @@ class BounceResult(NamedTuple):
     next_prefix: torch.Tensor  # (3, S)
     live: torch.Tensor         # (S,) bool
     shade: torch.Tensor        # (S,) bool
-    nee_gain: torch.Tensor     # (3, S) prefix * direct, pending visibility
+    nee_gain: torch.Tensor     # (3, S) prefix * direct, pending visibility (zeros: fuse_shadow)
     shadow_d: torch.Tensor     # (3, S) shadow-ray direction
     shadow_tmax: torch.Tensor  # (S,) shadow range end; < eps for lanes w/o NEE
 
@@ -622,30 +641,64 @@ def _select(table, arg, hit, col0, ncols):
 # The twins
 # ---------------------------------------------------------------------------
 
+def _raygen_state(raygen, u, ray_o, ray_d, eta, pdf_prev, prefix):
+    """The raygen mode's prologue: the started lanes' jittered primary rays,
+    with the op sequence of ``models/camera.py :: Camera.generate_rays`` (its
+    divisors ``width - 1``/``height - 1`` as the 0-dim tensors
+    ``cam_row[0, 6:8]``), and the five float merges of the pool's refill.
+    Returns ``(o3, d3, eta, pdf_prev, pfx)``, the 3-vectors as tuples."""
+    started, px, py, cam = raygen
+    dtype = ray_o.dtype
+    org = tuple(cam[0, c] for c in range(3))
+    llc = tuple(cam[0, 3 + c] for c in range(3))
+    hor = tuple(cam[1, c] for c in range(3))
+    ver = tuple(cam[1, 3 + c] for c in range(3))
+    uu = (px.to(dtype) + u[7]) / cam[0, 6]        # rng.SLOT_JITTER_X
+    vv = (py.to(dtype) + u[8]) / cam[0, 7]        # rng.SLOT_JITTER_Y
+    comps = [llc[c] + hor[c] * uu + ver[c] * vv - org[c] for c in range(3)]
+    ln = torch.sqrt(comps[0] * comps[0] + comps[1] * comps[1] + comps[2] * comps[2])
+    pos = ln > 0.0
+    safe = torch.where(pos, ln, torch.ones_like(ln))
+    cam_d = [torch.where(pos, c / safe, c) for c in comps]
+    return (
+        tuple(torch.where(started, org[c], ray_o[c]) for c in range(3)),
+        tuple(torch.where(started, cam_d[c], ray_d[c]) for c in range(3)),
+        torch.where(started, 1.0, eta),
+        torch.where(started, 1.0, pdf_prev),
+        tuple(torch.where(started, 1.0, prefix[c]) for c in range(3)),
+    )
+
+
 def fused_bounce_reference(
     tables: Tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, *,
     num_tris: int, num_lights: int, integrator: str, max_bounces: int,
     eps: float = EPS, has_tri_lights: bool = True, has_sph_lights: bool = True,
-    has_oren_nayar: bool = False, has_pbr: bool = False,
+    has_oren_nayar: bool = False, has_pbr: bool = False, raygen=None,
+    fuse_shadow: bool = False,
 ) -> BounceResult:
     """Plain-torch twin of the ``fused_bounce`` kernel (same op order).
 
     ``num_tris`` is the scene's padded triangle row count: the global prim-id
     base of the spheres. ``has_oren_nayar``/``has_pbr`` (the scene's flags)
     add the Oren-Nayar and PBR lanes, as ``has_on``/``has_pbr`` do in the
-    JAX kernel; without them those kinds shade as Lambert.
+    JAX kernel; without them those kinds shade as Lambert. ``raygen`` and
+    ``fuse_shadow`` are the two modes of :func:`fused_bounce`.
     """
     flags = kernel_flags(integrator, has_tri_lights, has_sph_lights, has_oren_nayar, has_pbr)
     use_mis, use_nee = flags["use_mis"], flags["use_nee"]
     has_tri_l, has_sph_l = flags["has_tri_l"], flags["has_sph_l"]
     has_on, has_pbr = flags["has_on"], flags["has_pbr"]
     sph, tri, lgt = tables
-    ox, oy, oz = ray_o[0], ray_o[1], ray_o[2]
-    dx, dy, dz = ray_d[0], ray_d[1], ray_d[2]
-    eta_in = eta
-    pfx = (prefix[0], prefix[1], prefix[2])
-    o3 = (ox, oy, oz)
-    d3 = (dx, dy, dz)
+    if raygen is None:
+        o3 = (ray_o[0], ray_o[1], ray_o[2])
+        d3 = (ray_d[0], ray_d[1], ray_d[2])
+        eta_in = eta
+        pfx = (prefix[0], prefix[1], prefix[2])
+    else:
+        o3, d3, eta_in, pdf_prev, pfx = _raygen_state(raygen, u, ray_o, ray_d, eta, pdf_prev,
+                                                      prefix)
+    ox, oy, oz = o3
+    dx, dy, dz = d3
 
     # ---- 1. Closest hit: triangles (Moller-Trumbore), then spheres ----
     ok, t = _tri_hits(tri, o3, d3, _INF, eps)
@@ -909,9 +962,20 @@ def fused_bounce_reference(
     )
     live = shade & (u6 < rr)
 
-    # Split mode: export prefix * direct; the caller applies visibility and
-    # `live` (NEE counts only for RR survivors).
-    dout = _forz3((pfx[0] * direct[0], pfx[1] * direct[1], pfx[2] * direct[2]))
+    stmax = torch.where(live, stmax, -1.0)
+    if fuse_shadow:
+        # The live lanes' shadow rays swept here; the visibility zeroes the
+        # direct light, which counts only for RR survivors.
+        if use_nee and num_lights > 0:
+            blocked = _occluded(sph, tri, point, sdir, stmax, eps)
+            direct = _forz3(_where3(blocked, zero3, direct))
+        dgain = _forz3((pfx[0] * direct[0], pfx[1] * direct[1], pfx[2] * direct[2]))
+        rad = _add3(rad, _where3(live, dgain, zero3))
+        dout = zero3
+    else:
+        # Split mode: export prefix * direct; the caller applies visibility
+        # and `live` (NEE counts only for RR survivors).
+        dout = _forz3((pfx[0] * direct[0], pfx[1] * direct[1], pfx[2] * direct[2]))
     new_pfx = _forz3((next_tp[0] / rr, next_tp[1] / rr, next_tp[2] / rr))
 
     def sel3(a, b):
@@ -928,19 +992,22 @@ def fused_bounce_reference(
         shade=shade,
         nee_gain=torch.stack(dout),
         shadow_d=torch.stack(sdir),
-        shadow_tmax=torch.where(live, stmax, -1.0),
+        shadow_tmax=stmax,
     )
 
 
-def shadow_any_hit_reference(tables: Tables, o, d, t_max, *, eps: float = EPS):
-    """Plain-torch twin of the ``shadow_any_hit`` kernel: bool ``(S,)``."""
-    sph, tri, _ = tables
-    o3 = (o[0], o[1], o[2])
-    d3 = (d[0], d[1], d[2])
+def _occluded(sph, tri, o3, d3, t_max, eps):
+    """Any triangle or sphere row hit with t in [eps, t_max], per lane."""
     ok_t, _ = _tri_hits(tri, o3, d3, t_max, eps)
     t_c = _sphere_ts(sph, o3, d3, eps)
     ok_s = (t_c >= eps) & (t_c <= t_max)
     return ok_t.any(0) | ok_s.any(0)
+
+
+def shadow_any_hit_reference(tables: Tables, o, d, t_max, *, eps: float = EPS):
+    """Plain-torch twin of the ``shadow_any_hit`` kernel: bool ``(S,)``."""
+    return _occluded(tables.sph, tables.tri, (o[0], o[1], o[2]), (d[0], d[1], d[2]), t_max,
+                     eps)
 
 
 # ---------------------------------------------------------------------------
@@ -981,11 +1048,18 @@ def _device_kind(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def launch_name(raygen: bool, fuse_shadow: bool, on_pbr: bool, dtype) -> str:
+    """The :data:`LAUNCHES` key of a ``fused_bounce`` launch in these modes."""
+    return ("fused_bounce" + "_raygen" * bool(raygen) + "_shadow" * bool(fuse_shadow)
+            + "_on_pbr" * bool(on_pbr) + _SUFFIX[dtype])
+
+
 def fused_bounce(
     tables: Tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, *,
     num_tris: int, num_lights: int, integrator: str, max_bounces: int,
     eps: float = EPS, has_tri_lights: bool = True, has_sph_lights: bool = True,
-    has_oren_nayar: bool = False, has_pbr: bool = False,
+    has_oren_nayar: bool = False, has_pbr: bool = False, raygen=None,
+    fuse_shadow: bool = False,
 ) -> BounceResult:
     """One full path vertex for every lane (see the module docstring).
 
@@ -993,7 +1067,16 @@ def fused_bounce(
     ``prefix`` ``(3, S)``, ``eta``/``pdf_prev`` ``(S,)``, ``u`` ``(9, S)``,
     all float32 or all float64 with the tables. CPU tensors run
     :func:`fused_bounce_reference`; CUDA tensors launch the kernel's
-    instance for the dtype.
+    instance for the dtype and the modes.
+
+    ``raygen``: ``(started bool (S,), px int32 (S,), py int32 (S,), cam_row
+    (2, 8))``, the JAX contract: ``ray_o``/``ray_d``/``eta``/``pdf_prev``/
+    ``prefix`` are the state from before the refill, ``busy``/``bounce`` the
+    merged ones, ``px``/``py`` the started lanes' pixel (``py`` flipped), and
+    ``cam_row`` the camera in the float dtype, ``[origin, lower_left,
+    width - 1, height - 1]`` over ``[horizontal, vertical, 0, 0]``
+    (``pool.camera_row``). ``fuse_shadow``: sweep the shadow rays here (see
+    :class:`BounceResult`).
     """
     if integrator not in ("mis", "nee", "brdf_only"):
         raise ValueError(f"unknown integrator {integrator!r}")
@@ -1005,17 +1088,28 @@ def fused_bounce(
                            ("eta", eta, (S,)), ("pdf_prev", pdf_prev, (S,)),
                            ("prefix", prefix, (3, S)), ("u", u, (9, S))):
         _check(name, x, dtype, shape)
+    inputs = [bounce, ray_o, ray_d, eta, pdf_prev, prefix, u]
+    if raygen is not None:
+        if not isinstance(raygen, (tuple, list)) or len(raygen) != 4:
+            raise ValueError("raygen: expected (started, px, py, cam_row)")
+        raygen = tuple(raygen)
+        for name, x, x_dtype, shape in zip(
+                ("raygen started", "raygen px", "raygen py", "raygen cam_row"), raygen,
+                (torch.bool, torch.int32, torch.int32, dtype), ((S,), (S,), (S,), (2, 8))):
+            _check(name, x, x_dtype, shape)
+        inputs += raygen
     kw = dict(num_tris=num_tris, num_lights=num_lights, integrator=integrator,
               max_bounces=max_bounces, eps=eps, has_tri_lights=has_tri_lights,
               has_sph_lights=has_sph_lights, has_oren_nayar=has_oren_nayar, has_pbr=has_pbr)
     device = busy.device
-    for x in (bounce, ray_o, ray_d, eta, pdf_prev, prefix, u):
+    for x in inputs:
         if x.device != device:
             raise ValueError(f"inputs on {x.device} and {device}")
     _check_tables(tables, device, dtype)
     if _device_kind(busy) == "cpu":
         return fused_bounce_reference(
-            tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, **kw)
+            tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, raygen=raygen,
+            fuse_shadow=bool(fuse_shadow), **kw)
 
     from ..kernels import binding
 
@@ -1031,9 +1125,10 @@ def fused_bounce(
     binding.launch_fused_bounce(
         tables, busy, bounce, ray_o, ray_d, eta, pdf_prev, prefix, u, out,
         num_tris=num_tris, num_lights=num_lights, max_bounces=max_bounces, eps=eps,
+        raygen=raygen, fuse_shadow=bool(fuse_shadow),
         **kernel_flags(integrator, has_tri_lights, has_sph_lights, has_oren_nayar, has_pbr))
-    name = "fused_bounce_on_pbr" if has_oren_nayar or has_pbr else "fused_bounce"
-    LAUNCHES[name + _SUFFIX[dtype]] += 1
+    LAUNCHES[launch_name(raygen is not None, fuse_shadow, has_oren_nayar or has_pbr,
+                         dtype)] += 1
     return out
 
 

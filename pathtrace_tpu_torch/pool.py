@@ -12,7 +12,9 @@ scene as the JAX package chooses them:
   ``has_pbr`` flags are set, as the JAX ``has_on``/``has_pbr`` do):
   :func:`~pathtrace_tpu_torch.ops.shade.fused_bounce` for the vertex and
   :func:`~pathtrace_tpu_torch.ops.shade.shadow_any_hit` for the NEE shadow
-  rays;
+  rays; the kernel runs in its raygen mode (the JAX pool's
+  ``PT_RAYGEN_FUSION=1``): it makes the refilled slots' primary rays and
+  resets their state, so the glue does neither;
 * the **composed** branch, for every other scene: :func:`composed_bounce`
   runs the vertex as separate ops (closest hit, emissive/MIS term, NEE light
   sample and BSDF evaluation, BSDF sample, Russian roulette) over the
@@ -39,7 +41,10 @@ default there):
   so the sums equal the ring's;
 * the uint32 ``perm`` arithmetic, the split ``perm_inv`` gather and the
   hi/lo counter pairs: int64 does each exactly;
-* XOR work stealing, raygen fusion, the ``PT_*`` knobs and ablations.
+* XOR work stealing, the ``PT_*`` knobs and ablations. Raygen fusion
+  (``PT_RAYGEN_FUSION=1``) is not a knob here: the fused branch always runs
+  it, since it gives the split glue's image, rays and iterations bit for
+  bit with fewer device ops an iteration.
 
 As in the JAX pool, the exit test runs once per ``FLUSH_EVERY`` iterations
 (one host sync per block), so ``iters`` is a multiple of it and equals the
@@ -177,6 +182,19 @@ def composed_bounce(
     )
 
 
+def camera_row(camera: Camera) -> torch.Tensor:
+    """The camera packed for ``fused_bounce``'s raygen mode, as the JAX pool
+    packs it: row 0 ``[origin, lower_left, width - 1, height - 1]``, row 1
+    ``[horizontal, vertical, 0, 0]``, ``(2, 8)`` in the camera's dtype (the
+    divisors are the camera's size, as ``Camera.generate_rays`` takes them)."""
+    dims = torch.tensor([camera.width - 1, camera.height - 1], dtype=camera.origin.dtype,
+                        device=camera.origin.device)
+    return torch.stack([
+        torch.cat([camera.origin, camera.lower_left_corner, dims]),
+        torch.cat([camera.horizontal, camera.vertical, torch.zeros_like(dims)]),
+    ]).contiguous()
+
+
 def _coprime_stride(padded_pixels: int) -> int:
     """The JAX pool's pixel stride: the largest value <= 0.618 * padded that
     is coprime with it (capped so that w * perm fits in uint32)."""
@@ -256,6 +274,7 @@ def render_pool(
     padded_pixels = chunks * S
     perm = _coprime_stride(padded_pixels)
     key = rng.base_key(seed, device)
+    cam_row = None if composed else camera_row(camera)
 
     i32, i64 = torch.int32, torch.int64
     slot_ids = torch.arange(S, dtype=i64, device=device)
@@ -297,14 +316,15 @@ def render_pool(
         # the camera jitter (slots 7-8) of refilled lanes.
         keys = rng.pixel_sample_keys(key, pixel, sample)
         u = rng.per_slot_uniforms(keys, bounce.to(i64), fdt)
-        jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
-        cam_o, cam_d = camera.generate_rays(
-            pixel % width, (height - 1) - pixel // width, jitter)
-        ray_o = torch.where(started, cam_o, ray_o)
-        ray_d = torch.where(started, cam_d, ray_d)
-        ray_eta = torch.where(started, 1.0, ray_eta)
-        pdf_prev = torch.where(started, 1.0, pdf_prev)
-        prefix = torch.where(started, 1.0, prefix)
+        px, py = pixel % width, (height - 1) - pixel // width
+        if composed:
+            jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
+            cam_o, cam_d = camera.generate_rays(px, py, jitter)
+            ray_o = torch.where(started, cam_o, ray_o)
+            ray_d = torch.where(started, cam_d, ray_d)
+            ray_eta = torch.where(started, 1.0, ray_eta)
+            pdf_prev = torch.where(started, 1.0, pdf_prev)
+            prefix = torch.where(started, 1.0, prefix)
         radiance = torch.where(started, 0.0, radiance)
         busy = busy | started
 
@@ -313,9 +333,12 @@ def render_pool(
             res = composed_bounce(scene, tables, busy, bounce, ray_o, ray_d, ray_eta,
                                   pdf_prev, prefix, u, **bounce_kw)
         else:
+            # The kernel makes the started lanes' rays and resets from the
+            # carried state; only the pixel split stays here.
             res = shade.fused_bounce(
                 tables, busy, bounce, ray_o, ray_d, ray_eta, pdf_prev, prefix,
-                u.contiguous(), **bounce_kw)
+                u.contiguous(), raygen=(started, px.to(i32), py.to(i32), cam_row),
+                **bounce_kw)
         radiance = radiance + res.rad_delta
         if use_nee and scene.num_lights > 0:
             if composed:

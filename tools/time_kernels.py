@@ -1,6 +1,6 @@
 """Time a redesigned kernel pair of one checkout of the repository on the GPU.
 
-    python3 tools/time_kernels.py ROOT pool|bvh|cluster|binned
+    python3 tools/time_kernels.py ROOT pool|bvh|cluster|binned|frames
     python3 tools/time_kernels.py ROOT resident|flat [NAME=V,V,... ...]
 
 Imports ``chip_smoke`` and ``pathtrace_tpu_torch`` from the checkout at
@@ -11,7 +11,14 @@ values:
 
 - ``pool``: ``fused_bounce`` and ``shadow_any_hit`` on the lane states of
   ``chip_smoke.py``'s phase 3 (S = 16,384 lanes of Cornell, many_spheres
-  and the ON/PBR scene), at every split of their sweeps (``SPLITS``);
+  and the ON/PBR scene), at every split of their sweeps (``SPLITS``); where
+  the checkout's launcher takes ``raygen`` and ``fuse_shadow``, also
+  ``fused_bounce``'s opt-in modes on phase 3i's lanes of Cornell and
+  many_spheres in float32 and float64 (this tree's
+  ``chip_smoke.raygen_lanes`` and ``mode_times``): each mode's instance at
+  every split, and in turns (old, new, new, old) at every split the fused
+  shadow against the split pair it replaces and the raygen mode against
+  the split path's glue + ``fused_bounce``, by events and queued;
 - ``bvh``: ``bvh_closest`` and ``bvh_anyhit`` on the lanes of phase 3b
   (S = 65,536 camera and bounce rays of the 70k-triangle mesh scene, capped
   by the sphere hits, and their NEE shadow rays), at every team size
@@ -55,12 +62,19 @@ values:
   kernels alone, which on these small launches the host's launch gaps
   hide); and the field's 1-spp pool frame (phase 5e's frame at 1
   spp), its device ms and each hand-written kernel's device ms an
-  iteration (``chip_smoke.device_work`` of this tree).
+  iteration (``chip_smoke.device_work`` of this tree);
+- ``frames``: whole fused-pool frames through the checkout's
+  ``render_pool`` (``FRAMES``: many_spheres and the ON/PBR scene at
+  1920x1080, 1 spp, 32 bounces, 16,384 slots, and the Cornell box at
+  128x128, 1 spp, 16 bounces, 4,096 slots, each in float32 and float64),
+  each rendered once to warm up and then ``FRAME_RUNS`` times, timed on
+  the host's clock to a forced read of the image: walls, rays, iterations
+  and the image's sum, so two checkouts' frames can be held equal.
 
 Prints one JSON line: the card, ROOT, and the milliseconds (kernels per
 setting; per scene for ``pool``, per lane set for ``cluster`` and ``flat``,
 per wave set for ``binned``, with its rounds and ray-rounds; per team and
-setting for ``resident``). To compare
+setting for ``resident``; seconds per frame and dtype for ``frames``). To compare
 two versions on one card, run it in turns in one command (old, new, new,
 old), each checkout in its own process.
 """
@@ -116,6 +130,35 @@ def pool_ms(cs, binding, dev):
             lambda **x: binding.launch_fused_bounce(tables, *batch, out, **launch, **x),
             lambda **x: binding.launch_shadow_any_hit(tables, so, sd, st, occ, eps=shade.EPS,
                                                       **x))
+    if "fuse_shadow" in inspect.signature(binding.launch_fused_bounce).parameters:
+        ms["modes"] = modes_ms(_this_tree_smoke(), cs, dev)
+    return ms
+
+
+def modes_ms(here, cs, dev):
+    """``fused_bounce``'s opt-in modes, by dtype and scene: this tree's
+    ``chip_smoke.mode_times`` on phase 3i's lanes at every split."""
+    from pathtrace_tpu_torch.kernels import binding
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.render import cast_floats
+
+    ms = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, scene, camera in (
+            ("cornell", scenes.cornell_box(dev), scenes.cornell_camera(128, 128, dev)),
+            ("many_spheres", scenes.many_spheres(device=dev),
+             scenes.many_spheres_camera(1920, 1080, dev)),
+        ):
+            scene, camera = cast_floats(scene, dtype), cast_floats(camera, dtype)
+            tables = shade.build_tables(scene)
+            batch = cs.lane_states(scene, camera, tables, cs.SLICE_S)
+            pre, raygen, merged = here.raygen_lanes(camera, batch)
+            by_split, turns = here.mode_times(tables, pre, raygen, merged,
+                                              cs.bounce_kwargs(scene, "mis", 16), camera,
+                                              turn_splits=binding.SPLITS)
+            ms[f"{name}_{str(dtype).removeprefix('torch.')}"] = {"by_split": by_split,
+                                                                  "turns": turns}
     return ms
 
 
@@ -343,6 +386,48 @@ def resident_ms(cs, binding, dev, knobs):
     return {"lanes": ms, "frame": frames}
 
 
+FRAME_RUNS = 3
+# (name, render_pool arguments) of ``frames``; each runs in both dtypes.
+FRAMES = (
+    ("many_spheres", dict(width=1920, height=1080, spp=1, integrator="mis", max_bounces=32,
+                          num_slots=16384, seed=0)),
+    ("on_pbr", dict(width=1920, height=1080, spp=1, integrator="mis", max_bounces=32,
+                    num_slots=16384, seed=0)),
+    ("cornell", dict(width=128, height=128, spp=1, integrator="mis", max_bounces=16,
+                     num_slots=4096, seed=0)),
+)
+
+
+def frames_ms(cs, binding, dev):
+    """``frames``: each frame of ``FRAMES`` in float32 and float64."""
+    import time
+
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+
+    out = {}
+    for name, run in FRAMES:
+        W, H = run["width"], run["height"]
+        scene, camera = {
+            "many_spheres": lambda: (scenes.many_spheres(device=dev),
+                                     scenes.many_spheres_camera(W, H, dev)),
+            "on_pbr": lambda: (cs.on_pbr_scene(dev), scenes.default_spheres_camera(W, H, dev)),
+            "cornell": lambda: (scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev)),
+        }[name]()
+        for dtype in (torch.float32, torch.float64):
+            walls = []
+            for _ in range(1 + FRAME_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img, counters, iters = render_pool(scene, camera, dtype=dtype, **run)
+                checksum = float(img.double().sum().item())     # forces completion
+                walls.append(time.perf_counter() - t0)
+            out[f"{name}_{str(dtype).removeprefix('torch.')}"] = {
+                "wall_s": walls[1:], "warm_up_s": walls[0], "rays": ray_count(counters),
+                "iters": iters, "checksum": checksum}
+    return out
+
+
 def _this_tree_smoke():
     """This tree's ``chip_smoke`` module, whatever ROOT is."""
     import importlib.util
@@ -377,7 +462,7 @@ def _knobs(args):
 
 
 def main() -> int:
-    pairs = ("pool", "bvh", "cluster", "binned", "resident", "flat")
+    pairs = ("pool", "bvh", "cluster", "binned", "resident", "flat", "frames")
     if len(sys.argv) < 3 or sys.argv[2] not in pairs or (
             len(sys.argv) > 3 and sys.argv[2] not in ("resident", "flat")):
         print(__doc__, file=sys.stderr)
@@ -397,7 +482,7 @@ def main() -> int:
         ms = fn(cs, binding, dev, _knobs(sys.argv[3:]))
     else:
         ms = {"pool": pool_ms, "bvh": bvh_ms, "cluster": cluster_ms,
-              "binned": binned_ms}[sys.argv[2]](cs, binding, dev)
+              "binned": binned_ms, "frames": frames_ms}[sys.argv[2]](cs, binding, dev)
     print(json.dumps({"card": cs.nvidia_smi_line(), "root": root, "pair": sys.argv[2],
                       "ms": ms}))
     return 0
