@@ -190,6 +190,23 @@ The modes of ``fused_bounce`` (``raygen``, which the fused pool runs, and
     1e-3; ``render --dtype f64`` and ``bench --small --dtype f64`` through
     the CLI. Each frame launches only the float64 kernels of its path.
 
+Multi-process rendering (``parallel/``), every rank a process on the card:
+
+9.  9a: one NCCL rank (world size 1) renders BASELINE config 5's first frame
+    (``mesh_scene()``, ``sweep_cameras(120, 640, 360)``, 16 spp, MIS, depth
+    8, 32,768 slots) through ``frames_pool_sharded``, timed (wall, Mrays/s),
+    launching ``bvh_closest``, ``bvh_anyhit``, ``sphere_closest`` and
+    ``any_hit``; its rays, iterations and image equal this process's
+    ``render_pool`` of the camera bit for bit; 9b: two gloo ranks share the
+    card: ``render_pool_sharded`` on phase 4's Cornell frame at ``dp=2``
+    (bitwise against ``render_pool``) and at 2 spp at ``sp=2`` (rays exact,
+    image within 1e-5); on three 32x32 Cornell frames at ``dp=2``,
+    ``frames_sharded`` (within the image budget of ``render.render``) and
+    ``frames_pool_sharded`` (bitwise against ``render_pool``); 9c: ``python -m
+    pathtrace_tpu_torch --coordinator ... --num-processes 2 --process-id
+    {0,1} animate`` writes two PNGs from rank 0. Every rank has a time limit
+    and a failing rank's peers are killed.
+
 Parity against the C++ oracle (``csrc/oracle.cpp`` through
 ``pathtrace_tpu_torch.oracle``):
 
@@ -232,8 +249,11 @@ the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
+import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -4064,6 +4084,301 @@ def check_mode_kernels(dev, smi: str):
     return record, split_launches
 
 
+# ---- phase 9: multi-process rendering (parallel/) on the one card ----
+CONFIG5 = dict(width=640, height=360, spp=16, integrator="mis", max_bounces=8, seed=0)
+CONFIG5_TRIS = 70000        # mesh_scene(70000), the scene of phase 3b
+CONFIG5_CAMERAS = 120       # sweep_cameras(120, 640, 360)
+CONFIG5_FRAMES = (0,)       # frames 0 and 1 took phase 9 to 45.2 s of its 45 (H100, 700 W)
+CONFIG5_SLOTS = 32768
+MP_KERNELS = ("bvh_closest", "bvh_anyhit", "sphere_closest", "any_hit")   # 9a must launch them
+SHARDED_FRAMES = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=16, seed=0)
+RANK_TIMEOUT_S = 240.0      # a rank still running after this fails the phase (its peers killed)
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(argv_of, n: int, timeout: float = RANK_TIMEOUT_S) -> list:
+    """Run ``n`` processes, ``argv_of(rank, coordinator)`` each, joined at a
+    free localhost port, and return their outputs (stdout and stderr). When
+    one exits non-zero or the time runs out, every sibling is killed and the
+    call raises."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(n)]
+        procs = [subprocess.Popen(argv_of(r, coordinator), cwd=root, stdout=logs[r],
+                                  stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        out = []
+        for f in logs:
+            f.seek(0)
+            out.append(f.read())
+            f.close()
+    for r, (p, log_text) in enumerate(zip(procs, out)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {n} exited {p.returncode}:\n{log_text[-3000:]}")
+    return out
+
+
+def rank_argv(spec: dict):
+    """``argv_of`` for :func:`launch_ranks`: one :func:`rank_main` a rank."""
+    def argv_of(rank, coordinator):
+        return [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.rank_main())",
+                json.dumps({**spec, "coordinator": coordinator, "rank": rank})]
+    return argv_of
+
+
+def shifted_cornell_cameras(width, height, dev, n=3):
+    """``n`` Cornell cameras, the origin moved 0.02 along x a frame."""
+    from pathtrace_tpu_torch.models import scenes
+
+    cam = scenes.cornell_camera(width, height, dev)
+    return [dataclasses.replace(cam, origin=cam.origin + torch.tensor(
+        [0.02 * i, 0.0, 0.0], device=dev)) for i in range(n)]
+
+
+def rank_job_config5(spec, dev) -> dict:
+    """Phase 9a's rank: the config-5 frames through ``frames_pool_sharded``."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.parallel.sharding import frames_pool_sharded, make_mesh
+    from pathtrace_tpu_torch.pool import ray_count
+    from pathtrace_tpu_torch.render import RenderConfig
+
+    cfg = RenderConfig(**spec["frame"])
+    scene = scenes.mesh_scene(spec["n_tris"], device=dev)
+    sweep = scenes.sweep_cameras(spec["n_cams"], cfg.width, cfg.height, device=dev)
+    cams = [sweep[i] for i in spec["frames"]]
+    mesh = make_mesh()
+    frames_pool_sharded(scene, cams[:1], dataclasses.replace(cfg, spp=1), mesh,
+                        num_slots=spec["num_slots"])                        # warm-up
+    shade.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    frames, counters, iters = frames_pool_sharded(scene, cams, cfg, mesh,
+                                                  num_slots=spec["num_slots"])
+    wall = time.perf_counter() - t0        # the gather copies every frame to the host
+    return dict(frames=frames.cpu().numpy(), iters=iters.numpy(), wall=wall,
+                rays=np.asarray([ray_count(c) for c in counters]),
+                launches=json.dumps(dict(shade.LAUNCHES)))
+
+
+def rank_job_cornell(spec, dev) -> dict:
+    """Phase 9b's rank: ``render_pool_sharded`` on the Cornell frame at
+    ``dp=2, sp=1`` and ``dp=1, sp=2``, and ``frames_sharded`` and
+    ``frames_pool_sharded`` on three shifted Cornell
+    frames at ``dp=2``."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.parallel.sharding import (frames_pool_sharded, frames_sharded,
+                                                       make_mesh, render_pool_sharded)
+    from pathtrace_tpu_torch.render import RenderConfig
+
+    frame = spec["frame"]
+    scene = scenes.cornell_box(dev)
+    cam = scenes.cornell_camera(frame["width"], frame["height"], dev)
+    out = {}
+    for dp, sp in ((2, 1), (1, 2)):
+        img, counters, iters = render_pool_sharded(scene, cam, mesh=make_mesh(dp, sp),
+                                                   **dict(frame, spp=frame["spp"] * sp))
+        out.update({f"image_{dp}x{sp}": img.cpu().numpy(),
+                    f"counters_{dp}x{sp}": counters.numpy(), f"iters_{dp}x{sp}": iters.numpy()})
+    cfg = RenderConfig(**spec["wave"])
+    cams, mesh = shifted_cornell_cameras(cfg.width, cfg.height, dev), make_mesh(2, 1)
+    out["frames"] = frames_sharded(scene, cams, cfg, mesh).cpu().numpy()
+    frames, counters, iters = frames_pool_sharded(scene, cams, cfg, mesh)
+    out.update(pool_frames=frames.cpu().numpy(), pool_counters=counters.numpy(),
+               pool_iters=iters.numpy())
+    return out
+
+
+RANK_JOBS = {"config5": rank_job_config5, "cornell": rank_job_cornell}
+
+
+def rank_main() -> int:
+    """One rank of a phase-9 run (``launch_ranks``): ``sys.argv[1]`` is the
+    JSON spec (job, device, coordinator, ranks, rank, output file). Rank 0
+    saves the job's arrays to the output ``.npz``."""
+    spec = json.loads(sys.argv[1])
+    from pathtrace_tpu_torch.parallel import distributed
+
+    distributed.initialize(spec["coordinator"], spec["n"], spec["rank"], device=spec["device"],
+                           timeout_s=RANK_TIMEOUT_S)
+    try:
+        dev = (torch.device("cpu") if spec["device"] == "cpu"
+               else torch.device("cuda", torch.cuda.current_device()))
+        out = RANK_JOBS[spec["job"]](spec, dev)
+        if distributed.process_index() == 0:
+            np.savez(spec["out"], **out)
+    finally:
+        distributed.shutdown()
+    print(f"rank {spec['rank']} of {spec['n']}: {spec['job']} done", flush=True)
+    return 0
+
+
+def run_config5_ranks(out: str, device: str):
+    """Phase 9a's launch: one rank; its arrays in ``out``."""
+    spec = dict(job="config5", device=device, n=1, out=out, frame=CONFIG5, n_tris=CONFIG5_TRIS,
+                n_cams=CONFIG5_CAMERAS, frames=list(CONFIG5_FRAMES), num_slots=CONFIG5_SLOTS)
+    return launch_ranks(rank_argv(spec), 1)
+
+
+def run_cornell_ranks(out: str, device: str):
+    """Phase 9b's launch: two ranks; rank 0's arrays in ``out``."""
+    spec = dict(job="cornell", device=device, n=2, out=out, frame=CORNELL, wave=SHARDED_FRAMES)
+    return launch_ranks(rank_argv(spec), 2)
+
+
+def run_cli_ranks(out_dir: str, device: str, extra=()):
+    """Phase 9c's launch: ``animate`` through the CLI on two ranks."""
+    def argv_of(rank, coordinator):
+        return [sys.executable, "-m", "pathtrace_tpu_torch", "--coordinator", coordinator,
+                "--num-processes", "2", "--process-id", str(rank), "animate", "--frames", "2",
+                "--width", "32", "--height", "32", "--spp", "2", "--device", device,
+                "--out-dir", out_dir, *extra]
+    return launch_ranks(argv_of, 2)
+
+
+def check_config5(dev, mesh, got, launch_s: float, smi: str) -> None:
+    """Phase 9a's checks: the rank launched the mesh path's kernels, and each
+    frame's rays, iterations and image equal this process's ``render_pool``
+    of the same camera, bit for bit."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+
+    launches = json.loads(str(got["launches"]))
+    if any(launches.get(k, 0) <= 0 for k in MP_KERNELS):
+        raise AssertionError(f"9a launches {launches} miss one of {MP_KERNELS}")
+    W, H, spp = CONFIG5["width"], CONFIG5["height"], CONFIG5["spp"]
+    sweep = scenes.sweep_cameras(CONFIG5_CAMERAS, W, H, device=dev)
+    ref_s = []
+    for j, f in enumerate(CONFIG5_FRAMES):
+        t0 = time.perf_counter()
+        img, counters, iters = render_pool(mesh, sweep[f], num_slots=CONFIG5_SLOTS, **CONFIG5)
+        ref = (img.reshape(H, W, 3) / spp).cpu().numpy()
+        ref_s.append(time.perf_counter() - t0)
+        if (ray_count(counters), iters) != (int(got["rays"][j]), int(got["iters"][j, 0])) \
+                or not np.array_equal(ref, got["frames"][j]):
+            raise AssertionError(
+                f"9a frame {f}: rays/iters {got['rays'][j]}/{got['iters'][j].tolist()} vs "
+                f"render_pool's {ray_count(counters)}/{iters}, max image diff "
+                f"{np.abs(ref - got['frames'][j]).max()}")
+    rays, wall = int(got["rays"].sum()), float(got["wall"])
+    log("[multiprocess] 9a " + json.dumps({
+        "workload": f"config 5: mesh_scene {mesh.num_tris} tris, sweep_cameras("
+                    f"{CONFIG5_CAMERAS}, {W}, {H}) frames {list(CONFIG5_FRAMES)}, {spp}spp "
+                    f"MIS depth {CONFIG5['max_bounces']}, {CONFIG5_SLOTS} slots, "
+                    f"frames_pool_sharded on 1 rank on {dev}",
+        "rays": rays, "iters": got["iters"].ravel().tolist(), "wall_s": wall,
+        "mrays_per_s": rays / wall / 1e6, "launch_s": launch_s, "launches": launches,
+        "in_process_render_pool_s": ref_s, "bitwise_vs_render_pool": True, "card": smi}))
+
+
+def check_cornell(dev, got, launch_s: float) -> None:
+    """Phase 9b's checks: ``dp=2`` bitwise and ``sp=2`` within 1e-5 (rays
+    exact) against this process's ``render_pool``; the ``frames_sharded``
+    frames within the image budget of ``render.render``."""
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.pool import ray_count, render_pool
+    from pathtrace_tpu_torch.render import RenderConfig, render
+
+    W, H = CORNELL["width"], CORNELL["height"]
+    diffs = {}
+    for dp, sp in ((2, 1), (1, 2)):
+        img, counters, iters = render_pool(scenes.cornell_box(dev), scenes.cornell_camera(
+            W, H, dev), **dict(CORNELL, spp=CORNELL["spp"] * sp))
+        ref, rays, tag = img.cpu().numpy(), ray_count(counters), f"{dp}x{sp}"
+        diffs[tag] = float(np.abs(got[f"image_{tag}"] - ref).max())
+        if ray_count(got[f"counters_{tag}"]) != rays or not (
+                np.array_equal(got[f"image_{tag}"], ref) if sp == 1 else
+                np.allclose(got[f"image_{tag}"], ref, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"9b dp={dp} sp={sp}: rays {ray_count(got[f'counters_{tag}'])}"
+                                 f" vs {rays}, max diff {diffs[tag]}")
+        diffs[tag + "_iters"] = (got[f"iters_{tag}"].ravel().tolist(), iters)
+    cfg = RenderConfig(**SHARDED_FRAMES)
+    frame_kw = {k: getattr(cfg, k) for k in ("width", "height", "spp", "integrator",
+                                             "max_bounces", "seed")}
+    for i, cam in enumerate(shifted_cornell_cameras(cfg.width, cfg.height, dev)):
+        assert_images_match(got["frames"][i],
+                            render(scenes.cornell_box(dev), cam, cfg).image.cpu().numpy())
+        img, counters, iters = render_pool(scenes.cornell_box(dev), cam, **frame_kw)
+        ref = (img.reshape(cfg.height, cfg.width, 3) / cfg.spp).cpu().numpy()
+        if (ray_count(got["pool_counters"][i]), int(got["pool_iters"][i, 0])) != (
+                ray_count(counters), iters) or not np.array_equal(got["pool_frames"][i], ref):
+            raise AssertionError(f"9b frames_pool_sharded frame {i} differs from render_pool")
+    log(f"[multiprocess] 9b 2 ranks on {dev}, Cornell {W}x{H}, {CORNELL['spp']} spp at dp=2 "
+        f"(bitwise), {2 * CORNELL['spp']} at sp=2: max diffs and (rank, one-process) "
+        f"iterations {diffs}; 3 frames {cfg.width}x{cfg.height} at dp=2: frames_sharded "
+        f"within budget, frames_pool_sharded bitwise; ranks {launch_s:.1f} s")
+
+
+def check_cli_frames(frames_dir: str, launch_s: float) -> None:
+    """Phase 9c's check: rank 0 wrote the two frames."""
+    pngs = sorted(os.listdir(frames_dir))
+    if pngs != ["frame_0000.png", "frame_0001.png"]:
+        raise AssertionError(f"9c wrote {pngs}")
+    for name in pngs:
+        with open(os.path.join(frames_dir, name), "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"9c {name} is not a PNG")
+    log(f"[multiprocess] 9c CLI animate on 2 ranks: {pngs} ({launch_s:.1f} s)")
+
+
+def timed_call(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def run_multiprocess(dev, mesh, smi: str):
+    """Phase 9: multi-process rendering (``parallel/``), every rank on
+    ``cuda:0``. 9a: one NCCL rank renders config 5 through
+    ``frames_pool_sharded``, each frame bitwise equal to this process's
+    ``render_pool``; 9b: two gloo ranks share the card: ``render_pool_sharded``
+    on phase 4's Cornell frame at ``dp=2`` (bitwise) and at 2 spp at ``sp=2``
+    (rays exact, image within 1e-5), and on three 32x32 Cornell frames at
+    ``dp=2`` ``frames_sharded`` against ``render.render`` and
+    ``frames_pool_sharded`` against ``render_pool`` bitwise; 9c: ``animate``
+    through the CLI on two ranks writes two PNGs. 9b's and 9c's ranks run while this
+    process renders 9a's references (after 9a's rank has timed its frames)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        out_a, out_b = os.path.join(tmp, "config5.npz"), os.path.join(tmp, "cornell.npz")
+        frames_dir = os.path.join(tmp, "frames")
+        logs, launch_s = timed_call(run_config5_ranks, out_a, dev.type)
+        log("[multiprocess] 9a rank log: " + logs[0].strip().replace("\n", " | ")[-600:])
+        fut_b = pool.submit(timed_call, run_cornell_ranks, out_b, dev.type)
+        fut_c = pool.submit(timed_call, run_cli_ranks, frames_dir, dev.type)
+        check_config5(dev, mesh, np.load(out_a), launch_s, smi)
+        (logs_b, launch_b), (logs_c, launch_c) = fut_b.result(), fut_c.result()
+        check_cornell(dev, np.load(out_b), launch_b)
+        check_cli_frames(frames_dir, launch_c)
+    # The backend each launch chose before its group formed: NCCL for the
+    # lone rank, gloo for two ranks sharing the card.
+    backends = [re.findall(r"backend \w+ \(.*\)", t) for t in logs + logs_b + logs_c]
+    log(f"[multiprocess] backends of 9a, 9b, 9c's ranks: {backends}")
+    expect = (["backend nccl (one GPU a rank, 1 on 1 node(s))"]
+              + ["backend gloo (2 ranks share 1 GPU(s) on 1 node(s))"] * 4
+              if dev.type == "cuda" else ["backend gloo (CPU ranks)"] * 5)
+    if backends != [[e] for e in expect]:
+        raise AssertionError(f"phase 9 backends {backends}, expected {expect}")
+    log(f"[multiprocess] phase 9 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4130,6 +4445,7 @@ def main() -> int:
     f64_pool_launches, f64_wave_launches = phase("8", run_f64_frames, dev, smi)
     phase("6", run_cli)
     phase("7", run_parity, dev, smi)
+    phase("9", run_multiprocess, dev, mesh, smi)
 
     def entry(name, src, rep, n_launches, err, times, bnd, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,

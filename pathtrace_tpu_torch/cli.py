@@ -13,6 +13,9 @@ defaults:
 
     python -m pathtrace_tpu_torch bench     # one JSON line (bench.py)
 
+    python -m pathtrace_tpu_torch --coordinator host0:29500 --num-processes 2 \
+        --process-id $i animate --frames 24 --out-dir frames/
+
 ``--device cuda`` (the default) renders on the GPU through the CUDA kernels
 and fails when there is none; ``--device cpu`` runs the kernels' plain twins,
 and only when asked. ``--method`` picks the intersection traversal of every
@@ -22,9 +25,18 @@ JAX CLI's process default does: ``auto``, ``pallas``, ``bruteforce``,
 ``pallas`` (every route gives the brute-force hit), and the pool runs it on
 its composed branch, as the JAX pool does. ``--dtype f64`` renders in the
 reference's native precision (every command, ``bench`` too) on the fused
-pool and every intersection route, whatever the ``--method``. Not ported
-yet, exiting with status 2 and a message naming its ROADMAP item: the
-multi-process flags.
+pool and every intersection route, whatever the ``--method``.
+
+Multi-process runs (one process a rank, one device a rank):
+``--coordinator``, ``--num-processes`` and ``--process-id`` (or
+``PT_COORDINATOR``/``PT_NUM_PROCESSES``/``PT_PROCESS_ID``, or torchrun's
+variables) join the ranks' process group before any device is touched
+(``parallel/distributed.py``: NCCL with a GPU a rank, gloo on the CPU or
+when ranks share a GPU). ``animate`` then shards the frames over the ranks
+(``parallel.sharding.frames_sharded``); ``render`` renders the whole frame
+on every rank, as the JAX CLI does. Files and the JSON/report output are
+written by rank 0 only: the one intended difference from the JAX CLI,
+where every process writes the same path.
 """
 
 from __future__ import annotations
@@ -44,17 +56,32 @@ SCENES = {
 }
 
 
-class Unported(Exception):
-    """A flag whose code path the port does not have yet."""
+class Refused(Exception):
+    """A request the CLI refuses: it exits with status 2 and the message."""
 
 
-def _device(args):
+def _check_device(args) -> None:
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
-        raise Unported("--device cuda: no CUDA device is available (use --device cpu to run "
-                       "the kernels' plain twins)")
-    return torch.device(args.device)
+        raise Refused("--device cuda: no CUDA device is available (use --device cpu to run "
+                      "the kernels' plain twins)")
+
+
+def _device(args):
+    """This rank's device: the CPU, or the current GPU (the rank's own, once
+    ``distributed.initialize`` has set it)."""
+    import torch
+
+    if args.device == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _main_rank() -> bool:
+    from .parallel.distributed import process_index
+
+    return process_index() == 0
 
 
 def _build(args, device):
@@ -100,6 +127,7 @@ def cmd_render(args) -> int:
         state = RenderState.load(args.checkpoint, device)
         print(f"resumed at {state.num_samples} spp", file=sys.stderr)
 
+    main_rank = _main_rank()
     t0 = time.time()
     if args.engine == "pool":
         done = state.num_samples if state else 0
@@ -115,9 +143,9 @@ def cmd_render(args) -> int:
             image_sum = img if image_sum is None else image_sum + img
             done += n
             state = RenderState(image_sum.reshape(args.height, args.width, 3), done)
-            if args.checkpoint:
+            if args.checkpoint and main_rank:
                 state.save(args.checkpoint)
-            if args.out and args.progressive:
+            if args.out and args.progressive and main_rank:
                 ptio.write_png(to_srgb_u8(state.image), args.out)   # progressive preview
             print(f"{done}/{args.spp} spp ({time.time() - t0:.1f}s)", file=sys.stderr)
     else:
@@ -125,11 +153,13 @@ def cmd_render(args) -> int:
             print(f"{dn}/{args.spp} spp ({time.time() - t0:.1f}s)", file=sys.stderr)
 
         state = render(scene, camera, cfg, state=state, progress_callback=progress)
-        if args.checkpoint:
+        if args.checkpoint and main_rank:
             state.save(args.checkpoint)
 
     image = state.image.cpu().numpy()
     print(f"rendered {args.spp} spp in {time.time() - t0:.1f}s", file=sys.stderr)
+    if not main_rank:
+        return 0
     if args.out:
         ptio.write_png(to_srgb_u8(image), args.out)
         print(f"wrote {args.out}", file=sys.stderr)
@@ -142,21 +172,27 @@ def cmd_render(args) -> int:
 
 
 def cmd_animate(args) -> int:
-    """The camera sweep on one device (the JAX CLI shards frames over a
-    device mesh when it has one; multi-GPU is ROADMAP Queue 1, item 5)."""
+    """The camera sweep: frames sharded over the ranks' mesh in a
+    multi-process run (``frames_sharded``), else rendered one by one."""
     from . import io as ptio
     from .models import scenes as S
+    from .parallel.distributed import is_distributed
+    from .parallel.sharding import frames_sharded, make_mesh
     from .render import render, to_srgb_u8
 
     device = _device(args)
     scene = S.mesh_scene(device=device) if args.scene == "mesh" else _build(args, device)[0]
     cams = S.sweep_cameras(args.frames, args.width, args.height, device=device)
     cfg = _config(args, samples_per_batch=min(args.spp, 8))
-    os.makedirs(args.out_dir, exist_ok=True)
+    main_rank = _main_rank()
+    if main_rank:
+        os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.time()
-    for i, cam in enumerate(cams):
-        image = render(scene, cam, cfg).image
-        ptio.write_png(to_srgb_u8(image), os.path.join(args.out_dir, f"frame_{i:04d}.png"))
+    frames = (frames_sharded(scene, cams, cfg, make_mesh()) if is_distributed()
+              else (render(scene, cam, cfg).image for cam in cams))
+    for i, image in enumerate(frames):
+        if main_rank:
+            ptio.write_png(to_srgb_u8(image), os.path.join(args.out_dir, f"frame_{i:04d}.png"))
     print(f"{args.frames} frames in {time.time() - t0:.1f}s -> {args.out_dir}", file=sys.stderr)
     return 0
 
@@ -164,8 +200,9 @@ def cmd_animate(args) -> int:
 def cmd_bench(args) -> int:
     from .bench import run
 
-    _device(args)   # no card and no --device cpu: exit 2, nothing falls back
-    print(json.dumps(run(args.device, args.small, _dtype(args))))
+    line = json.dumps(run(args.device, args.small, _dtype(args)))
+    if _main_rank():
+        print(line)
     return 0
 
 
@@ -183,18 +220,20 @@ def cmd_debug_pixel(args) -> int:
         integrator=args.integrator, seed=args.seed,
         luminance_threshold=args.threshold, method=args.method,
     )
-    print(json.dumps(report, indent=2))
+    if _main_rank():
+        print(json.dumps(report, indent=2))
     return 0
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pathtrace_tpu_torch")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator host:port for multi-process runs (not ported yet)")
+                   help="coordinator host:port for multi-process runs "
+                        "(torch.distributed); also PT_COORDINATOR")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="total processes in a multi-process run (not ported yet)")
+                   help="total processes (ranks) in the multi-process run")
     p.add_argument("--process-id", type=int, default=None,
-                   help="this process's rank in a multi-process run (not ported yet)")
+                   help="this process's rank in the multi-process run")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
@@ -261,13 +300,21 @@ def main(argv=None) -> int:
     d.set_defaults(fn=cmd_debug_pixel)
 
     args = p.parse_args(argv)
+    from .parallel import distributed
+
     try:
-        if args.coordinator or args.num_processes or os.environ.get("PT_COORDINATOR"):
-            raise Unported("multi-process runs are not ported yet (ROADMAP Queue 1, item 5)")
+        _check_device(args)   # no card and no --device cpu: exit 2, nothing falls back
+        try:
+            distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                                   device=args.device)
+        except ValueError as e:
+            raise Refused(e) from None
         return args.fn(args)
-    except (Unported, NotImplementedError) as e:
+    except (Refused, NotImplementedError) as e:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)
         return 2
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

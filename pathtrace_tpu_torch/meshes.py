@@ -1,15 +1,47 @@
-"""Procedural triangle meshes (numpy only).
+"""Triangle meshes (numpy only): Wavefront OBJ I/O and procedural generators.
 
-Counterpart of the generators in ``pathtrace_tpu/meshes.py``, same float64
-arithmetic, so the vertices and faces are identical: :func:`knot_mesh` is the
-~70k-triangle torus-knot tube that stands in for the Stanford bunny in the
-mesh benchmark scene. The OBJ reader/writer of the JAX package (and its C++
-loader) is not ported yet.
+Counterpart of ``pathtrace_tpu/meshes.py``, same float64 arithmetic, so the
+vertices and faces are identical: :func:`knot_mesh` is the ~70k-triangle
+torus-knot tube that stands in for the Stanford bunny in the mesh benchmark
+scene, and :func:`load_obj`/:func:`save_obj` round-trip Wavefront files for
+users with real assets. :func:`load_obj` is the JAX package's pure-Python
+reader; its native speed path (``csrc/meshio.cpp``) is not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def load_obj(path: str):
+    """Wavefront OBJ reader: ``v`` and ``f`` records. Faces with more than 3
+    vertices are fan-triangulated; ``v/vt/vn`` tokens keep their vertex
+    index; negative indices count back from the last vertex read. Returns
+    ``(vertices (V,3) float64, faces (F,3) int64)``."""
+    verts = []
+    faces = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+            elif line.startswith("f "):
+                idx = []
+                for tok in line.split()[1:]:
+                    i = int(tok.split("/")[0])
+                    idx.append(i - 1 if i > 0 else len(verts) + i)
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.asarray(verts, np.float64), np.asarray(faces, np.int64)
+
+
+def save_obj(path: str, vertices, faces) -> None:
+    """Write ``v`` records (6 decimals) and 1-based triangle ``f`` records."""
+    with open(path, "w") as f:
+        for v in np.asarray(vertices):
+            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for face in np.asarray(faces):
+            f.write(f"f {face[0] + 1} {face[1] + 1} {face[2] + 1}\n")
 
 
 def grid_mesh(nu: int, nv: int, wrap_u: bool = True, wrap_v: bool = True):

@@ -59,6 +59,16 @@ def is_emissive_params(m: MatParams):
     return (m.kind == mat.KIND_EMISSIVE) & (vec.length(m.emission) > 0.0)
 
 
+def emitted(scene: Scene, mid):
+    """:func:`emitted_params` of material ids ``mid``."""
+    return emitted_params(mat_of(scene, mid))
+
+
+def is_emissive(scene: Scene, mid):
+    """:func:`is_emissive_params` of material ids ``mid``."""
+    return is_emissive_params(mat_of(scene, mid))
+
+
 # ---------------------------------------------------------------------------
 # GGX helpers
 # ---------------------------------------------------------------------------

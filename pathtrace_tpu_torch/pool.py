@@ -44,7 +44,10 @@ default there):
 * XOR work stealing, the ``PT_*`` knobs and ablations. Raygen fusion
   (``PT_RAYGEN_FUSION=1``) is not a knob here: the fused branch always runs
   it, since it gives the split glue's image, rays and iterations bit for
-  bit with fewer device ops an iteration.
+  bit with fewer device ops an iteration;
+* ``set_fused``, the process-global override of the fused branch: the port
+  picks the branch per call (:func:`route`; ``method="bruteforce"`` forces
+  the composed branch).
 
 As in the JAX pool, the exit test runs once per ``FLUSH_EVERY`` iterations
 (one host sync per block), so ``iters`` is a multiple of it and equals the
@@ -241,11 +244,52 @@ def render_pool(
     divide the image by ``spp`` for mean radiance. ``counters`` is
     ``(rays_hi, rays_lo, busy_hi, busy_lo)``, each a 32-bit half, decoded by
     :func:`ray_count` / :func:`busy_count` exactly as the JAX package's.
+
+    The multi-process path is
+    :func:`pathtrace_tpu_torch.parallel.sharding.render_pool_sharded`, which
+    runs :func:`_pool_loop` on each rank's pixel and sample window.
     """
     if dtype is not None:
         from .render import cast_floats
 
         scene, camera = cast_floats(scene, dtype), cast_floats(camera, dtype)
+    num_pixels = width * height
+    return _pool_loop(scene, camera, 0, sample_offset, width=width, height=height,
+                      total_pixels=num_pixels, local_pixels=num_pixels, spp=spp,
+                      integrator=integrator, max_bounces=max_bounces, num_slots=num_slots,
+                      seed=seed, method=method)
+
+
+def _pool_loop(
+    scene: Scene,
+    camera: Camera,
+    pixel_lo: int,
+    sample_lo: int,
+    *,
+    width: int,
+    height: int,
+    total_pixels: int,
+    local_pixels: int,
+    spp: int,
+    integrator: str,
+    max_bounces: int,
+    num_slots: int,
+    seed: int,
+    method: str | None = None,
+):
+    """Pool render of the global pixel window ``[pixel_lo, pixel_lo +
+    local_pixels)`` and the sample window ``[sample_lo, sample_lo + spp)``;
+    the work items of a window that overhangs the frame (global pixel
+    ``>= total_pixels``) are skipped, their slots left idle.
+
+    The RNG is keyed by the global ``(pixel, sample)``, and the raygen by
+    the global pixel, so any split of the frame into windows traces the
+    sample set of the whole frame, each pixel's samples in sample order in
+    one slot. :func:`render_pool` is the window ``(0, sample_offset)`` of
+    the whole frame.
+
+    Returns ``(image_sum (local_pixels, 3), counters (4,) int64, iters)``.
+    """
     composed = route(scene, integrator, method) == "composed"
     device = scene.device
     if camera.origin.device != device:
@@ -267,7 +311,8 @@ def render_pool(
             has_oren_nayar=scene.has_oren_nayar, has_pbr=scene.has_pbr,
         )
 
-    num_pixels = width * height
+    num_pixels = local_pixels
+    overhang = pixel_lo + local_pixels > total_pixels
     S = min(num_slots, num_pixels)
     chunks = -(-num_pixels // S)
     work_per_slot = chunks * spp
@@ -304,12 +349,15 @@ def render_pool(
         q = cursor
         w_item = (q % chunks) * S + slot_ids
         new_local = (w_item * perm) % padded_pixels
+        new_pixel = new_local + pixel_lo if pixel_lo else new_local
         pixel_ok = new_local < num_pixels
+        if overhang:
+            pixel_ok = pixel_ok & (new_pixel < total_pixels)
         cursor = torch.where(refill, cursor + 1, cursor)
         started = refill & pixel_ok
-        pixel = torch.where(started, new_local, pixel)
+        pixel = torch.where(started, new_pixel, pixel)
         chunk = torch.where(started, q % chunks, chunk)
-        sample = torch.where(started, q // chunks + sample_offset, sample)
+        sample = torch.where(started, q // chunks + sample_lo, sample)
         bounce = torch.where(started, 0, bounce)
 
         # One (9, S) draw covers every decision of this bounce, including

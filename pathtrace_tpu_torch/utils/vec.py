@@ -44,6 +44,11 @@ def normalize(a: torch.Tensor) -> torch.Tensor:
     return torch.where(pos, a / torch.where(pos, ln, torch.ones_like(ln)), a)
 
 
+def normal_from_triangle(v0, v1, v2) -> torch.Tensor:
+    """Geometric normal of a triangle: the normalized ``(v1-v0) x (v2-v0)``."""
+    return normalize(cross(v1 - v0, v2 - v0))
+
+
 def reflect(incident: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     """Mirror reflection of an incident direction."""
     return incident - normal * (2.0 * dot(incident, normal))[..., None]

@@ -13,6 +13,7 @@ independent of the wave it rides in.
 import importlib
 import json
 import os
+import socket
 import subprocess
 import sys
 
@@ -227,13 +228,31 @@ def test_cli_renders_resumes_and_replays(tmp_path):
     assert json.loads(r.stdout)["pixel"] == [4, 6]
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--coordinator", "localhost:1234", "render"], "Queue 1, item 5"),
-    (["--num-processes", "2", "render"], "Queue 1, item 5"),
+def test_cli_coordinator_with_one_process_writes_the_same_png(tmp_path):
+    """``--coordinator`` with one process forms a one-rank group and renders
+    the plain run's frame (the two-rank CLI is in test_torch_distributed.py)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    common = ["--scene", "cornell", "--width", "10", "--height", "10", "--spp", "1",
+              "--device", "cpu"]
+    plain, ranked = str(tmp_path / "plain.png"), str(tmp_path / "ranked.png")
+    r = _cli("render", *common, "--out", plain)
+    assert r.returncode == 0, r.stderr[-2000:]
+    r = _cli("--coordinator", f"127.0.0.1:{port}", "--num-processes", "1", "render", *common,
+             "--out", ranked)
+    assert r.returncode == 0 and "rank 0 of 1" in r.stderr, r.stderr[-2000:]
+    assert open(plain, "rb").read() == open(ranked, "rb").read()
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--num-processes", "2", "render"], "coordinator address"),
+    (["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "2", "render"],
+     "not a rank of 2"),
 ])
-def test_cli_unported_flags_exit_nonzero(args, item):
+def test_cli_refuses_incomplete_multiprocess_flags(args, message):
     r = _cli(*args, "--device", "cpu")
-    assert r.returncode == 2 and f"ROADMAP {item}" in r.stderr, r.stderr[-2000:]
+    assert r.returncode == 2 and message in r.stderr, r.stderr[-2000:]
 
 
 @pytest.mark.parametrize("method,engine", [("binned", "wave"), ("resident", "pool"),
