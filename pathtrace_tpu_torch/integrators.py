@@ -25,12 +25,20 @@ Every intersection goes through ``ops/intersect.py`` on the route of the
 scene's tables (the small, flat or BVH kernels; their twins on the CPU).
 Everything runs in the rays' dtype, the uniforms included (float64: the
 small route only).
+
+Each bounce and its steps are spans of :mod:`~pathtrace_tpu_torch.profiler`
+(``wave.bounce`` with ``wave.rng``, ``wave.nee``, ``wave.scatter`` and
+``wave.peek``; the calls into ``ops/intersect.py``, ``ops/lights.py`` and
+``ops/bsdf.py`` as ``intersect``, ``lights`` and ``bsdf``; the host syncs
+``sync.wave_alive``, ``sync.wave_rays`` and ``sync.h2d``, a copy of a host
+constant), recorded only while tracing.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import profiler
 from .models.scene import Scene
 from .ops import bsdf, intersect, lights
 from .ops.shade import EPS, RR_MAX_DEPTH, RR_MIN_DEPTH, _full_like
@@ -49,6 +57,12 @@ def _rr_probability(bounce: int, next_tp):
     if bounce >= RR_MAX_DEPTH:
         return lum * 2.0 ** -(bounce - RR_MIN_DEPTH)
     return lum
+
+
+def _any_alive(alive) -> bool:
+    """The loop's test of the wave's live lanes: a host sync."""
+    with profiler.span("sync.wave_alive"):
+        return bool(alive.any())
 
 
 def trace_wave(
@@ -84,77 +98,100 @@ def trace_wave(
     else:
         radiance, rays = _trace_nee_mis(scene, tables, ray_o, ray_d, keys, max_bounces,
                                         integrator == "mis", num_light_samples)
-    return (radiance, int(rays)) if return_stats else radiance
+    if not return_stats:
+        return radiance
+    with profiler.span("sync.wave_rays"):
+        return radiance, int(rays)
 
 
 def _trace_nee_mis(scene, tables, ray_o, ray_d, keys, max_bounces, use_mis,
                    num_light_samples):
-    hit = intersect.intersect(tables, ray_o, ray_d, EPS, float("inf"))
-    mp = bsdf.mat_of(scene, hit.mat)
-    emis0 = hit.valid & bsdf.is_emissive_params(mp)
+    with profiler.span("intersect"):
+        hit = intersect.intersect(tables, ray_o, ray_d, EPS, float("inf"))
+    with profiler.span("bsdf"):
+        mp = bsdf.mat_of(scene, hit.mat)
+        emis0 = hit.valid & bsdf.is_emissive_params(mp)
+        emitted = bsdf.emitted_params(mp)
     # Lights are visible to the camera only (depth 0).
-    radiance = torch.where(emis0[:, None], bsdf.emitted_params(mp), 0.0)
+    radiance = torch.where(emis0[:, None], emitted, 0.0)
     alive = hit.valid & ~emis0
     ray_eta = torch.ones_like(ray_d[:, 0])
     prefix = torch.ones_like(ray_d)
-    rays = torch.tensor(ray_o.shape[0], dtype=torch.int64, device=ray_o.device)
+    rays = profiler.from_host(ray_o, ray_o.shape[0], torch.int64)
     light_keys = [keys] + [rng.light_sample_keys(keys, j) for j in range(1, num_light_samples)]
 
-    bounce = 0
-    while bounce < max_bounces and bool(alive.any()):
-        i = -ray_d
-
-        def nee_once(u_l):
-            ls = lights.sample_light_point(
-                scene, hit.point, u_l[:, rng.SLOT_LIGHT_SELECT], u_l[:, rng.SLOT_LIGHT_U],
-                u_l[:, rng.SLOT_LIGHT_V])
-            blocked = intersect.occluded(tables, hit.point, ls.dir, EPS, ls.dist - EPS)
+    def nee_once(u_l, i):
+        with profiler.span("wave.nee"):
+            with profiler.span("lights"):
+                ls = lights.sample_light_point(
+                    scene, hit.point, u_l[:, rng.SLOT_LIGHT_SELECT], u_l[:, rng.SLOT_LIGHT_U],
+                    u_l[:, rng.SLOT_LIGHT_V])
+            with profiler.span("intersect"):
+                blocked = intersect.occluded(tables, hit.point, ls.dir, EPS, ls.dist - EPS)
             cos_l = torch.abs(vec.dot(hit.normal, ls.dir))
-            bsdf_l, pdf_bsdf_l = bsdf.eval_bsdf(scene, hit.mat, i, ray_eta, ls.dir, hit.normal,
-                                                params=mp)
+            with profiler.span("bsdf"):
+                bsdf_l, pdf_bsdf_l = bsdf.eval_bsdf(scene, hit.mat, i, ray_eta, ls.dir,
+                                                    hit.normal, params=mp)
             w_nee = ls.pdf / (ls.pdf + pdf_bsdf_l) if use_mis else torch.ones_like(ls.pdf)
             d = w_nee[:, None] * bsdf_l * ls.emission * (cos_l / ls.pdf)[:, None]
             return vec.finite_or_zero(torch.where(blocked[:, None], 0.0, d))
 
-        u = rng.bounce_uniforms(keys, bounce, ray_d.dtype)
-        direct = nee_once(u)
-        for kj in light_keys[1:]:
-            direct = direct + nee_once(rng.bounce_uniforms(kj, bounce, ray_d.dtype))
-        if num_light_samples > 1:
-            direct = direct / _full_like(direct, num_light_samples)
+    def uniforms(k):
+        with profiler.span("wave.rng"):
+            return rng.bounce_uniforms(k, bounce, ray_d.dtype)
 
-        # BSDF sample, Russian roulette; quirk 1: direct counts only on survival.
-        eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
-        o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
-            scene, hit.mat, i, eta_s, hit.normal, u[:, rng.SLOT_BSDF_U],
-            u[:, rng.SLOT_BSDF_V], u[:, rng.SLOT_FRESNEL], params=mp)
-        factor = bsdf_s * (cos_s / pdf_s)[:, None]
-        rr = _rr_probability(bounce, prefix * factor)
-        live = alive & (u[:, rng.SLOT_RR] < rr)
-        radiance = radiance + torch.where(
-            live[:, None], vec.finite_or_zero(prefix * direct), 0.0)
+    bounce = 0
+    while bounce < max_bounces and _any_alive(alive):
+        with profiler.span("wave.bounce"):
+            i = -ray_d
+            u = uniforms(keys)
+            direct = nee_once(u, i)
+            for kj in light_keys[1:]:
+                direct = direct + nee_once(uniforms(kj), i)
+            if num_light_samples > 1:
+                direct = direct / _full_like(direct, num_light_samples)
 
-        # Peek: the BSDF ray's hit, which is also the next bounce's hit.
-        peek = intersect.intersect(tables, hit.point, o_dir, EPS, float("inf"))
-        peek_mp = bsdf.mat_of(scene, peek.mat)
-        peek_emis = peek.valid & bsdf.is_emissive_params(peek_mp)
-        if use_mis:
-            # Quirk 2: pdf_shape without the 1/num_lights factor.
-            pdf_shape = lights.light_pdf_toward(scene, peek.prim, hit.point, peek.point)
-            w_bsdf = pdf_s / (pdf_s + pdf_shape)
-            hit_light = (w_bsdf[:, None] * bsdf_s * bsdf.emitted_params(peek_mp)
-                         * (cos_s / (pdf_s * rr))[:, None])
-            radiance = radiance + torch.where(
-                (live & peek_emis)[:, None], vec.finite_or_zero(prefix * hit_light), 0.0)
-        # (NEE alone: a BSDF ray that lands on a light adds nothing.)
+            # BSDF sample, Russian roulette; quirk 1: direct counts only on survival.
+            with profiler.span("wave.scatter"):
+                with profiler.span("bsdf"):
+                    eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
+                    o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
+                        scene, hit.mat, i, eta_s, hit.normal, u[:, rng.SLOT_BSDF_U],
+                        u[:, rng.SLOT_BSDF_V], u[:, rng.SLOT_FRESNEL], params=mp)
+                factor = bsdf_s * (cos_s / pdf_s)[:, None]
+                rr = _rr_probability(bounce, prefix * factor)
+                live = alive & (u[:, rng.SLOT_RR] < rr)
+                radiance = radiance + torch.where(
+                    live[:, None], vec.finite_or_zero(prefix * direct), 0.0)
 
-        cont = live & peek.valid & ~peek_emis
-        prefix = torch.where(cont[:, None], vec.finite_or_zero(prefix * factor / rr[:, None]),
-                             prefix)
-        rays = rays + (num_light_samples + 1) * alive.sum()
-        bounce += 1
-        # The spawned ray carries the eta chosen at this vertex.
-        ray_d, ray_eta, hit, mp, alive = o_dir, eta_s, peek, peek_mp, cont
+            # Peek: the BSDF ray's hit, which is also the next bounce's hit.
+            with profiler.span("wave.peek"):
+                with profiler.span("intersect"):
+                    peek = intersect.intersect(tables, hit.point, o_dir, EPS, float("inf"))
+                with profiler.span("bsdf"):
+                    peek_mp = bsdf.mat_of(scene, peek.mat)
+                    peek_emis = peek.valid & bsdf.is_emissive_params(peek_mp)
+                if use_mis:
+                    # Quirk 2: pdf_shape without the 1/num_lights factor.
+                    with profiler.span("lights"):
+                        pdf_shape = lights.light_pdf_toward(scene, peek.prim, hit.point,
+                                                            peek.point)
+                    w_bsdf = pdf_s / (pdf_s + pdf_shape)
+                    with profiler.span("bsdf"):
+                        peek_emitted = bsdf.emitted_params(peek_mp)
+                    hit_light = (w_bsdf[:, None] * bsdf_s * peek_emitted
+                                 * (cos_s / (pdf_s * rr))[:, None])
+                    radiance = radiance + torch.where(
+                        (live & peek_emis)[:, None], vec.finite_or_zero(prefix * hit_light), 0.0)
+                # (NEE alone: a BSDF ray that lands on a light adds nothing.)
+
+            cont = live & peek.valid & ~peek_emis
+            prefix = torch.where(cont[:, None], vec.finite_or_zero(prefix * factor / rr[:, None]),
+                                 prefix)
+            rays = rays + (num_light_samples + 1) * alive.sum()
+            bounce += 1
+            # The spawned ray carries the eta chosen at this vertex.
+            ray_d, ray_eta, hit, mp, alive = o_dir, eta_s, peek, peek_mp, cont
     return radiance, rays
 
 
@@ -167,24 +204,31 @@ def _trace_brdf_only(scene, tables, ray_o, ray_d, keys, max_bounces):
     rays = torch.zeros((), dtype=torch.int64, device=ray_o.device)
 
     bounce = 0
-    while bounce < max_bounces and bool(alive.any()):
-        u = rng.bounce_uniforms(keys, bounce, ray_d.dtype)
-        hit = intersect.intersect(tables, ray_o, ray_d, EPS, float("inf"))
-        mp = bsdf.mat_of(scene, hit.mat)
-        emis = hit.valid & bsdf.is_emissive_params(mp)
-        radiance = radiance + torch.where(
-            (alive & emis)[:, None], vec.finite_or_zero(prefix * bsdf.emitted_params(mp)), 0.0)
+    while bounce < max_bounces and _any_alive(alive):
+        with profiler.span("wave.bounce"):
+            with profiler.span("wave.rng"):
+                u = rng.bounce_uniforms(keys, bounce, ray_d.dtype)
+            with profiler.span("intersect"):
+                hit = intersect.intersect(tables, ray_o, ray_d, EPS, float("inf"))
+            with profiler.span("bsdf"):
+                mp = bsdf.mat_of(scene, hit.mat)
+                emis = hit.valid & bsdf.is_emissive_params(mp)
+                emitted = bsdf.emitted_params(mp)
+            radiance = radiance + torch.where(
+                (alive & emis)[:, None], vec.finite_or_zero(prefix * emitted), 0.0)
 
-        eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
-        o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
-            scene, hit.mat, -ray_d, eta_s, hit.normal, u[:, rng.SLOT_BSDF_U],
-            u[:, rng.SLOT_BSDF_V], u[:, rng.SLOT_FRESNEL], params=mp)
-        factor = bsdf_s * (cos_s / pdf_s)[:, None]
-        rr = _rr_probability(bounce, prefix * factor)
-        cont = alive & hit.valid & ~emis & (u[:, rng.SLOT_RR] < rr)
-        prefix = torch.where(cont[:, None], vec.finite_or_zero(prefix * factor / rr[:, None]),
-                             prefix)
-        rays = rays + alive.sum()
-        bounce += 1
-        ray_o, ray_d, alive = hit.point, o_dir, cont
+            with profiler.span("wave.scatter"):
+                with profiler.span("bsdf"):
+                    eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
+                    o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
+                        scene, hit.mat, -ray_d, eta_s, hit.normal, u[:, rng.SLOT_BSDF_U],
+                        u[:, rng.SLOT_BSDF_V], u[:, rng.SLOT_FRESNEL], params=mp)
+                factor = bsdf_s * (cos_s / pdf_s)[:, None]
+                rr = _rr_probability(bounce, prefix * factor)
+                cont = alive & hit.valid & ~emis & (u[:, rng.SLOT_RR] < rr)
+            prefix = torch.where(cont[:, None], vec.finite_or_zero(prefix * factor / rr[:, None]),
+                                 prefix)
+            rays = rays + alive.sum()
+            bounce += 1
+            ray_o, ray_d, alive = hit.point, o_dir, cont
     return radiance, rays

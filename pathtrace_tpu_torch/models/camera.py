@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from .. import profiler
 from ..utils import vec
 
 
@@ -91,8 +92,7 @@ class Camera:
         # Divide by 0-dim tensors: CUDA would turn division by a host scalar
         # into multiplication by its reciprocal, which rounds differently.
         dtype = self.origin.dtype
-        wm1, hm1 = torch.tensor([self.width - 1, self.height - 1], dtype=dtype,
-                                device=jitter.device)
+        wm1, hm1 = profiler.from_host(jitter, [self.width - 1, self.height - 1], dtype)
         u = (px.to(dtype) + jitter[:, 0]) / wm1
         v = (py.to(dtype) + jitter[:, 1]) / hm1
         comps = [

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiler
 from ..models.scene import CLUSTER_SIZE
 from .intersect import (
     _TRI_COLS,
@@ -245,7 +246,8 @@ def _traverse(st, live_of, step, results, stats):
     def phase(st, stop_below):
         while True:
             live = live_of(st)
-            n_live = int(live.sum())            # the round's one host sync
+            with profiler.span("sync.binned_live"):
+                n_live = int(live.sum())        # the round's one host sync
             if n_live <= stop_below:
                 return live
             step(st, live, n_live)
@@ -261,7 +263,8 @@ def _traverse(st, live_of, step, results, stats):
             phase(st, 0)
             return
         live = phase(st, stops[0])
-        idx = torch.nonzero(live).squeeze(1)
+        with profiler.span("sync.binned_compact"):
+            idx = torch.nonzero(live).squeeze(1)
         sub = {k: v[idx] for k, v in st.items()}
         run(sub, stops[1:])
         for k in results:

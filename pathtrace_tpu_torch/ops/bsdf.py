@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiler
 from ..models import materials as mat
 from ..models.scene import Scene
 from ..utils import vec
@@ -120,7 +121,7 @@ def sample_ggx_vndf(view, normal, roughness, r1, r2):
     t1 = torch.where(
         (lensq > 0.0)[..., None],
         torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv, torch.zeros_like(inv)], dim=-1),
-        vh.new_tensor([1.0, 0.0, 0.0]),
+        profiler.from_host(vh, [1.0, 0.0, 0.0]),
     )
     t2 = vec.cross(vh, t1)
 

@@ -106,6 +106,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiler
 from ..models.scene import CLUSTER_SIZE, SPH_CLUSTER_SIZE, Scene
 from ..utils import vec
 from .shade import _SUFFIX, LAUNCHES, _check, _device_kind, _sphere_ts, _tri_hits
@@ -969,8 +970,13 @@ def any_hit(sph, tri, o, d, t_min, t_max, sph_box=None, tri_box=None):
 
 def _ranges(o, t_min, t_max):
     n = o.shape[0]
-    return (torch.as_tensor(t_min, dtype=o.dtype, device=o.device).expand(n).contiguous(),
-            torch.as_tensor(t_max, dtype=o.dtype, device=o.device).expand(n).contiguous())
+
+    def row(t):     # a number comes from the host: a copy, which syncs on the card
+        t = (torch.as_tensor(t, dtype=o.dtype, device=o.device) if torch.is_tensor(t)
+             else profiler.from_host(o, t))
+        return t.expand(n).contiguous()
+
+    return row(t_min), row(t_max)
 
 
 def intersect(tables: Tables, o, d, t_min, t_max, *, twin: bool = False) -> Hit:

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiler
 from ..models.scene import Scene
 from ..utils import vec
 
@@ -81,8 +82,8 @@ def _sphere_lane_rows(row, from_point, target_point, r1, r2):
         w = vec.normalize(to_center)
         up = torch.where(
             (torch.abs(w[..., 1]) > 0.999)[..., None],
-            w.new_tensor([1.0, 0.0, 0.0]),
-            w.new_tensor([0.0, 1.0, 0.0]),
+            profiler.from_host(w, [1.0, 0.0, 0.0]),
+            profiler.from_host(w, [0.0, 1.0, 0.0]),
         )
         u = vec.normalize(vec.cross(up, w))
         v = vec.cross(w, u)

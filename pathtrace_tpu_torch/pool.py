@@ -51,7 +51,15 @@ default there):
 
 As in the JAX pool, the exit test runs once per ``FLUSH_EVERY`` iterations
 (one host sync per block), so ``iters`` is a multiple of it and equals the
-JAX count; the trailing iterations of the last block are no-ops.
+JAX count; the trailing iterations of the last block are no-ops. The flush
+of the dying lanes' radiance syncs once an iteration (the lanes' index).
+
+Each pass, iteration and phase is a span of :mod:`~pathtrace_tpu_torch.profiler`
+(``pool.pass``; ``pool.iter`` with ``pool.refill`` around ``pool.rng``,
+``pool.bounce``, ``pool.shadow``, ``pool.flush``, ``pool.count``; the
+composed vertex's ``intersect``, ``lights`` and ``bsdf``; the host syncs
+``sync.flush_index``, ``sync.pool_exit`` and ``sync.h2d``, a copy of a host
+constant), recorded only while tracing.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ import math
 import numpy as np
 import torch
 
+from . import profiler
 from .models.camera import Camera
 from .models.scene import Scene
 from .ops import bsdf, intersect, lights, shade
@@ -124,10 +133,12 @@ def composed_bounce(
     use_mis = integrator == "mis"
     use_nee = integrator in ("mis", "nee") and scene.num_lights > 0
     o, d, pfx = ray_o.T.contiguous(), ray_d.T.contiguous(), prefix.T
-    hit = intersect.intersect(tables, o, d, eps, float("inf"), twin=twin)
-    mp = bsdf.mat_of(scene, hit.mat)
-    emis = hit.valid & bsdf.is_emissive_params(mp)
-    emission = bsdf.emitted_params(mp)
+    with profiler.span("intersect"):
+        hit = intersect.intersect(tables, o, d, eps, float("inf"), twin=twin)
+    with profiler.span("bsdf"):
+        mp = bsdf.mat_of(scene, hit.mat)
+        emis = hit.valid & bsdf.is_emissive_params(mp)
+        emission = bsdf.emitted_params(mp)
 
     # Emissive terminal rules: raw emission at depth 0 (and at any depth
     # without NEE); MIS-weighted, the bsdf-side pdf from the previous vertex.
@@ -135,7 +146,8 @@ def composed_bounce(
         emis_gain = emission
     else:
         if use_mis:
-            pdf_shape = lights.light_pdf_toward(scene, hit.prim, o, hit.point)
+            with profiler.span("lights"):
+                pdf_shape = lights.light_pdf_toward(scene, hit.prim, o, hit.point)
             w_bsdf = pdf_prev / (pdf_prev + pdf_shape)
         else:
             w_bsdf = torch.zeros_like(pdf_prev)
@@ -147,11 +159,13 @@ def composed_bounce(
     i_dir = -d
 
     if use_nee:
-        ls = lights.sample_light_point(scene, hit.point, u[rng.SLOT_LIGHT_SELECT],
-                                       u[rng.SLOT_LIGHT_U], u[rng.SLOT_LIGHT_V])
+        with profiler.span("lights"):
+            ls = lights.sample_light_point(scene, hit.point, u[rng.SLOT_LIGHT_SELECT],
+                                           u[rng.SLOT_LIGHT_U], u[rng.SLOT_LIGHT_V])
         cos_l = torch.abs(vec.dot(hit.normal, ls.dir))
-        bsdf_l, pdf_l = bsdf.eval_bsdf(scene, hit.mat, i_dir, ray_eta, ls.dir, hit.normal,
-                                       params=mp)
+        with profiler.span("bsdf"):
+            bsdf_l, pdf_l = bsdf.eval_bsdf(scene, hit.mat, i_dir, ray_eta, ls.dir,
+                                           hit.normal, params=mp)
         w_nee = ls.pdf / (ls.pdf + pdf_l) if use_mis else torch.ones_like(ls.pdf)
         direct = vec.finite_or_zero(
             w_nee[:, None] * bsdf_l * ls.emission * (cos_l / ls.pdf)[:, None])
@@ -161,10 +175,11 @@ def composed_bounce(
         nee_gain = torch.zeros_like(o)
         shadow_d, shadow_t = d, torch.full_like(pdf_prev, -1.0)
 
-    eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
-    o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
-        scene, hit.mat, i_dir, eta_s, hit.normal, u[rng.SLOT_BSDF_U], u[rng.SLOT_BSDF_V],
-        u[rng.SLOT_FRESNEL], params=mp)
+    with profiler.span("bsdf"):
+        eta_s = bsdf.eta_ratio(scene, hit.mat, hit.front_face, params=mp)
+        o_dir, bsdf_s, pdf_s, cos_s = bsdf.sample_bsdf(
+            scene, hit.mat, i_dir, eta_s, hit.normal, u[rng.SLOT_BSDF_U],
+            u[rng.SLOT_BSDF_V], u[rng.SLOT_FRESNEL], params=mp)
     factor = bsdf_s * (cos_s / pdf_s)[:, None]
     next_tp = pfx * factor
     rr = _rr_probability(bounce, next_tp)
@@ -190,8 +205,7 @@ def camera_row(camera: Camera) -> torch.Tensor:
     packs it: row 0 ``[origin, lower_left, width - 1, height - 1]``, row 1
     ``[horizontal, vertical, 0, 0]``, ``(2, 8)`` in the camera's dtype (the
     divisors are the camera's size, as ``Camera.generate_rays`` takes them)."""
-    dims = torch.tensor([camera.width - 1, camera.height - 1], dtype=camera.origin.dtype,
-                        device=camera.origin.device)
+    dims = profiler.from_host(camera.origin, [camera.width - 1, camera.height - 1])
     return torch.stack([
         torch.cat([camera.origin, camera.lower_left_corner, dims]),
         torch.cat([camera.horizontal, camera.vertical, torch.zeros_like(dims)]),
@@ -290,141 +304,157 @@ def _pool_loop(
 
     Returns ``(image_sum (local_pixels, 3), counters (4,) int64, iters)``.
     """
-    composed = route(scene, integrator, method) == "composed"
-    device = scene.device
-    if camera.origin.device != device:
-        raise ValueError(f"camera on {camera.origin.device}, scene on {device}")
-    fdt = camera.origin.dtype
-    if scene.tri_v0.dtype != fdt:
-        raise ValueError(f"camera in {fdt}, scene in {scene.tri_v0.dtype} (pass dtype=)")
-    use_nee = integrator in ("mis", "nee")
-    eps = shade.EPS
-    if composed:
-        tables = intersect.build_tables(scene, method or "auto")
-        bounce_kw = dict(integrator=integrator, max_bounces=max_bounces, eps=eps)
-    else:
-        tables = shade.build_tables(scene)
-        bounce_kw = dict(
-            num_tris=scene.tri_v0.shape[0], num_lights=scene.num_lights,
-            integrator=integrator, max_bounces=max_bounces, eps=eps,
-            has_tri_lights=scene.has_tri_lights, has_sph_lights=scene.has_sph_lights,
-            has_oren_nayar=scene.has_oren_nayar, has_pbr=scene.has_pbr,
-        )
-
-    num_pixels = local_pixels
-    overhang = pixel_lo + local_pixels > total_pixels
-    S = min(num_slots, num_pixels)
-    chunks = -(-num_pixels // S)
-    work_per_slot = chunks * spp
-    padded_pixels = chunks * S
-    perm = _coprime_stride(padded_pixels)
-    key = rng.base_key(seed, device)
-    cam_row = None if composed else camera_row(camera)
-
-    i32, i64 = torch.int32, torch.int64
-    slot_ids = torch.arange(S, dtype=i64, device=device)
-    pixel = torch.zeros(S, dtype=i64, device=device)
-    chunk = torch.zeros(S, dtype=i64, device=device)
-    sample = torch.zeros(S, dtype=i64, device=device)
-    bounce = torch.zeros(S, dtype=i32, device=device)
-    cursor = torch.zeros(S, dtype=i64, device=device)
-    ray_o = torch.zeros((3, S), dtype=fdt, device=device)
-    ray_d = torch.zeros((3, S), dtype=fdt, device=device)
-    ray_d[2] = 1.0
-    ray_eta = torch.ones(S, dtype=fdt, device=device)
-    pdf_prev = torch.ones(S, dtype=fdt, device=device)
-    prefix = torch.ones((3, S), dtype=fdt, device=device)
-    radiance = torch.zeros((3, S), dtype=fdt, device=device)
-    busy = torch.zeros(S, dtype=torch.bool, device=device)
-    # Slot-strided framebuffer: work item w = chunk * S + slot at row w.
-    image = torch.zeros((padded_pixels, 3), dtype=fdt, device=device)
-    rays = torch.zeros((), dtype=i64, device=device)
-    busy_total = torch.zeros((), dtype=i64, device=device)
-
-    def step():
-        nonlocal pixel, chunk, sample, bounce, cursor, ray_o, ray_d, ray_eta
-        nonlocal pdf_prev, prefix, radiance, busy, rays, busy_total
-        # ---- Refill: each free slot takes the next item of its stream ----
-        refill = ~busy & (cursor < work_per_slot)
-        q = cursor
-        w_item = (q % chunks) * S + slot_ids
-        new_local = (w_item * perm) % padded_pixels
-        new_pixel = new_local + pixel_lo if pixel_lo else new_local
-        pixel_ok = new_local < num_pixels
-        if overhang:
-            pixel_ok = pixel_ok & (new_pixel < total_pixels)
-        cursor = torch.where(refill, cursor + 1, cursor)
-        started = refill & pixel_ok
-        pixel = torch.where(started, new_pixel, pixel)
-        chunk = torch.where(started, q % chunks, chunk)
-        sample = torch.where(started, q // chunks + sample_lo, sample)
-        bounce = torch.where(started, 0, bounce)
-
-        # One (9, S) draw covers every decision of this bounce, including
-        # the camera jitter (slots 7-8) of refilled lanes.
-        keys = rng.pixel_sample_keys(key, pixel, sample)
-        u = rng.per_slot_uniforms(keys, bounce.to(i64), fdt)
-        px, py = pixel % width, (height - 1) - pixel // width
+    with profiler.traced_pass("pool", scene.device):
+        composed = route(scene, integrator, method) == "composed"
+        device = scene.device
+        if camera.origin.device != device:
+            raise ValueError(f"camera on {camera.origin.device}, scene on {device}")
+        fdt = camera.origin.dtype
+        if scene.tri_v0.dtype != fdt:
+            raise ValueError(f"camera in {fdt}, scene in {scene.tri_v0.dtype} (pass dtype=)")
+        use_nee = integrator in ("mis", "nee")
+        eps = shade.EPS
         if composed:
-            jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
-            cam_o, cam_d = camera.generate_rays(px, py, jitter)
-            ray_o = torch.where(started, cam_o, ray_o)
-            ray_d = torch.where(started, cam_d, ray_d)
-            ray_eta = torch.where(started, 1.0, ray_eta)
-            pdf_prev = torch.where(started, 1.0, pdf_prev)
-            prefix = torch.where(started, 1.0, prefix)
-        radiance = torch.where(started, 0.0, radiance)
-        busy = busy | started
-
-        # ---- One bounce for every busy slot, then the NEE shadow rays ----
-        if composed:
-            res = composed_bounce(scene, tables, busy, bounce, ray_o, ray_d, ray_eta,
-                                  pdf_prev, prefix, u, **bounce_kw)
+            tables = intersect.build_tables(scene, method or "auto")
+            bounce_kw = dict(integrator=integrator, max_bounces=max_bounces, eps=eps)
         else:
-            # The kernel makes the started lanes' rays and resets from the
-            # carried state; only the pixel split stays here.
-            res = shade.fused_bounce(
-                tables, busy, bounce, ray_o, ray_d, ray_eta, pdf_prev, prefix,
-                u.contiguous(), raygen=(started, px.to(i32), py.to(i32), cam_row),
-                **bounce_kw)
-        radiance = radiance + res.rad_delta
-        if use_nee and scene.num_lights > 0:
-            if composed:
-                blocked = intersect.occluded(tables, res.next_o.T.contiguous(),
-                                             res.shadow_d.T.contiguous(), eps, res.shadow_tmax)
-            else:
-                blocked = shade.shadow_any_hit(
-                    tables, res.next_o, res.shadow_d, res.shadow_tmax, eps=eps)
-            radiance = radiance + torch.where(res.live & ~blocked, res.nee_gain, 0.0)
-        live = res.live
+            tables = shade.build_tables(scene)
+            bounce_kw = dict(
+                num_tris=scene.tri_v0.shape[0], num_lights=scene.num_lights,
+                integrator=integrator, max_bounces=max_bounces, eps=eps,
+                has_tri_lights=scene.has_tri_lights, has_sph_lights=scene.has_sph_lights,
+                has_oren_nayar=scene.has_oren_nayar, has_pbr=scene.has_pbr,
+            )
 
-        # ---- Termination: dying paths add into their framebuffer cell ----
-        done = busy & ~live
-        idx = (chunk * S + slot_ids)[done]
-        image[idx] = image[idx] + radiance[:, done].T
+        num_pixels = local_pixels
+        overhang = pixel_lo + local_pixels > total_pixels
+        S = min(num_slots, num_pixels)
+        chunks = -(-num_pixels // S)
+        work_per_slot = chunks * spp
+        padded_pixels = chunks * S
+        perm = _coprime_stride(padded_pixels)
+        key = rng.base_key(seed, device)
+        cam_row = None if composed else camera_row(camera)
 
-        busy_inc = busy.sum()
-        rays = rays + busy_inc + (res.shade.sum() if use_nee else 0)
-        busy_total = busy_total + busy_inc
-        bounce = torch.where(live, bounce + 1, bounce)
-        ray_o, ray_d = res.next_o, res.next_d
-        ray_eta, pdf_prev, prefix = res.next_eta, res.next_pdf, res.next_prefix
-        radiance = torch.where(live, radiance, 0.0)
-        busy = live
+        i32, i64 = torch.int32, torch.int64
+        slot_ids = torch.arange(S, dtype=i64, device=device)
+        pixel = torch.zeros(S, dtype=i64, device=device)
+        chunk = torch.zeros(S, dtype=i64, device=device)
+        sample = torch.zeros(S, dtype=i64, device=device)
+        bounce = torch.zeros(S, dtype=i32, device=device)
+        cursor = torch.zeros(S, dtype=i64, device=device)
+        ray_o = torch.zeros((3, S), dtype=fdt, device=device)
+        ray_d = torch.zeros((3, S), dtype=fdt, device=device)
+        ray_d[2] = 1.0
+        ray_eta = torch.ones(S, dtype=fdt, device=device)
+        pdf_prev = torch.ones(S, dtype=fdt, device=device)
+        prefix = torch.ones((3, S), dtype=fdt, device=device)
+        radiance = torch.zeros((3, S), dtype=fdt, device=device)
+        busy = torch.zeros(S, dtype=torch.bool, device=device)
+        # Slot-strided framebuffer: work item w = chunk * S + slot at row w.
+        image = torch.zeros((padded_pixels, 3), dtype=fdt, device=device)
+        rays = torch.zeros((), dtype=i64, device=device)
+        busy_total = torch.zeros((), dtype=i64, device=device)
 
-    iters = 0
-    while bool(busy.any() | (cursor < work_per_slot).any()):
-        for _ in range(FLUSH_EVERY):
-            step()
-        iters += FLUSH_EVERY
+        def step():
+            nonlocal pixel, chunk, sample, bounce, cursor, ray_o, ray_d, ray_eta
+            nonlocal pdf_prev, prefix, radiance, busy, rays, busy_total
+            # ---- Refill: each free slot takes the next item of its stream ----
+            with profiler.span("pool.refill"):
+                refill = ~busy & (cursor < work_per_slot)
+                q = cursor
+                w_item = (q % chunks) * S + slot_ids
+                new_local = (w_item * perm) % padded_pixels
+                new_pixel = new_local + pixel_lo if pixel_lo else new_local
+                pixel_ok = new_local < num_pixels
+                if overhang:
+                    pixel_ok = pixel_ok & (new_pixel < total_pixels)
+                cursor = torch.where(refill, cursor + 1, cursor)
+                started = refill & pixel_ok
+                pixel = torch.where(started, new_pixel, pixel)
+                chunk = torch.where(started, q % chunks, chunk)
+                sample = torch.where(started, q // chunks + sample_lo, sample)
+                bounce = torch.where(started, 0, bounce)
 
-    # Pixel p holds work item (p * perm^-1) % padded: one inverse gather.
-    perm_inv = pow(perm, -1, padded_pixels)
-    p_ids = torch.arange(num_pixels, dtype=i64, device=device)
-    image_sum = image[(p_ids * perm_inv) % padded_pixels]
-    mask = 0xFFFFFFFF
-    counters = torch.stack([rays >> 32, rays & mask, busy_total >> 32, busy_total & mask])
-    return image_sum, counters, iters
+                # One (9, S) draw covers every decision of this bounce,
+                # including the camera jitter (slots 7-8) of refilled lanes.
+                with profiler.span("pool.rng"):
+                    keys = rng.pixel_sample_keys(key, pixel, sample)
+                    u = rng.per_slot_uniforms(keys, bounce.to(i64), fdt)
+                px, py = pixel % width, (height - 1) - pixel // width
+                if composed:
+                    jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
+                    cam_o, cam_d = camera.generate_rays(px, py, jitter)
+                    ray_o = torch.where(started, cam_o, ray_o)
+                    ray_d = torch.where(started, cam_d, ray_d)
+                    ray_eta = torch.where(started, 1.0, ray_eta)
+                    pdf_prev = torch.where(started, 1.0, pdf_prev)
+                    prefix = torch.where(started, 1.0, prefix)
+                radiance = torch.where(started, 0.0, radiance)
+                busy = busy | started
+
+            # ---- One bounce for every busy slot, then the NEE shadow rays ----
+            with profiler.span("pool.bounce"):
+                if composed:
+                    res = composed_bounce(scene, tables, busy, bounce, ray_o, ray_d, ray_eta,
+                                          pdf_prev, prefix, u, **bounce_kw)
+                else:
+                    # The kernel makes the started lanes' rays and resets from
+                    # the carried state; only the pixel split stays here.
+                    res = shade.fused_bounce(
+                        tables, busy, bounce, ray_o, ray_d, ray_eta, pdf_prev, prefix,
+                        u.contiguous(), raygen=(started, px.to(i32), py.to(i32), cam_row),
+                        **bounce_kw)
+                radiance = radiance + res.rad_delta
+            if use_nee and scene.num_lights > 0:
+                with profiler.span("pool.shadow"):
+                    if composed:
+                        with profiler.span("intersect"):
+                            blocked = intersect.occluded(
+                                tables, res.next_o.T.contiguous(), res.shadow_d.T.contiguous(),
+                                eps, res.shadow_tmax)
+                    else:
+                        blocked = shade.shadow_any_hit(
+                            tables, res.next_o, res.shadow_d, res.shadow_tmax, eps=eps)
+                    radiance = radiance + torch.where(res.live & ~blocked, res.nee_gain, 0.0)
+            live = res.live
+
+            # ---- Termination: dying paths add into their framebuffer cell ----
+            with profiler.span("pool.flush"):
+                done = busy & ~live
+                with profiler.span("sync.flush_index"):
+                    sel = done.nonzero().squeeze(1)   # waits for the lanes' count
+                idx = (chunk * S + slot_ids)[sel]
+                image[idx] = image[idx] + radiance[:, sel].T
+
+            with profiler.span("pool.count"):
+                busy_inc = busy.sum()
+                rays = rays + busy_inc + (res.shade.sum() if use_nee else 0)
+                busy_total = busy_total + busy_inc
+            bounce = torch.where(live, bounce + 1, bounce)
+            ray_o, ray_d = res.next_o, res.next_d
+            ray_eta, pdf_prev, prefix = res.next_eta, res.next_pdf, res.next_prefix
+            radiance = torch.where(live, radiance, 0.0)
+            busy = live
+
+        iters = 0
+        while True:
+            with profiler.span("sync.pool_exit"):
+                more = bool(busy.any() | (cursor < work_per_slot).any())
+            if not more:
+                break
+            for _ in range(FLUSH_EVERY):
+                with profiler.span("pool.iter"):
+                    step()
+            iters += FLUSH_EVERY
+
+        # Pixel p holds work item (p * perm^-1) % padded: one inverse gather.
+        perm_inv = pow(perm, -1, padded_pixels)
+        p_ids = torch.arange(num_pixels, dtype=i64, device=device)
+        image_sum = image[(p_ids * perm_inv) % padded_pixels]
+        mask = 0xFFFFFFFF
+        counters = torch.stack([rays >> 32, rays & mask, busy_total >> 32, busy_total & mask])
+        return image_sum, counters, iters
 
 
 def _decode(counters, hi: int) -> int:

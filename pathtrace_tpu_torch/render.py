@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import profiler
 from .integrators import trace_wave
 from .models.camera import Camera
 from .models.scene import Scene
@@ -130,15 +131,17 @@ def render_batch(
     acc = torch.zeros((pixel_ids.shape[0], 3), dtype=dtype, device=pixel_ids.device)
     rays = 0
     for s in range(samples_per_batch):
-        keys = rng.pixel_sample_keys(key, pixel_ids,
-                                     torch.full_like(pixel_ids, sample_start + s))
-        # Jitter in the camera dtype, as the pool draws it: the same samples.
-        o, d = camera.generate_rays(px, height - 1 - py, rng.primary_jitter(keys, dtype),
-                                    transposed=False)
-        radiance, n = trace_wave(scene, o, d, keys, integrator=integrator,
-                                 max_bounces=max_bounces, return_stats=True,
-                                 num_light_samples=num_light_samples, tables=tables)
-        acc = acc + radiance
+        with profiler.span("wave.sample"):
+            with profiler.span("wave.rng"):
+                keys = rng.pixel_sample_keys(key, pixel_ids,
+                                             torch.full_like(pixel_ids, sample_start + s))
+                # Jitter in the camera dtype, as the pool draws it: the same samples.
+                jitter = rng.primary_jitter(keys, dtype)
+            o, d = camera.generate_rays(px, height - 1 - py, jitter, transposed=False)
+            radiance, n = trace_wave(scene, o, d, keys, integrator=integrator,
+                                     max_bounces=max_bounces, return_stats=True,
+                                     num_light_samples=num_light_samples, tables=tables)
+            acc = acc + radiance
         rays += n
     return acc, rays
 
@@ -151,38 +154,42 @@ def render(
     progress_callback=None,
 ) -> RenderState:
     """Full render (or continuation of ``state``) on ``scene.device``, in
-    ``config.dtype`` (None: the scene/camera dtypes)."""
-    if config.dtype is not None:
-        scene, camera = cast_floats(scene, config.dtype), cast_floats(camera, config.dtype)
-        if state is not None:
-            state = cast_floats(state, config.dtype)
-    w, h = config.width, config.height
-    if (camera.width, camera.height) != (w, h):
-        raise ValueError(f"camera {camera.width}x{camera.height}, config {w}x{h}")
-    device = scene.device
-    tables = intersect.build_tables(scene, config.method)
-    key = rng.base_key(config.seed, device)
-    ids = pixel_grid(w, h, device)
-    if state is None:
-        state = RenderState(torch.zeros((h, w, 3), dtype=camera.origin.dtype, device=device), 0)
+    ``config.dtype`` (None: the scene/camera dtypes). One pass of
+    :mod:`~pathtrace_tpu_torch.profiler` (``wave.pass``, with a
+    ``wave.sample`` a wave), recorded only while tracing."""
+    with profiler.traced_pass("wave", scene.device):
+        if config.dtype is not None:
+            scene, camera = cast_floats(scene, config.dtype), cast_floats(camera, config.dtype)
+            if state is not None:
+                state = cast_floats(state, config.dtype)
+        w, h = config.width, config.height
+        if (camera.width, camera.height) != (w, h):
+            raise ValueError(f"camera {camera.width}x{camera.height}, config {w}x{h}")
+        device = scene.device
+        tables = intersect.build_tables(scene, config.method)
+        key = rng.base_key(config.seed, device)
+        ids = pixel_grid(w, h, device)
+        if state is None:
+            state = RenderState(
+                torch.zeros((h, w, 3), dtype=camera.origin.dtype, device=device), 0)
 
-    image_sum = state.image_sum.to(device).reshape(-1, 3).clone()
-    done, rays = state.num_samples, state.ray_queries
-    step = config.pixel_chunk or ids.shape[0]
-    while done < config.spp:
-        nbatch = min(config.samples_per_batch, config.spp - done)
-        for a in range(0, ids.shape[0], step):
-            part, n = render_batch(
-                scene, camera, ids[a:a + step], done, key, width=w, height=h,
-                integrator=config.integrator, max_bounces=config.max_bounces,
-                samples_per_batch=nbatch, num_light_samples=config.num_light_samples,
-                tables=tables)
-            image_sum[a:a + step] += part
-            rays += n
-        done += nbatch
-        if progress_callback is not None:
-            progress_callback(done)
-    return RenderState(image_sum.reshape(h, w, 3), done, rays)
+        image_sum = state.image_sum.to(device).reshape(-1, 3).clone()
+        done, rays = state.num_samples, state.ray_queries
+        step = config.pixel_chunk or ids.shape[0]
+        while done < config.spp:
+            nbatch = min(config.samples_per_batch, config.spp - done)
+            for a in range(0, ids.shape[0], step):
+                part, n = render_batch(
+                    scene, camera, ids[a:a + step], done, key, width=w, height=h,
+                    integrator=config.integrator, max_bounces=config.max_bounces,
+                    samples_per_batch=nbatch, num_light_samples=config.num_light_samples,
+                    tables=tables)
+                image_sum[a:a + step] += part
+                rays += n
+            done += nbatch
+            if progress_callback is not None:
+                progress_callback(done)
+        return RenderState(image_sum.reshape(h, w, 3), done, rays)
 
 
 def to_srgb_u8(image) -> np.ndarray:

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiler
+
 # Fixed slot layout of the per-bounce uniform vector (pathtrace_tpu/utils/rng.py).
 SLOT_LIGHT_SELECT = 0
 SLOT_LIGHT_U = 1
@@ -58,7 +60,8 @@ def base_key(seed: int, device=None):
     """``jax.random.key(seed)`` for ``0 <= seed < 2**32``: the words ``(0, seed)``."""
     if not 0 <= seed <= _MASK:
         raise ValueError(f"seed must fit in 32 bits, got {seed}")
-    k = torch.tensor([0, seed], dtype=torch.int64, device=device)
+    with profiler.span("sync.h2d"):     # a copy from the host
+        k = torch.tensor([0, seed], dtype=torch.int64, device=device)
     return k[0], k[1]
 
 

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from .. import profiler
+
 # Rec.709 luminance weights.
 _LUM_R = 0.2126
 _LUM_G = 0.7152
@@ -77,8 +79,8 @@ def tangent_frame(normal: torch.Tensor):
     """``(tangent, bitangent)`` of a frame whose z is the normal: up is +Y
     unless ``|n.y| > 0.999``, then +X."""
     ny = torch.abs(normal[..., 1]) > 0.999
-    x_axis = normal.new_tensor([1.0, 0.0, 0.0])
-    y_axis = normal.new_tensor([0.0, 1.0, 0.0])
+    x_axis = profiler.from_host(normal, [1.0, 0.0, 0.0])
+    y_axis = profiler.from_host(normal, [0.0, 1.0, 0.0])
     up = torch.where(ny[..., None], x_axis, y_axis)
     tangent = normalize(cross(up, normal))
     bitangent = cross(normal, tangent)
