@@ -181,6 +181,18 @@ The modes of ``fused_bounce`` (``raygen``, which the fused pool runs, and
     iterations and image, walls, and the Cornell float32 frame's device ops
     an iteration;
 
+The random-number draw (``csrc/rng.cu``; twin ``utils/rng.py``):
+
+3j. its entry points against the twin run on the card, bitwise, in float32
+    and float64: the pool's draw (``pool_uniforms``), the wave's keys
+    (``pixel_sample_keys``), bounce draw (``bounce_uniforms``) and NEE
+    light-sample keys, at seeds 0, 2**31 + 5 and 2**32 - 1 and 1 to
+    2,073,600 lanes; one ``rng_pool_uniforms`` launch a pool iteration in a
+    traced Cornell pool pass of each dtype, and the wave's key and draw
+    launches in a traced wave pass; each draw timed against the torch draw
+    it replaces, in turns, at the four benchmark cells' lanes, with its
+    bound at INT32 issue or HBM;
+
 8.  float64 frames: the Cornell 128x128 pool frame and a 64x64, 2-spp wave
     Cornell frame on the card against the CPU twins (equal rays and
     iterations); many_spheres at 1920x1080, 4 spp, 32 bounces, 16,384 slots,
@@ -218,8 +230,15 @@ Parity against the C++ oracle (``csrc/oracle.cpp`` through
     samples against the oracle's window; and the golden image's window
     ``[240:244, 190:198]`` re-rendered bitwise at 8,192 spp.
 
-The next-to-last lines are the kernels' JSON record (thirty-eight entries:
-the twelve kernels, the four further modes, the seven instances of
+The draw counts its launches in ``utils/rng.py``'s ``LAUNCHES``, apart from
+``shade.LAUNCHES``: the main path's frames check one ``rng_pool_uniforms``
+launch an iteration (phase 5, and phase 8's float64 Cornell pool frame) and
+the wave's ``rng_fold`` and ``rng_bounce_uniforms`` launches (phase 5c, and
+phase 8's float64 wave frame). The next-to-last lines are the kernels' JSON
+record (forty-three entries: the twelve kernels, the four further modes,
+the draw's five entry points (their launches the main path's frames', their
+times phase 3j's at every cell's lanes beside the torch draw's, events and
+queued), the seven instances of
 ``fused_bounce``'s modes (phase 3i, with their time at every split beside
 the default's and, for raygen and the fused shadow, the split path's times
 in turns; the raygen instances' launches are the main path's frames',
@@ -383,6 +402,40 @@ CLUSTER_EXPECT = {f"many_spheres(n_per_side={FIELD_N})": (30369475, 1328, 676946
 PEAK_FP32 = 67e12
 PEAK_FP64 = 33.5e12
 PEAK_HBM = 3.35e12
+# The INT32 (ALU) pipe of one H100 SXM: 64 lanes a clock on each of 132 SMs
+# at 1.98 GHz.
+PEAK_INT32 = 16.7e12
+# The random-number draw (phase 3j, csrc/rng.cu): the int32 operations of one
+# threefry2x32 block that only the ALU pipe runs, the 20 rounds' rotations
+# (SHF) and xors (LOP3); ptxas issues most adds as IMAD on the FMA pipe
+# (SASS of rng_pool_uniforms_kernel<float>: 241 SHF, 253 LOP3, 63 IADD3, 265
+# IMAD for 12 blocks). Then the seeds and lane counts it is checked at
+# (pixels < 2**21, samples < 10**4, bounces < 64), and the lanes of the four
+# benchmark cells it is timed at.
+THREEFRY_OPS = 40
+RNG_SEEDS = (0, 2**31 + 5, 2**32 - 1)
+RNG_S = (1, 1000, 160000, 524288, 1048576, 2073600)
+RNG_CELLS = {"cornell400.pool": 160000, "rtiow_1080p.pool": 524288,
+             "knot70k_1080p.pool": 1048576, "rtiow_1080p.wave": 2073600}
+RNG_POOL = dict(width=64, height=64, spp=2, integrator="mis", max_bounces=16,
+                num_slots=1024, seed=2**31 + 5)
+RNG_WAVE = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=16,
+                num_light_samples=2, seed=2**32 - 1)
+# The draw's entry points by launch counter name; none replaces a TPU kernel
+# (the JAX package draws with jax.random: pathtrace_tpu/pool.py ::
+# _per_slot_uniforms, utils/rng.py), so "replaces" names the draw.
+RNG_KERNELS = {
+    "rng_pool_uniforms": ("pathtrace_tpu_torch/csrc/rng.cu",
+                          "pathtrace_tpu/pool.py:131 _per_slot_uniforms (jax.random)"),
+    "rng_pool_uniforms_f64": ("pathtrace_tpu_torch/csrc/rng.cu",
+                              "pathtrace_tpu/pool.py:131 _per_slot_uniforms (jax.random)"),
+    "rng_bounce_uniforms": ("pathtrace_tpu_torch/csrc/rng.cu",
+                            "pathtrace_tpu/utils/rng.py bounce_uniforms (jax.random)"),
+    "rng_bounce_uniforms_f64": ("pathtrace_tpu_torch/csrc/rng.cu",
+                                "pathtrace_tpu/utils/rng.py bounce_uniforms (jax.random)"),
+    "rng_fold": ("pathtrace_tpu_torch/csrc/rng.cu",
+                 "pathtrace_tpu/utils/rng.py pixel_sample_keys (jax.random.fold_in)"),
+}
 # Float64 (phases 3f and 8): the four kernels with a float64 instance.
 F64_KERNELS = {
     "fused_bounce_f64": ("pathtrace_tpu_torch/csrc/fused_bounce.cu",
@@ -1834,9 +1887,12 @@ def run_cornell(dev):
 
 def run_bench(dev, smi: str):
     """Phase 5: many-spheres at the benchmark's size through
-    ``pathtrace_tpu_torch.bench``, timed; prints the bench's JSON line."""
+    ``pathtrace_tpu_torch.bench``, timed; prints the bench's JSON line.
+    Returns its launches, the draw's (one ``rng_pool_uniforms`` an
+    iteration) with the intersection and shading kernels'."""
     from pathtrace_tpu_torch import bench
     from pathtrace_tpu_torch.ops import shade
+    from pathtrace_tpu_torch.utils import rng
 
     scene, camera, frame = bench.setup(dev.type)
     warm_s = bench.warm_up(scene, camera, frame)
@@ -1845,8 +1901,10 @@ def run_bench(dev, smi: str):
         spp //= 2
 
     shade.LAUNCHES.clear()
+    rng.LAUNCHES.clear()
     record = bench.timed(scene, camera, dict(frame, spp=spp))
     launches = dict(shade.LAUNCHES)
+    draws = dict(rng.LAUNCHES)
     print(json.dumps(record), flush=True)
     extra = record["extra"]
     rays, iters, checksum = extra["total_rays"], extra["pool_iterations"], extra["image_checksum"]
@@ -1857,6 +1915,8 @@ def run_bench(dev, smi: str):
             raise AssertionError(f"{k} was not launched on the main path: {launches}")
     if launches["fused_bounce_raygen"] != iters:
         raise AssertionError(f"fused_bounce_raygen launches {launches} != iters {iters}")
+    if draws != {"rng_pool_uniforms": iters}:
+        raise AssertionError(f"draw launches {draws} for {iters} iterations")
     if spp == frame["spp"] and (rays, iters, checksum) != BENCH_EXPECT:
         raise AssertionError(f"many_spheres: {rays} rays, {iters} iterations, checksum "
                              f"{checksum}; expected {BENCH_EXPECT}")
@@ -1865,10 +1925,10 @@ def run_bench(dev, smi: str):
         f"reduced from {frame['spp']}: the 1-spp warm-up took {warm_s:.2f} s",
         "checksum_rel_diff_vs_jax_tpu": (checksum - REFERENCE_CHECKSUM) / REFERENCE_CHECKSUM
         if spp == frame["spp"] else None,
-        "warmup_1spp_s": warm_s, "card": smi,
+        "warmup_1spp_s": warm_s, "draw_launches": draws, "card": smi,
     }
     log("[bench] " + json.dumps(result))
-    return launches
+    return {**launches, **draws}
 
 
 def edge_t_max() -> tuple:
@@ -2046,12 +2106,31 @@ def check_wave_kernels(dev):
     return worst, ms, bounds, extra, flat
 
 
+def check_wave_draws(what, cfg, closest: int, draws: dict, sfx: str = "") -> None:
+    """A wave frame's draw launches (``rng.LAUNCHES`` over the frame) against
+    its closest-hit launches, for an MIS or NEE frame in whole waves (one a
+    sample): a wave folds its keys once and each further light sample's
+    once (``rng_fold``), and draws its jitter once and each light sample's
+    uniforms once a bounce (``rng_bounce_uniforms``); a bounce is one
+    closest-hit launch past the wave's first."""
+    waves, lights = cfg.spp, cfg.num_light_samples
+    if cfg.pixel_chunk is not None or cfg.integrator == "brdf":
+        raise ValueError(f"{what}: draws counted for MIS or NEE frames in whole waves")
+    want = {"rng_fold": waves * lights,
+            "rng_bounce_uniforms" + sfx: (closest - waves) * lights + waves}
+    if draws != want:
+        raise AssertionError(f"{what}: draw launches {draws}, want {want} for {waves} waves, "
+                             f"{closest - waves} bounces")
+
+
 def run_wave_cornell(dev, smi: str):
     """Phase 5c: the reference workload through the wave engine, timed and
-    held against the golden image's channel means."""
+    held against the golden image's channel means. Returns its launches,
+    the draw's with the intersection kernels'."""
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import shade
     from pathtrace_tpu_torch.render import RenderConfig, render
+    from pathtrace_tpu_torch.utils import rng
 
     W, H = WAVE_CORNELL["width"], WAVE_CORNELL["height"]
     scene, camera = scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev)
@@ -2065,15 +2144,18 @@ def run_wave_cornell(dev, smi: str):
     cfg = RenderConfig(**dict(WAVE_CORNELL, spp=spp))
 
     shade.LAUNCHES.clear()
+    rng.LAUNCHES.clear()
     t0 = time.perf_counter()
     state = render(scene, camera, cfg)
     img = state.image.cpu().numpy()                   # forces completion
     wall = time.perf_counter() - t0
     launches = dict(shade.LAUNCHES)
+    draws = dict(rng.LAUNCHES)
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError(f"wave cornell image {img.shape} not finite")
     if set(launches) != {"combined_closest_small", "any_hit"}:
         raise AssertionError(f"wave cornell launched {launches}")
+    check_wave_draws("wave cornell", cfg, launches["combined_closest_small"], draws)
     golden = np.load(GOLDEN)["image"]
     mean, gmean = img.mean(axis=(0, 1)), golden.mean(axis=(0, 1))
     rel = np.abs(mean - gmean) / gmean
@@ -2086,13 +2168,13 @@ def run_wave_cornell(dev, smi: str):
         "mean_rgb": mean.tolist(), "golden_mean_rgb": gmean.tolist(),
         "mean_rel_diff": rel.tolist(),
         "rmse_vs_golden": float(np.sqrt(((img - golden) ** 2).mean())),
-        "warmup_1spp_s": warm_s, "launches": launches, "card": smi,
+        "warmup_1spp_s": warm_s, "launches": launches, "draw_launches": draws, "card": smi,
     }
     log("[wave-cornell] " + json.dumps(result))
     if (rel > GOLDEN_MEAN_RTOL).any():
         raise AssertionError(f"channel means {mean} differ from the golden's {gmean} by "
                              f"{rel} (bound {GOLDEN_MEAN_RTOL})")
-    return launches
+    return {**launches, **draws}
 
 
 def run_wave_gpu_vs_cpu(dev):
@@ -3535,21 +3617,27 @@ def run_f64_frames(dev, smi: str):
     --small --dtype f64`` through the CLI. Every launch counter is zeroed
     before a frame and read after it: the pool frames must launch only the
     float64 ``fused_bounce`` (its raygen instance) and ``shadow_any_hit``, the wave frame only the
-    float64 ``combined_closest_small`` and ``any_hit``. Returns the
-    launches of the timed 1080p frame and of the wave frame."""
+    float64 ``combined_closest_small`` and ``any_hit``; the Cornell pool
+    frame one float64 draw an iteration and the wave frame its keys' and
+    float64 draws (``rng.LAUNCHES``). Returns the launches of the timed
+    1080p frame with the Cornell pool frame's draws, and of the wave frame
+    with its draws."""
     from pathtrace_tpu_torch.models import scenes
     from pathtrace_tpu_torch.ops import shade
     from pathtrace_tpu_torch.pool import busy_count, ray_count, render_pool
     from pathtrace_tpu_torch.render import RenderConfig, render
+    from pathtrace_tpu_torch.utils import rng
 
     f64 = torch.float64
     pool_set = {"fused_bounce_raygen_f64", "shadow_any_hit_f64"}
 
     W, H = CORNELL["width"], CORNELL["height"]
     shade.LAUNCHES.clear()
+    rng.LAUNCHES.clear()
     img, counters, iters = render_pool(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev),
                                        dtype=f64, **CORNELL)
     launches = dict(shade.LAUNCHES)
+    pool_draws = dict(rng.LAUNCHES)
     img = img.cpu().numpy()
     t0 = time.perf_counter()
     img_cpu, counters_cpu, iters_cpu = render_pool(
@@ -3561,8 +3649,10 @@ def run_f64_frames(dev, smi: str):
     if (rays, iters) != (rays_cpu, iters_cpu):
         raise AssertionError(f"f64 cornell: GPU {rays} rays {iters} iters, CPU {rays_cpu} "
                              f"rays {iters_cpu} iters")
-    if set(launches) != pool_set or launches["fused_bounce_raygen_f64"] != iters:
-        raise AssertionError(f"f64 cornell launched {launches} for {iters} iterations")
+    if set(launches) != pool_set or launches["fused_bounce_raygen_f64"] != iters or \
+            pool_draws != {"rng_pool_uniforms_f64": iters}:
+        raise AssertionError(f"f64 cornell launched {launches}, draws {pool_draws} for {iters} "
+                             f"iterations")
     assert_images_match(img, img_cpu.numpy())
     log(f"[f64-cornell] {W}x{H} 1spp MIS depth {CORNELL['max_bounces']} float64 pool: rays "
         f"{rays}, iters {iters} on the card and the CPU twins (CPU {cpu_s:.1f} s); max pixel "
@@ -3571,9 +3661,11 @@ def run_f64_frames(dev, smi: str):
     W, H = F64_WAVE["width"], F64_WAVE["height"]
     cfg = RenderConfig(dtype=f64, **F64_WAVE)
     shade.LAUNCHES.clear()
+    rng.LAUNCHES.clear()
     gpu = render(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev), cfg)
     wave_img = gpu.image.cpu().numpy()
     wave_launches = dict(shade.LAUNCHES)
+    wave_draws = dict(rng.LAUNCHES)
     t0 = time.perf_counter()
     cpu = render(scenes.cornell_box("cpu"), scenes.cornell_camera(W, H, "cpu"), cfg)
     cpu_s = time.perf_counter() - t0
@@ -3582,6 +3674,8 @@ def run_f64_frames(dev, smi: str):
                              f"CPU {cpu.ray_queries}")
     if set(wave_launches) != {"combined_closest_small_f64", "any_hit_f64"}:
         raise AssertionError(f"f64 wave launched {wave_launches}")
+    check_wave_draws("f64 wave", cfg, wave_launches["combined_closest_small_f64"], wave_draws,
+                     "_f64")
     assert_images_match(wave_img, cpu.image.numpy())
     log(f"[f64-wave] cornell {W}x{H} {F64_WAVE['spp']}spp MIS float64 wave engine: rays "
         f"{gpu.ray_queries} on both (CPU {cpu_s:.1f} s); max pixel diff "
@@ -3660,7 +3754,7 @@ def run_f64_frames(dev, smi: str):
                                  f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
     log(f"[f64-cli] render --dtype f64 --device cuda wrote a float64 image; bench --small "
         f"--dtype f64: {lines[0]} ({time.perf_counter() - t0:.1f} s)")
-    return frame_launches["f64"], wave_launches
+    return {**frame_launches["f64"], **pool_draws}, {**wave_launches, **wave_draws}
 
 
 # The modes of fused_bounce (phase 3i): each opt-in instance, by launch
@@ -4379,6 +4473,165 @@ def run_multiprocess(dev, mesh, smi: str):
     log(f"[multiprocess] phase 9 {time.perf_counter() - t_phase:.1f} s")
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bits as integers of its width, contiguous."""
+    return x.contiguous().view(torch.int64 if x.element_size() == 8 else torch.int32)
+
+
+def check_rng_kernels(dev):
+    """Phase 3j: the random-number draw's kernels (``csrc/rng.cu``) against
+    their torch twin (``utils/rng.py``'s ``fold_in`` and
+    ``per_slot_uniforms``, run on the card), bitwise, in float32 and float64:
+    ``pool_uniforms``, ``pixel_sample_keys``, ``bounce_uniforms`` and
+    ``light_sample_keys`` at every seed of :data:`RNG_SEEDS` and lane count
+    of :data:`RNG_S`; one ``rng_pool_uniforms`` launch a pool iteration in a
+    traced pool pass of each dtype, and the wave's draw launches
+    (:func:`check_wave_draws`) in a traced wave pass of each; each draw timed against the torch
+    draw it replaces, in turns (kernel, torch, torch, kernel; CUDA events,
+    and queued behind a spin kernel) at the benchmark cells' lanes
+    (:data:`RNG_CELLS`). Returns the draw's entries of the kernels' record,
+    without their launches (the main path's frames count those)."""
+    from pathtrace_tpu_torch import profiler
+    from pathtrace_tpu_torch.models import scenes
+    from pathtrace_tpu_torch.pool import render_pool
+    from pathtrace_tpu_torch.render import RenderConfig, render
+    from pathtrace_tpu_torch.utils import rng
+
+    f32, f64 = torch.float32, torch.float64
+    suffix = {f32: "", f64: "_f64"}
+
+    def lanes(S, seed):
+        g = torch.Generator(device=dev).manual_seed(seed + S)
+        return (torch.randint(0, 2**21, (S,), generator=g, device=dev),
+                torch.randint(0, 10**4, (S,), generator=g, device=dev),
+                torch.randint(0, 64, (S,), generator=g, device=dev, dtype=torch.int32))
+
+    errs = dict.fromkeys(RNG_KERNELS, 0.0)   # largest |kernel - twin| of each entry point
+
+    def same(name, what, got, want):
+        got, want = tuple(got), tuple(want)
+        if any(a.shape != b.shape or a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b))
+               for a, b in zip(got, want)) or len(got) != len(want):
+            raise AssertionError(f"rng {name} {what}: kernel and twin differ")
+        for a, b in zip(got, want):
+            errs[name] = max(errs[name], (a.double() - b.double()).abs().max().item())
+
+    checked = 0
+    for seed in RNG_SEEDS:
+        key = rng.base_key(seed, dev)
+        for S in RNG_S:
+            pixel, sample, bounce = lanes(S, seed)
+            twin_keys = rng.fold_in(rng.fold_in(key, pixel), sample)
+            keys = rng.pixel_sample_keys(key, pixel, sample)
+            same("rng_fold", f"pixel_sample_keys seed {seed} S {S}", keys, twin_keys)
+            b, j = S % 64, 1 + S % 3
+            same("rng_fold", f"light_sample_keys seed {seed} S {S}",
+                 rng.light_sample_keys(keys, j),
+                 rng.fold_in(twin_keys, torch.full_like(pixel, rng.NEE_FOLD_BASE + j)))
+            for dt in (f32, f64):
+                what = f"seed {seed} S {S} {dt}"
+                same("rng_pool_uniforms" + suffix[dt], what,
+                     (rng.pool_uniforms(key, pixel, sample, bounce, dt),),
+                     (rng.per_slot_uniforms(twin_keys, bounce.long(), dt),))
+                same("rng_bounce_uniforms" + suffix[dt], what, (rng.bounce_uniforms(keys, b, dt),),
+                     (rng.per_slot_uniforms(twin_keys, torch.full_like(pixel, b), dt).T,))
+                checked += 1
+            del pixel, sample, bounce, twin_keys, keys
+    torch.cuda.synchronize()
+    log(f"[rng] pool_uniforms, pixel_sample_keys, bounce_uniforms, light_sample_keys: bitwise "
+        f"against the twin on the card at seeds {RNG_SEEDS}, S {RNG_S}, float32 and float64 "
+        f"({checked} draws of each)")
+
+    # Launches, as a pass record counts them: a traced pool pass of each dtype
+    # and a traced wave pass.
+    W, H = RNG_POOL["width"], RNG_POOL["height"]
+    for dt in (f32, f64):
+        with profiler.tracing():
+            img, _, iters = render_pool(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev),
+                                        dtype=dt, **RNG_POOL)
+        rec = profiler.passes()[-1]
+        draws = {k: v for k, v in rec.launches.items() if k in RNG_KERNELS}
+        name = "rng_pool_uniforms" + suffix[dt]
+        if draws != {name: iters} or rec.counts["pool.iter"] != iters or \
+                rec.launches["fused_bounce_raygen" + suffix[dt]] != iters:
+            raise AssertionError(f"rng pool pass {dt}: launches {dict(rec.launches)} for "
+                                 f"{iters} iterations")
+        log(f"[rng] pool pass {W}x{H} {RNG_POOL['spp']}spp {dt}: {iters} iterations, "
+            f"launches {dict(rec.launches)}")
+    W, H = RNG_WAVE["width"], RNG_WAVE["height"]
+    for dt in (f32, f64):
+        cfg = RenderConfig(dtype=dt, **RNG_WAVE)
+        with profiler.tracing():
+            render(scenes.cornell_box(dev), scenes.cornell_camera(W, H, dev), cfg)
+        rec = profiler.passes()[-1]
+        closest = rec.launches["combined_closest_small" + suffix[dt]]
+        if rec.counts["wave.bounce"] != closest - cfg.spp:     # check_wave_draws' bounces
+            raise AssertionError(f"rng wave pass {dt}: {rec.counts['wave.bounce']} bounces, "
+                                 f"{closest} closest-hit launches for {cfg.spp} waves")
+        check_wave_draws(f"rng wave pass {dt}", cfg, closest,
+                         {k: v for k, v in rec.launches.items() if k in RNG_KERNELS}, suffix[dt])
+        log(f"[rng] wave pass {W}x{H} {cfg.spp}spp {dt}, {cfg.num_light_samples} light samples: "
+            f"{rec.counts['wave.bounce']} bounces, launches {dict(rec.launches)}")
+
+    # Times, in turns, at the cells' lanes; bounds at INT32 issue or HBM.
+    def turns(fast, slow):
+        ev = [cuda_ms(fast), cuda_ms(slow, runs=10, calls=5), cuda_ms(slow, runs=10, calls=5),
+              cuda_ms(fast)]
+        qu = [queued_ms(fast), queued_ms(slow, runs=5), queued_ms(slow, runs=5), queued_ms(fast)]
+        return ev, qu
+
+    key = rng.base_key(RNG_SEEDS[1], dev)
+    out = {}
+    for cell, S in RNG_CELLS.items():
+        pixel, sample, bounce = lanes(S, 0)
+        keys = rng.pixel_sample_keys(key, pixel, sample)
+        wave = cell.endswith(".wave")
+        for dt in (f32, f64):
+            item = torch.empty((), dtype=dt).element_size()
+            if wave:
+                cases = {
+                    "rng_bounce_uniforms" + suffix[dt]: (
+                        lambda: rng.bounce_uniforms(keys, 5, dt),
+                        lambda: rng.per_slot_uniforms(keys, torch.full_like(keys[0], 5), dt).T,
+                        16 * S + 9 * item * S, 10 * THREEFRY_OPS * S)}
+                if dt == f32:
+                    cases["rng_fold"] = (
+                        lambda: rng.pixel_sample_keys(key, pixel, sample),
+                        lambda: rng.fold_in(rng.fold_in(key, pixel), sample),
+                        32 * S, 2 * THREEFRY_OPS * S)
+            else:
+                cases = {"rng_pool_uniforms" + suffix[dt]: (
+                    lambda: rng.pool_uniforms(key, pixel, sample, bounce, dt),
+                    lambda: rng.per_slot_uniforms(rng.fold_in(rng.fold_in(key, pixel), sample),
+                                                  bounce.to(torch.int64), dt),
+                    20 * S + 9 * item * S, 12 * THREEFRY_OPS * S)}
+            for name, (fast, slow, n_bytes, n_ops) in cases.items():
+                ev, qu = turns(fast, slow)
+                bnd = bound(n_bytes, n_ops, PEAK_INT32)
+                e = out.setdefault(name, {"ms_by_cell": {}, "plain_ms_by_cell": {},
+                                          "queued_ms_by_cell": {}, "plain_queued_ms_by_cell": {},
+                                          "bound_ms_by_cell": {}, "turns": {}})
+                e["ms_by_cell"][cell] = min(ev[0], ev[3])
+                e["plain_ms_by_cell"][cell] = min(ev[1], ev[2])
+                e["queued_ms_by_cell"][cell] = min(qu[0], qu[3])
+                e["plain_queued_ms_by_cell"][cell] = min(qu[1], qu[2])
+                e["bound_ms_by_cell"][cell] = bnd["bound_ms"]
+                e["turns"][cell] = {"events_ms": ev, "queued_ms": qu}
+                if cell.startswith("rtiow_1080p."):   # the entry's own lanes: RTIOW's
+                    e.update(bnd, lanes=S, cell=cell)
+                log(f"[rng] {name} {cell} S={S}: kernel {ev[0]:.4f}, {ev[3]:.4f} ms, torch "
+                    f"{ev[1]:.3f}, {ev[2]:.3f} ms (events); queued kernel {qu[0]:.4f}, "
+                    f"{qu[3]:.4f}, torch {qu[1]:.3f}, {qu[2]:.3f}; bound {bnd['bound_ms']:.4f} "
+                    f"ms ({bnd['bound_by']})")
+        del pixel, sample, bounce, keys
+    for name, e in out.items():
+        cell = e["cell"]
+        e.update(max_abs_err=errs[name], ms=e["ms_by_cell"][cell],
+                 plain_ms=e["plain_ms_by_cell"][cell], queued_ms=e["queued_ms_by_cell"][cell])
+    log("[rng] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4431,6 +4684,7 @@ def main() -> int:
 
     (t64_worst, t64_ms, t64_bnd, t64_extra), t64_launches = phase("3h", f64_traversals)
     modes, split_launches = phase("3i", check_mode_kernels, dev, smi)
+    draws = phase("3j", check_rng_kernels, dev)
     del lanes, flat, field
     phase("4", run_cornell, dev)
     phase("4b", run_mesh_frame, dev)
@@ -4469,6 +4723,8 @@ def main() -> int:
     modes["fused_bounce_raygen"]["launches"] = launches["fused_bounce_raygen"]
     modes["fused_bounce_raygen_on_pbr"]["launches"] = cluster_launches["fused_bounce_raygen_on_pbr"]
     modes["fused_bounce_raygen_f64"]["launches"] = f64_pool_launches["fused_bounce_raygen_f64"]
+    # The draw's: launches of the main path's frames, rng_fold the float32 wave's.
+    main_draws = {**f64_pool_launches, **f64_wave_launches, **launches, **wave_launches}
     record = {"kernels": [
         split_entry(k, src, rep, {**launches, **split_launches}[k], worst[k], ms["many_spheres"],
                     which, bnd[k])
@@ -4521,6 +4777,12 @@ def main() -> int:
         for k, (src, rep) in {**MODE_KERNELS,
                               "fused_bounce_raygen_on_pbr": MODE_KERNELS["fused_bounce_raygen"]
                               }.items()
+    ] + [
+        entry(k, src, rep, main_draws[k], draws[k]["max_abs_err"],
+              (draws[k]["ms"], draws[k]["plain_ms"]), draws[k],
+              **{x: v for x, v in draws[k].items() if x not in (
+                  "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+        for k, (src, rep) in RNG_KERNELS.items()
     ]}
     print(json.dumps(record))
     print(smi)

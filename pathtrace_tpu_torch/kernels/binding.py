@@ -38,6 +38,14 @@ both types but for ``triangle_closest``'s (:data:`ROWS_PER_THREAD_F64`),
 ``bvh_closest``'s (:data:`BVH_TEAM_F64`) and ``binned_round_closest``'s
 (:data:`BINNED_TEAM_F64`). Nothing falls back from one instance to the
 other.
+
+The random-number draw has kernels too (``csrc/rng.cu``; its plain-torch
+twin is ``utils/rng.py``, which the CPU takes): ``pt_rng_pool_uniforms``
+(the pool's (9, S) uniforms from the base key, pixel, sample and bounce in
+one launch), ``pt_rng_bounce_uniforms`` (the wave's from per-lane keys and
+one bounce) and ``pt_rng_fold`` (the key folds of ``pixel_sample_keys`` and
+``light_sample_keys``); the two draws have ``_f64`` instances. Every call
+gives the twin's bits: integers only.
 """
 
 from __future__ import annotations
@@ -53,8 +61,32 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 _lib: ctypes.CDLL | None = None
+
+# The launch-counter suffix of each float instance (``LAUNCHES`` of
+# ``ops/shade.py`` and ``utils/rng.py``): a float64 instance counts under its
+# name with ``_f64`` appended.
+SUFFIX = {torch.float32: "", torch.float64: "_f64"}
+
+
+def check(name, x, dtype, shape):
+    """Raises unless ``x`` is a contiguous ``dtype`` tensor of ``shape``:
+    what a kernel reads, checked by the wrappers before either route."""
+    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {shape}, got "
+            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
+        )
+
+
+def device_kind(x: torch.Tensor) -> str:
+    """The route of a wrapper call: ``"cpu"`` (the torch twin) or ``"cuda"``
+    (the kernel); raises on any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
 
 SPLITS = (1, 2, 4, 8, 16)      # threads a lane's sweep can take
 SHARED_LIMIT = 48 * 1024       # dynamic shared memory without an opt-in attribute
@@ -266,6 +298,14 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, "pt_resident_anyhit" + suffix)
             fn.argtypes = [_P, _P, _I, _I] + [_P] * 5 + [_I, _P]
             fn.restype = _I
+            fn = getattr(lib, "pt_rng_pool_uniforms" + suffix)
+            fn.argtypes = [_P] * 6 + [_I, _P]
+            fn.restype = _I
+            fn = getattr(lib, "pt_rng_bounce_uniforms" + suffix)
+            fn.argtypes = [_P, _P, _L, _P, _I, _P]
+            fn.restype = _I
+        lib.pt_rng_fold.argtypes = [_P, _P, _I, _P, _L, _P, _P, _I, _P]
+        lib.pt_rng_fold.restype = _I
         _lib = lib
     return _lib
 
@@ -546,3 +586,40 @@ def launch_resident_anyhit(tables, o, d, t_min, t_max, occ, team=None) -> None:
             t_min.shape[0], _stream(t_min.device),
         )
     _raise_on(code, "resident_anyhit")
+
+
+def launch_rng_pool_uniforms(key, pixel, sample, bounce, u) -> None:
+    """``u`` ``(9, S)`` float32 or float64 <- the draw of every lane under
+    the base ``key`` (two int64 words on the card), ``pixel``/``sample``
+    int64 ``(S,)`` and ``bounce`` int32 ``(S,)``; checked by
+    ``utils/rng.py :: pool_uniforms``."""
+    fn = _instance(library(), "pt_rng_pool_uniforms", u)
+    with torch.cuda.device(u.device):
+        code = fn(key[0].data_ptr(), key[1].data_ptr(), pixel.data_ptr(), sample.data_ptr(),
+                  bounce.data_ptr(), u.data_ptr(), u.shape[1], _stream(u.device))
+    _raise_on(code, "rng_pool_uniforms")
+
+
+def launch_rng_bounce_uniforms(keys, bounce: int, u) -> None:
+    """``u`` ``(9, N)`` float32 or float64 <- the draw of ``bounce`` under
+    the per-lane ``keys`` (two int64 ``(N,)`` words)."""
+    fn = _instance(library(), "pt_rng_bounce_uniforms", u)
+    with torch.cuda.device(u.device):
+        code = fn(keys[0].data_ptr(), keys[1].data_ptr(), bounce, u.data_ptr(), u.shape[1],
+                  _stream(u.device))
+    _raise_on(code, "rng_bounce_uniforms")
+
+
+def launch_rng_fold(key, key_stride: int, data0, value0: int, data1, out) -> None:
+    """``out`` int64 ``(2, N)`` <- ``key`` (two int64 words, one for every
+    lane at ``key_stride`` 0, a word a lane at 1) folded with ``data0`` (int64
+    ``(N,)``; None: ``value0`` for every lane), then with ``data1`` (None:
+    no second fold)."""
+    lib = library()
+    with torch.cuda.device(out.device):
+        code = lib.pt_rng_fold(
+            key[0].data_ptr(), key[1].data_ptr(), key_stride,
+            None if data0 is None else data0.data_ptr(), value0,
+            None if data1 is None else data1.data_ptr(), out.data_ptr(), out.shape[1],
+            _stream(out.device))
+    _raise_on(code, "rng_fold")

@@ -29,7 +29,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 SOURCES = ("fused_bounce.cu", "shadow_any_hit.cu", "intersect.cu", "bvh.cu",
-           "combined_closest_small.cu", "triangle_closest.cu", "binned.cu", "resident.cu")
+           "combined_closest_small.cu", "triangle_closest.cu", "binned.cu", "resident.cu",
+           "rng.cu")
 HEADERS = ("geom.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -57,6 +57,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.binding import SUFFIX as _SUFFIX, check as _check, device_kind as _device_kind
 from ..models import materials as mat
 from ..models.scene import Scene
 
@@ -100,7 +101,6 @@ _LGT_COLS = 18
 # ops/intersect.py), and a float64 instance under its name with ``_f64``
 # appended.
 LAUNCHES: collections.Counter = collections.Counter()
-_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 
 def _round8(n):
@@ -1014,14 +1014,6 @@ def shadow_any_hit_reference(tables: Tables, o, d, t_max, *, eps: float = EPS):
 # Dispatching wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, x, dtype, shape):
-    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: expected contiguous {dtype} {shape}, got "
-            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
-        )
-
-
 def _float_dtype(x) -> torch.dtype:
     """The float dtype of a call, from its first float input: float32 or
     float64, the two the kernels have instances for."""
@@ -1040,12 +1032,6 @@ def _check_tables(tables: Tables, device, dtype=torch.float32):
     for tname, tab in zip(("sph", "tri", "lgt"), tables):
         if tab.device != device:
             raise ValueError(f"tables.{tname} on {tab.device}, rays on {device}")
-
-
-def _device_kind(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type
 
 
 def launch_name(raygen: bool, fuse_shadow: bool, on_pbr: bool, dtype) -> str:

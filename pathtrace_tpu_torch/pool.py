@@ -379,8 +379,7 @@ def _pool_loop(
                 # One (9, S) draw covers every decision of this bounce,
                 # including the camera jitter (slots 7-8) of refilled lanes.
                 with profiler.span("pool.rng"):
-                    keys = rng.pixel_sample_keys(key, pixel, sample)
-                    u = rng.per_slot_uniforms(keys, bounce.to(i64), fdt)
+                    u = rng.pool_uniforms(key, pixel, sample, bounce, fdt)
                 px, py = pixel % width, (height - 1) - pixel // width
                 if composed:
                     jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)

@@ -19,19 +19,20 @@ one ``pool._pool_loop`` call (root span ``pool.pass``) or one
 in entry order and its counters: the entries of each span name (the host
 syncs of each ``sync.*`` site, ``sync.h2d`` the copies of host constants
 (:func:`from_host`), ``pool.iter`` iterations, ``wave.bounce`` bounces)
-and the hand-written kernel launches by name (``shade.LAUNCHES`` over the
-pass).
+and the hand-written kernel launches by name over the pass: the
+intersection and shading kernels' (``shade.LAUNCHES``) and the
+random-number draw's (``utils/rng.py``'s ``LAUNCHES``).
 
 Tracing is on for a pass inside :func:`tracing`, or when a
 ``torch.profiler`` session is active as the pass starts; the test is made
 once a pass, never a span. Off, a span site costs one shared no-op context:
 no allocation, no clock read, no device call (0.2-0.5 us on an H100 host).
-On, a span reads the clock and the hand-written launch count at entry and
-exit; on a CUDA device it also records a ``torch.cuda.Event`` at entry and
-exit (no device operation: the events fix where the span's device work sits
-in stream order, read by :meth:`PassRecord.device_ms`); while a profiler
-session is active it enters ``torch.profiler.record_function(name)`` too,
-so profiles show the phases. That is 25-40 us a span on an H100 host, a
+On, a span reads the clock and the intersection and shading kernels'
+launch count at entry and exit; on a CUDA device it also records a
+``torch.cuda.Event`` at entry and exit (no device operation: the events fix
+where the span's device work sits in stream order, read by
+:meth:`PassRecord.device_ms`); while a profiler session is active it enters
+``torch.profiler.record_function(name)`` too, so profiles show the phases. That is 25-40 us a span on an H100 host, a
 few percent of a pool iteration (9 spans fused, ~28 composed).
 
 An operator turns it on and reads the pass records::
@@ -81,6 +82,7 @@ class PassRecord:
 
     def __init__(self, kind: str, device, profiled: bool):
         from .ops import shade
+        from .utils import rng
 
         self.pass_id = next(_PASS_IDS)
         self.kind = kind
@@ -90,7 +92,7 @@ class PassRecord:
         self.parents: list = []      # index of the parent span, -1 for the pass
         self.start_ns: list = []
         self.end_ns: list = []
-        self.launch_in: list = []    # hand-written launches of the pass before entry
+        self.launch_in: list = []    # shade.LAUNCHES launches of the pass before entry
         self.launch_out: list = []   # ... and before exit
         self.events = [] if self.device.type == "cuda" else None
         self._stream = torch.cuda.current_stream(self.device) if self.events is not None else None
@@ -99,6 +101,8 @@ class PassRecord:
         self._counter = shade.LAUNCHES
         self._before = collections.Counter(shade.LAUNCHES)
         self._base = sum(self._before.values())
+        self._draws = rng.LAUNCHES
+        self._draws_before = collections.Counter(rng.LAUNCHES)
         self._stack: list = []
 
     @property
@@ -176,7 +180,8 @@ class _Pass:
         global _active
         rec, _active = self._rec, None
         rec._exit(self._i, self._rf)
-        rec.launches = collections.Counter(rec._counter) - rec._before
+        rec.launches = ((collections.Counter(rec._counter) - rec._before)
+                        + (collections.Counter(rec._draws) - rec._draws_before))
         _PASSES.append(rec)
         return False
 
