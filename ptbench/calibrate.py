@@ -11,6 +11,9 @@ as a run does: the lower readings. For each of ``--control-seeds`` it puts
 the reference computed in bfloat16, the nearest precision below the
 configuration's float32, in the program's place and compares it the same
 way: the upper readings. Prints one JSON line a reading on standard output.
+A configuration of several frames (``cameras``) is read in this one process,
+every frame on its one rank, at pixels drawn over all of them as a run draws
+them.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def readings(parts: dict, passes: int, seeds, control_seeds, device):
     cfg, traffic = parts["config"], parts["traffic"]
     desc = scene.build(cfg["scene"])
     system = program.build(desc, cfg, device)
-    pixels = cfg["width"] * cfg["height"]
+    cams = scene.cameras(cfg)
+    pixels = len(cams) * cfg["width"] * cfg["height"]    # every frame's, as a run draws them
     n_check = int(parts["check"]["pixels"])
     engines = importlib.import_module(f"ptbench.engines.{traffic['engine']}")
     got = {}
@@ -78,10 +82,10 @@ def readings(parts: dict, passes: int, seeds, control_seeds, device):
 
     def ref(seed, ids, lo, hi, dtype):
         t0 = time.perf_counter()
-        out = reference.render_pixels(
-            desc, cfg["camera"], ids.to(device), lo, hi, width=cfg["width"],
-            height=cfg["height"], seed=seed, integrator=cfg["integrator"],
-            max_bounces=cfg["max_bounces"], dtype=dtype, device=device)
+        out = reference.render_frames(
+            desc, cams, ids, lo, hi, width=cfg["width"], height=cfg["height"], seed=seed,
+            integrator=cfg["integrator"], max_bounces=cfg["max_bounces"], dtype=dtype,
+            device=device)
         return out, time.perf_counter() - t0
 
     want = {}

@@ -14,6 +14,12 @@ Two numbers are compared, each with its limit from the cell's check file
 * ``median_rel_err``: the median over the checked pixels of that pixel's
   absolute difference over its radiance: the rounding level at which the
   two sides agree where no path parted.
+
+The pixels are drawn over every frame of the configuration (framebuffer ids
+``f * W * H + y * W + x``; one frame: exactly the draw over ``W * H``), and
+both numbers are taken over all of them together. Where the frames are
+rendered over ranks, the draw has to reach each rank's block of frames
+(:func:`missed_blocks`).
 """
 
 from __future__ import annotations
@@ -27,6 +33,21 @@ def pixel_sample(seed: int, num_pixels: int, count: int) -> torch.Tensor:
     """``count`` distinct pixel ids drawn from the seed, ascending."""
     g = torch.Generator().manual_seed(seed)
     return torch.sort(torch.randperm(num_pixels, generator=g)[:count]).values
+
+
+def frame_blocks(frames: int, ranks: int) -> list:
+    """Each rank's frames, by rank: contiguous blocks of ``ceil(F / ranks)``
+    (the last may be short or empty), as frames lie over a ``dp = ranks``
+    mesh."""
+    per = -(-frames // ranks)
+    return [range(d * per, min((d + 1) * per, frames)) for d in range(ranks)]
+
+
+def missed_blocks(ids: torch.Tensor, frame_pixels: int, frames: int, ranks: int) -> list:
+    """The ranks that render a frame of which no id in ``ids`` is a pixel."""
+    hit = set((ids // frame_pixels).tolist())
+    return [d for d, block in enumerate(frame_blocks(frames, ranks))
+            if len(block) and not hit.intersection(block)]
 
 
 def compare(program: torch.Tensor, reference: torch.Tensor) -> dict:

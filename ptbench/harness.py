@@ -25,7 +25,6 @@ import importlib
 import importlib.util
 import json
 import os
-import sys
 import tempfile
 import time
 import traceback
@@ -33,14 +32,11 @@ from pathlib import Path
 
 import torch
 
-from ptbench import check, reference, scene, yardstick
+from ptbench import check, ranks, reference, scene, yardstick
+from ptbench.ranks import log
 
 BENCH_DIR = Path(__file__).resolve().parent
 TRACE_SPAN = "ptbench.trace_window"
-
-
-def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
 
 
 def load_json(path: Path) -> dict:
@@ -59,7 +55,7 @@ def cell_parts(spec: dict, workload: str) -> dict:
     def mine(m):
         return workload in m.get("workloads", [workload])
 
-    return {
+    parts = {
         "workload": wl,
         "config": load_json(BENCH_DIR.parent / cfg_entry["file"]),
         "traffic": load_json(BENCH_DIR / "traffic" / f"{wl['traffic']}.json"),
@@ -67,6 +63,10 @@ def cell_parts(spec: dict, workload: str) -> dict:
         "end_to_end": [m for m in spec["end_to_end"] if mine(m)],
         "per_layer": [m for m in spec["per_layer"] if mine(m)],
     }
+    planting = [k for k, v in parts.items() if isinstance(v, dict) and "plant" in v]
+    if planting:    # a plant is a test's alone (``planted``)
+        raise ValueError(f"the {planting} of {workload} name a plant; no cell may")
+    return parts
 
 
 def metric_module(name: str):
@@ -159,65 +159,126 @@ def trace_events(prof, host: bool) -> list:
         os.remove(path)
 
 
+@contextlib.contextmanager
+def planted(name: str | None, rank: int):
+    """A test's fault or probe, ``parts["plant"]`` = ``"module:function"``:
+    ``function(rank)`` returns a context manager that is held around the
+    rank's run, in every rank's process. The cells' own parts name none
+    (``cell_parts`` refuses one)."""
+    if not name:
+        yield
+        return
+    module, function = name.split(":")
+    with getattr(importlib.import_module(module), function)(rank):
+        yield
+
+
 def run_cell(spec: dict, workload: str, seed: int, seconds: float, trace: bool,
              device="cuda", t_start: float | None = None, parts: dict | None = None) -> dict:
     """One run of ``workload``; returns the result line's object. ``parts``
-    replaces the cell's files (tests drive small cells through it)."""
+    replaces the cell's files (tests drive small cells through it). A cell
+    whose workload asks for ``chips: N > 1`` runs as ``N`` ranks, this
+    process rank 0, which starts the others (``ptbench/ranks.py``)."""
+    t_start = time.perf_counter() if t_start is None else t_start
+    job = {"workload": workload, "seed": seed & 0xFFFFFFFF,   # the renderer's key: 32 bits
+           "seconds": seconds, "trace": bool(trace), "device": str(device),
+           "parts": parts or cell_parts(spec, workload)}
+    n = int(job["parts"]["workload"]["chips"])
+    if n == 1:
+        return run_rank(job, 0, t_start)
+    from ptbench import program
+
+    program.prepare(device)
+    with ranks.Peers(job, n, BENCH_DIR.parent) as job:
+        return run_rank(job, 0, t_start)
+
+
+def run_rank(job: dict, rank: int, t_start: float | None = None) -> dict | None:
+    """Rank ``rank``'s part of a run (``job`` as :func:`run_cell` and
+    ``ranks.Peers`` make it); returns the result on rank 0, None on a peer.
+
+    Every rank builds the scene and its engine, warms up, runs the window's
+    passes (as many as rank 0's clock allows) and, with ``trace``, the side
+    passes; rank 0 alone profiles and counts them, reads the metrics and
+    checks its framebuffer, which holds every rank's frames."""
     from ptbench import program
 
     t_start = time.perf_counter() if t_start is None else t_start
-    parts = parts or cell_parts(spec, workload)
+    workload, seed, seconds, trace = job["workload"], job["seed"], job["seconds"], job["trace"]
+    parts, n, device = job["parts"], job.get("ranks", 1), job["device"]
     cfg, traffic, chk = parts["config"], parts["traffic"], parts["check"]
-    seed = seed & 0xFFFFFFFF   # the renderer's key is one 32-bit word
-    desc = scene.build(cfg["scene"])
-    system = program.build(desc, cfg, device)
-    engine = importlib.import_module(f"ptbench.engines.{traffic['engine']}").Engine(
-        system, traffic, seed)
-    pixels = cfg["width"] * cfg["height"]
+    with contextlib.ExitStack() as group:
+        group.enter_context(planted(parts.get("plant"), rank))
+        if n > 1:
+            device = program.join(job["coordinator"], n, rank, device, job["timeout_s"])
+            group.callback(program.leave)   # after the last collective
+        desc = scene.build(cfg["scene"])
+        system = program.build(desc, cfg, device)
+        engine = importlib.import_module(f"ptbench.engines.{traffic['engine']}").Engine(
+            system, traffic, seed)
+        cams = system.cameras
+        frame_px = cfg["width"] * cfg["height"]
+        pixels = len(cams) * frame_px
+        blocks = check.frame_blocks(len(cams), n)
 
-    # Set-up ends after one untimed pass of the cell's own shapes.
-    engine.warm()
-    _sync(device)
-    setup_s = time.perf_counter() - t_start
-    if torch.device(device).type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-
-    walls, stats = [], []
-    t0 = time.perf_counter()
-    while True:
-        a = time.perf_counter()
-        stats.append(engine.window_pass())
+        # Set-up ends after one untimed pass of the cell's own shapes on
+        # every rank.
+        engine.warm()
         _sync(device)
-        b = time.perf_counter()
-        walls.append(b - a)
-        if b - t0 >= seconds:
-            break
-    window_s = b - t0
-    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
-    lo, hi = engine.samples()
-    log(f"[window] {workload}: {len(walls)} passes of {engine.spp} spp in {window_s:.3f} s, "
-        f"samples [{lo}, {hi}), set-up {setup_s:.3f} s; pass walls {[round(w, 3) for w in walls]}"
-        f", iterations {[p.get('iters') for p in stats]}")
+        ranks.barrier()
+        setup_s = time.perf_counter() - t_start
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
 
-    rec = {"config": cfg, "traffic": traffic, "engine": traffic["engine"], "pixels": pixels,
-           "spp": engine.spp, "setup_s": setup_s, "window_s": window_s, "walls": walls,
-           "passes": stats, "trace": None, "trace_samples": 0, "work": {}}
-    if trace:
-        n_t = int(traffic.get("trace_passes", 1))
-        t_tr = time.perf_counter()
-        rec["trace"] = profile_passes(engine, hi, n_t, device, host=False)
-        rec["trace_samples"] = n_t * engine.side_spp * pixels
-        t_host = time.perf_counter()
-        gaps = profile_passes(engine, hi, n_t, device, host=True).idle_gaps()
-        t_work = time.perf_counter()
-        counters = {m["name"]: mod for m in parts["per_layer"]
-                    if hasattr(mod := metric_module(m["name"]), "LAUNCHER")}
-        with counting(counters, rec["work"]):
-            for k in range(n_t):
-                engine.side_pass(hi + k * engine.side_spp)
+        walls, stats = [], []
+        t0 = time.perf_counter()
+        while True:
+            a = time.perf_counter()
+            stats.append(engine.window_pass())
             _sync(device)
-        log(f"[trace] device pass {t_host - t_tr:.1f} s, host-traced pass {t_work - t_host:.1f} s"
-            f", counted replay {time.perf_counter() - t_work:.1f} s")
+            b = time.perf_counter()
+            walls.append(b - a)
+            if not ranks.agree(b - t0 < seconds):    # rank 0's clock
+                break
+        window_s = b - t0
+        peak = (torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda"
+                else 0)
+        peaks, passes = zip(*ranks.gather((peak, len(walls))))
+        lo, hi = engine.samples()
+        log(f"[window] {workload}: {len(walls)} passes of {engine.spp} spp in "
+            f"{window_s:.3f} s, samples [{lo}, {hi}), set-up {setup_s:.3f} s; pass walls "
+            f"{[round(w, 3) for w in walls]}, iterations {[p.get('iters') for p in stats]}"
+            + (f"; rank {rank} of {n}, passes by rank {list(passes)}" if n > 1 else ""))
+
+        rec = {"config": cfg, "traffic": traffic, "engine": traffic["engine"],
+               "pixels": pixels, "spp": engine.spp, "setup_s": setup_s,
+               "window_s": window_s, "walls": walls, "passes": stats, "trace": None,
+               "trace_samples": 0, "work": {}}
+        if trace:
+            n_t = int(traffic.get("trace_passes", 1))
+            if rank == 0:
+                t_tr = time.perf_counter()
+                rec["trace"] = profile_passes(engine, hi, n_t, device, host=False)
+                # Rank 0's own frames: what its trace holds.
+                rec["trace_samples"] = n_t * engine.side_spp * frame_px * len(blocks[0])
+                t_host = time.perf_counter()
+                gaps = profile_passes(engine, hi, n_t, device, host=True).idle_gaps()
+                t_work = time.perf_counter()
+                counters = {m["name"]: mod for m in parts["per_layer"]
+                            if hasattr(mod := metric_module(m["name"]), "LAUNCHER")}
+                with counting(counters, rec["work"]):
+                    for k in range(n_t):
+                        engine.side_pass(hi + k * engine.side_spp)
+                    _sync(device)
+                log(f"[trace] device pass {t_host - t_tr:.1f} s, host-traced pass "
+                    f"{t_work - t_host:.1f} s, counted replay "
+                    f"{time.perf_counter() - t_work:.1f} s")
+            else:   # in lock-step with rank 0's traced, host-traced and counted passes
+                for k in range(3 * n_t):
+                    engine.side_pass(hi + k % n_t * engine.side_spp)
+                _sync(device)
+    if rank != 0:
+        return None
 
     wanted = parts["per_layer"] if trace else parts["end_to_end"]
     metrics = {}
@@ -225,27 +286,33 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float, trace: bool,
         value = metric_module(m["name"]).read(rec)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    result = {"correct": False, "attempted": len(walls), "failed": 0, "metrics": metrics,
-              "device": {"count": 1, "memory_peak_bytes": peak}}
+    result = {"correct": False, "attempted": len(walls), "attempted_by_rank": list(passes),
+              "failed": 0, "metrics": metrics,
+              "device": {"count": n, "memory_peak_bytes": max(peaks),
+                         "memory_peak_bytes_by_rank": list(peaks)}}
     if trace and rec["trace"] is not None:
         t = rec["trace"]
         result["device"].update(busy_s=t.busy_s, window_s=t.window_s)
         result["breakdown"] = {"device_ops": t.top_ops(), "idle_gaps": gaps}
 
-    # The check: the window's framebuffer at pixels drawn from the seed,
-    # against the reference, once the program's state is freed.
+    # The check: the window's framebuffer at pixels drawn from the seed over
+    # every frame, against the reference, once the program's state is freed.
     ids = check.pixel_sample(seed, pixels, int(chk["pixels"]))
+    missed = check.missed_blocks(ids, frame_px, len(cams), n)
+    if missed:
+        raise RuntimeError(f"the check's {ids.numel()} pixels miss every frame of rank(s) "
+                           f"{missed}; the frames by rank are {blocks}")
     got = engine.framebuffer()[ids.to(engine.framebuffer().device)].to("cpu", torch.float64)
-    del engine, system
+    del engine, system, cams
     rec.clear()
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    want = reference.render_pixels(
-        desc, cfg["camera"], ids.to(device), lo, hi, width=cfg["width"],
-        height=cfg["height"], seed=seed, integrator=cfg["integrator"],
-        max_bounces=cfg["max_bounces"], device=device)
+    want = reference.render_frames(
+        desc, scene.cameras(cfg), ids, lo, hi, width=cfg["width"], height=cfg["height"],
+        seed=seed, integrator=cfg["integrator"], max_bounces=cfg["max_bounces"],
+        device=device)
     numbers = check.compare(got, want)
     log(f"[check] reference over {ids.numel()} pixels x {hi - lo} samples in "
         f"{time.perf_counter() - t_ref:.3f} s")

@@ -540,3 +540,19 @@ def render_pixels(desc: SceneDescription, camera: dict, pixels, sample_lo: int,
         rad = trace(sc, k0, k1, o, d, integrator=integrator, max_bounces=max_bounces)
         out.index_add_(0, slot, rad.to(torch.float64))
     return out
+
+
+def render_frames(desc: SceneDescription, cameras: list, ids, sample_lo: int, sample_hi: int,
+                  *, width: int, height: int, device="cpu", **kw):
+    """:func:`render_pixels` at framebuffer ids ``f * W * H + y * W + x``
+    over frames, each frame's pixels under its camera ``cameras[f]``:
+    radiance sums ``(P, 3)`` in float64, in the order of ``ids``."""
+    ids = torch.as_tensor(ids, dtype=torch.int64, device=device)
+    frame_px = width * height
+    frame = ids // frame_px
+    out = torch.zeros((ids.shape[0], 3), dtype=torch.float64, device=device)
+    for f in frame.unique().tolist():
+        sel = frame == f
+        out[sel] = render_pixels(desc, cameras[f], ids[sel] - f * frame_px, sample_lo,
+                                 sample_hi, width=width, height=height, device=device, **kw)
+    return out

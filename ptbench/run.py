@@ -12,7 +12,8 @@ lines of standard error and under ``checks`` in the line.
 
 The program's kernel library is built in ``pathtrace_tpu_torch/_build/``
 (the first run of a checkout builds it). Exits non-zero with no line when
-there is no GPU, and when JAX or the JAX package was loaded.
+there is no GPU, when JAX or the JAX package was loaded (in any rank's
+process), and when a rank of a multi-rank cell failed.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ptbench import harness
+    from ptbench import harness, ranks
 
     spec = harness.load_json(ROOT / "BENCHMARK.json")
     parts = harness.cell_parts(spec, args.workload)
@@ -68,8 +69,12 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",
               file=sys.stderr)
         return 2
-    result = harness.run_cell(spec, args.workload, args.seed, args.seconds, bool(args.trace),
-                              device="cuda", t_start=T_START, parts=parts)
+    try:
+        result = harness.run_cell(spec, args.workload, args.seed, args.seconds,
+                                  bool(args.trace), device="cuda", t_start=T_START, parts=parts)
+    except ranks.RanksFailed as e:
+        print(f"ptbench: {e}; no result", file=sys.stderr)
+        return ranks.EXIT_RANK_FAILED
     bad = loaded_forbidden()
     if bad:
         print(f"ptbench: the process loaded {bad}; nothing of JAX may run", file=sys.stderr)

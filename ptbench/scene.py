@@ -6,7 +6,7 @@ gives) builds a :class:`SceneDescription` in float64 numpy: triangles as
 vertex triples, spheres as centre and radius, and a material for each. The
 program receives it through its public scene builder (``ptbench/program.py``)
 and the reference through ``ptbench/reference.py``; neither sees what the
-other made from it.
+other made from it. So do the configuration's frames (:func:`cameras`).
 """
 
 from __future__ import annotations
@@ -92,3 +92,14 @@ def build(scene_spec: dict) -> SceneDescription:
     ``build(**params)``."""
     recipe = importlib.import_module(f"ptbench.recipes.{scene_spec['recipe']}")
     return recipe.build(**scene_spec.get("params", {}))
+
+
+def cameras(cfg: dict) -> list:
+    """The configuration's frames, one camera dict each (``origin``,
+    ``target``, ``up``, ``fov``): its ``camera`` (one frame), or the list
+    that its ``cameras`` entry, ``{"recipe": <name>, "params": {...}}``,
+    builds with ``ptbench/cameras/<name>.py``'s ``build(**params)``."""
+    if "camera" in cfg:
+        return [cfg["camera"]]
+    recipe = importlib.import_module(f"ptbench.cameras.{cfg['cameras']['recipe']}")
+    return recipe.build(**cfg["cameras"].get("params", {}))

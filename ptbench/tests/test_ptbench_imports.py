@@ -14,7 +14,7 @@ from ptbench.run import FORBIDDEN, loaded_forbidden
 
 # The modules of the check's reference side: none may import the program.
 REFERENCE_SIDE = ("reference.py", "refmath.py", "scene.py", "check.py", "materials",
-                  "recipes")
+                  "recipes", "cameras")
 
 
 def _imports(path: Path) -> set:
@@ -49,7 +49,8 @@ def test_the_reference_side_imports_nothing_of_the_program():
 
 def test_the_reference_loads_nothing_of_the_program_or_jax():
     code = ("import sys; import ptbench.reference, ptbench.check; "
-            "import ptbench.recipes.knot_field, ptbench.recipes.sphere_field; "
+            "import ptbench.recipes.knot_field, ptbench.recipes.sphere_field, "
+            "ptbench.cameras.orbit; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'pathtrace_tpu_torch', 'pathtrace_tpu', 'jax', 'jaxlib', 'flax'}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
