@@ -204,17 +204,19 @@ The random-number draw (``csrc/rng.cu``; twin ``utils/rng.py``):
 
 Multi-process rendering (``parallel/``), every rank a process on the card:
 
-9.  9a: one NCCL rank (world size 1) renders BASELINE config 5's first frame
-    (``mesh_scene()``, ``sweep_cameras(120, 640, 360)``, 16 spp, MIS, depth
-    8, 32,768 slots) through ``frames_pool_sharded``, timed (wall, Mrays/s),
-    launching ``bvh_closest``, ``bvh_anyhit``, ``sphere_closest`` and
-    ``any_hit``; its rays, iterations and image equal this process's
-    ``render_pool`` of the camera bit for bit; 9b: two gloo ranks share the
+9.  9a: one NCCL rank (world size 1) renders BASELINE config 5's first two
+    frames (``mesh_scene()``, ``sweep_cameras(120, 640, 360)``, 16 spp, MIS,
+    depth 8, 32,768 slots) through ``frames_pool_sharded``, both in one pool
+    of the stacked cameras, timed (wall, Mrays/s), launching
+    ``bvh_closest``, ``bvh_anyhit``, ``sphere_closest`` and ``any_hit``;
+    each frame's rays and image equal this process's ``render_pool`` of its
+    camera bit for bit, the block's iterations on its first frame; 9b: two gloo ranks share the
     card: ``render_pool_sharded`` on phase 4's Cornell frame at ``dp=2``
     (bitwise against ``render_pool``) and at 2 spp at ``sp=2`` (rays exact,
     image within 1e-5); on three 32x32 Cornell frames at ``dp=2``,
     ``frames_sharded`` (within the image budget of ``render.render``) and
-    ``frames_pool_sharded`` (bitwise against ``render_pool``); 9c: ``python -m
+    ``frames_pool_sharded`` (bitwise against ``render_pool``, each rank's
+    iterations on its block's first frame); 9c: ``python -m
     pathtrace_tpu_torch --coordinator ... --num-processes 2 --process-id
     {0,1} animate`` writes two PNGs from rank 0. Every rank has a time limit
     and a failing rank's peers are killed.
@@ -4182,7 +4184,7 @@ def check_mode_kernels(dev, smi: str):
 CONFIG5 = dict(width=640, height=360, spp=16, integrator="mis", max_bounces=8, seed=0)
 CONFIG5_TRIS = 70000        # mesh_scene(70000), the scene of phase 3b
 CONFIG5_CAMERAS = 120       # sweep_cameras(120, 640, 360)
-CONFIG5_FRAMES = (0,)       # frames 0 and 1 took phase 9 to 45.2 s of its 45 (H100, 700 W)
+CONFIG5_FRAMES = (0, 1)     # one rank's block of two frames: one pool, its slots move between them
 CONFIG5_SLOTS = 32768
 MP_KERNELS = ("bvh_closest", "bvh_anyhit", "sphere_closest", "any_hit")   # 9a must launch them
 SHARDED_FRAMES = dict(width=32, height=32, spp=2, integrator="mis", max_bounces=16, seed=0)
@@ -4347,28 +4349,32 @@ def run_cli_ranks(out_dir: str, device: str, extra=()):
 
 def check_config5(dev, mesh, got, launch_s: float, smi: str) -> None:
     """Phase 9a's checks: the rank launched the mesh path's kernels, and each
-    frame's rays, iterations and image equal this process's ``render_pool``
-    of the same camera, bit for bit."""
+    frame's rays and image equal this process's ``render_pool`` of the same
+    camera, bit for bit. The rank renders its frames in one pool, whose
+    iterations sit on the first frame: one frame's are ``render_pool``'s."""
     from pathtrace_tpu_torch.models import scenes
-    from pathtrace_tpu_torch.pool import ray_count, render_pool
+    from pathtrace_tpu_torch.pool import FLUSH_EVERY, ray_count, render_pool
 
     launches = json.loads(str(got["launches"]))
     if any(launches.get(k, 0) <= 0 for k in MP_KERNELS):
         raise AssertionError(f"9a launches {launches} miss one of {MP_KERNELS}")
     W, H, spp = CONFIG5["width"], CONFIG5["height"], CONFIG5["spp"]
     sweep = scenes.sweep_cameras(CONFIG5_CAMERAS, W, H, device=dev)
-    ref_s = []
+    ref_s, ref_iters = [], []
     for j, f in enumerate(CONFIG5_FRAMES):
         t0 = time.perf_counter()
         img, counters, iters = render_pool(mesh, sweep[f], num_slots=CONFIG5_SLOTS, **CONFIG5)
         ref = (img.reshape(H, W, 3) / spp).cpu().numpy()
         ref_s.append(time.perf_counter() - t0)
-        if (ray_count(counters), iters) != (int(got["rays"][j]), int(got["iters"][j, 0])) \
-                or not np.array_equal(ref, got["frames"][j]):
+        ref_iters.append(iters)
+        if ray_count(counters) != int(got["rays"][j]) or not np.array_equal(ref, got["frames"][j]):
             raise AssertionError(
-                f"9a frame {f}: rays/iters {got['rays'][j]}/{got['iters'][j].tolist()} vs "
-                f"render_pool's {ray_count(counters)}/{iters}, max image diff "
-                f"{np.abs(ref - got['frames'][j]).max()}")
+                f"9a frame {f}: rays {got['rays'][j]} vs render_pool's {ray_count(counters)}, "
+                f"max image diff {np.abs(ref - got['frames'][j]).max()}")
+    block = got["iters"][:, 0].tolist()
+    if (block[1:] != [0] * (len(block) - 1) or block[0] <= 0 or block[0] % FLUSH_EVERY
+            or (len(block) == 1 and block != ref_iters)):
+        raise AssertionError(f"9a iterations {block}, render_pool's by frame {ref_iters}")
     rays, wall = int(got["rays"].sum()), float(got["wall"])
     log("[multiprocess] 9a " + json.dumps({
         "workload": f"config 5: mesh_scene {mesh.num_tris} tris, sweep_cameras("
@@ -4404,14 +4410,21 @@ def check_cornell(dev, got, launch_s: float) -> None:
     cfg = RenderConfig(**SHARDED_FRAMES)
     frame_kw = {k: getattr(cfg, k) for k in ("width", "height", "spp", "integrator",
                                              "max_bounces", "seed")}
+    its = []
     for i, cam in enumerate(shifted_cornell_cameras(cfg.width, cfg.height, dev)):
         assert_images_match(got["frames"][i],
                             render(scenes.cornell_box(dev), cam, cfg).image.cpu().numpy())
         img, counters, iters = render_pool(scenes.cornell_box(dev), cam, **frame_kw)
         ref = (img.reshape(cfg.height, cfg.width, 3) / cfg.spp).cpu().numpy()
-        if (ray_count(got["pool_counters"][i]), int(got["pool_iters"][i, 0])) != (
-                ray_count(counters), iters) or not np.array_equal(got["pool_frames"][i], ref):
+        its.append(iters)
+        if ray_count(got["pool_counters"][i]) != ray_count(counters) or not np.array_equal(
+                got["pool_frames"][i], ref):
             raise AssertionError(f"9b frames_pool_sharded frame {i} differs from render_pool")
+    # Each rank's iterations on its block's first frame (frames 0-1, frame
+    # 2); the fused branch renders one pool a frame.
+    if got["pool_iters"][:, 0].tolist() != [its[0] + its[1], 0, its[2]]:
+        raise AssertionError(f"9b frames_pool_sharded iterations {got['pool_iters'].tolist()}, "
+                             f"render_pool's by frame {its}")
     log(f"[multiprocess] 9b 2 ranks on {dev}, Cornell {W}x{H}, {CORNELL['spp']} spp at dp=2 "
         f"(bitwise), {2 * CORNELL['spp']} at sp=2: max diffs and (rank, one-process) "
         f"iterations {diffs}; 3 frames {cfg.width}x{cfg.height} at dp=2: frames_sharded "

@@ -75,9 +75,14 @@ class Camera:
         return cls(origin, llc, horizontal, vertical, width, height)
 
     def generate_rays(self, px: torch.Tensor, py: torch.Tensor, jitter: torch.Tensor,
-                      transposed: bool = True):
+                      transposed: bool = True, frame: torch.Tensor | None = None):
         """Primary rays for pixel coords ``px, py`` (already y-flipped by the
         caller) with sub-pixel ``jitter`` ``(N, 2)`` in [0, 1).
+
+        ``frame``, int64 ``(N,)``, is given for a stack of cameras (each
+        vector ``(F, 3)``, ``parallel.sharding.stack_cameras``): ray ``i``
+        takes camera ``frame[i]``'s vectors, in the same arithmetic, so it is
+        bit for bit the ray that camera alone makes.
 
         Returns ``(origins, directions)`` with unit directions, in kernel
         layout ``(3, N)`` (the pool's), or contiguous ``(N, 3)`` (the wave
@@ -87,7 +92,7 @@ class Camera:
         default is the kernel layout.
         """
         if not transposed:
-            o, d = self.generate_rays(px, py, jitter)
+            o, d = self.generate_rays(px, py, jitter, frame=frame)
             return o.T.contiguous(), d.T.contiguous()
         # Divide by 0-dim tensors: CUDA would turn division by a host scalar
         # into multiplication by its reciprocal, which rounds differently.
@@ -95,15 +100,14 @@ class Camera:
         wm1, hm1 = profiler.from_host(jitter, [self.width - 1, self.height - 1], dtype)
         u = (px.to(dtype) + jitter[:, 0]) / wm1
         v = (py.to(dtype) + jitter[:, 1]) / hm1
-        comps = [
-            self.lower_left_corner[c] + self.horizontal[c] * u
-            + self.vertical[c] * v - self.origin[c]
-            for c in range(3)
-        ]
+        llc, hor, ver, org = self.lower_left_corner, self.horizontal, self.vertical, self.origin
+        if frame is not None:    # each ray's own camera: (3, N) rows
+            llc, hor, ver, org = (x[frame].T for x in (llc, hor, ver, org))
+        comps = [llc[c] + hor[c] * u + ver[c] * v - org[c] for c in range(3)]
         direction = torch.stack(comps, dim=0)
         ln = torch.sqrt(comps[0] * comps[0] + comps[1] * comps[1] + comps[2] * comps[2])
         pos = ln > 0.0
         safe = torch.where(pos, ln, torch.ones_like(ln))
         direction = torch.where(pos[None, :], direction / safe[None, :], direction)
-        origins = self.origin[:, None].expand_as(direction)
+        origins = org if frame is not None else org[:, None].expand_as(direction)
         return origins, direction

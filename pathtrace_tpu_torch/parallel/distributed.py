@@ -52,6 +52,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import profiler
+
 TIMEOUT_S = 300.0   # rendezvous and collective timeout: a missing peer fails, never hangs
 _PLACE_KEY = "pathtrace_tpu_torch/place/"
 
@@ -273,16 +275,18 @@ def _host(x):
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` in place over ``group`` (None or one rank: unchanged). A
-    CUDA tensor under gloo is reduced through a host copy."""
-    if group is None or dist.get_world_size(group) == 1:
+    CUDA tensor under gloo is reduced through a host copy. A
+    ``dist.all_reduce`` span while tracing."""
+    with profiler.span("dist.all_reduce"):
+        if group is None or dist.get_world_size(group) == 1:
+            return t
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            host = t.cpu()
+            dist.all_reduce(host, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=group)
         return t
-    if t.is_cuda and dist.get_backend(group) == "gloo":
-        host = t.cpu()
-        dist.all_reduce(host, group=group)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, group=group)
-    return t
 
 
 def gather_global(x, group=None) -> np.ndarray:

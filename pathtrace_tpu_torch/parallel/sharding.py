@@ -11,8 +11,9 @@ device a rank) where the JAX module runs ``shard_map`` over a device mesh:
   sample ranges of the same pixels and ``all_reduce`` their radiance sums.
 
 Every rank calls the same collectives in the same order, windows with no
-work included: one ``all_reduce`` over ``sp`` per frame, then one gather of
-the windows over ``dp`` and one of the counters over every rank.
+work included: one ``all_reduce`` over ``sp`` per frame (per block of frames
+in :func:`frames_pool_sharded`), then one gather of the windows over ``dp``
+and one of the counters over every rank.
 
 The RNG is keyed by the global ``(pixel, sample)``, so every mesh shape
 traces the sample set of the single-process render. Under ``dp`` alone each
@@ -30,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import pool, profiler
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..ops import intersect
@@ -151,7 +153,9 @@ def stack_cameras(cameras) -> Camera:
         for f in dataclasses.fields(Camera) if f.name not in ("width", "height")})
 
 
-def _frame(cams: Camera, i: int) -> Camera:
+def _frames(cams: Camera, i) -> Camera:
+    """Frame ``i`` (an int) of a stack of cameras, or the stack of frames
+    ``i`` (a slice)."""
     return dataclasses.replace(cams, **{
         f.name: getattr(cams, f.name)[i]
         for f in dataclasses.fields(Camera) if f.name not in ("width", "height")})
@@ -177,17 +181,32 @@ def frames_pool_sharded(
 ):
     """A camera batch on the persistent pool (BASELINE config 5): frames
     shard over ``dp`` in contiguous blocks of ``ceil(F / dp)``, sample
-    windows over ``sp``; each frame is a whole-frame pool render, its sample
-    windows summed by an ``all_reduce`` over ``sp``. ``method`` None takes
-    ``config.method``, and ``config.dtype`` widens the scene and cameras as
-    in ``render_pool``.
+    windows over ``sp``, summed by an ``all_reduce`` over ``sp``. ``method``
+    None takes ``config.method``, and ``config.dtype`` widens the scene and
+    cameras as in ``render_pool``.
+
+    On the composed branch a rank renders its whole block in **one** pool
+    (:func:`~pathtrace_tpu_torch.pool._pool_loop` over the block's stacked
+    cameras, ``num_slots`` capped at the block's pixels), batched across
+    frames: the drain tail, the tables and the host copy come once a block.
+    The fused branch's raygen takes one camera, so there a rank renders one
+    pool a frame. Either way each frame equals its own ``render_pool`` bit
+    for bit under ``dp`` alone.
 
     ``chunk_frames`` is accepted for the JAX signature and has no effect:
     there it bounded the frames of one TPU dispatch (a workaround for the
-    runtime's watchdog), and a rank here renders one frame a call.
+    runtime's watchdog).
+
+    While tracing (``profiler``), the call is one pass record, ``frames``,
+    with the pools' ``pool.pass`` spans in it, ``dist.all_reduce`` around
+    the sample reduction and ``dist.gather`` around the block's copy to
+    the host, the gathers and the frames' copy back to the device.
 
     Returns ``(frames (F, H, W, 3) mean radiance on the scene's device,
-    counters (F, sp, 4), iters (F, sp))`` in input order.
+    counters (F, sp, 4), iters (F, sp))`` in input order; ``counters`` are
+    each frame's, exact. ``iters[f, s]`` is the pool iterations that rank
+    ``(d, s)`` ran for its whole block, put on the block's first frame; its
+    other frames hold 0, so the sum over frames is every rank's iterations.
     """
     mesh = mesh or make_mesh()
     start, n = _sample_window(mesh, config.spp)
@@ -197,28 +216,43 @@ def frames_pool_sharded(
     method = method if method is not None else config.method
     n_frames = cams.origin.shape[0]
     w, h = config.width, config.height
-    fdt = cams.origin.cpu().numpy().dtype
-    accs, counters, iters = [], [], []
-    for f in _frame_block(mesh, n_frames):
-        if f >= n_frames:
-            accs.append(np.zeros((w * h, 3), fdt))
-            counters.append(np.zeros(4, np.int64))
-            iters.append(0)
-            continue
-        img, ctr, it = _pool_loop(
-            scene, _frame(cams, f), 0, start, width=w, height=h, total_pixels=w * h,
-            local_pixels=w * h, spp=n, integrator=config.integrator,
-            max_bounces=config.max_bounces, num_slots=min(num_slots, w * h),
-            seed=config.seed, method=method)
-        accs.append(all_reduce_sum(img, mesh.sp_group).cpu().numpy())
-        counters.append(ctr.cpu().numpy())
-        iters.append(it)
-    acc = mesh.gather_dp(np.stack(accs)).reshape(-1, w * h, 3)[:n_frames]
-    # (dp, sp, frames of a block, ...) -> (F, sp, ...)
-    ctr = mesh.gather_all(np.stack(counters)).swapaxes(1, 2).reshape(-1, mesh.shape["sp"], 4)
-    its = mesh.gather_all(np.asarray(iters, np.int64)).swapaxes(1, 2).reshape(
-        -1, mesh.shape["sp"])
-    frames = torch.from_numpy(acc).to(scene.device).reshape(n_frames, h, w, 3) / config.spp
+    block = _frame_block(mesh, n_frames)
+    mine = range(block.start, min(block.stop, n_frames))    # padding frames stay zero
+    kw = dict(width=w, height=h, spp=n, integrator=config.integrator,
+              max_bounces=config.max_bounces, num_slots=num_slots, seed=config.seed,
+              method=method)
+    ctr = torch.zeros((len(block), 4), dtype=torch.int64)
+    its = np.zeros(len(block), np.int64)
+    with profiler.traced_pass("frames", scene.device):
+        if not mine:
+            img = torch.zeros((0, 3), dtype=cams.origin.dtype, device=scene.device)
+        elif pool.route(scene, config.integrator, method) == "composed":
+            px = len(mine) * w * h
+            stack = _frames(cams, slice(mine.start, mine.stop))
+            img, c, its[0] = _pool_loop(scene, stack, 0, start, total_pixels=px,
+                                        local_pixels=px, **kw)
+            ctr[:len(mine)] = c.cpu()
+        else:
+            parts = []
+            for j, f in enumerate(mine):
+                part, c, it = _pool_loop(scene, _frames(cams, f), 0, start, total_pixels=w * h,
+                                         local_pixels=w * h, **kw)
+                parts.append(part)
+                ctr[j] = c.cpu()
+                its[0] += it
+            img = torch.cat(parts)
+        if mine:    # the ranks of one sp group share a block
+            img = all_reduce_sum(img, mesh.sp_group)
+        with profiler.span("dist.gather"):
+            host = img.cpu().numpy().reshape(-1, w * h, 3)
+            acc = np.zeros((len(block), w * h, 3), host.dtype)
+            acc[:len(mine)] = host
+            acc = mesh.gather_dp(acc).reshape(-1, w * h, 3)[:n_frames]
+            # (dp, sp, frames of a block, ...) -> (F, sp, ...)
+            ctr = mesh.gather_all(ctr).swapaxes(1, 2).reshape(-1, mesh.shape["sp"], 4)
+            its = mesh.gather_all(its).swapaxes(1, 2).reshape(-1, mesh.shape["sp"])
+            frames = torch.from_numpy(acc).to(scene.device)
+    frames = frames.reshape(n_frames, h, w, 3) / config.spp
     return frames, torch.from_numpy(ctr[:n_frames]), torch.from_numpy(its[:n_frames])
 
 
@@ -227,7 +261,9 @@ def frames_sharded(scene: Scene, cameras, config, mesh: Optional[Mesh] = None
     """A camera batch on the wave engine (BASELINE config 5): frames shard
     over ``dp`` in contiguous blocks of ``ceil(F / dp)``, sample windows over
     ``sp``, summed by an ``all_reduce``. Returns ``(F, H, W, 3)`` mean
-    radiance on the scene's device, in input order."""
+    radiance on the scene's device, in input order. While tracing, the call
+    is one ``frames`` pass record with the spans of
+    :func:`frames_pool_sharded`'s collectives."""
     mesh = mesh or make_mesh()
     cams = stack_cameras(list(cameras))
     scene, cams, tables, key = _wave_setup(scene, cams, config)
@@ -235,12 +271,16 @@ def frames_sharded(scene: Scene, cameras, config, mesh: Optional[Mesh] = None
     n_frames = cams.origin.shape[0]
     ids = pixel_grid(config.width, config.height, scene.device)
     accs = []
-    for f in _frame_block(mesh, n_frames):
-        if f >= n_frames:
-            accs.append(np.zeros((ids.shape[0], 3), cams.origin.cpu().numpy().dtype))
-            continue
-        acc, _ = _wave_sum(scene, _frame(cams, f), ids, start, n, key, tables, config)
-        accs.append(all_reduce_sum(acc, mesh.sp_group).cpu().numpy())
-    acc = mesh.gather_dp(np.stack(accs)).reshape(-1, ids.shape[0], 3)[:n_frames]
-    return (torch.from_numpy(acc).to(scene.device)
-            .reshape(n_frames, config.height, config.width, 3) / config.spp)
+    with profiler.traced_pass("frames", scene.device):
+        for f in _frame_block(mesh, n_frames):
+            if f >= n_frames:
+                accs.append(np.zeros((ids.shape[0], 3), cams.origin.cpu().numpy().dtype))
+                continue
+            acc, _ = _wave_sum(scene, _frames(cams, f), ids, start, n, key, tables, config)
+            acc = all_reduce_sum(acc, mesh.sp_group)
+            with profiler.span("dist.gather"):
+                accs.append(acc.cpu().numpy())
+        with profiler.span("dist.gather"):
+            acc = mesh.gather_dp(np.stack(accs)).reshape(-1, ids.shape[0], 3)[:n_frames]
+            frames = torch.from_numpy(acc).to(scene.device)
+    return frames.reshape(n_frames, config.height, config.width, 3) / config.spp

@@ -32,6 +32,8 @@ Work assignment is the JAX package's, so the same sample indices trace the
 same paths: slot ``s`` owns the work items ``w = chunk * S + s``, whose
 pixels are a coprime-stride permutation of the image, and every random
 decision is keyed by ``(pixel, sample, bounce, slot)`` (``utils/rng.py``).
+On the composed branch one pool may hold the pixels of several frames, a
+camera each (:func:`_pool_loop`; ``parallel.sharding.frames_pool_sharded``).
 
 Left behind from the JAX pool (TPU or no-x64 workarounds, or off by
 default there):
@@ -302,11 +304,24 @@ def _pool_loop(
     one slot. :func:`render_pool` is the window ``(0, sample_offset)`` of
     the whole frame.
 
-    Returns ``(image_sum (local_pixels, 3), counters (4,) int64, iters)``.
+    ``camera`` may be a stack of ``F`` cameras (each vector ``(F, 3)``,
+    ``parallel.sharding.stack_cameras``; composed branch only): the pixels
+    are then those of ``F`` frames of ``width x height``, global pixel ``p``
+    being pixel ``p % (W * H)`` of frame ``p // (W * H)``, all in one pool.
+    The RNG and the raygen take the pixel within its frame and a refilled
+    lane its frame's camera, so each frame traces the samples of its own
+    :func:`render_pool` in the same order, bit for bit.
+
+    Returns ``(image_sum (local_pixels, 3), counters, iters)``: ``counters``
+    ``(4,)`` int64, or ``(F, 4)`` by frame for a stack of cameras.
     """
     with profiler.traced_pass("pool", scene.device):
         composed = route(scene, integrator, method) == "composed"
         device = scene.device
+        stacked = camera.origin.dim() == 2     # a stack of frames' cameras
+        if stacked and not composed:
+            raise NotImplementedError("the fused branch's raygen takes one camera: render a "
+                                      "stack of cameras one frame a pool")
         if camera.origin.device != device:
             raise ValueError(f"camera on {camera.origin.device}, scene on {device}")
         fdt = camera.origin.dtype
@@ -355,10 +370,16 @@ def _pool_loop(
         image = torch.zeros((padded_pixels, 3), dtype=fdt, device=device)
         rays = torch.zeros((), dtype=i64, device=device)
         busy_total = torch.zeros((), dtype=i64, device=device)
+        frame = None
+        if stacked:
+            frame_px = width * height
+            frame = torch.zeros(S, dtype=i64, device=device)
+            # Busy and shading lane-iterations by frame.
+            by_frame = torch.zeros((camera.origin.shape[0], 2), dtype=i64, device=device)
 
         def step():
             nonlocal pixel, chunk, sample, bounce, cursor, ray_o, ray_d, ray_eta
-            nonlocal pdf_prev, prefix, radiance, busy, rays, busy_total
+            nonlocal pdf_prev, prefix, radiance, busy, rays, busy_total, frame
             # ---- Refill: each free slot takes the next item of its stream ----
             with profiler.span("pool.refill"):
                 refill = ~busy & (cursor < work_per_slot)
@@ -371,6 +392,9 @@ def _pool_loop(
                     pixel_ok = pixel_ok & (new_pixel < total_pixels)
                 cursor = torch.where(refill, cursor + 1, cursor)
                 started = refill & pixel_ok
+                if stacked:    # the global pixel as (frame, pixel within it)
+                    frame = torch.where(started, new_pixel // frame_px, frame)
+                    new_pixel = new_pixel % frame_px
                 pixel = torch.where(started, new_pixel, pixel)
                 chunk = torch.where(started, q % chunks, chunk)
                 sample = torch.where(started, q // chunks + sample_lo, sample)
@@ -383,7 +407,7 @@ def _pool_loop(
                 px, py = pixel % width, (height - 1) - pixel // width
                 if composed:
                     jitter = torch.stack([u[rng.SLOT_JITTER_X], u[rng.SLOT_JITTER_Y]], dim=1)
-                    cam_o, cam_d = camera.generate_rays(px, py, jitter)
+                    cam_o, cam_d = camera.generate_rays(px, py, jitter, frame=frame)
                     ray_o = torch.where(started, cam_o, ray_o)
                     ray_d = torch.where(started, cam_d, ray_d)
                     ray_eta = torch.where(started, 1.0, ray_eta)
@@ -427,9 +451,12 @@ def _pool_loop(
                 image[idx] = image[idx] + radiance[:, sel].T
 
             with profiler.span("pool.count"):
-                busy_inc = busy.sum()
-                rays = rays + busy_inc + (res.shade.sum() if use_nee else 0)
-                busy_total = busy_total + busy_inc
+                if stacked:
+                    by_frame.index_add_(0, frame, torch.stack([busy, res.shade], 1).to(i64))
+                else:
+                    busy_inc = busy.sum()
+                    rays = rays + busy_inc + (res.shade.sum() if use_nee else 0)
+                    busy_total = busy_total + busy_inc
             bounce = torch.where(live, bounce + 1, bounce)
             ray_o, ray_d = res.next_o, res.next_d
             ray_eta, pdf_prev, prefix = res.next_eta, res.next_pdf, res.next_prefix
@@ -452,7 +479,11 @@ def _pool_loop(
         p_ids = torch.arange(num_pixels, dtype=i64, device=device)
         image_sum = image[(p_ids * perm_inv) % padded_pixels]
         mask = 0xFFFFFFFF
-        counters = torch.stack([rays >> 32, rays & mask, busy_total >> 32, busy_total & mask])
+        if stacked:
+            busy_total = by_frame[:, 0]
+            rays = busy_total + by_frame[:, 1] if use_nee else busy_total
+        counters = torch.stack([rays >> 32, rays & mask, busy_total >> 32, busy_total & mask],
+                               dim=-1)
         return image_sum, counters, iters
 
 

@@ -14,12 +14,14 @@ named hand-written kernel.
 name, its start and end in ``time.time_ns()``, its parent span and its pass.
 ``time.time_ns()`` is the clock of ``torch.profiler``'s chrome trace, whose
 event times are ``baseTimeNanoseconds + ts * 1e3``. A pass is one request:
-one ``pool._pool_loop`` call (root span ``pool.pass``) or one
-``render.render`` call (``wave.pass``); :class:`PassRecord` holds its spans
-in entry order and its counters: the entries of each span name (the host
-syncs of each ``sync.*`` site, ``sync.h2d`` the copies of host constants
-(:func:`from_host`), ``pool.iter`` iterations, ``wave.bounce`` bounces)
-and the hand-written kernel launches by name over the pass: the
+one ``pool._pool_loop`` call (root span ``pool.pass``), one
+``render.render`` call (``wave.pass``) or one frame batch of
+``parallel.sharding`` (``frames.pass``, its pools' passes spans of it);
+:class:`PassRecord` holds its spans in entry order and its counters: the
+entries of each span name (the host syncs of each ``sync.*`` site,
+``sync.h2d`` the copies of host constants (:func:`from_host`),
+``pool.iter`` iterations, ``wave.bounce`` bounces) and the hand-written
+kernel launches by name over the pass: the
 intersection and shading kernels' (``shade.LAUNCHES``) and the
 random-number draw's (``utils/rng.py``'s ``LAUNCHES``).
 
@@ -209,7 +211,7 @@ def _profiler_active() -> bool:
 
 
 def traced_pass(kind: str, device):
-    """The context of one pass (``"pool"`` or ``"wave"``) on ``device``:
+    """The context of one pass (``"pool"``, ``"wave"`` or ``"frames"``) on ``device``:
     records a :class:`PassRecord` when :func:`tracing` is open or a
     ``torch.profiler`` session is active; inside an open pass, a span of it."""
     if _active is not None:

@@ -10,7 +10,8 @@ here on the CPU at small sizes).
   last frame is padding), ``frames_sharded`` gives each frame of
   ``render.render`` within the ``tests/imgutil.py`` budget and
   ``frames_pool_sharded`` each ``render_pool`` frame
-  bit for bit. One launch runs them all.
+  bit for bit, each rank's iterations on its block's first frame. One launch
+  runs them all.
 * The CLI's ``animate`` on two ranks writes the frames of the
   single-process CLI, byte for byte.
 * A rank whose peer never starts fails within the process-group timeout.
@@ -67,6 +68,7 @@ def test_two_gloo_ranks_render_pool_sharded_and_frames_sharded(tmp_path):
     cfg = RenderConfig(**WAVE)
     cams = chip_smoke.shifted_cornell_cameras(cfg.width, cfg.height, torch.device("cpu"))
     assert got["frames"].shape == got["pool_frames"].shape == (3, cfg.height, cfg.width, 3)
+    its = []
     for f, cam in enumerate(cams):
         assert_images_match(got["frames"][f],
                             render(scenes.cornell_box("cpu"), cam, cfg).image.numpy())
@@ -74,7 +76,10 @@ def test_two_gloo_ranks_render_pool_sharded_and_frames_sharded(tmp_path):
         np.testing.assert_array_equal(got["pool_frames"][f],
                                       (img.reshape(cfg.height, cfg.width, 3) / 2).numpy())
         assert pool.ray_count(got["pool_counters"][f]) == pool.ray_count(counters)
-        assert got["pool_iters"][f, 0] == iters
+        its.append(iters)
+    # Each rank's block's iterations on its first frame (rank 0: frames 0-1,
+    # rank 1: frame 2); on the fused branch the sum of its frames' pools.
+    assert got["pool_iters"][:, 0].tolist() == [its[0] + its[1], 0, its[2]]
 
 
 def test_two_rank_cli_animate_matches_one_process(tmp_path):
